@@ -1,0 +1,164 @@
+"""Model base layer: constant precisions, the device conditioner, simulate.
+
+Stateless model objects with explicit param dicts and functions over
+[B, K, ...] tensors, as in ``vihds_tpu.models.base``.
+"""
+
+import torch
+
+from vihds_tpu_torch.nn import layers
+from vihds_tpu_torch.ops.solvers import integrate
+from vihds_tpu_torch.utils import default_get_value
+
+
+def power(x, a):
+    return x ** a
+
+
+def transform_treatments(treatments):
+    """Invert the dataset's log1p transform, clamped."""
+    return torch.clamp(torch.exp(treatments) - 1.0, 1e-12, 1e6)
+
+
+def split_treatments(treatments, n):
+    """treatments[B, C] -> n broadcastable [B, 1] columns."""
+    tt = transform_treatments(treatments)
+    return [tt[:, i : i + 1] for i in range(n)]
+
+
+class ConstantPrecisions:
+    """Observation precisions are latent thetas, constant over time."""
+
+    dynamic = False
+
+    def __init__(self, precision_vars):
+        self.precision_vars = precision_vars
+
+    def init_params(self, generator):
+        return {}
+
+    def expand(self, params, theta, n_times, x_states):
+        """x_states[B,K,S,T] -> (states, precisions[B,K,P,1] broadcastable to T)."""
+        precisions = torch.stack([theta[v] for v in self.precision_vars], dim=-1)
+        return x_states, precisions[:, :, :, None]
+
+
+class OdeModel:
+    """Base class for mechanistic device models.
+
+    The device-conditioner weights are persistent params created once in
+    ``init_params``."""
+
+    def __init__(self, config):
+        self.device_depth = config.data.device_depth
+        self.n_treatments = len(config.data.conditions)
+        self.use_laplace = default_get_value(config.params, "use_laplace", False)
+        self.relevance = config.data.relevance_vectors
+        self.default_devices = config.data.default_devices
+        self.solver = config.params.solver
+        # optional solver for the evaluation path; 'pallas_<method>' routes
+        # families with a fused kernel (pallas_kinds) through it
+        self.eval_solver = default_get_value(config.params, "eval_solver", None)
+        self.adjoint = bool(config.params.adjoint_solver)
+        self.precisions = None
+        self.species = None
+        self.n_species = None
+        # parameters the device conditioner applies to (set by subclasses)
+        self.conditioned_params = ()
+
+    # ------------------------------------------------------------- parameters
+    def init_params(self, generator):
+        p = {}
+        for name in self.conditioned_params:
+            p["cond_" + name] = layers.linear_init(
+                generator, self.device_depth, 1, use_bias=False, mode="normal"
+            )
+        pk = self.precisions.init_params(generator) if self.precisions is not None else {}
+        if pk:
+            p["precisions"] = pk
+        return p
+
+    # ------------------------------------------------------------ conditioning
+    def device_conditioner(self, params, param, param_name, dev_1hot):
+        """param_cond = relu(W (dev_1hot * relevance)); multiplies ``param``
+        ((1 + f) for default devices)."""
+        relevance = torch.as_tensor(self.relevance[param_name], device=dev_1hot.device)
+        cond = torch.relu(layers.linear_apply(params["cond_" + param_name], dev_1hot * relevance))
+        # cond: [B, 1], broadcasts over the IWAE axis
+        if param_name in self.default_devices:
+            return param * (1.0 + cond)
+        return param * cond
+
+    def condition_theta(self, params, theta, dev_1hot):
+        """Apply the device conditioner to each grouped parameter."""
+        for name in self.conditioned_params:
+            theta[name] = self.device_conditioner(params, 1.0, name, dev_1hot)
+        return theta
+
+    # -------------------------------------------------------------- simulation
+    def initialize_state(self, params, theta, treatments, n_batch, n_iwae):
+        raise NotImplementedError
+
+    def make_rhs(self, params, theta, treatments, dev_1hot):
+        raise NotImplementedError
+
+    def _solver_for(self, eval_mode):
+        if eval_mode and self.eval_solver:
+            return self.eval_solver
+        return self.solver
+
+    # families with a fused kernel (plain_kind, prec_kind) implement
+    # _pallas_constants; see vihds_tpu_torch/ops/fused_ode.py
+    pallas_kinds = None
+
+    def _pallas_constants(self, theta, treatments):
+        """Per-sample constants dict in the packed order the family's kernel
+        expects ([B, K]-broadcastable leaves)."""
+        raise NotImplementedError
+
+    def simulate(self, params, theta, times, treatments, dev_1hot, n_iwae, eval_mode=False):
+        """Integrate and return x_states[B, K, S, T].  ``solver:
+        pallas_<method>`` (or ``eval_solver`` in eval mode) routes families
+        that declare ``pallas_kinds`` through the fused CUDA integrator."""
+        n_batch = treatments.shape[0]
+        method = self._solver_for(eval_mode)
+        if method.startswith("pallas_") and self.pallas_kinds:
+            from vihds_tpu_torch.ops import fused_ode
+
+            if self.precisions.dynamic:
+                raise NotImplementedError(
+                    "fused kernels for dynamic precisions are not ported yet "
+                    "(ROADMAP queue 2, item 4)"
+                )
+            y0 = torch.broadcast_to(
+                self.initialize_state(params, theta, treatments, n_batch, n_iwae),
+                (n_batch, n_iwae, self.n_species),
+            )
+            sol = fused_ode.simulate_kind(
+                self.pallas_kinds[0],
+                self._pallas_constants(theta, treatments),
+                y0,
+                times,
+                method=method[len("pallas_"):],
+            )
+            return sol.permute(1, 2, 3, 0)
+        init_state = self.initialize_state(params, theta, treatments, n_batch, n_iwae)
+        rhs = self.make_rhs(params, theta, treatments, dev_1hot)
+        sol = integrate(rhs, init_state, times, method=method, adjoint=self.adjoint)  # [T,B,K,S]
+        return sol.permute(1, 2, 3, 0)
+
+    def observe(self, x_states, theta):
+        """Default 8-state observation map."""
+        x = x_states
+        return torch.stack(
+            [
+                x[:, :, 0, :],
+                x[:, :, 0, :] * x[:, :, 1, :],
+                x[:, :, 0, :] * (x[:, :, 2, :] + x[:, :, 4, :]),
+                x[:, :, 0, :] * (x[:, :, 3, :] + x[:, :, 5, :]),
+            ],
+            dim=2,
+        )
+
+    def expand_precisions(self, params, theta, n_times, x_states):
+        return self.precisions.expand(params.get("precisions", {}), theta, n_times, x_states)

@@ -1,0 +1,72 @@
+"""Fixed-grid ODE integrators as plain Python loops over the time grid.
+
+The counterpart of ``vihds_tpu.ops.solvers.integrate_fixed`` (a ``lax.scan``
+there).  This is the generic path for any model RHS; ``dr_constant`` under
+``solver: pallas_<method>`` takes the fused CUDA kernel instead
+(``vihds_tpu_torch.ops.fused_ode``).  Output is [T, *y0.shape] with the
+initial state at index 0.
+"""
+
+import torch
+
+
+def _step_modeuler(rhs, y, t1, t2, h):
+    """Modified-Euler / Heun."""
+    f1 = rhs(t1, y)
+    f2 = rhs(t2, y + h * f1)
+    return y + 0.5 * h * (f1 + f2)
+
+
+def _step_midpoint(rhs, y, t1, t2, h):
+    f1 = rhs(t1, y)
+    f2 = rhs(t1 + 0.5 * h, y + 0.5 * h * f1)
+    return y + h * f2
+
+
+def _step_euler(rhs, y, t1, t2, h):
+    return y + h * rhs(t1, y)
+
+
+def _step_rk4(rhs, y, t1, t2, h):
+    k1 = rhs(t1, y)
+    k2 = rhs(t1 + 0.5 * h, y + 0.5 * h * k1)
+    k3 = rhs(t1 + 0.5 * h, y + 0.5 * h * k2)
+    k4 = rhs(t2, y + h * k3)
+    return y + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+
+FIXED_GRID_SOLVERS = {
+    "modeuler": _step_modeuler,
+    "modeulerwhile": _step_modeuler,
+    "midpoint": _step_midpoint,
+    "euler": _step_euler,
+    "rk4": _step_rk4,
+}
+
+ADAPTIVE_SOLVERS = ("dopri5", "dopri8", "bosh3", "adaptive_heun")
+
+
+def integrate_fixed(rhs, y0, times, method="midpoint"):
+    """Step the chosen one-step method over the (possibly non-uniform) grid."""
+    step_fn = FIXED_GRID_SOLVERS[method]
+    ys = [y0]
+    y = y0
+    for i in range(times.shape[0] - 1):
+        t1, t2 = times[i], times[i + 1]
+        y = step_fn(rhs, y, t1, t2, t2 - t1)
+        ys.append(y)
+    return torch.stack(ys, dim=0)
+
+
+def integrate(rhs, y0, times, method="midpoint", adjoint=False):
+    """Integrate and return [T, *y0.shape]."""
+    if method in ADAPTIVE_SOLVERS or adjoint:
+        raise NotImplementedError(
+            "adaptive solvers and the continuous adjoint (%s) are not ported yet "
+            "(ROADMAP queue 1, item 10)" % method
+        )
+    if method not in FIXED_GRID_SOLVERS:
+        raise ValueError(
+            "Unknown solver %r; supported: %s" % (method, sorted(FIXED_GRID_SOLVERS))
+        )
+    return integrate_fixed(rhs, y0, times, method=method)

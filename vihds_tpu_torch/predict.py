@@ -1,0 +1,227 @@
+"""Amortised posterior serving: predictions on unseen plate-reader data.
+
+The serving path of ``vihds_tpu.predict`` in PyTorch: parse new CSVs with the
+spec's device/treatment vocabulary, snap them onto the training time grid,
+re-apply the training normalisation, and evaluate q(theta | x_new) -> K theta
+draws -> the ODE decoder (the fused ``dr`` CUDA kernel under
+``eval_solver: pallas_<method>``) -> IWAE-weighted posterior-predictive
+moments, with no retraining.  ``--treatments`` re-simulates the inferred
+posterior under counterfactual inputs.
+
+Restoring a checkpoint is not ported yet (ROADMAP queue 1, item 11), so
+``predict`` takes the trained params from its caller::
+
+  from vihds_tpu_torch.predict import create_parser, predict, save_predictions
+  args = create_parser().parse_args(["specs/dr_constant_icml.yaml",
+                                     "--data", "data/proc141021.csv"])
+  out = predict(args, params=params)            # device="cuda" by default
+  save_predictions("predictions.npz", out, args, Config(args))
+"""
+
+import argparse
+import copy
+import os
+
+import numpy as np
+import torch
+
+from vihds_tpu_torch.config import Config
+from vihds_tpu_torch.data import procdata
+from vihds_tpu_torch.data.datasets import TimeSeriesDataset, build_datasets, find_nearest
+from vihds_tpu_torch.prob import ParamProgram, parse_parameters
+from vihds_tpu_torch.training import Training, _importance_weighted_outputs, batch_tensors
+from vihds_tpu_torch.utils import resolve_device
+from vihds_tpu_torch.utils.attrdict import AttrDict
+from vihds_tpu_torch.vae import VAE, params_to
+
+
+def create_parser():
+    """The serving flags of ``vihds_tpu.predict`` that this slice reads."""
+    parser = argparse.ArgumentParser(description="VI-HDS serving (PyTorch)")
+    parser.add_argument("yaml", type=str, help="Name of yaml spec file")
+    parser.add_argument("--seed", type=int, default=None, help="Random seed (default: 0)")
+    parser.add_argument("--folds", type=int, default=4, help="Cross-validation folds")
+    parser.add_argument("--split", type=int, default=1, help="Split in 1:folds")
+    parser.add_argument("--heldout", type=str, default=None, help="Held-out device name")
+    parser.add_argument(
+        "--test_samples", type=int, default=1000,
+        help="Number of samples from q, per datapoint",
+    )
+    parser.add_argument(
+        "--data", type=str, action="append", required=True,
+        help="CSV of new plate-reader time series (repeatable)",
+    )
+    parser.add_argument(
+        "--save_theta", action="store_true", default=False,
+        help="Also store the per-sample theta draws [n_theta, B, K]",
+    )
+    parser.add_argument(
+        "--treatments", type=str, action="append", default=None,
+        help='Counterfactual treatment override, e.g. "C6=25000;C12=0" (repeatable)',
+    )
+    return parser
+
+
+def load_new_data(csv_files, settings, train_dataset):
+    """Parse new CSVs and express them in the trained model's coordinates:
+    the training time grid (the encoder is shape-bound to it), the training
+    per-signal scales, and the spec's device/treatment vocabulary.  Returns
+    a host batch AttrDict of numpy arrays."""
+    train_times = np.asarray(train_dataset.times)
+    dt = float(np.median(np.diff(train_times)))
+    parts = []
+    for f in csv_files:
+        # bare names resolve under the spec's data_dir; real paths pass through
+        if os.path.exists(f):
+            f = os.path.abspath(f)
+        try:
+            parsed = procdata.load(f, settings.data)
+        except (ValueError, FileNotFoundError) as e:
+            raise SystemExit(str(e)) from None
+        if parsed is None:
+            raise SystemExit(
+                "No rows in %s match the spec's devices %s — predictions require "
+                "devices the model was trained on" % (f, list(settings.data.devices))
+            )
+        devices, inputs, times, obs = parsed
+        # nearest-time snap onto the training grid (the rule the merge uses)
+        idx = np.array([find_nearest(times, t) for t in train_times])
+        worst = float(np.max(np.abs(np.asarray(times)[idx] - train_times)))
+        span = float(train_times[-1] - train_times[0])
+        if worst > 0.25 * span:
+            raise SystemExit(
+                "Time grid of %s is incompatible with the training grid: the "
+                "nearest available reading is %.2f time units away from some "
+                "training timepoint (training grid spans [%g, %g], step %.2f)"
+                % (f, worst, float(train_times[0]), float(train_times[-1]), dt)
+            )
+        if worst > 1.5 * dt:
+            print(
+                "WARNING: %s deviates up to %.2f time units from the training grid "
+                "(grid step %.2f) — predictions interpolate by nearest time" % (f, worst, dt)
+            )
+        parts.append((devices, inputs, obs[:, :, idx]))
+
+    ds_settings = copy.copy(settings.data)
+    ds_settings.normalize = [float(s) for s in train_dataset.scales]
+    ds = TimeSeriesDataset(ds_settings, settings.params)
+    ds._preprocess(
+        np.concatenate([p[0] for p in parts]),
+        np.concatenate([p[1] for p in parts]),
+        train_times,
+        np.concatenate([p[2] for p in parts]),
+    )
+    return ds.select(np.arange(len(ds)))
+
+
+def predict(args, settings=None, params=None, device="cuda", generator=None):
+    """Predict on the ``args.data`` CSVs with the trained ``params`` (a param
+    dict as ``VAE.init_params`` or ``convert.params_from_jax`` make it).
+
+    ``generator`` draws the K theta samples; by default a generator on
+    ``device`` seeded from the spec seed.  Returns AttrDict(merged=<eval
+    arrays>, results=<Results>, host=<input batch>, epoch=-1 (no
+    checkpoint), scales, counterfactuals)."""
+    device = resolve_device(device)
+    if params is None:
+        raise ValueError(
+            "predict needs the trained params from its caller: checkpoint restore "
+            "is not ported yet (ROADMAP queue 1, item 11)"
+        )
+    if settings is None:
+        settings = Config(args)
+
+    data = build_datasets(args, settings)
+    full_dataset = data.train.dataset
+    program = ParamProgram(parse_parameters(settings.params))
+    model = VAE(settings, data, program)
+    training = Training(settings, data, program, model)
+    params = params_to(params, device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(settings.seed)
+
+    host = load_new_data(args.data, settings, full_dataset)
+    treatments = getattr(args, "treatments", None) or []
+    merged, results = training.evaluate(
+        params, host, args.test_samples, generator, device,
+        with_theta=getattr(args, "save_theta", False) or bool(treatments),
+    )
+    counterfactuals = [
+        counterfactual(training, params, host, merged, spec_str, device)
+        for spec_str in treatments
+    ]
+    return AttrDict(
+        merged=merged,
+        results=results,
+        host=host,
+        epoch=-1,
+        scales=[float(s) for s in full_dataset.scales],
+        counterfactuals=counterfactuals,
+    )
+
+
+def counterfactual(training, params, host, merged, treatment_spec, device="cuda"):
+    """Re-simulate the inferred posterior theta under overridden treatments.
+
+    ``treatment_spec`` uses the CSV condition syntax ("C6=25000;C12=0");
+    named conditions replace that input column for every served series
+    (stored, like the dataset, as log1p).  The importance weights from the
+    observed data stay valid, since theta's posterior does not depend on the
+    counterfactual input.  One decode of the whole batch, no chunking."""
+    device = resolve_device(device)
+    overrides = procdata.process_condition(treatment_spec)
+    if not overrides:
+        raise SystemExit("Unparseable --treatments %r (want e.g. C6=100;C12=0)" % treatment_spec)
+    conditions = list(training.settings.data.conditions)
+    unknown = [k for k in overrides if k not in conditions]
+    if unknown:
+        raise SystemExit(
+            "--treatments names %s not in the spec's conditions %s" % (unknown, conditions)
+        )
+    inputs = np.array(host.inputs, np.float32, copy=True)
+    for k, v in overrides.items():
+        inputs[:, conditions.index(k)] = np.log1p(v)
+
+    rows = np.arange(host.observations.shape[0])
+    times = torch.as_tensor(host.times, dtype=torch.float32, device=device)
+    batch = batch_tensors(AttrDict(host, inputs=inputs), rows, times, device)
+    theta_bkn = torch.as_tensor(np.transpose(merged.theta, (1, 2, 0)), device=device)
+    log_w = torch.as_tensor(merged.log_w, device=device)
+    with torch.no_grad():
+        out = training.model.decode(params, theta_bkn, batch, eval_mode=True)
+        iw = _importance_weighted_outputs(AttrDict(log_w=log_w), out)
+    return AttrDict(spec=treatment_spec, inputs=inputs, **{k: v.cpu().numpy() for k, v in iw.items()})
+
+
+def save_predictions(path, out, args, settings):
+    """Write the prediction npz with the JAX package's key set."""
+    merged, host = out.merged, out.host
+    payload = dict(
+        iw_predict_mu=merged.iw_predict_mu,
+        iw_predict_std=merged.iw_predict_std,
+        iw_states=merged.iw_states,
+        iw_variance=merged.iw_variance,
+        per_item_elbo=merged.per_item_elbo,  # per-series IWAE log-evidence
+        elbo=merged.elbo,
+        q_mu=merged.q_mu,
+        q_prec=merged.q_prec,
+        q_names=np.array(out.results.q_names, dtype=object),
+        species_names=np.array(out.results.species_names, dtype=object),
+        devices=host.devices,
+        device_names=np.array(list(settings.data.devices), dtype=object),
+        inputs=host.inputs,
+        observations=host.observations,
+        times=host.times,
+        scales=np.asarray(out.scales, dtype=np.float64),
+        checkpoint_epoch=out.epoch,
+    )
+    if getattr(args, "save_theta", False) and "theta" in merged:
+        payload["theta"] = merged.theta
+    for i, cf in enumerate(out.get("counterfactuals") or []):
+        payload["cf%d_spec" % i] = np.array(cf.spec)
+        payload["cf%d_inputs" % i] = cf.inputs
+        for name in ("iw_predict_mu", "iw_predict_std", "iw_states", "iw_variance"):
+            payload["cf%d_%s" % (i, name)] = cf[name]
+    np.savez(path, **payload)
+    print("Wrote %s (%d series, K=%d, log-evidence %.2f)"
+          % (path, host.observations.shape[0], args.test_samples, merged.elbo))

@@ -1,0 +1,104 @@
+"""End-to-end VAE: encoder -> sample -> clip -> condition -> integrate -> observe.
+
+Functions of an explicit param dict, as in ``vihds_tpu.vae``.  The latent
+draws ``u ~ N(0, 1)`` come from the caller (an explicit ``torch.Generator``
+upstream), so tests can hand both packages the same draws.
+"""
+
+import torch
+
+from vihds_tpu_torch import models
+from vihds_tpu_torch.nn.encoder import Encoder
+from vihds_tpu_torch.prob import ParamProgram
+from vihds_tpu_torch.utils import resolve_device
+from vihds_tpu_torch.utils.attrdict import AttrDict
+
+
+def params_to(params, device):
+    """Move a (nested dict) param tree of tensors to ``device``."""
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    return params.to(device)
+
+
+class VAE:
+    """Static model assembly; all state lives in the params dict."""
+
+    def __init__(self, settings, data, program: ParamProgram):
+        self.program = program
+        self.encoder = Encoder(program, data, settings.params)
+        if settings.model not in models.LOOKUP:
+            raise ValueError(
+                "Unknown model %r; available: %s"
+                % (settings.model, ", ".join(sorted(models.LOOKUP)))
+            )
+        self.ode_model = models.LOOKUP[settings.model](settings)
+        # single-device specs disable decoder conditioning
+        self.condition_on_device = settings.data.device_depth > 1
+        if not self.condition_on_device:
+            self.ode_model.conditioned_params = ()
+        self.n_theta = program.n_theta
+        self.state_names = self.ode_model.species
+        self.use_laplace = self.ode_model.use_laplace
+
+    def init_params(self, generator, device="cuda"):
+        """Fresh params drawn from the CPU ``generator``, moved to ``device``."""
+        device = resolve_device(device)
+        params = {
+            "enc": self.encoder.init_params(generator),
+            "dec": self.ode_model.init_params(generator),
+        }
+        return params_to(params, device)
+
+    def sample_u(self, generator, n_batch, n_samples, device):
+        """Standard-normal draws u[B, K, n_theta] from ``generator`` (on its
+        own device), placed on ``device``."""
+        u = torch.randn(
+            (n_batch, n_samples, self.n_theta), generator=generator, device=generator.device
+        )
+        return u.to(device)
+
+    def forward(self, params, batch, u, eval_mode=False):
+        """One forward pass.  ``batch``: AttrDict of tensors (observations
+        [B,S,T], inputs[B,C], dev_1hot[B,D], times[T]); ``u``: [B,K,n_theta].
+
+        Returns AttrDict with x_states[B,K,S,T], x_predict[B,K,4,T],
+        precisions (broadcastable to x_predict), theta (sampled),
+        theta_clipped, theta_cond and q.  log q / log p score the SAMPLED
+        theta; the clipped theta feeds only the decoder."""
+        q = self.encoder(params["enc"], batch)
+        theta = self.program.sample(q, u)
+        clipped = self.program.clip(theta, stddevs=4)
+        decoded = self.decode(params, clipped, batch, eval_mode=eval_mode)
+        decoded["theta"] = theta
+        decoded["q"] = q
+        return decoded
+
+    def decode(self, params, theta_clipped, batch, eval_mode=False):
+        """Decoder-only pass for given clipped theta draws [B,K,n_theta]:
+        condition -> simulate -> expand precisions -> observe.  Also the
+        counterfactual serving path (``predict.counterfactual``)."""
+        th = self.program.theta_dict(theta_clipped)
+        if self.condition_on_device:
+            th = self.ode_model.condition_theta(params["dec"], th, batch.dev_1hot)
+        x_solution = self.ode_model.simulate(
+            params["dec"],
+            th,
+            batch.times,
+            batch.inputs,
+            batch.dev_1hot,
+            n_iwae=theta_clipped.shape[1],
+            eval_mode=eval_mode,
+        )
+        x_states, precisions = self.ode_model.expand_precisions(
+            params["dec"], th, batch.times.shape[0], x_solution
+        )
+        x_predict = self.ode_model.observe(x_states, th)
+        return AttrDict(
+            x_states=x_states,
+            x_predict=x_predict,
+            precisions=precisions,
+            theta_clipped=theta_clipped,
+            theta_cond=th,
+        )
+

@@ -11,12 +11,24 @@ Phases, each printing lines of its own:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the serving path gives it (``dr_constant_icml``: B=36 series x K=1000
    samples, T=86), with its time, the plain version's time and its bound;
+3'. ``dr_bwd`` against its plain version at the training shape (B=36 x
+   K=200, T=86) with a seeded random cotangent, all three methods, read per
+   constant and state against the plain version in float64 beside the plain
+   version in float32, with its time, the plain version's time and its
+   bound, and ``dr_fwd`` timed at the same shape;
 4. the serving path at full width: three ``predict`` requests on
    ``dr_constant_icml`` at K=1000 with ``eval_solver: pallas_midpoint``, one
    with a counterfactual, with the kernels' launch counts; then the kernel
    route held against the generic solver on a small input, and a profile
    of one request's device time;
-5. the ``kernels`` JSON line, then the last line
+5. the training path at full width: ``run_xval.run_on_split`` on
+   ``dr_constant_icml`` with ``solver: pallas_midpoint`` for 4 epochs (7
+   optimizer steps of B=36 x K=200 each, evaluation every 2 epochs at K=200
+   on the train split and K=1000 on the valid split), the xval artifacts,
+   the step times and the kernels' launch counts (``dr_bwd`` once per
+   step); 5b, one step through the kernels held against the plain online
+   log-likelihood route on a small input; 5c, a profile of one step;
+6. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
@@ -45,15 +57,34 @@ FP32_FLOPS_PER_S = 67e12
 # counted from csrc/dr_fwd.cu (an expf or a division counts as one):
 # 59 per right-hand side evaluation, plus each method's state updates
 DR_FLOPS_PER_STEP = {"modeuler": 2 * 59 + 42, "midpoint": 2 * 59 + 35, "rk4": 4 * 59 + 109}
+# the same for one step of the reverse sweep, counted from csrc/dr_bwd.cu:
+# 157 per right-hand side pullback (31 to recompute the forward
+# intermediates, 126 to pull back), the stages' right-hand sides recomputed,
+# and each method's stage and adjoint updates
+DR_BWD_FLOPS_PER_STEP = {"modeuler": 447, "midpoint": 431, "rk4": 977}
+K_TRAIN = 200
 # kernel vs plain PyTorch: the kernel contracts a*b+c into FMAs and the two
 # evaluate expf differently, each step rounding differently from the plain
 # version; over 85 steps the states then differ by float32 rounding only
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
+# dr_bwd vs its plain version run in float64 on the same operands (see
+# cotangent_readings): each of the 23 constant rows of dc and the 8 state
+# rows of dy0 is held on its own, by its largest error over its largest
+# value across the R sample rows, and by the 99th percentile of its
+# elements' relative errors (float32 sums over 85 steps cancel, so a few
+# elements near zero may be off by more).  The plain version run in
+# float32 is held to the same limits in the same run, and phase 3' prints
+# its readings beside the kernel's: the limits stand well above them
+BWD_NORM_TOL, BWD_P99_TOL = 1e-4, 1e-3
 # kernel route vs the generic Python-stepped solver, through the whole
 # serving forward (the weights exponentiate log-likelihoods of ~1e4 nats,
 # so the per-item ELBO is compared in absolute nats)
 ROUTE_RTOL, ROUTE_ATOL = 1e-3, 1e-4
 ELBO_ATOL = 0.5
+# one training step, kernel route vs the plain fold route on the card: the
+# loss (~1e5 nats at random weights) sums the same float32 terms in another
+# order, and each gradient leaf is compared by the norm of its difference
+LOSS_ATOL, GRAD_RTOL = 1.0, 1e-3
 
 
 def fail(msg):
@@ -124,8 +155,12 @@ def serving_setup(device, eval_solver="pallas_midpoint"):
     return args, settings, data, program, model, params
 
 
-def phase_kernels(device):
-    """dr_fwd against its plain version at the serving chunk's shapes."""
+def kernel_inputs(device, K, seed):
+    """The packed kernel operands of one ``n_batch``-row chunk at K samples:
+    theta drawn from the prior and clipped as the decoder sees it, then
+    conditioned and turned into the kernel's constants, i.e. the inputs the
+    serving and training paths hand the kernels, in the prior's range.
+    Returns (constants dict, y0 [B, K, 8], packed [23, R], y0 [8, R], times)."""
     import torch
 
     from vihds_tpu_torch.ops import fused_ode
@@ -133,22 +168,54 @@ def phase_kernels(device):
     _, settings, data, program, model, params = serving_setup(device)
     ds = data.train.dataset
     B = settings.params.n_batch
-    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    gen = torch.Generator(device=device).manual_seed(seed)
     times = torch.as_tensor(ds.times, dtype=torch.float32, device=device)
     inputs = torch.as_tensor(ds.inputs[:B], dtype=torch.float32, device=device)
     dev_1hot = torch.as_tensor(ds.dev_1hot[:B], dtype=torch.float32, device=device)
     with torch.no_grad():
-        # theta drawn from the prior and clipped as the decoder sees it, then
-        # conditioned and turned into the kernel's constants: the inputs the
-        # serving path hands the kernel, in the prior's range
-        u = model.sample_u(gen, B, K_SERVE, device)
+        u = model.sample_u(gen, B, K, device)
         theta = program.clip(program.sample(program.prior_q(device), u))
         th = model.ode_model.condition_theta(params["dec"], program.theta_dict(theta), dev_1hot)
         consts = model.ode_model._pallas_constants(th, inputs)
         y0 = torch.broadcast_to(
-            model.ode_model.initialize_state(params["dec"], th, inputs, B, K_SERVE), (B, K_SERVE, 8)
+            model.ode_model.initialize_state(params["dec"], th, inputs, B, K), (B, K, 8)
         )
         packed, y0_cols = fused_ode._pack(consts, y0)
+    return consts, y0, packed, y0_cols, times
+
+
+def bound(n_bytes, n_flops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the float32 operations over the float32 peak."""
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    flops_ms = 1e3 * n_flops / FP32_FLOPS_PER_S
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def fwd_row(packed, y0_cols, times, method):
+    """dr_fwd's kernel time, plain time and bound on these operands."""
+    from vihds_tpu_torch.ops import fused_ode
+
+    R, T = packed.shape[1], times.shape[0]
+    ms = cuda_ms(lambda: fused_ode._integrate_cuda(packed, y0_cols, times, method), 20)
+    plain_ms = cuda_ms(
+        lambda: fused_ode._integrate_plain(packed, y0_cols, times, method), 3, warmup=1
+    )
+    n_bytes = 4 * (packed.numel() + y0_cols.numel() + times.numel() + T * 8 * R)
+    n_flops = DR_FLOPS_PER_STEP[method] * (T - 1) * R
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=n_bytes, flops=n_flops)
+
+
+def phase_kernels(device):
+    """dr_fwd against its plain version at the serving chunk's shapes."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_ode
+
+    consts, y0, packed, y0_cols, times = kernel_inputs(device, K_SERVE, SEED + 1)
+    B = y0.shape[0]
     R, T = packed.shape[1], times.shape[0]
     print("phase 3: dr_fwd vs plain PyTorch at B=%d K=%d (R=%d) T=%d, rtol %g atol %g"
           % (B, K_SERVE, R, T, KERNEL_RTOL, KERNEL_ATOL))
@@ -166,27 +233,116 @@ def phase_kernels(device):
             max_abs = float(err.max())
             max_rel = float((err / ref.abs().clamp_min(1e-30)).max())
             ok = bool((err <= KERNEL_ATOL + KERNEL_RTOL * ref.abs()).all())
-            ms = cuda_ms(lambda: fused_ode._integrate_cuda(packed, y0_cols, times, method), 20)
-            plain_ms = cuda_ms(
-                lambda: fused_ode._integrate_plain(packed, y0_cols, times, method), 3, warmup=1
-            )
-            n_bytes = 4 * (packed.numel() + y0_cols.numel() + times.numel() + T * 8 * R)
-            n_flops = DR_FLOPS_PER_STEP[method] * (T - 1) * R
-            bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
-            flops_ms = 1e3 * n_flops / FP32_FLOPS_PER_S
-            rows[method] = dict(
-                max_abs_err=max_abs, max_rel_err=max_rel, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, flops_ms),
-                bound_by="bytes" if bytes_ms >= flops_ms else "operations",
-                bytes=n_bytes, flops=n_flops,
-            )
+            rows[method] = dict(max_abs_err=max_abs, max_rel_err=max_rel,
+                                **fwd_row(packed, y0_cols, times, method))
+            r = rows[method]
             print("  %-9s max_abs_err %.3e max_rel_err %.3e  kernel %.4f ms  plain %.2f ms  "
                   "bound %.4f ms (%s: %d B, %d flop)  %s"
-                  % (method, max_abs, max_rel, ms, plain_ms, rows[method]["bound_ms"],
-                     rows[method]["bound_by"], n_bytes, n_flops, "ok" if ok else "MISMATCH"))
+                  % (method, max_abs, max_rel, r["ms"], r["plain_ms"], r["bound_ms"],
+                     r["bound_by"], r["bytes"], r["flops"], "ok" if ok else "MISMATCH"))
             if not ok:
                 fail("dr_fwd %s disagrees with its plain version" % method)
     return rows
+
+
+def cotangent_readings(got, ref):
+    """Per row of a backward output [n, R] against its float64 reference
+    ``ref``: (normwise error, the largest |got - ref| over the largest
+    |ref|; the 99th percentile of |got - ref| / |ref|), two float64 [n]
+    tensors.  Each constant (and state) is read on its own: one sample row
+    of dc spans many decades across the constants, and one constant's
+    cotangent many decades across the samples."""
+    err = (got.double() - ref).abs()
+    norm = err.amax(dim=1) / ref.abs().amax(dim=1).clamp_min(1e-300)
+    rel = (err / ref.abs().clamp_min(1e-300)).quantile(0.99, dim=1)
+    return norm, rel
+
+
+def cotangents_ok(got, ref):
+    """True when ``got`` is finite and every row is within BWD_NORM_TOL
+    (normwise) and BWD_P99_TOL (99th percentile relative) of ``ref``."""
+    import torch
+
+    norm, rel = cotangent_readings(got, ref)
+    return (bool(torch.isfinite(got).all()) and bool((norm <= BWD_NORM_TOL).all())
+            and bool((rel <= BWD_P99_TOL).all()))
+
+
+def phase_bwd(device):
+    """Phase 3': dr_bwd against its plain version at the training shape
+    (B=36 series x K=200 samples, T=86), all three methods, with a seeded
+    random trajectory cotangent.  Both the kernel and the plain version in
+    float32 are read against the plain version in float64 on the same
+    operands, per constant; dr_fwd timed at the same shape."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_ode
+
+    _, y0, packed, y0_cols, times = kernel_inputs(device, K_TRAIN, SEED + 3)
+    B = y0.shape[0]
+    R, T = packed.shape[1], times.shape[0]
+    row_names = list(fused_ode.DR_CONST_NAMES) + ["y0[%d]" % s for s in range(8)]
+    print("phase 3': dr_bwd vs plain PyTorch at B=%d K=%d (R=%d) T=%d, both read against the "
+          "plain version in float64; every constant's and state's row within %g normwise and "
+          "%g at the 99th percentile of relative error"
+          % (B, K_TRAIN, R, T, BWD_NORM_TOL, BWD_P99_TOL))
+    rows, fwd_rows, readings = {}, {}, {}
+    with torch.no_grad():
+        for method in fused_ode.METHODS:
+            traj = fused_ode._integrate_cuda(packed, y0_cols, times, method)
+            gen = torch.Generator(device=device).manual_seed(SEED + 4)
+            g = torch.randn(traj.shape, generator=gen, device=device)
+            got = torch.cat(fused_ode.dr_bwd(packed, times, traj, g, method))
+            plain = torch.cat(fused_ode._integrate_plain_bwd(packed, times, traj, g, method))
+            ref = torch.cat(fused_ode._integrate_plain_bwd(
+                packed.double(), times.double(), traj.double(), g.double(), method))
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(ref).all()):
+                fail("dr_bwd %s: the plain version is not finite on these inputs" % method)
+            k_norm, k_rel = cotangent_readings(got, ref)
+            p_norm, p_rel = cotangent_readings(plain, ref)
+            readings[method] = (k_norm, k_rel, p_norm, p_rel)
+            err = (got.double() - ref).abs()
+            ms = cuda_ms(lambda: fused_ode.dr_bwd(packed, times, traj, g, method), 20)
+            plain_ms = cuda_ms(
+                lambda: fused_ode._integrate_plain_bwd(packed, times, traj, g, method), 3, warmup=1
+            )
+            n_bytes = 4 * (2 * packed.numel() + times.numel() + 2 * T * 8 * R + 8 * R)
+            n_flops = DR_BWD_FLOPS_PER_STEP[method] * (T - 1) * R
+            bound_ms, bound_by = bound(n_bytes, n_flops)
+            rows[method] = dict(
+                max_abs_err=float(err.max()),
+                max_rel_err=float((err / ref.abs().clamp_min(1e-300)).max()),
+                worst_norm=float(k_norm.max()), worst_p99=float(k_rel.max()),
+                plain_worst_norm=float(p_norm.max()), plain_worst_p99=float(p_rel.max()),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=n_bytes, flops=n_flops,
+            )
+            fwd_rows[method] = fwd_row(packed, y0_cols, times, method)
+            r, f = rows[method], fwd_rows[method]
+            ok = cotangents_ok(got, ref)
+            print("  %-9s kernel: worst normwise %.3e (%s), worst p99 rel %.3e (%s); plain "
+                  "float32: %.3e, %.3e | max_abs_err %.3e on |ref| up to %.3e, max_rel_err %.3e  "
+                  "kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
+                  % (method, r["worst_norm"], row_names[int(k_norm.argmax())], r["worst_p99"],
+                     row_names[int(k_rel.argmax())], r["plain_worst_norm"],
+                     r["plain_worst_p99"], r["max_abs_err"], float(ref.abs().max()),
+                     r["max_rel_err"], ms, plain_ms, bound_ms, bound_by, n_bytes, n_flops,
+                     "ok" if ok else "MISMATCH"))
+            print("  %-9s dr_fwd at this shape: kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s)"
+                  % (method, f["ms"], f["plain_ms"], f["bound_ms"], f["bound_by"]))
+            if not ok:
+                fail("dr_bwd %s disagrees with its plain version" % method)
+            if not cotangents_ok(plain, ref):
+                fail("dr_bwd %s: the plain version in float32 is outside the tolerance itself"
+                     % method)
+    print("  per row, normwise error / 99th percentile relative error against float64, "
+          "kernel then plain float32, for %s:" % ", ".join(fused_ode.METHODS))
+    for i, name in enumerate(row_names):
+        print("    %-9s" % name + "  |".join(
+            " %.1e %.1e / %.1e %.1e" % tuple(float(x[i]) for x in readings[m])
+            for m in fused_ode.METHODS))
+    return rows, fwd_rows
 
 
 def check_request(out, n_theta):
@@ -318,15 +474,7 @@ def phase_profile(device, wall_s):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         predict(args, settings, params=params, device=device)
         torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    # the kernels themselves (device-side events); the host-side aten ops
-    # that launched them carry the same time again
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    total_us = sum(dev_us(e) for e in events)
+    events, total_us = device_events(prof)
     if total_us == 0:
         print("phase 4c: profiler saw no device time (device busy share: not measured)")
         return
@@ -334,8 +482,195 @@ def phase_profile(device, wall_s):
           "unprofiled wall (busy share %.4f); top kernels by device time:"
           % (REQUESTS[1], sum(e.count for e in events), total_us / 1e3, wall_s * 1e3,
              total_us / 1e6 / wall_s))
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
+    for e in events[:8]:
         print("  %9.3f ms  %5d calls  %s" % (dev_us(e) / 1e3, e.count, e.key[:100]))
+
+
+def dev_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_events(prof):
+    """The kernels a profile saw (device-side events, the host-side aten ops
+    that launched them carry the same time again), longest first, and
+    their summed device microseconds."""
+    import torch
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    events.sort(key=dev_us, reverse=True)
+    return events, sum(dev_us(e) for e in events)
+
+
+TRAIN_ARGV = [SPEC, "--experiment", "chip_smoke", "--epochs", "4", "--test_epoch", "2",
+              "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed", str(SEED)]
+TRAIN_SOLVER = "pallas_midpoint"
+
+
+def training_settings(solver=TRAIN_SOLVER):
+    """run_xval's args and settings for dr_constant_icml, with ``solver``
+    set as phase 4 sets ``eval_solver``."""
+    from vihds_tpu_torch import run_xval
+    from vihds_tpu_torch.config import Config
+
+    args = run_xval.create_parser(True).parse_args(TRAIN_ARGV)
+    settings = Config(args)
+    settings.params.solver = solver
+    return args, settings
+
+
+def phase_training(device):
+    """Phase 5: train dr_constant_icml through run_on_split (4 epochs, eval
+    every 2, K=200 / K=1000), write the xval artifacts as run_xval.main
+    does, and count the kernels' launches."""
+    import statistics
+    import tempfile
+
+    from vihds_tpu_torch import run_xval
+    from vihds_tpu_torch.config import Trainer
+    from vihds_tpu_torch.ops import fused_ode
+
+    args, settings = training_settings()
+    with tempfile.TemporaryDirectory() as results_dir:
+        os.environ["INFERENCE_RESULTS_DIR"] = results_dir
+        settings.trainer = Trainer(args, add_timestamp=True)
+        print("phase 5: training dr_constant_icml, split 1 of 4, solver %s, B=%d, K=%d, T=86, "
+              "epochs %d, eval every %d at K=%d (train split) / %d (valid split)"
+              % (settings.params.solver, settings.params.n_batch, args.train_samples,
+                 args.epochs, args.test_epoch, args.train_samples, args.test_samples))
+        fused_ode.dr_constant_simulate.launches = 0
+        fused_ode.dr_bwd.launches = 0
+        t0 = time.perf_counter()
+        data, results, training = run_xval.run_on_split(args, settings, device=device)
+        wall = time.perf_counter() - t0
+        launches = {"dr_fwd": fused_ode.dr_constant_simulate.launches,
+                    "dr_bwd": fused_ode.dr_bwd.launches}
+        if results is None:
+            fail("training left no best-validation results")
+        run_xval.save_xval(args, settings, data, results)
+        names = set(os.listdir(settings.trainer.tb_log_dir))
+        cache = training.cache_dir
+        n_xval = len([n for n in names if n.startswith("xval_")])
+        if not os.path.isdir(cache) or n_xval != 16 or "completed.txt" not in names:
+            fail("training artifacts missing: %s" % sorted(names))
+    del os.environ["INFERENCE_RESULTS_DIR"]
+
+    log = training.log_data
+    elbos = log.training_elbo_list + log.validation_elbo_list + list(results.elbo_list)
+    if not elbos or not all(math.isfinite(e) for e in elbos):
+        fail("non-finite ELBOs %s" % elbos)
+    steps = len(training.step_ms)
+    spe = training.steps_per_epoch
+    step_ms = statistics.median(training.step_ms[spe:])
+    print("  %d optimizer steps (%d per epoch) in %.2f s wall; median step %.2f ms after the "
+          "first epoch (first epoch's steps: %s ms)"
+          % (steps, spe, wall, step_ms, ", ".join("%.1f" % t for t in training.step_ms[:spe])))
+    print("  best-val cache %s and %d xval_* files written" % (os.path.basename(cache), n_xval))
+    print("  dr_fwd launches %d, dr_bwd launches %d (optimizer steps %d)"
+          % (launches["dr_fwd"], launches["dr_bwd"], steps))
+    if steps != args.epochs * spe or launches["dr_bwd"] != steps:
+        fail("dr_bwd launched %d times for %d optimizer steps" % (launches["dr_bwd"], steps))
+    if launches["dr_fwd"] <= steps:
+        fail("dr_fwd launched %d times: the evaluations did not take the kernel"
+             % launches["dr_fwd"])
+    return launches, step_ms, training
+
+
+def one_step(device, solver, rows, K, seed):
+    """(Training, params, optimizer, step closure) for one training step of
+    dr_constant_icml under ``solver`` on the train split's ``rows`` at K
+    draws, with seeded params and draws ``u``, set up as run_on_split sets
+    it up."""
+    import numpy as np
+    import torch
+
+    from vihds_tpu_torch import run_xval
+    from vihds_tpu_torch.training import batch_tensors, loss_fn
+
+    args, settings = training_settings(solver)
+    data, training = run_xval.make_training(args, settings, device=device)
+    params, opt, _ = training.init_state(device)
+    host = data.train.batch()
+    batch = batch_tensors(host, np.asarray(rows), torch.as_tensor(
+        host.times, dtype=torch.float32, device=device), device)
+    u = torch.randn((len(rows), K, training.program.n_theta), device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+    mask = torch.ones(len(rows), device=device)
+
+    def step():
+        opt.zero_grad()
+        loss = loss_fn(training.model, training.program, params, batch, mask, u)
+        loss.backward()
+        return loss
+
+    return training, params, opt, step
+
+
+def phase_route_check_training(device):
+    """Phase 5b: one loss and gradient on 4 series x 50 samples, with the same
+    params and u, through the kernels (pallas_midpoint) and through the
+    plain online log-likelihood route (midpoint) on the card."""
+    import torch
+
+    from vihds_tpu_torch.training import param_leaves
+
+    out = {}
+    for solver in (TRAIN_SOLVER, "midpoint"):
+        _, params, _, step = one_step(device, solver, range(4), 50, SEED + 5)
+        loss = step()
+        torch.cuda.synchronize()
+        grads = [leaf.grad.detach().clone() for leaf in param_leaves(params)]
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[solver] = (float(loss.detach()), grads, sorted(walls)[1])
+    (lk, gk, wk), (lf, gf, wf) = out[TRAIN_SOLVER], out["midpoint"]
+    rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(gk, gf))
+    print("phase 5b: one training step, 4 series x 50 samples: loss %s %.4f vs midpoint fold "
+          "route %.4f (diff %.3e nats, tol %g); gradients max leaf relative norm diff %.3e "
+          "(tol %g); step wall %.4f s (kernels) vs %.4f s (fold route, plain PyTorch)"
+          % (TRAIN_SOLVER, lk, lf, abs(lk - lf), LOSS_ATOL, rel, GRAD_RTOL, wk, wf))
+    if not (abs(lk - lf) <= LOSS_ATOL and rel <= GRAD_RTOL):
+        fail("the kernel route's training step disagrees with the fold route")
+    return wk, wf
+
+
+def phase_profile_training(device):
+    """Phase 5c: torch.profiler over one full-size training step (B=36,
+    K=200) after a warm-up step: device busy share of the step's wall and
+    where dr_fwd and dr_bwd stand among the kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    training, _, _, step = one_step(device, TRAIN_SOLVER, range(36), K_TRAIN, SEED + 6)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    events, total_us = device_events(prof)
+    if total_us == 0:
+        print("phase 5c: profiler saw no device time (device busy share: not measured)")
+        return None
+    print("phase 5c: one training step (B=36, K=%d, %s): %d kernel launches, device busy "
+          "%.3f ms of %.3f ms unprofiled step wall (busy share %.4f; profiled wall %.3f ms); "
+          "top kernels by device time:"
+          % (K_TRAIN, TRAIN_SOLVER, sum(e.count for e in events), total_us / 1e3, wall * 1e3,
+             total_us / 1e6 / wall, prof_wall * 1e3))
+    for i, e in enumerate(events):
+        if i < 10 or "dr_fwd" in e.key or "dr_bwd" in e.key:
+            print("  #%-3d %9.3f ms  %5d calls  %s" % (i + 1, dev_us(e) / 1e3, e.count, e.key[:100]))
+    return dict(busy_ms=total_us / 1e3, wall_ms=wall * 1e3)
 
 
 def main():
@@ -355,25 +690,49 @@ def main():
     phase_card()
     phase_build()
     rows = phase_kernels(device)
+    bwd_rows, fwd_train_rows = phase_bwd(device)
     launches, walls, served = phase_serving(device)
     phase_route_check(device, served)
     phase_profile(device, walls[1])
+    train_launches, _, _ = phase_training(device)
+    phase_route_check_training(device)
+    phase_profile_training(device)
 
-    main_row = rows["midpoint"]  # the serving path's method
-    kernels = [dict(
-        name="dr_fwd",
-        route="cuda",
-        source="vihds_tpu_torch/csrc/dr_fwd.cu",
-        replaces="vihds_tpu/ops/pallas_ode.py:340",
-        method="midpoint",
-        launches=launches,
-        max_abs_err=main_row["max_abs_err"],
-        ms=main_row["ms"],
-        plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"],
-        bound_by=main_row["bound_by"],
-        library_ms=None,  # no single PyTorch call integrates this ODE
-    )]
+    fwd, fwd_train, bwd = rows["midpoint"], fwd_train_rows["midpoint"], bwd_rows["midpoint"]
+    kernels = [
+        dict(
+            name="dr_fwd",
+            route="cuda",
+            source="vihds_tpu_torch/csrc/dr_fwd.cu",
+            replaces="vihds_tpu/ops/pallas_ode.py:340",
+            method="midpoint",
+            # the training path's count; the serving path's beside it
+            launches=train_launches["dr_fwd"],
+            launches_serving=launches,
+            # at the serving chunk (B=36, K=1000); the training shape beside it
+            max_abs_err=fwd["max_abs_err"],
+            ms=fwd["ms"],
+            plain_ms=fwd["plain_ms"],
+            bound_ms=fwd["bound_ms"],
+            bound_by=fwd["bound_by"],
+            train_shape={k: fwd_train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            library_ms=None,  # no single PyTorch call integrates this ODE
+        ),
+        dict(
+            name="dr_bwd",
+            route="cuda",
+            source="vihds_tpu_torch/csrc/dr_bwd.cu",
+            replaces="vihds_tpu/ops/pallas_ode.py:364",
+            method="midpoint",
+            launches=train_launches["dr_bwd"],
+            max_abs_err=bwd["max_abs_err"],
+            ms=bwd["ms"],
+            plain_ms=bwd["plain_ms"],
+            bound_ms=bwd["bound_ms"],
+            bound_by=bwd["bound_by"],
+            library_ms=None,  # no single PyTorch call computes this ODE's VJP
+        ),
+    ]
     print("total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,10 @@ the fixture, never at import).  On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
-Tolerance: rtol 1e-4, atol 1e-5 (the kernel contracts a*b+c into FMAs and
-computes expf its own way, so each step rounds differently from the plain
-version; chip_smoke.py holds the serving-size run to the same bound)."""
+Tolerance of the forward: rtol 1e-4, atol 1e-5 (the kernel contracts a*b+c
+into FMAs and computes expf its own way, so each step rounds differently
+from the plain version; chip_smoke.py holds the serving-size run to the same
+bound).  The backward's is stated at ``_assert_cotangents_close``."""
 
 import numpy as np
 import pytest
@@ -70,8 +71,96 @@ def test_dr_fwd_kernel_matches_plain(cuda, method):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
 
-def test_dr_fwd_refuses_grad(cuda):
+def _assert_cotangents_close(got, ref):
+    """A backward output [n, R] against its float64 reference, by the rule
+    chip_smoke.py states for dr_bwd: every constant's (or state's) row on
+    its own, within 1e-4 normwise and 1e-3 at the 99th percentile of its
+    elements' relative errors."""
+    import chip_smoke
+
+    got, ref = got.cpu(), ref.double().cpu()
+    assert torch.isfinite(ref).all()
+    norm, rel = chip_smoke.cotangent_readings(got, ref)
+    assert chip_smoke.cotangents_ok(got, ref), (float(norm.max()), float(rel.max()))
+
+
+@pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
+def test_dr_bwd_kernel_matches_plain(cuda, method):
     c, y0, times = _inputs(cuda)
-    c["r"].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fused_ode.dr_constant_simulate(c, y0, times)
+    packed, y0_cols = fused_ode._pack(c, y0)
+    traj = fused_ode._integrate_cuda(packed, y0_cols, times, method)
+    g = torch.as_tensor(
+        np.random.default_rng(1).standard_normal(tuple(traj.shape)).astype(np.float32), device=cuda
+    )
+    before = fused_ode.dr_bwd.launches
+    dc, dy0 = fused_ode.dr_bwd(packed, times, traj, g, method)
+    torch.cuda.synchronize()
+    assert fused_ode.dr_bwd.launches == before + 1
+    ref_dc, ref_dy0 = fused_ode._integrate_plain_bwd(
+        packed.double(), times.double(), traj.double(), g.double(), method
+    )
+    assert dc.shape == ref_dc.shape == (23, 5 * 37) and dy0.shape == (8, 5 * 37)
+    _assert_cotangents_close(dc, ref_dc)
+    _assert_cotangents_close(dy0, ref_dy0)
+
+
+def test_dr_autograd_function_matches_float64_autograd(cuda):
+    """Gradcheck-style: the autograd Function on the card (dr_fwd forward,
+    dr_bwd backward, float32) against torch.autograd through the plain
+    version in float64 on the CPU, for a weighted sum of the trajectory."""
+    c, y0, times = _inputs(cuda)
+    w = np.random.default_rng(2).standard_normal((86, 5, 37, 8))
+    leaves = {k: v.clone().requires_grad_(True) for k, v in c.items()}
+    y0_leaf = y0.clone().requires_grad_(True)
+    fwd0, bwd0 = fused_ode.dr_constant_simulate.launches, fused_ode.dr_bwd.launches
+    sol = fused_ode.dr_constant_simulate(leaves, y0_leaf, times, "midpoint")
+    (sol * torch.as_tensor(w, dtype=torch.float32, device=cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert fused_ode.dr_constant_simulate.launches == fwd0 + 1
+    assert fused_ode.dr_bwd.launches == bwd0 + 1
+
+    ref_leaves = {k: v.detach().cpu().double().requires_grad_(True) for k, v in c.items()}
+    ref_y0 = y0.detach().cpu().double().requires_grad_(True)
+    ref = fused_ode.dr_constant_simulate_plain(ref_leaves, ref_y0, times.cpu().double(), "midpoint")
+    (ref * torch.as_tensor(w)).sum().backward()
+    got_dc = torch.stack([leaves[k].grad.reshape(-1) for k in fused_ode.DR_CONST_NAMES])
+    ref_dc = torch.stack([ref_leaves[k].grad.reshape(-1) for k in fused_ode.DR_CONST_NAMES])
+    _assert_cotangents_close(got_dc, ref_dc)
+    _assert_cotangents_close(y0_leaf.grad.reshape(-1, 8).t(), ref_y0.grad.reshape(-1, 8).t())
+
+
+def _train_on_card(device, tmp_path, experiment, extra):
+    import os
+
+    from vihds_tpu_torch import run_xval
+    from vihds_tpu_torch.config import Config, Trainer
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = run_xval.create_parser(True).parse_args(
+        [os.path.join(repo, "specs", "dr_constant_one.yaml"), "--experiment", experiment,
+         "--test_epoch", "2", "--train_samples", "8", "--test_samples", "8", "--seed", "0"] + extra
+    )
+    settings = Config(args)
+    settings.params.solver = "pallas_midpoint"
+    settings.trainer = Trainer(args, log_dir=str(tmp_path / experiment))
+    os.makedirs(settings.trainer.tb_log_dir)
+    return run_xval.run_on_split(args, settings, device=device)[2]
+
+
+def test_resume_on_the_card_follows_the_uninterrupted_run(cuda, tmp_path):
+    """Checkpoint and resume through the kernel route on the card: Adam's
+    state, the CUDA generator's state and the params come back, and the
+    resumed run ends at the uninterrupted run's params (within float32
+    rounding: cuDNN's convolution backward may sum in another order from
+    run to run)."""
+    from vihds_tpu_torch.training import param_leaves
+
+    whole = _train_on_card(cuda, tmp_path, "whole", ["--epochs", "2"])
+    first = _train_on_card(cuda, tmp_path, "first", ["--epochs", "1", "--checkpoint_epoch", "1"])
+    bwd0 = fused_ode.dr_bwd.launches
+    resumed = _train_on_card(cuda, tmp_path, "resumed",
+                             ["--epochs", "2", "--resume_from", first.ckpt_dir])
+    assert fused_ode.dr_bwd.launches - bwd0 == resumed.steps_per_epoch
+    for a, b in zip(param_leaves(whole.final_params), param_leaves(resumed.final_params)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)

@@ -200,7 +200,8 @@ def test_port_imports_no_jax():
     chip_smoke.py) has neither jax nor vihds_tpu in sys.modules."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
-        "import vihds_tpu_torch.predict, vihds_tpu_torch.convert, chip_smoke\n"
+        "import vihds_tpu_torch.predict, vihds_tpu_torch.convert, vihds_tpu_torch.run_xval\n"
+        "import vihds_tpu_torch.checkpoint, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vihds_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n" % REPO
@@ -253,13 +254,30 @@ def _convert_default_device():
     params_from_jax({"w": np.zeros((2, 2), np.float32)})
 
 
+def _run_xval_default_device():
+    from vihds_tpu_torch import run_xval
+
+    run_xval.main([spec("dr_constant_one.yaml"), "--epochs", "1", "--train_samples", "2",
+                   "--test_samples", "2"])
+
+
+def _train_default_device():
+    from vihds_tpu_torch import run_xval
+
+    tset, tdata, tprog, tmodel = _port("dr_constant_one.yaml")
+    args = run_xval.create_parser(True).parse_args(
+        [spec("dr_constant_one.yaml"), "--epochs", "1", "--train_samples", "2"]
+    )
+    Training(tset, tdata, tprog, tmodel, args=args).run()
+
+
 @pytest.mark.parametrize(
     "entry",
     [_predict_default_device, _evaluate_default_device, _init_default_device,
-     _convert_default_device],
-    ids=["predict", "evaluate", "init_params", "params_from_jax"],
+     _convert_default_device, _run_xval_default_device, _train_default_device],
+    ids=["predict", "evaluate", "init_params", "params_from_jax", "run_xval", "train"],
 )
-def test_entry_points_do_not_fall_back_to_cpu(entry):
+def test_entry_points_do_not_fall_back_to_cpu(entry, tmp_results):
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()

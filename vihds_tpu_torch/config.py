@@ -5,7 +5,10 @@ The same YAML schema as ``vihds_tpu.config`` (``data:`` / ``model:`` /
 drives both packages.
 """
 
+import datetime
 import os
+import re
+import shutil
 from collections import OrderedDict
 
 import numpy as np
@@ -110,10 +113,15 @@ def apply_defaults_data(config):
 class Config:
     """Settings = YAML spec (+ defaults) + CLI args.
 
-    ``args`` needs ``yaml`` and ``seed``; the serving path reads nothing else
-    here."""
+    ``args`` needs ``yaml`` and ``seed``.  Training's flags, where ``args``
+    has them, act as in the JAX package: ``test_epoch`` is clamped to
+    ``epochs``, and ``--precision_hidden_layers``, ``--q_global_init`` and
+    ``--grad_clip_norm`` override their ``params:`` entries."""
 
     def __init__(self, args):
+        epochs = getattr(args, "epochs", None)
+        if epochs is not None and getattr(args, "test_epoch", 0) > epochs:
+            args.test_epoch = epochs
         if args.seed is not None:
             np.random.seed(args.seed)
         if not os.path.exists(args.yaml):
@@ -129,8 +137,16 @@ class Config:
             raise SystemExit("Spec %s has no top-level 'model:' key" % args.yaml)
         self.data = apply_defaults_data(config.data)
         self.params = apply_defaults_params(config.params)
+        for flag, key in (
+            ("precision_hidden_layers", "n_hidden_decoder_precisions"),
+            ("q_global_init", "q_global_init"),
+            ("grad_clip_norm", "grad_clip_norm"),
+        ):
+            if getattr(args, flag, None) is not None:
+                self.params[key] = getattr(args, flag)
         self.model = config.model
         self.seed = args.seed if args.seed is not None else 0
+        self.trainer = None
 
 
 def get_data_directory():
@@ -143,3 +159,39 @@ def get_data_directory():
     if os.path.isdir(repo_data):
         return repo_data
     return "data"
+
+
+def get_results_directory():
+    """Where training writes its results.  ``INFERENCE_RESULTS_DIR`` wins;
+    otherwise ``results`` under the working directory."""
+    return os.getenv("INFERENCE_RESULTS_DIR") or "results"
+
+
+class Trainer:
+    """Results-directory bookkeeping: ``tb_log_dir`` is
+    ``<results>/<experiment>[_<timestamp>]``, created with a copy of the spec
+    in it (the JAX package's ``config.Trainer``)."""
+
+    def __init__(self, args, log_dir=None, add_timestamp=False):
+        self.results_dir = get_results_directory()
+        self.experiment = args.experiment
+        self.yaml_file_name = args.yaml
+        if log_dir is None:
+            self.create_logging_dirs(add_timestamp)
+        else:
+            self.tb_log_dir = log_dir
+
+    def _unique_dir_name(self, experiment, add_timestamp):
+        now = datetime.datetime.now().isoformat()
+        time_code = re.sub("[^A-Za-z0-9]+", "", now)
+        if add_timestamp is True:
+            experiment += "_" + time_code
+        return os.path.join(self.results_dir, experiment)
+
+    def create_logging_dirs(self, add_timestamp=False):
+        self.tb_log_dir = self._unique_dir_name(self.experiment, add_timestamp)
+        os.makedirs(self.tb_log_dir, exist_ok=True)
+        shutil.copyfile(
+            self.yaml_file_name,
+            os.path.join(self.tb_log_dir, os.path.basename(self.yaml_file_name)),
+        )

@@ -7,7 +7,8 @@ Stateless model objects with explicit param dicts and functions over
 import torch
 
 from vihds_tpu_torch.nn import layers
-from vihds_tpu_torch.ops.solvers import integrate
+from vihds_tpu_torch.ops.logprob import log_prob_gaussian, log_prob_laplace
+from vihds_tpu_torch.ops.solvers import FIXED_GRID_SOLVERS, integrate, integrate_fold
 from vihds_tpu_torch.utils import default_get_value
 
 
@@ -41,6 +42,11 @@ class ConstantPrecisions:
         """x_states[B,K,S,T] -> (states, precisions[B,K,P,1] broadcastable to T)."""
         precisions = torch.stack([theta[v] for v in self.precision_vars], dim=-1)
         return x_states, precisions[:, :, :, None]
+
+    def at_time(self, params, theta, y):
+        """Single-time counterpart of ``expand``: y[B,K,S] at one grid point
+        -> (states[B,K,S], precisions[B,K,P])."""
+        return y, torch.stack([theta[v] for v in self.precision_vars], dim=-1)
 
 
 class OdeModel:
@@ -119,7 +125,8 @@ class OdeModel:
     def simulate(self, params, theta, times, treatments, dev_1hot, n_iwae, eval_mode=False):
         """Integrate and return x_states[B, K, S, T].  ``solver:
         pallas_<method>`` (or ``eval_solver`` in eval mode) routes families
-        that declare ``pallas_kinds`` through the fused CUDA integrator."""
+        that declare ``pallas_kinds`` through the fused CUDA integrator,
+        which is differentiable (its backward is the dr_bwd kernel)."""
         n_batch = treatments.shape[0]
         method = self._solver_for(eval_mode)
         if method.startswith("pallas_") and self.pallas_kinds:
@@ -146,6 +153,34 @@ class OdeModel:
         rhs = self.make_rhs(params, theta, treatments, dev_1hot)
         sol = integrate(rhs, init_state, times, method=method, adjoint=self.adjoint)  # [T,B,K,S]
         return sol.permute(1, 2, 3, 0)
+
+    def supports_fold(self):
+        """True when the training objective can run through the online
+        log-likelihood route (``simulate_logprob``): fixed-grid solvers
+        only; the fused ``pallas_*`` route keeps the trajectory route."""
+        return (self.solver in FIXED_GRID_SOLVERS) and not self.adjoint
+
+    def simulate_logprob(self, params, theta, times, treatments, dev_1hot, n_iwae,
+                         observations, use_laplace=False):
+        """Observation log-likelihood by species [B, K, S_obs] accumulated
+        online, step by step (``ops.solvers.integrate_fold``): the same
+        ``sum_t log p(x_t | y_t)`` the trajectory route computes, without the
+        [B, K, S, T] trajectory.  ``observe`` indexes [:, :, i, :], so one
+        trailing singleton time axis makes it a per-time map."""
+        n_batch = treatments.shape[0]
+        y0 = self.initialize_state(params, theta, treatments, n_batch, n_iwae)
+        rhs = self.make_rhs(params, theta, treatments, dev_1hot)
+        prec_params = params.get("precisions", {})
+        lp = log_prob_laplace if use_laplace else log_prob_gaussian
+
+        def fold(y, obs_t):
+            states, prec = self.precisions.at_time(prec_params, theta, y)
+            pred = self.observe(states[..., None], theta)[..., 0]  # [B,K,4]
+            return lp(obs_t[:, None, :], pred, prec)
+
+        obs_tbs = observations.permute(2, 0, 1)  # [T, B, S]
+        _, acc = integrate_fold(rhs, y0, times, fold, obs_tbs, method=self.solver)
+        return acc
 
     def observe(self, x_states, theta):
         """Default 8-state observation map."""

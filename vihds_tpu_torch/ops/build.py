@@ -21,7 +21,7 @@ BUILD_DIR = os.path.join(
     "kernels",
 )
 #: kernel library name -> source file under csrc/
-SOURCES = {"dr_fwd": "dr_fwd.cu"}
+SOURCES = {"dr_fwd": "dr_fwd.cu", "dr_bwd": "dr_bwd.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

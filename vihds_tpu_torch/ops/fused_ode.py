@@ -1,17 +1,21 @@
 """Fused ODE integration for the mechanistic families: the port's counterpart
 of ``vihds_tpu/ops/pallas_ode.py``.
 
-Ported so far: kind ``"dr"`` forward (dr_constant v1/v2, 8 states), as the
-hand-written CUDA kernel ``vihds_tpu_torch/csrc/dr_fwd.cu`` (one thread per
-sample row, the whole time loop in registers; see the note in the source).
-``dr_constant_simulate`` is its wrapper; ``dr_constant_simulate_plain`` is
-the same function in plain PyTorch.  On a CPU tensor the wrapper runs the
-plain version; on a CUDA tensor it launches the kernel or raises.
+Ported so far: kind ``"dr"`` (dr_constant v1/v2, 8 states), forward and
+backward, as two hand-written CUDA kernels: ``csrc/dr_fwd.cu`` (the TPU
+kernel's ``_make_kernel``) integrates and stores the trajectory, and
+``csrc/dr_bwd.cu`` (``_make_bwd_kernel``) sweeps the stored trajectory
+backwards with a hand-derived per-step VJP.  Both run one thread per sample
+row with the whole time loop in registers (see the notes in the sources).
 
-The serving forward needs no gradient, so the kernel is forward-only: it
-refuses CUDA tensors that require grad.  Its backward kernel (the TPU
-kernel's ``_make_bwd_kernel``) comes with the training slice, as do the
-``relay`` / ``degrader`` / ``*_prec`` kinds (ROADMAP queue 2).
+``dr_constant_simulate`` is the differentiable wrapper: ``_DrIntegrate``, a
+``torch.autograd.Function`` at the packed ``[23, R]`` / ``[8, R]`` /
+``[T, 8, R]`` level, launches ``dr_fwd`` in its forward and ``dr_bwd`` in
+its backward; the packing around it is ordinary differentiable torch.  On a
+CPU tensor the Function runs the plain versions beside the kernels
+(``_integrate_plain``, ``_integrate_plain_bwd``); on a CUDA tensor it
+launches the kernels or raises.  The ``relay`` / ``degrader`` / ``*_prec``
+kinds are not ported yet (ROADMAP queue 2).
 """
 
 import ctypes
@@ -114,52 +118,239 @@ def _integrate_plain(packed, y0_cols, times, method):
     return torch.stack(ys, dim=0)
 
 
+def _dr_rhs_vjp_cols(c, t, y, w, dc):
+    """Pullback of ``_dr_rhs_cols`` at (t, y): for the cotangent ``w`` [8, R]
+    of its output, returns (df/dy)^T w [8, R] and adds (df/dc)^T w into the
+    per-constant rows of ``dc`` (a dict of [R] tensors, replaced, not written
+    in place).  Hand-derived, and line for line the arithmetic of
+    csrc/dr_bwd.cu's ``dr_rhs_vjp``, so the CPU tests pin the kernel's
+    derivative.  The places where a derivative is easy to get wrong:
+
+    * ``gr = r * s`` with ``s = sigmoid(4 (t - tlag))``: dgr/dtlag = -4 r s (1 - s);
+    * ``gamma = gr (1 - x/K)``: dgamma/dx = -gr/K, dgamma/dK = gr x / K^2;
+    * ``P = (e + A) / (1 + A)`` with ``A = KGR bL + KGS bS`` (P76 and P81):
+      dP/dA = (1 - e) / (1 + A)^2 and dP/de = 1 / (1 + A);
+    * ``bL = luxR^2 fracLuxR`` (and bS): the gradient reaches fracLuxR and
+      fracLasR, and through them theta;
+    * time gets no cotangent (the TPU kernel returns zeros for it)."""
+    x, rfp, yfp, cfp, f530, f480, luxR, lasR = y
+    # forward intermediates, recomputed
+    sig = torch.sigmoid(4.0 * (t - c["tlag"]))
+    gr = c["r"] * sig
+    omx = 1.0 - x / c["K"]
+    gamma = gr * omx
+    luxR2 = luxR * luxR
+    lasR2 = lasR * lasR
+    boundLuxR = luxR2 * c["fracLuxR"]
+    boundLasR = lasR2 * c["fracLasR"]
+    denom76 = 1.0 + c["KGR_76"] * boundLuxR + c["KGS_76"] * boundLasR
+    denom81 = 1.0 + c["KGR_81"] * boundLuxR + c["KGS_81"] * boundLasR
+    P76 = (c["e76"] + c["KGR_76"] * boundLuxR + c["KGS_76"] * boundLasR) / denom76
+    P81 = (c["e81"] + c["KGR_81"] * boundLuxR + c["KGS_81"] * boundLasR) / denom81
+    rc = c["rc"]
+    # pull w back through the eight outputs
+    dgamma = (w[0] * x - w[1] * rfp - w[2] * yfp - w[3] * cfp
+              - w[4] * f530 - w[5] * f480 - w[6] * luxR - w[7] * lasR)
+    dP81 = w[2] * rc * c["aYFP"]
+    dP76 = w[3] * rc * c["aCFP"]
+    dc["rc"] = dc["rc"] + (w[1] + w[2] * c["aYFP"] * P81 + w[3] * c["aCFP"] * P76
+                           + w[4] * c["a530"] + w[5] * c["a480"] + w[6] * c["aR"]
+                           + w[7] * c["aS"])
+    dc["aYFP"] = dc["aYFP"] + w[2] * rc * P81
+    dc["aCFP"] = dc["aCFP"] + w[3] * rc * P76
+    dc["a530"] = dc["a530"] + w[4] * rc
+    dc["a480"] = dc["a480"] + w[5] * rc
+    dc["aR"] = dc["aR"] + w[6] * rc
+    dc["aS"] = dc["aS"] + w[7] * rc
+    dc["drfp"] = dc["drfp"] - w[1] * rfp
+    dc["dyfp"] = dc["dyfp"] - w[2] * yfp
+    dc["dcfp"] = dc["dcfp"] - w[3] * cfp
+    dc["dR"] = dc["dR"] - w[6] * luxR
+    dc["dS"] = dc["dS"] - w[7] * lasR
+    # P = (e + A) / (1 + A)
+    dA76 = dP76 * (1.0 - c["e76"]) / (denom76 * denom76)
+    dA81 = dP81 * (1.0 - c["e81"]) / (denom81 * denom81)
+    dc["e76"] = dc["e76"] + dP76 / denom76
+    dc["e81"] = dc["e81"] + dP81 / denom81
+    dc["KGR_76"] = dc["KGR_76"] + dA76 * boundLuxR
+    dc["KGS_76"] = dc["KGS_76"] + dA76 * boundLasR
+    dc["KGR_81"] = dc["KGR_81"] + dA81 * boundLuxR
+    dc["KGS_81"] = dc["KGS_81"] + dA81 * boundLasR
+    dbL = dA76 * c["KGR_76"] + dA81 * c["KGR_81"]
+    dbS = dA76 * c["KGS_76"] + dA81 * c["KGS_81"]
+    dc["fracLuxR"] = dc["fracLuxR"] + dbL * luxR2
+    dc["fracLasR"] = dc["fracLasR"] + dbS * lasR2
+    # gamma = gr (1 - x/K), gr = r sig
+    dgr = dgamma * omx
+    dc["K"] = dc["K"] + dgamma * gr * x / (c["K"] * c["K"])
+    dc["r"] = dc["r"] + dgr * sig
+    dc["tlag"] = dc["tlag"] - 4.0 * dgr * c["r"] * sig * (1.0 - sig)
+    return torch.stack(
+        [
+            w[0] * gamma - dgamma * gr / c["K"],
+            -w[1] * (gamma + c["drfp"]),
+            -w[2] * (gamma + c["dyfp"]),
+            -w[3] * (gamma + c["dcfp"]),
+            -w[4] * gamma,
+            -w[5] * gamma,
+            2.0 * dbL * luxR * c["fracLuxR"] - w[6] * (gamma + c["dR"]),
+            2.0 * dbS * lasR * c["fracLasR"] - w[7] * (gamma + c["dS"]),
+        ],
+        dim=0,
+    )
+
+
+def _step_vjp(c, t1, t2, y, a, dc, method):
+    """Pullback of ``_one_step`` at y = y_i: ``a`` is the cotangent of the
+    step's output y_{i+1}; returns that of y_i and adds the constants'
+    share into ``dc``.  The stages are recomputed from y_i, as the kernel
+    (csrc/dr_bwd.cu ``step_vjp``) does."""
+    h = t2 - t1
+    hh = 0.5 * h
+    if method == "modeuler":
+        # y' = y + hh (f1 + f2), f1 = F(t1, y), f2 = F(t2, y + h f1)
+        f1 = _dr_rhs_cols(c, t1, y)
+        dz = _dr_rhs_vjp_cols(c, t2, y + h * f1, hh * a, dc)
+        d1 = _dr_rhs_vjp_cols(c, t1, y, hh * a + h * dz, dc)
+        return a + dz + d1
+    if method == "midpoint":
+        # y' = y + h f2, f2 = F(t1 + hh, y + hh f1), f1 = F(t1, y)
+        f1 = _dr_rhs_cols(c, t1, y)
+        dz = _dr_rhs_vjp_cols(c, t1 + hh, y + hh * f1, h * a, dc)
+        d1 = _dr_rhs_vjp_cols(c, t1, y, hh * dz, dc)
+        return a + dz + d1
+    if method == "rk4":
+        # y' = y + h6 (k1 + 2 k2 + 2 k3 + k4), stage k_j = F(t_j, z_j)
+        tm = t1 + hh
+        h6 = h / 6.0
+        k1 = _dr_rhs_cols(c, t1, y)
+        z2 = y + hh * k1
+        k2 = _dr_rhs_cols(c, tm, z2)
+        z3 = y + hh * k2
+        k3 = _dr_rhs_cols(c, tm, z3)
+        z4 = y + h * k3
+        d4 = _dr_rhs_vjp_cols(c, t2, z4, h6 * a, dc)
+        d3 = _dr_rhs_vjp_cols(c, tm, z3, 2.0 * h6 * a + h * d4, dc)
+        d2 = _dr_rhs_vjp_cols(c, tm, z2, 2.0 * h6 * a + hh * d3, dc)
+        d1 = _dr_rhs_vjp_cols(c, t1, y, h6 * a + hh * d2, dc)
+        return a + d4 + d3 + d2 + d1
+    raise ValueError(method)
+
+
+def _integrate_plain_bwd(packed, times, traj, g, method):
+    """Plain version of csrc/dr_bwd.cu: the reverse sweep over the stored
+    trajectory ``traj`` [T, 8, R] for the trajectory cotangent ``g``
+    [T, 8, R].  Returns (dc [23, R], dy0 [8, R])."""
+    c = dict(zip(DR_CONST_NAMES, packed))
+    dc = {name: torch.zeros_like(packed[0]) for name in DR_CONST_NAMES}
+    a = g[-1]
+    for i in range(times.shape[0] - 2, -1, -1):
+        a = _step_vjp(c, times[i], times[i + 1], traj[i], a, dc, method) + g[i]
+    return torch.stack([dc[name] for name in DR_CONST_NAMES]), a
+
+
 # --------------------------------------------------------------------------- #
-# CUDA kernel
+# CUDA kernels
 # --------------------------------------------------------------------------- #
-def _launcher():
-    fn = build.load("dr_fwd").dr_fwd_launch
+def _launcher(name):
+    """The ctypes entry point ``<name>_launch`` of csrc/<name>.cu: device
+    pointers and the stream as ``c_void_p``, then (R, T, method) ints."""
+    fn = getattr(build.load(name), name + "_launch")
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+        n_ptr = {"dr_fwd": 4, "dr_bwd": 6}[name]
+        fn.argtypes = [p] * n_ptr + [ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _check_operands(kernel, device, operands):
+    """Raise unless every (name, tensor, shape) is a contiguous float32
+    tensor of that shape on the CUDA ``device``."""
+    for name, t, shape in operands:
+        if t.device.type != "cuda":
+            raise ValueError("%s: %s must be on a CUDA device, got %s" % (kernel, name, t.device))
+        if t.device != device:
+            raise ValueError("%s: %s must be on %s, got %s" % (kernel, name, device, t.device))
+        if t.dtype != torch.float32:
+            raise TypeError("%s: %s must be float32, got %s" % (kernel, name, t.dtype))
+        if tuple(t.shape) != shape:
+            raise ValueError("%s: %s has shape %s, want %s" % (kernel, name, tuple(t.shape), shape))
+        if not t.is_contiguous():
+            raise ValueError("%s: %s must be contiguous" % (kernel, name))
+
+
+def _launch(name, R, T, method, device, *tensors):
+    if R == 0 or T == 0:
+        raise ValueError("%s: empty input (R=%d, T=%d)" % (name, R, T))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _launcher(name)(*[t.data_ptr() for t in tensors], R, T, METHODS.index(method), stream)
+    if err != 0:
+        raise RuntimeError("%s kernel launch failed with cudaError %d" % (name, err))
+
+
 def _integrate_cuda(packed, y0_cols, times, method):
     """Launch csrc/dr_fwd.cu on the current stream; returns [T, 8, R]."""
-    NC, R = packed.shape
-    T = times.shape[0]
-    for name, t, shape in (
+    R, T = packed.shape[1], times.shape[0]
+    _check_operands("dr_fwd", packed.device, (
         ("constants", packed, (len(DR_CONST_NAMES), R)),
         ("y0", y0_cols, (N_SPECIES, R)),
         ("times", times, (T,)),
-    ):
-        if t.device.type != "cuda" or t.device != packed.device:
-            raise ValueError("dr_fwd: %s must be on %s, got %s" % (name, packed.device, t.device))
-        if t.dtype != torch.float32:
-            raise TypeError("dr_fwd: %s must be float32, got %s" % (name, t.dtype))
-        if tuple(t.shape) != shape:
-            raise ValueError("dr_fwd: %s has shape %s, want %s" % (name, tuple(t.shape), shape))
-        if not t.is_contiguous():
-            raise ValueError("dr_fwd: %s must be contiguous" % name)
-        if t.requires_grad:
-            raise RuntimeError(
-                "dr_fwd is forward-only: its backward kernel comes with the training "
-                "slice (ROADMAP queue 2, item 2); run the serving path under no_grad"
-            )
-    if R == 0 or T == 0:
-        raise ValueError("dr_fwd: empty input (R=%d, T=%d)" % (R, T))
+    ))
     out = torch.empty((T, N_SPECIES, R), dtype=torch.float32, device=packed.device)
-    stream = torch.cuda.current_stream(packed.device).cuda_stream
-    err = _launcher()(
-        packed.data_ptr(), y0_cols.data_ptr(), times.data_ptr(), out.data_ptr(),
-        R, T, METHODS.index(method), stream,
-    )
-    if err != 0:
-        raise RuntimeError("dr_fwd kernel launch failed with cudaError %d" % err)
+    _launch("dr_fwd", R, T, method, packed.device, packed, y0_cols, times, out)
     dr_constant_simulate.launches += 1
     return out
+
+
+def dr_bwd(packed, times, traj, g, method):
+    """Launch csrc/dr_bwd.cu on the current stream: the reverse sweep for
+    the trajectory cotangent ``g``.  Returns (dc [23, R], dy0 [8, R]).
+    CUDA tensors only; ``_integrate_plain_bwd`` is its plain version."""
+    R, T = packed.shape[1], times.shape[0]
+    _check_operands("dr_bwd", packed.device, (
+        ("constants", packed, (len(DR_CONST_NAMES), R)),
+        ("times", times, (T,)),
+        ("trajectory", traj, (T, N_SPECIES, R)),
+        ("cotangent", g, (T, N_SPECIES, R)),
+    ))
+    dc = torch.empty_like(packed)
+    dy0 = torch.empty((N_SPECIES, R), dtype=torch.float32, device=packed.device)
+    _launch("dr_bwd", R, T, method, packed.device, packed, times, traj, g, dc, dy0)
+    dr_bwd.launches += 1
+    return dc, dy0
+
+
+#: launches of csrc/dr_bwd.cu since the count was last set to 0
+dr_bwd.launches = 0
+
+
+class _DrIntegrate(torch.autograd.Function):
+    """[23, R] constants, [8, R] y0, [T] times -> [T, 8, R] trajectory,
+    differentiable in the constants and y0 (the TPU kernel's
+    ``_integrate_padded`` custom VJP).  CUDA tensors launch dr_fwd / dr_bwd;
+    CPU tensors run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, packed, y0_cols, times, method):
+        if packed.device.type == "cuda":
+            traj = _integrate_cuda(packed, y0_cols, times, method)
+        else:
+            traj = _integrate_plain(packed, y0_cols, times, method)
+        ctx.method = method
+        ctx.save_for_backward(packed, times, traj)
+        return traj
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_traj):
+        packed, times, traj = ctx.saved_tensors
+        g = grad_traj.contiguous()
+        if packed.device.type == "cuda":
+            dc, dy0 = dr_bwd(packed, times, traj, g, ctx.method)
+        else:
+            dc, dy0 = _integrate_plain_bwd(packed, times, traj, g, ctx.method)
+        return dc, dy0, None, None
 
 
 # --------------------------------------------------------------------------- #
@@ -196,22 +387,20 @@ def dr_constant_simulate_plain(constants, y0, times, method="midpoint"):
 
 
 def dr_constant_simulate(constants, y0, times, method="midpoint"):
-    """Fused fixed-grid integration of dr_constant.
+    """Fused fixed-grid integration of dr_constant, differentiable in the
+    constants and y0.
 
     ``constants``: dict name -> [B, K]-broadcastable float32 tensors (the 23
     ``DR_CONST_NAMES``); ``y0``: [B, K, 8]; ``times``: [T].  Returns the
     trajectory [T, B, K, 8] (the JAX package's layout).  CPU tensors take the
-    plain PyTorch version; CUDA tensors launch csrc/dr_fwd.cu."""
+    plain PyTorch versions; CUDA tensors launch csrc/dr_fwd.cu, and
+    csrc/dr_bwd.cu when the gradient is taken."""
     _check_method(method)
     B, K, _ = y0.shape
-    packed, y0_cols = _pack(constants, y0)
-    if y0.device.type == "cpu":
-        out = _integrate_plain(packed, y0_cols, times, method)
-    elif y0.device.type == "cuda":
-        out = _integrate_cuda(packed, y0_cols, times.contiguous(), method)
-    else:
+    if y0.device.type not in ("cpu", "cuda"):
         raise ValueError("dr_constant_simulate: no kernel for device %s" % y0.device)
-    return _unpack(out, B, K)
+    packed, y0_cols = _pack(constants, y0)
+    return _unpack(_DrIntegrate.apply(packed, y0_cols, times.contiguous(), method), B, K)
 
 
 #: launches of csrc/dr_fwd.cu since the count was last set to 0

@@ -2,12 +2,14 @@
 
 The counterpart of ``vihds_tpu.ops.solvers.integrate_fixed`` (a ``lax.scan``
 there).  This is the generic path for any model RHS; ``dr_constant`` under
-``solver: pallas_<method>`` takes the fused CUDA kernel instead
-(``vihds_tpu_torch.ops.fused_ode``).  Output is [T, *y0.shape] with the
-initial state at index 0.
+``solver: pallas_<method>`` takes the fused CUDA kernels instead
+(``vihds_tpu_torch.ops.fused_ode``).  ``integrate_fixed`` returns
+[T, *y0.shape] with the initial state at index 0; ``integrate_fold`` is the
+training objective's form, which never keeps the trajectory.
 """
 
 import torch
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 
 def _step_modeuler(rhs, y, t1, t2, h):
@@ -56,6 +58,29 @@ def integrate_fixed(rhs, y0, times, method="midpoint"):
         y = step_fn(rhs, y, t1, t2, t2 - t1)
         ys.append(y)
     return torch.stack(ys, dim=0)
+
+
+def integrate_fold(rhs, y0, times, fold, xs, method="midpoint"):
+    """Integrate WITHOUT keeping the trajectory: after every step the
+    per-time term ``fold(y_t, xs[t])`` is added to a running sum (the t=0
+    term is taken before the loop).  ``xs`` is a tensor with leading axis T.
+    Returns ``(y_final, sum_t fold(y_t, xs[t]))``.
+
+    Each step (and its fold) is recomputed in the backward pass with
+    ``torch.utils.checkpoint`` instead of storing its intermediates, the
+    counterpart of ``jax.checkpoint`` on the scan body of
+    ``vihds_tpu.ops.solvers.integrate_fold``.  Fixed-grid methods only."""
+    step_fn = FIXED_GRID_SOLVERS[method]
+
+    def step(y, acc, t1, t2, x_t):
+        y_new = step_fn(rhs, y, t1, t2, t2 - t1)
+        return y_new, acc + fold(y_new, x_t)
+
+    y = y0
+    acc = fold(y0, xs[0])
+    for i in range(times.shape[0] - 1):
+        y, acc = _checkpoint(step, y, acc, times[i], times[i + 1], xs[i + 1], use_reentrant=False)
+    return y, acc
 
 
 def integrate(rhs, y0, times, method="midpoint", adjoint=False):

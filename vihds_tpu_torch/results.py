@@ -95,3 +95,21 @@ class Results:
         save("iw_predict_std", self.iw_predict_std)
         save("iw_states", self.iw_states)
         save("iw_variance", self.iw_variance)
+
+    def load(self, location=".vihds_cache"):
+        def loadtxt(base):
+            return np.loadtxt(os.path.join(location, base + ".csv"), dtype=str, delimiter=",")
+
+        self.species_names = loadtxt("species_names")
+        self.q_names = loadtxt("q_names")
+
+        def load(base):
+            return np.load(os.path.join(location, base + ".npy"), allow_pickle=True)
+
+        self.q_values = load("q_values")
+        self.theta = load("theta")
+        self.elbo = load("elbo")
+        self.iw_predict_mu = load("iw_predict_mu")
+        self.iw_predict_std = load("iw_predict_std")
+        self.iw_states = load("iw_states")
+        self.iw_variance = load("iw_variance")

@@ -1,16 +1,28 @@
-"""The evaluation half of the training engine: IWAE terms, importance-weighted
-posterior-predictive moments, and chunked evaluation of a host batch.
+"""Training engine: IWAE-ELBO steps with Adam and multi-step LR decay,
+periodic big-K evaluation, the best-validation cache and the NaN abort; and
+the evaluation that serving (``vihds_tpu_torch.predict``) runs: IWAE terms,
+importance-weighted posterior-predictive moments, chunked evaluation.
 
-This is what serving (``vihds_tpu_torch.predict``) runs.  Training itself
-(the optimizer, ``train_epoch``, the backward kernels) comes in a later
-slice (ROADMAP queue 1, item 7).
+The counterpart of ``vihds_tpu.training`` without its TPU dispatch
+pipeline.  PyTorch runs eagerly, so an epoch is a Python loop over steps:
+the train split lives on the device, each step gathers its batch there by
+index, and the per-step ELBOs stay on the device until the chunk of epochs
+up to the next evaluation ends, when one read checks them for NaN.  Under
+``solver: pallas_<method>`` a step runs the fused CUDA kernels (``dr_fwd``
+forward, ``dr_bwd`` in the backward); under a plain fixed-grid solver it
+takes the online log-likelihood route (``VAE.forward_logprob``).
+TensorBoard summaries and figures are not ported yet (ROADMAP queue 1,
+items 7 and 8).
 """
 
 import math
+import os
+import time
 
 import numpy as np
 import torch
 
+from vihds_tpu_torch import checkpoint as ckpt
 from vihds_tpu_torch.ops.logprob import log_prob_observations
 from vihds_tpu_torch.results import Results
 from vihds_tpu_torch.utils import resolve_device
@@ -128,15 +140,165 @@ def batch_tensors(host, rows, times, device):
     )
 
 
-class Training:
-    """Holds what evaluation needs of a trained model: the settings, the
-    program, the VAE and the chunk size ``n_batch``."""
+def epoch_perm(seed, e, n_train):
+    """Batch permutation for absolute epoch ``e``, a function of (seed, e)
+    alone, so a resumed run sees the uninterrupted run's batch orders (the
+    JAX package's ``training.epoch_perm``, bit for bit)."""
+    return np.random.RandomState((seed * 1_000_003 + e) % (2 ** 32)).permutation(n_train)
 
-    def __init__(self, settings, data, program, model):
+
+def build_epoch_stacks(seed, epoch, end_epoch, n_batch, n_batches, n_train):
+    """Shuffled, padded batch-index grids for epochs [epoch, end_epoch]:
+    {idx: [n_ep*n_batches, n_batch] int32, mask: same-shape float32}.  Pad
+    rows repeat index 0 and carry mask 0 (the JAX package's grids, bit for
+    bit)."""
+    n_ep = end_epoch - epoch + 1
+    pad_total = n_batches * n_batch - n_train
+    perms = np.stack([epoch_perm(seed, e, n_train) for e in range(epoch, end_epoch + 1)])
+    masks = np.ones((n_ep, n_batches * n_batch), np.float32)
+    if pad_total:
+        masks[:, n_train:] = 0.0
+        perms = np.concatenate([perms, np.zeros((n_ep, pad_total), int)], axis=1)
+    return dict(
+        idx=perms.reshape(n_ep * n_batches, n_batch).astype(np.int32),
+        mask=masks.reshape(n_ep * n_batches, n_batch),
+    )
+
+
+def param_leaves(params):
+    """The tensors of a nested param dict, in a fixed (insertion) order."""
+    if isinstance(params, dict):
+        return [leaf for v in params.values() for leaf in param_leaves(v)]
+    return [params]
+
+
+def learning_rate(p, steps_per_epoch, count):
+    """The learning rate of the optimizer step with 0-based index ``count``:
+    ``learning_rate`` times ``learning_gamma`` once for every boundary
+    ``b * steps_per_epoch`` that ``count`` has reached (optax's
+    ``piecewise_constant_schedule`` as the JAX package's ``make_optimizer``
+    builds it)."""
+    lr = float(p.learning_rate)
+    for b in p.learning_boundaries:
+        if count >= int(b) * steps_per_epoch:
+            lr *= float(p.learning_gamma)
+    return lr
+
+
+class Optimizer:
+    """The counterpart of the JAX package's ``make_optimizer``: Adam with the
+    multi-step learning-rate decay and the optional global gradient-norm
+    clip (``params.grad_clip_norm``).  ``torch.optim.Adam``'s update with its
+    default betas and eps is optax's ``adam``; ``count`` is the schedule's
+    step."""
+
+    def __init__(self, params, p, steps_per_epoch):
+        self.leaves = param_leaves(params)
+        self.p = p
+        self.steps_per_epoch = steps_per_epoch
+        self.clip_norm = p.get("grad_clip_norm")
+        self.adam = torch.optim.Adam(self.leaves, lr=learning_rate(p, steps_per_epoch, 0))
+        self.count = 0
+
+    def zero_grad(self):
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self):
+        if self.clip_norm:
+            # optax.clip_by_global_norm: g * max_norm / |g| where |g| >= max_norm
+            grads = [leaf.grad for leaf in self.leaves if leaf.grad is not None]
+            norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
+                                self.clip_norm / norm)
+            for g in grads:
+                g.mul_(scale)
+        for group in self.adam.param_groups:
+            group["lr"] = learning_rate(self.p, self.steps_per_epoch, self.count)
+        self.adam.step()
+        self.count += 1
+
+    def state_dict(self):
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state):
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+
+
+def loss_fn(model, program, params, batch, mask, u):
+    """-IWAE ELBO of one batch at the draws ``u`` [B, K, n_theta].  Fixed-grid
+    solvers take the online log-likelihood route (``forward_logprob``, each
+    step recomputed in the backward); ``pallas_<method>`` the trajectory
+    route through the fused kernels.  log q and log p score the sampled
+    theta."""
+    if model.ode_model.supports_fold():
+        out = model.forward_logprob(params, batch, u)
+        log_p_obs = out.log_p_by_species.sum(dim=2)
+        log_q = program.log_prob(out.q, out.theta)
+        log_p = program.log_prob(prior_as_q(program, out.theta.device), out.theta)
+        terms = AttrDict(log_w=log_p_obs + log_p - log_q)
+    else:
+        out = model.forward(params, batch, u)
+        terms = iwae_elbo_terms(program, out, batch, model.use_laplace)
+    return -iwae_elbo(terms, mask)
+
+
+class TrainingLogData:
+    """Counters collected for logging during training."""
+
+    def __init__(self):
+        self.training_elbo_list = []
+        self.validation_elbo_list = []
+        self.total_train_time = 0.0
+        self.total_test_time = 0.0
+        self.n_test = 0
+        self.max_val_elbo = -float("inf")
+
+
+TRAIN_DATA_KEYS = ("observations", "inputs", "dev_1hot")
+
+
+def elapsed_ms(marks):
+    """Milliseconds between consecutive marks of ``Training.train_epochs``
+    (CUDA events, read after the device has caught up, or host clocks)."""
+    if isinstance(marks[0], float):
+        return [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
+class Training:
+    """Trains a VAE on one train/validation split with the IWAE bound, and
+    evaluates host batches for serving.
+
+    ``args`` carries the training flags of ``run_xval`` (``epochs``,
+    ``test_epoch``, ``train_samples``, ``test_samples``, ``split``/``heldout``,
+    ``folds``, ``checkpoint_epoch``, ``resume_from``); serving needs none.
+    ``run`` trains on ``device`` ("cuda" unless the caller asks for the
+    CPU)."""
+
+    def __init__(self, settings, data, program, model, args=None, device="cuda"):
         self.settings = settings
         self.program = program
         self.model = model
+        self.args = args
+        self.device = device
+        self.dataset_pair = data
         self.n_batch = min(settings.params.n_batch, data.n_train)
+        self.steps_per_epoch = max(1, math.ceil(data.n_train / self.n_batch))
+        held_out = getattr(args, "heldout", None) or "%d_of_%d" % (
+            getattr(args, "split", 1), getattr(args, "folds", 4)
+        )
+        trainer = getattr(settings, "trainer", None)
+        if trainer is not None:
+            # one best-validation cache per experiment and fold
+            self.cache_dir = os.path.join(trainer.tb_log_dir, ".vihds_cache_%s" % held_out)
+            self.ckpt_dir = os.path.join(trainer.tb_log_dir, "checkpoints_%s" % held_out)
+        else:
+            self.cache_dir = ".vihds_cache"
+            self.ckpt_dir = None
+        self.empty_cache = True
+        #: milliseconds of each optimizer step of the last ``run``
+        self.step_ms = []
 
     def evaluate(self, params, host, n_samples, generator, device="cuda", with_theta=True):
         """Evaluate a host batch (numpy observations[B,S,T] training-scaled,
@@ -165,3 +327,179 @@ class Training:
             merged["theta"] = np.transpose(merged.pop("theta_bkn"), (2, 0, 1))  # [n_theta, B, K]
         merged["elbo"] = float(np.mean(merged["per_item_elbo"]))
         return merged, make_results(self.model, self.program, merged)
+
+    # ------------------------------------------------------------- training
+    def train_epochs(self, params, opt, generator, stacks, data, times):
+        """One optimizer step for each row of ``stacks`` ({idx, mask}
+        [n_steps, B] tensors on the device), each batch gathered by index
+        from the device-resident split ``data``.  Returns the per-step ELBOs
+        [n_steps] on the device, unread, and a time mark after each step
+        (``elapsed_ms`` reads them once the device has caught up)."""
+        K = self.args.train_samples
+        n_steps = stacks["idx"].shape[0]
+        cuda = times.device.type == "cuda"
+        marks = [self._mark(cuda)]
+        elbos = []
+        for s in range(n_steps):
+            idx = stacks["idx"][s]
+            batch = AttrDict((k, v.index_select(0, idx)) for k, v in data.items())
+            batch["times"] = times
+            u = self.model.sample_u(generator, idx.shape[0], K, times.device)
+            loss = loss_fn(self.model, self.program, params, batch, stacks["mask"][s], u)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            elbos.append(-loss.detach())
+            marks.append(self._mark(cuda))
+        return torch.stack(elbos), marks
+
+    @staticmethod
+    def _mark(cuda):
+        """A CUDA event recorded on the current stream, or the host clock."""
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+
+    def _eval_boundary(self, params, epoch, log_data, device):
+        """The big-K evaluation at a ``test_epoch`` boundary: the full train
+        split at K=``train_samples`` and the validation split at
+        K=``test_samples``; a new best validation ELBO is dumped to the
+        cache.  Prints the JAX package's ``epoch N | train (...) | val (...)``
+        line."""
+        args = self.args
+        t0 = time.time()
+        print("epoch %4d" % epoch, end="", flush=True)
+        log_data.n_test += 1
+        seed = self.settings.seed or 0
+        gen = torch.Generator(device=device).manual_seed((seed * 1_000_003 + epoch) % (2 ** 62))
+        train_merged, _ = self.evaluate(
+            params, self.train_data, args.train_samples, gen, device, with_theta=False
+        )
+        print(
+            " | train (iwae-elbo = %0.4f, time = %0.2f, total = %0.2f)"
+            % (train_merged.elbo, log_data.total_train_time / epoch, log_data.total_train_time),
+            end="",
+            flush=True,
+        )
+        valid_merged, valid_output = self.evaluate(
+            params, self.valid_data, args.test_samples, gen, device, with_theta=True
+        )
+        if valid_merged.elbo > log_data.max_val_elbo:
+            log_data.max_val_elbo = valid_merged.elbo
+            valid_output.dump(self.cache_dir)
+            self.empty_cache = False
+        log_data.training_elbo_list.append(train_merged.elbo)
+        log_data.validation_elbo_list.append(valid_merged.elbo)
+        log_data.total_test_time += time.time() - t0
+        print(
+            " | val (iwae-elbo = %0.4f, time = %0.2f, total = %0.2f)"
+            % (valid_merged.elbo, log_data.total_test_time / log_data.n_test,
+               log_data.total_test_time)
+        )
+
+    def init_state(self, device):
+        """Fresh params (from a CPU generator seeded with the spec seed), the
+        optimizer and the training generator on ``device``."""
+        seed = self.settings.seed or 0
+        params = self.model.init_params(torch.Generator().manual_seed(seed), device=device)
+        for leaf in param_leaves(params):
+            leaf.requires_grad_(True)
+        opt = Optimizer(params, self.settings.params, self.steps_per_epoch)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        return params, opt, generator
+
+    def run(self):
+        """Train for ``args.epochs`` epochs, evaluating every
+        ``args.test_epoch``; returns the best-validation ``Results`` (with
+        ``elbo_list``), or None when no evaluation finished."""
+        args = self.args
+        device = resolve_device(self.device)
+        seed = self.settings.seed or 0
+        params, opt, generator = self.init_state(device)
+
+        ckpt_every = getattr(args, "checkpoint_epoch", 0) or 0
+        start_epoch = 1
+        resume_from = getattr(args, "resume_from", None)
+        if resume_from:
+            # restored on the host: Adam keeps its step counts there, and the
+            # generator state is a CPU tensor whatever the generator's device
+            _, state = ckpt.restore(resume_from)
+            if state is not None:
+                with torch.no_grad():
+                    for leaf, saved in zip(param_leaves(params), param_leaves(state["params"])):
+                        leaf.copy_(saved)
+                opt.load_state_dict(state["opt_state"])
+                generator.set_state(state["generator"])
+                start_epoch = int(state["epoch"]) + 1
+                print("Resumed from %s at epoch %d" % (resume_from, start_epoch - 1))
+
+        n_train = self.dataset_pair.n_train
+        self.train_data = self.dataset_pair.train.batch()
+        self.valid_data = self.dataset_pair.test.batch()
+        times = torch.as_tensor(self.train_data.times, dtype=torch.float32, device=device)
+        # the train split lives on the device for the whole run
+        train_dev = {
+            k: torch.as_tensor(self.train_data[k], dtype=torch.float32, device=device)
+            for k in TRAIN_DATA_KEYS
+        }
+        n_batches = math.ceil(n_train / self.n_batch)
+
+        log_data = TrainingLogData()
+        print("---------------------------")
+        if getattr(args, "heldout", None):
+            print("Training: heldout device = %s" % args.heldout)
+        else:
+            print("Training: split %d of %d" % (args.split, args.folds))
+        self.step_ms = []
+
+        def next_boundary(e):
+            """The last epoch of the chunk starting at ``e``: the next eval,
+            checkpoint or final epoch."""
+            te = args.test_epoch
+            cands = [args.epochs, ((e - 1) // te + 1) * te]
+            if ckpt_every:
+                cands.append(((e - 1) // ckpt_every + 1) * ckpt_every)
+            return min(cands)
+
+        epoch = start_epoch
+        while epoch < args.epochs + 1:
+            t0 = time.time()
+            end_epoch = next_boundary(epoch)
+            host_stacks = build_epoch_stacks(
+                seed, epoch, end_epoch, self.n_batch, n_batches, n_train
+            )
+            stacks = {
+                "idx": torch.as_tensor(host_stacks["idx"], dtype=torch.int64, device=device),
+                "mask": torch.as_tensor(host_stacks["mask"], device=device),
+            }
+            elbos, marks = self.train_epochs(params, opt, generator, stacks, train_dev, times)
+            finite = bool(torch.isfinite(elbos).all())  # the chunk's one read
+            self.step_ms += elapsed_ms(marks)
+            log_data.total_train_time += time.time() - t0
+            if not finite:
+                print("Cannot proceed with ELBO = nan. Exiting.")
+                break
+            epoch = end_epoch
+            if epoch % args.test_epoch == 0:
+                self._eval_boundary(params, epoch, log_data, device)
+            if ckpt_every and self.ckpt_dir and epoch % ckpt_every == 0:
+                ckpt.save(self.ckpt_dir, epoch, {
+                    "params": params,
+                    "opt_state": opt.state_dict(),
+                    "generator": generator.get_state(),
+                    "epoch": epoch,
+                })
+            epoch += 1
+
+        self.final_params = params
+        self.log_data = log_data
+        if self.empty_cache:
+            print("Exiting with no results in cache")
+            return None
+        final = Results()
+        final.load(self.cache_dir)
+        final.elbo_list = log_data.validation_elbo_list
+        return final

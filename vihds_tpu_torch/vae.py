@@ -1,6 +1,8 @@
 """End-to-end VAE: encoder -> sample -> clip -> condition -> integrate -> observe.
 
-Functions of an explicit param dict, as in ``vihds_tpu.vae``.  The latent
+Functions of an explicit param dict, as in ``vihds_tpu.vae``; ``forward``
+serves and evaluates, ``forward_logprob`` is the training objective's
+forward.  The latent
 draws ``u ~ N(0, 1)`` come from the caller (an explicit ``torch.Generator``
 upstream), so tests can hand both packages the same draws.
 """
@@ -101,4 +103,27 @@ class VAE:
             theta_clipped=theta_clipped,
             theta_cond=th,
         )
+
+    def forward_logprob(self, params, batch, u):
+        """Training-objective forward: encode -> sample -> clip -> condition
+        -> integrate with the observation log-likelihood accumulated online
+        (``OdeModel.simulate_logprob``), no [B,K,S,T] trajectory.  Returns
+        AttrDict with log_p_by_species[B,K,4], theta (sampled: what log q and
+        log p score) and q.  The same latent pipeline as ``forward``."""
+        q = self.encoder(params["enc"], batch)
+        theta = self.program.sample(q, u)
+        th = self.program.theta_dict(self.program.clip(theta, stddevs=4))
+        if self.condition_on_device:
+            th = self.ode_model.condition_theta(params["dec"], th, batch.dev_1hot)
+        log_p_by_species = self.ode_model.simulate_logprob(
+            params["dec"],
+            th,
+            batch.times,
+            batch.inputs,
+            batch.dev_1hot,
+            n_iwae=u.shape[1],
+            observations=batch.observations,
+            use_laplace=self.use_laplace,
+        )
+        return AttrDict(log_p_by_species=log_p_by_species, theta=theta, q=q)
 

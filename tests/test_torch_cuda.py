@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: built from csrc/, launched through
-their wrappers and held against their plain PyTorch versions.  Marked
+"""The port's CUDA kernels on the card (dr_fwd, dr_bwd, dr_prec_fwd,
+dr_prec_bwd): built from csrc/, launched through their wrappers and held
+against their plain PyTorch versions.  Marked
 ``cuda``; each test skips where no CUDA device is visible (decided inside
 the fixture, never at import).  On a machine with a card:
 
@@ -127,6 +128,124 @@ def test_dr_autograd_function_matches_float64_autograd(cuda):
     ref_dc = torch.stack([ref_leaves[k].grad.reshape(-1) for k in fused_ode.DR_CONST_NAMES])
     _assert_cotangents_close(got_dc, ref_dc)
     _assert_cotangents_close(y0_leaf.grad.reshape(-1, 8).t(), ref_y0.grad.reshape(-1, 8).t())
+
+
+def _prec_operands(device, seed=0):
+    """dr_prec operands: ``_inputs``' constants, 4 precision states started
+    at e^6 ~ 400, and seeded weights of the precision nets' [8, 10] matrix in
+    their xavier range."""
+    c, y0, times = _inputs(device, seed=seed)
+    rng = np.random.default_rng(seed + 10)
+    prec0 = np.exp(6.0 + 2.0 * rng.standard_normal(tuple(y0.shape[:2]) + (4,)))
+    y0 = torch.cat([y0, torch.as_tensor(prec0, dtype=torch.float32, device=device)], dim=-1)
+    wmat = torch.as_tensor(rng.uniform(-0.68, 0.68, fused_ode.WMAT_SHAPE), dtype=torch.float32,
+                           device=device)
+    packed, y0_cols = fused_ode._pack(c, y0, 12)
+    return c, y0, wmat, packed, y0_cols, times
+
+
+@pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
+def test_dr_prec_fwd_kernel_matches_plain(cuda, method):
+    """Each state group to its own tolerance, as chip_smoke.py phase 3''."""
+    import chip_smoke
+
+    _, _, wmat, packed, y0_cols, times = _prec_operands(cuda)
+    before = fused_ode.dr_constant_precisions_simulate.launches
+    got = fused_ode._integrate_prec_cuda(wmat, packed, y0_cols, times, method)
+    torch.cuda.synchronize()
+    assert fused_ode.dr_constant_precisions_simulate.launches == before + 1
+    ref = fused_ode._integrate_prec_plain(wmat, packed, y0_cols, times, method)
+    assert got.shape == ref.shape == (86, 12, 5 * 37) and torch.isfinite(ref).all()
+    torch.testing.assert_close(got[:, :8], ref[:, :8], rtol=chip_smoke.KERNEL_RTOL,
+                               atol=chip_smoke.KERNEL_ATOL)
+    torch.testing.assert_close(got[:, 8:], ref[:, 8:], rtol=chip_smoke.PREC_RTOL,
+                               atol=chip_smoke.PREC_ATOL)
+
+
+@pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
+def test_dr_prec_bwd_kernel_matches_plain(cuda, method):
+    """dc and dy0 per constant and state row, dW per row of the weight
+    matrix, each against the plain sweep in float64; and the weight
+    cotangent is the same bit for bit from run to run."""
+    _, _, wmat, packed, y0_cols, times = _prec_operands(cuda)
+    traj = fused_ode._integrate_prec_cuda(wmat, packed, y0_cols, times, method)
+    g = torch.as_tensor(
+        np.random.default_rng(1).standard_normal(tuple(traj.shape)).astype(np.float32), device=cuda
+    )
+    before = fused_ode.dr_prec_bwd.launches
+    dw, dc, dy0 = fused_ode.dr_prec_bwd(wmat, packed, times, traj, g, method)
+    torch.cuda.synchronize()
+    assert fused_ode.dr_prec_bwd.launches == before + 1
+    ref_dw, ref_dc, ref_dy0 = fused_ode._integrate_prec_plain_bwd(
+        wmat.double(), packed.double(), times.double(), traj.double(), g.double(), method
+    )
+    assert dw.shape == fused_ode.WMAT_SHAPE and dc.shape == (23, 5 * 37)
+    assert dy0.shape == (12, 5 * 37)
+    _assert_cotangents_close(torch.cat([dc, dy0]), torch.cat([ref_dc, ref_dy0]))
+    _assert_cotangents_close(dw, ref_dw)
+    assert torch.equal(dw, fused_ode.dr_prec_bwd(wmat, packed, times, traj, g, method)[0])
+
+
+def test_dr_prec_autograd_function_matches_float64_autograd(cuda):
+    """The autograd Function on the card (dr_prec_fwd forward, dr_prec_bwd
+    backward) against torch.autograd through the plain version in float64
+    on the CPU: the constants, y0 and the precision nets' four leaves."""
+    c, y0, wmat, _, _, times = _prec_operands(cuda)
+    pp = {"prod": {"w": wmat[:4, 1:].t().contiguous(), "b": wmat[:4, 0].contiguous()},
+          "degr": {"w": wmat[4:, 1:].t().contiguous(), "b": wmat[4:, 0].contiguous()}}
+    w = np.random.default_rng(2).standard_normal((86, 5, 37, 12))
+
+    def run(leaves, pp_leaves, y0_leaf, t, weights, sim):
+        sol = sim(leaves, pp_leaves, y0_leaf, t, "midpoint")
+        (sol * weights).sum().backward()
+
+    leaves = {k: v.clone().requires_grad_(True) for k, v in c.items()}
+    pp_leaves = {n: {k: v.clone().requires_grad_(True) for k, v in d.items()}
+                 for n, d in pp.items()}
+    y0_leaf = y0.clone().requires_grad_(True)
+    fwd0, bwd0 = fused_ode.dr_constant_precisions_simulate.launches, fused_ode.dr_prec_bwd.launches
+    run(leaves, pp_leaves, y0_leaf, times, torch.as_tensor(w, dtype=torch.float32, device=cuda),
+        fused_ode.dr_constant_precisions_simulate)
+    torch.cuda.synchronize()
+    assert fused_ode.dr_constant_precisions_simulate.launches == fwd0 + 1
+    assert fused_ode.dr_prec_bwd.launches == bwd0 + 1
+
+    ref_leaves = {k: v.detach().cpu().double().requires_grad_(True) for k, v in c.items()}
+    ref_pp = {n: {k: v.detach().cpu().double().requires_grad_(True) for k, v in d.items()}
+              for n, d in pp.items()}
+    ref_y0 = y0.detach().cpu().double().requires_grad_(True)
+    run(ref_leaves, ref_pp, ref_y0, times.cpu().double(), torch.as_tensor(w),
+        fused_ode.dr_constant_precisions_simulate_plain)
+    got_dc = torch.stack([leaves[k].grad.reshape(-1) for k in fused_ode.DR_CONST_NAMES])
+    ref_dc = torch.stack([ref_leaves[k].grad.reshape(-1) for k in fused_ode.DR_CONST_NAMES])
+    _assert_cotangents_close(got_dc, ref_dc)
+    _assert_cotangents_close(y0_leaf.grad.reshape(-1, 12).t(), ref_y0.grad.reshape(-1, 12).t())
+
+    def dw(p):  # the leaves' gradients as the rows of the [8, 10] weight matrix
+        return torch.cat([torch.cat([p[n]["b"].grad[:, None], p[n]["w"].grad.t()], dim=1)
+                          for n in ("prod", "degr")])
+
+    _assert_cotangents_close(dw(pp_leaves), dw(ref_pp))
+
+
+def test_dr_prec_kernels_refuse_wrong_operands(cuda):
+    """The wrappers raise on an operand of the wrong shape, type or device
+    before anything is launched."""
+    _, _, wmat, packed, y0_cols, times = _prec_operands(cuda)
+    before = fused_ode.dr_constant_precisions_simulate.launches
+    with pytest.raises(ValueError, match="weights has shape"):
+        fused_ode._integrate_prec_cuda(wmat[:, :9].contiguous(), packed, y0_cols, times,
+                                       "midpoint")
+    with pytest.raises(ValueError, match="y0 has shape"):
+        fused_ode._integrate_prec_cuda(wmat, packed, y0_cols[:8].contiguous(), times, "midpoint")
+    with pytest.raises(TypeError, match="float32"):
+        fused_ode._integrate_prec_cuda(wmat.double(), packed, y0_cols, times, "midpoint")
+    with pytest.raises(ValueError, match="must be on a CUDA device"):
+        fused_ode._integrate_prec_cuda(wmat.cpu(), packed, y0_cols, times, "midpoint")
+    traj = fused_ode._integrate_prec_cuda(wmat, packed, y0_cols, times, "midpoint")
+    with pytest.raises(ValueError, match="cotangent has shape"):
+        fused_ode.dr_prec_bwd(wmat, packed, times, traj, traj[:, :8].contiguous(), "midpoint")
+    assert fused_ode.dr_constant_precisions_simulate.launches == before + 1
 
 
 def _train_on_card(device, tmp_path, experiment, extra):

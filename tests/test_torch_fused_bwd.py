@@ -31,10 +31,8 @@ from vihds_tpu.vae import VAE
 from vihds_tpu_torch.ops import fused_ode
 
 METHODS = ["midpoint", "modeuler", "rk4"]
-CU = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "vihds_tpu_torch", "csrc", "dr_bwd.cu",
-)
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "vihds_tpu_torch", "csrc")
 
 
 @pytest.fixture(scope="module")
@@ -143,9 +141,12 @@ def test_times_get_no_cotangent(setup):
 
 
 def test_bwd_constant_order_matches_forward_source():
-    """dr_bwd.cu reads the constants by its own DrConst enum and the methods
-    by its Method enum: the same names in the same order as the wrapper."""
-    src = open(CU).read()
+    """dr_bwd.cu reads the constants and the methods by the DrConst and
+    Method enums of dr_common.cuh, which the forward kernel includes too: the
+    same names in the same order as the wrapper."""
+    for name in ("dr_fwd.cu", "dr_bwd.cu"):
+        assert '#include "dr_common.cuh"' in open(os.path.join(CSRC, name)).read(), name
+    src = open(os.path.join(CSRC, "dr_common.cuh")).read()
     body = re.search(r"enum DrConst \{(.*?)\};", src, re.S).group(1)
     names = [m.group(1) for m in re.finditer(r"C_(\w+)", body)]
     assert tuple(names) == fused_ode.DR_CONST_NAMES == pallas_ode.DR_CONST_NAMES

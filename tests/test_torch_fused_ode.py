@@ -28,10 +28,8 @@ from vihds_tpu.vae import VAE
 from vihds_tpu_torch.models.dr_constant import _dr_constants as t_dr_constants
 from vihds_tpu_torch.ops import fused_ode
 
-CU = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "vihds_tpu_torch", "csrc", "dr_fwd.cu",
-)
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "vihds_tpu_torch", "csrc")
 
 
 @pytest.fixture(scope="module")
@@ -103,9 +101,11 @@ def test_dr_constants_match(setup, version):
 
 def test_constant_order_matches_kernel_source():
     """The wrapper packs constants in DR_CONST_NAMES order; the CUDA kernel
-    reads them by its DrConst enum, which must list the same names in the
-    same order (and the same order as the Pallas kernel's packing)."""
-    src = open(CU).read()
+    (dr_fwd.cu, which includes dr_common.cuh) reads them by the DrConst enum
+    of dr_common.cuh, which must list the same names in the same order (and
+    the same order as the Pallas kernel's packing)."""
+    assert '#include "dr_common.cuh"' in open(os.path.join(CSRC, "dr_fwd.cu")).read()
+    src = open(os.path.join(CSRC, "dr_common.cuh")).read()
     body = re.search(r"enum DrConst \{(.*?)\};", src, re.S).group(1)
     names = [m.group(1) for m in re.finditer(r"C_(\w+)", body)]
     assert tuple(names) == fused_ode.DR_CONST_NAMES == pallas_ode.DR_CONST_NAMES

@@ -44,7 +44,8 @@ from vihds_tpu_torch.vae import VAE as TVAE
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "data")
-SPECS = ["dr_constant_one.yaml", "dr_constant_icml.yaml", "dr_constant_v2.yaml"]
+SPECS = ["dr_constant_one.yaml", "dr_constant_icml.yaml", "dr_constant_v2.yaml",
+         "dr_constant_precisions.yaml", "dr_constant_precisions_v2.yaml"]
 B, K = 3, 4
 
 
@@ -191,7 +192,8 @@ def test_evaluate_chunks_like_one_batch():
 def test_unknown_model_lists_available():
     tset, tdata, tprog, _ = _port("dr_constant_one.yaml")
     tset.model = "relay_constant"
-    with pytest.raises(ValueError, match="available: dr_constant, dr_constant_v2"):
+    with pytest.raises(ValueError, match="available: dr_constant, dr_constant_precisions, "
+                                         "dr_constant_precisions_v2, dr_constant_v2"):
         TVAE(tset, tdata, tprog)
 
 

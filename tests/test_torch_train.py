@@ -10,9 +10,14 @@ JAX loss body (``vihds_tpu.training.make_step_fns.loss_fn``) and the port's
 * the kernel route (``solver: pallas_midpoint``) against JAX through its
   Pallas kernel in interpret mode (forward ``_make_kernel``, backward
   ``_make_bwd_kernel``); on CPU tensors the port runs the kernels' plain
-  versions, whose arithmetic is the kernels' (tests/test_torch_fused_bwd.py).
+  versions, whose arithmetic is the kernels' (tests/test_torch_fused_bwd.py,
+  tests/test_torch_prec.py).
 
-Tolerance: the loss (~1e5-1e6 nats, float32 sums of 86 x 4 log-likelihoods
+Both routes for dr_constant_one and for dr_constant_precisions (the kernel
+``dr_prec``, whose weight cotangent reaches the precision nets' leaves), and
+the kernel route for dr_constant_icml.
+
+Tolerance: the loss (~1e2-1e6 nats, float32 sums of 86 x 4 log-likelihoods
 in another order) to rtol 1e-6; each gradient leaf to 1e-4 of its own
 largest entry (normwise; measured ~1e-6).  Also here: the optimizer against
 optax with the JAX package's ``make_optimizer`` schedule, and the batch index
@@ -63,7 +68,9 @@ def _jax_loss_and_grads(spec_name, solver, u, mask, monkeypatch):
     if solver.startswith("pallas_"):
         import vihds_tpu.ops.pallas_ode as pk
 
-        orig = pk.dr_constant_simulate
+        name = ("dr_constant_precisions_simulate" if jmodel.ode_model.precisions.dynamic
+                else "dr_constant_simulate")
+        orig = getattr(pk, name)
         calls = []
 
         def spy(*a, **k):  # tests/test_pallas.py's route spy, in interpret mode
@@ -71,7 +78,7 @@ def _jax_loss_and_grads(spec_name, solver, u, mask, monkeypatch):
             k["interpret"] = True
             return orig(*a, **k)
 
-        monkeypatch.setattr(pk, "dr_constant_simulate", spy)
+        monkeypatch.setattr(pk, name, spy)
     assert jmodel.ode_model.supports_fold() == (not solver.startswith("pallas_"))
 
     def loss(params):  # the body of make_step_fns.loss_fn
@@ -95,8 +102,10 @@ def _jax_loss_and_grads(spec_name, solver, u, mask, monkeypatch):
 @pytest.mark.parametrize(
     "spec_name,solver",
     [("dr_constant_one.yaml", "midpoint"), ("dr_constant_one.yaml", "pallas_midpoint"),
-     ("dr_constant_icml.yaml", "pallas_midpoint")],
-    ids=["fold-route", "kernel-route", "kernel-route-icml"],
+     ("dr_constant_icml.yaml", "pallas_midpoint"), ("dr_constant_precisions.yaml", "midpoint"),
+     ("dr_constant_precisions.yaml", "pallas_midpoint")],
+    ids=["fold-route", "kernel-route", "kernel-route-icml", "fold-route-precisions",
+         "kernel-route-precisions"],
 )
 def test_one_step_loss_and_grads_match(spec_name, solver, monkeypatch):
     rng = np.random.default_rng(7)

@@ -1,5 +1,6 @@
 """The port's training entry point on the CPU: ``run_xval.main`` end to end
-on dr_constant_one (2 epochs, K=4), its artifacts against the JAX package's
+on dr_constant_one and dr_constant_precisions (2 epochs, K=4, the specs'
+own ``solver: midpoint``), its artifacts against the JAX package's
 ``XvalMerge`` given the same fold results, checkpoint and resume, and the
 one-line errors for flags whose feature is not ported yet."""
 
@@ -29,7 +30,18 @@ EPOCH_LINE = re.compile(
 
 
 def test_run_xval_main_writes_the_jax_artifact_set(tmp_results, capsys):
-    run_xval.main(ARGV, device="cpu")
+    _check_run_xval_artifacts("dr_constant_one.yaml", tmp_results, capsys)
+
+
+def test_run_xval_main_trains_the_precisions_model(tmp_results, capsys):
+    """dr_constant_precisions: the 12-state model with learned precisions,
+    on its spec's fold route (``NeuralPrecisions.at_time``)."""
+    _check_run_xval_artifacts("dr_constant_precisions.yaml", tmp_results, capsys)
+
+
+def _check_run_xval_artifacts(spec_name, tmp_results, capsys):
+    argv = [spec(spec_name)] + ARGV[1:]
+    run_xval.main(argv, device="cpu")
     out = capsys.readouterr().out
     lines = EPOCH_LINE.findall(out)
     assert [int(e) for e, _, _ in lines] == [1, 2]
@@ -37,14 +49,14 @@ def test_run_xval_main_writes_the_jax_artifact_set(tmp_results, capsys):
     (run_dir,) = [d for d in os.listdir(tmp_results) if d.startswith("cli_")]
     run_dir = os.path.join(tmp_results, run_dir)
     names = set(os.listdir(run_dir))
-    assert {"completed.txt", "dr_constant_one.yaml", ".vihds_cache_1_of_4"} <= names
+    assert {"completed.txt", spec_name, ".vihds_cache_1_of_4"} <= names
     cache = Results()
     cache.load(os.path.join(run_dir, ".vihds_cache_1_of_4"))
     assert np.isfinite(cache.iw_predict_mu).all()
 
     # the JAX package's XvalMerge on the same fold results writes the same
     # files with the same contents
-    args = SimpleNamespace(yaml=ARGV[0], seed=0, folds=4, split=1, heldout=None, epochs=2,
+    args = SimpleNamespace(yaml=argv[0], seed=0, folds=4, split=1, heldout=None, epochs=2,
                            experiment="cli")
     settings = Config(args)
     data = build_datasets(args, settings)

@@ -7,7 +7,7 @@
 // dr_constant right-hand side (_dr_rhs_cols), storing every state.
 //
 // Layout (the wrapper vihds_tpu_torch/ops/fused_ode.py packs it):
-//   consts [23, R]  per-row constants in DR_CONST_NAMES order (enum below)
+//   consts [23, R]  per-row constants in DR_CONST_NAMES order (DrConst, dr_common.cuh)
 //   y0     [8, R]   initial state, species-major
 //   times  [T]      the time grid
 //   out    [T, 8, R] trajectory; out[0] = y0
@@ -31,114 +31,14 @@
 // each step, so in practice it is latency-bound; a faster schedule is later
 // work.
 //
-// Numerics: precise expf and IEEE division (build without --use_fast_math);
-// the sigmoid is 1/(1+expf(-x)).  The expression order follows the JAX
-// kernel; the compiler may contract a*b+c into FMAs, which the comparison
-// with the plain PyTorch version allows for in its stated tolerance.
+// The right-hand side and the step are dr_common.cuh's, shared with the
+// other dr kernels; numerics as stated there.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dr_common.cuh"
 
 namespace {
 
-// Packed constant rows, in vihds_tpu_torch/ops/fused_ode.py DR_CONST_NAMES order.
-enum DrConst {
-  C_r = 0,
-  C_K,
-  C_tlag,
-  C_rc,
-  C_a530,
-  C_a480,
-  C_drfp,
-  C_dyfp,
-  C_dcfp,
-  C_dR,
-  C_dS,
-  C_e76,
-  C_e81,
-  C_aCFP,
-  C_aYFP,
-  C_KGR_76,
-  C_KGS_76,
-  C_KGR_81,
-  C_KGS_81,
-  C_aR,
-  C_aS,
-  C_fracLuxR,
-  C_fracLasR,
-  N_CONST
-};
-
-constexpr int N_SPECIES = 8;
 constexpr int THREADS = 128;
-
-enum Method { MODEULER = 0, MIDPOINT = 1, RK4 = 2 };
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// dr_constant right-hand side (same math and order as _dr_rhs_cols).
-__device__ __forceinline__ void dr_rhs(const float* c, float t, const float* y, float* f) {
-  const float x = y[0], rfp = y[1], yfp = y[2], cfp = y[3];
-  const float f530 = y[4], f480 = y[5], luxR = y[6], lasR = y[7];
-  const float gr = c[C_r] * sigmoidf(4.0f * (t - c[C_tlag]));
-  const float gamma = gr * (1.0f - x / c[C_K]);
-  const float boundLuxR = luxR * luxR * c[C_fracLuxR];
-  const float boundLasR = lasR * lasR * c[C_fracLasR];
-  const float denom76 = 1.0f + c[C_KGR_76] * boundLuxR + c[C_KGS_76] * boundLasR;
-  const float denom81 = 1.0f + c[C_KGR_81] * boundLuxR + c[C_KGS_81] * boundLasR;
-  const float P76 = (c[C_e76] + c[C_KGR_76] * boundLuxR + c[C_KGS_76] * boundLasR) / denom76;
-  const float P81 = (c[C_e81] + c[C_KGR_81] * boundLuxR + c[C_KGS_81] * boundLasR) / denom81;
-  const float rc = c[C_rc];
-  f[0] = gamma * x;
-  f[1] = rc - (gamma + c[C_drfp]) * rfp;
-  f[2] = rc * c[C_aYFP] * P81 - (gamma + c[C_dyfp]) * yfp;
-  f[3] = rc * c[C_aCFP] * P76 - (gamma + c[C_dcfp]) * cfp;
-  f[4] = rc * c[C_a530] - gamma * f530;
-  f[5] = rc * c[C_a480] - gamma * f480;
-  f[6] = rc * c[C_aR] - (gamma + c[C_dR]) * luxR;
-  f[7] = rc * c[C_aS] - (gamma + c[C_dS]) * lasR;
-}
-
-// One fixed-grid update of y in place (same math and order as _one_step).
-template <int METHOD>
-__device__ __forceinline__ void one_step(const float* c, float t1, float t2, float* y) {
-  const float h = t2 - t1;
-  float f1[N_SPECIES], f2[N_SPECIES], tmp[N_SPECIES];
-  if (METHOD == MODEULER) {
-    dr_rhs(c, t1, y, f1);
-#pragma unroll
-    for (int s = 0; s < N_SPECIES; ++s) tmp[s] = y[s] + h * f1[s];
-    dr_rhs(c, t2, tmp, f2);
-    const float hh = 0.5f * h;
-#pragma unroll
-    for (int s = 0; s < N_SPECIES; ++s) y[s] = y[s] + hh * (f1[s] + f2[s]);
-  } else if (METHOD == MIDPOINT) {
-    dr_rhs(c, t1, y, f1);
-    const float hh = 0.5f * h;
-#pragma unroll
-    for (int s = 0; s < N_SPECIES; ++s) tmp[s] = y[s] + hh * f1[s];
-    dr_rhs(c, t1 + hh, tmp, f2);
-#pragma unroll
-    for (int s = 0; s < N_SPECIES; ++s) y[s] = y[s] + h * f2[s];
-  } else {  // RK4
-    float k3[N_SPECIES], k4[N_SPECIES];
-    const float hh = 0.5f * h;
-    dr_rhs(c, t1, y, f1);
-#pragma unroll
-    for (int s = 0; s < N_SPECIES; ++s) tmp[s] = y[s] + hh * f1[s];
-    dr_rhs(c, t1 + hh, tmp, f2);
-#pragma unroll
-    for (int s = 0; s < N_SPECIES; ++s) tmp[s] = y[s] + hh * f2[s];
-    dr_rhs(c, t1 + hh, tmp, k3);
-#pragma unroll
-    for (int s = 0; s < N_SPECIES; ++s) tmp[s] = y[s] + h * k3[s];
-    dr_rhs(c, t2, tmp, k4);
-    const float h6 = h / 6.0f;
-#pragma unroll
-    for (int s = 0; s < N_SPECIES; ++s)
-      y[s] = y[s] + h6 * (f1[s] + 2.0f * f2[s] + 2.0f * k3[s] + k4[s]);
-  }
-}
 
 template <int METHOD>
 __global__ void __launch_bounds__(THREADS)
@@ -151,6 +51,7 @@ dr_fwd_kernel(const float* __restrict__ consts, const float* __restrict__ y0,
   float c[N_CONST];
 #pragma unroll
   for (int j = 0; j < N_CONST; ++j) c[j] = consts[j * stride + r];
+  const DrRhs rhs{c};
 
   float y[N_SPECIES];
 #pragma unroll
@@ -162,7 +63,7 @@ dr_fwd_kernel(const float* __restrict__ consts, const float* __restrict__ y0,
   float t1 = __ldg(times);
   for (int i = 1; i < T; ++i) {
     const float t2 = __ldg(times + i);
-    one_step<METHOD>(c, t1, t2, y);
+    one_step<METHOD, N_SPECIES>(rhs, t1, t2, y);
     float* o = out + (size_t)i * N_SPECIES * stride + r;
 #pragma unroll
     for (int s = 0; s < N_SPECIES; ++s) o[s * stride] = y[s];

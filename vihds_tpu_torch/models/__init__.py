@@ -7,4 +7,6 @@ from vihds_tpu_torch.models import dr_constant
 LOOKUP = {
     "dr_constant": dr_constant.DR_Constant,
     "dr_constant_v2": dr_constant.DR_Constant_V2,
+    "dr_constant_precisions": dr_constant.DR_Constant_Precisions,
+    "dr_constant_precisions_v2": dr_constant.DR_Constant_Precisions_V2,
 }

@@ -1,4 +1,5 @@
-"""Model base layer: constant precisions, the device conditioner, simulate.
+"""Model base layer: constant and neural precisions, the device conditioner,
+simulate.
 
 Stateless model objects with explicit param dicts and functions over
 [B, K, ...] tensors, as in ``vihds_tpu.models.base``.
@@ -47,6 +48,67 @@ class ConstantPrecisions:
         """Single-time counterpart of ``expand``: y[B,K,S] at one grid point
         -> (states[B,K,S], precisions[B,K,P])."""
         return y, torch.stack([theta[v] for v in self.precision_vars], dim=-1)
+
+
+class NeuralPrecisions:
+    """Precisions as extra ODE states with learned production/degradation
+    nets: dprec/dt = N1(t, x, c) - N2(t, x, c) * prec."""
+
+    dynamic = True
+
+    def __init__(self, n_inputs, n_hidden_precisions, n_outputs=4, inverse=False, activation="tanh"):
+        self.n_inputs = n_inputs
+        self.n_hidden = n_hidden_precisions
+        self.n_outputs = n_outputs
+        self.inverse = inverse
+        self.activation = torch.tanh if activation == "tanh" else torch.relu
+
+    def init_params(self, generator):
+        n_in = self.n_inputs + 1  # +1 for time
+        if self.n_hidden < 1:
+            return {
+                "prod": layers.linear_init(generator, n_in, self.n_outputs, mode="xavier"),
+                "degr": layers.linear_init(generator, n_in, self.n_outputs, mode="xavier"),
+            }
+        return {
+            "hidden": layers.linear_init(generator, n_in, self.n_hidden, mode="xavier"),
+            "prod": layers.linear_init(generator, self.n_hidden, self.n_outputs, mode="xavier",
+                                       gain=0.5),
+            "degr": layers.linear_init(generator, self.n_hidden, self.n_outputs, mode="xavier",
+                                       gain=1.0),
+        }
+
+    def rhs(self, params, t, state, constants):
+        """state[B,K,S_total] -> dprec[B,K,n_outputs]; the activation covers
+        the whole input [t, species(, constants)]."""
+        s = state[..., : -self.n_outputs]
+        var_state = state[..., -self.n_outputs :]
+        t_exp = torch.broadcast_to(torch.as_tensor(t, dtype=state.dtype, device=state.device),
+                                   state.shape[:-1] + (1,))
+        parts = [t_exp, s] if constants is None else [t_exp, s, constants]
+        x = torch.cat(parts, dim=-1)
+        if self.n_hidden < 1:
+            h = self.activation(x)
+        else:
+            h = self.activation(layers.linear_apply(params["hidden"], x))
+        xa = torch.sigmoid(layers.linear_apply(params["prod"], h))
+        xd = torch.sigmoid(layers.linear_apply(params["degr"], h))
+        return xa - xd * var_state
+
+    def expand(self, params, theta, n_times, x_states):
+        """Split the trailing precision states off x_states[B,K,S,T]."""
+        prec = x_states[:, :, -self.n_outputs :, :]
+        if self.inverse:
+            prec = 1.0 / prec
+        return x_states[:, :, : -self.n_outputs, :], prec
+
+    def at_time(self, params, theta, y):
+        """Single-time counterpart of ``expand``: split the trailing
+        precision states off y[B,K,S_total]."""
+        prec = y[..., -self.n_outputs :]
+        if self.inverse:
+            prec = 1.0 / prec
+        return y[..., : -self.n_outputs], prec
 
 
 class OdeModel:
@@ -122,33 +184,51 @@ class OdeModel:
         expects ([B, K]-broadcastable leaves)."""
         raise NotImplementedError
 
+    def _pallas_supported(self):
+        """The fused kernels cover ConstantPrecisions and the shipped
+        NeuralPrecisions configuration (n_hidden=0, tanh, non-inverse, 4
+        outputs: the learned-precision block runs in the kernel).  Any other
+        configuration takes the generic solver, as the JAX package's gate
+        decides; this is a choice of configuration, made before any launch."""
+        p = self.precisions
+        if not p.dynamic:
+            return True
+        return (
+            isinstance(p, NeuralPrecisions)
+            and p.n_hidden < 1
+            and not p.inverse
+            and p.activation is torch.tanh
+            and p.n_outputs == 4
+        )
+
     def simulate(self, params, theta, times, treatments, dev_1hot, n_iwae, eval_mode=False):
         """Integrate and return x_states[B, K, S, T].  ``solver:
         pallas_<method>`` (or ``eval_solver`` in eval mode) routes families
         that declare ``pallas_kinds`` through the fused CUDA integrator,
-        which is differentiable (its backward is the dr_bwd kernel)."""
+        which is differentiable (its backward is a kernel too)."""
         n_batch = treatments.shape[0]
         method = self._solver_for(eval_mode)
         if method.startswith("pallas_") and self.pallas_kinds:
-            from vihds_tpu_torch.ops import fused_ode
+            method = method[len("pallas_"):]
+            if self._pallas_supported():
+                from vihds_tpu_torch.ops import fused_ode
 
-            if self.precisions.dynamic:
-                raise NotImplementedError(
-                    "fused kernels for dynamic precisions are not ported yet "
-                    "(ROADMAP queue 2, item 4)"
+                dynamic = self.precisions.dynamic
+                y0 = torch.broadcast_to(
+                    self.initialize_state(params, theta, treatments, n_batch, n_iwae),
+                    (n_batch, n_iwae, self.n_species + (4 if dynamic else 0)),
                 )
-            y0 = torch.broadcast_to(
-                self.initialize_state(params, theta, treatments, n_batch, n_iwae),
-                (n_batch, n_iwae, self.n_species),
-            )
-            sol = fused_ode.simulate_kind(
-                self.pallas_kinds[0],
-                self._pallas_constants(theta, treatments),
-                y0,
-                times,
-                method=method[len("pallas_"):],
-            )
-            return sol.permute(1, 2, 3, 0)
+                sol = fused_ode.simulate_kind(
+                    self.pallas_kinds[1 if dynamic else 0],
+                    self._pallas_constants(theta, treatments),
+                    y0,
+                    times,
+                    method=method,
+                    prec_params=params.get("precisions") if dynamic else None,
+                )
+                return sol.permute(1, 2, 3, 0)
+            # a configuration the kernels do not cover: the same fixed-grid
+            # method on the generic solver
         init_state = self.initialize_state(params, theta, treatments, n_batch, n_iwae)
         rhs = self.make_rhs(params, theta, treatments, dev_1hot)
         sol = integrate(rhs, init_state, times, method=method, adjoint=self.adjoint)  # [T,B,K,S]

@@ -2,14 +2,19 @@
 
 8 mechanistic species (OD, RFP, YFP, CFP, F530, F480, LuxR, LasR), promoter
 activities P76/P81, Hill-style fracLuxR/fracLasR input functions, logistic
-growth with lag, device-conditioned aR/aS, and the V2 crosstalk variant.
-The ``*_precisions`` variants need the ``dr_prec`` kernel and are not ported
-yet (ROADMAP queue 2, item 4).
+growth with lag, device-conditioned aR/aS, the V2 crosstalk variant, and the
+``*_precisions`` variants with 4 extra learned-precision ODE states.
 """
 
 import torch
 
-from vihds_tpu_torch.models.base import ConstantPrecisions, OdeModel, power, split_treatments
+from vihds_tpu_torch.models.base import (
+    ConstantPrecisions,
+    NeuralPrecisions,
+    OdeModel,
+    power,
+    split_treatments,
+)
 
 SPECIES = ["OD", "RFP", "YFP", "CFP", "F530", "F480", "LuxR", "LasR"]
 
@@ -109,9 +114,15 @@ class DR_Constant(OdeModel):
 
     def make_rhs(self, params, theta, treatments, dev_1hot):
         c = _dr_constants(theta, treatments, self.version)
+        prec_params = params.get("precisions", {})
+        dynamic = self.precisions.dynamic
 
         def rhs(t, state):
-            return _dr_species_rhs(c, t, state)
+            dX = _dr_species_rhs(c, t, state)
+            if dynamic:
+                dV = self.precisions.rhs(prec_params, t, state, None)
+                return torch.cat([dX, dV], dim=-1)
+            return dX
 
         return rhs
 
@@ -123,4 +134,36 @@ class DR_Constant(OdeModel):
 
 
 class DR_Constant_V2(DR_Constant):
+    version = 2
+
+
+class DR_Constant_Precisions(DR_Constant):
+    version = 1
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.precisions = NeuralPrecisions(
+            self.n_species, config.params.n_hidden_decoder_precisions, 4
+        )
+
+    def initialize_state(self, params, theta, treatments, n_batch, n_iwae):
+        zero = torch.zeros_like(theta["init_x"])
+        cols = [
+            theta["init_x"],
+            theta["init_rfp"],
+            theta["init_yfp"],
+            theta["init_cfp"],
+            zero,
+            zero,
+            theta["init_luxR"],
+            theta["init_lasR"],
+            theta["init_prec_x"],
+            theta["init_prec_rfp"],
+            theta["init_prec_yfp"],
+            theta["init_prec_cfp"],
+        ]
+        return torch.stack(torch.broadcast_tensors(*cols), dim=-1)
+
+
+class DR_Constant_Precisions_V2(DR_Constant_Precisions):
     version = 2

@@ -2,10 +2,11 @@
 
 Each source under ``vihds_tpu_torch/csrc`` is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes``.  A library is built at first use, keyed by a hash of its source
-and flags, into ``build/kernels/`` beside the package (a directory git
-ignores), so a fresh checkout builds its kernels by itself.  Nothing here runs
-at import: the CPU tests import every module on a machine with no ``nvcc``.
+``ctypes``.  A library is built at first use, keyed by a hash of its source,
+the headers under ``csrc`` and the flags, into ``build/kernels/`` beside the
+package (a directory git ignores), so a fresh checkout builds its kernels by
+itself.  Nothing here runs at import: the CPU tests import every module on a
+machine with no ``nvcc``.
 """
 
 import ctypes
@@ -21,7 +22,12 @@ BUILD_DIR = os.path.join(
     "kernels",
 )
 #: kernel library name -> source file under csrc/
-SOURCES = {"dr_fwd": "dr_fwd.cu", "dr_bwd": "dr_bwd.cu"}
+SOURCES = {
+    "dr_fwd": "dr_fwd.cu",
+    "dr_bwd": "dr_bwd.cu",
+    "dr_prec_fwd": "dr_prec_fwd.cu",
+    "dr_prec_bwd": "dr_prec_bwd.cu",
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -39,9 +45,15 @@ def nvcc_path():
 
 
 def library_path(name):
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, digest))
+    """Where library ``name`` is built: keyed by its source, every header
+    under ``csrc`` (an edit to a shared header rebuilds every library) and
+    the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for fname in [SOURCES[name]] + headers:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, h.hexdigest()[:16]))
 
 
 def build(names=None):

@@ -9,7 +9,8 @@ the train split lives on the device, each step gathers its batch there by
 index, and the per-step ELBOs stay on the device until the chunk of epochs
 up to the next evaluation ends, when one read checks them for NaN.  Under
 ``solver: pallas_<method>`` a step runs the fused CUDA kernels (``dr_fwd``
-forward, ``dr_bwd`` in the backward); under a plain fixed-grid solver it
+forward and ``dr_bwd`` in the backward, or ``dr_prec_fwd`` / ``dr_prec_bwd``
+for the precisions models); under a plain fixed-grid solver it
 takes the online log-likelihood route (``VAE.forward_logprob``).
 TensorBoard summaries and figures are not ported yet (ROADMAP queue 1,
 items 7 and 8).

@@ -7,40 +7,46 @@ Phases, each printing lines of its own:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel under ``vihds_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together) and its time;
-3. each kernel against its plain PyTorch version on the card, at the shapes
-   the serving path gives it (``dr_constant_icml``: B=36 series x K=1000
-   samples, T=86), with its time, the plain version's time and its bound;
-3'. ``dr_bwd`` against its plain version at the training shape (B=36 x
-   K=200, T=86) with a seeded random cotangent, all three methods, read per
-   constant and state against the plain version in float64 beside the plain
-   version in float32, with its time, the plain version's time and its
-   bound, and ``dr_fwd`` timed at the same shape;
-3''. the same for the ``dr_constant_precisions`` kernels: ``dr_prec_fwd``
-   at the serving chunk (each state group against its own tolerance) and
-   at the training shape, and ``dr_prec_bwd`` at the training shape, read
-   per constant, state and row of the weight matrix; two ``dr_prec_bwd``
-   runs must give the same weight cotangent bit for bit;
-4. the serving path at full width: three ``predict`` requests on
-   ``dr_constant_icml`` at K=1000 with ``eval_solver: pallas_midpoint``, one
-   with a counterfactual, with the kernels' launch counts; then the kernel
-   route held against the generic solver on a small input, and a profile
-   of one request's device time;
-5. the training path at full width: ``run_xval.run_on_split`` on
-   ``dr_constant_icml`` with ``solver: pallas_midpoint`` for 4 epochs (7
-   optimizer steps of B=36 x K=200 each, evaluation every 2 epochs at K=200
-   on the train split and K=1000 on the valid split), the xval artifacts,
-   the step times and the kernels' launch counts (``dr_bwd`` once per
-   step); 5b, one step through the kernels held against the plain online
-   log-likelihood route on a small input; 5c, a profile of one step;
-6. serving ``dr_constant_precisions`` as phase 4 serves ``dr_constant_icml``
-   (three requests at K=1000, one with a counterfactual), and one request of
-   ``dr_constant_precisions_v2``, through ``dr_prec_fwd``;
-7. training ``dr_constant_precisions`` as phase 5 trains ``dr_constant_icml``
-   (``dr_prec_bwd`` once per step; the precision nets' weights move); 7b,
-   one step through the kernels against the fold route; 7c, a profile of
-   one step;
-8. the ``kernels`` JSON line, then the last line
+   ``nvcc`` per source, all started together), its time and ptxas report;
+3. for each of the six fused kinds (``dr``, ``dr_prec``, ``relay``,
+   ``relay_prec``, ``degrader``, ``degrader_prec``; its operands from the
+   model and spec that feed it, theta drawn from the prior), all three
+   methods: the forward kernel against its plain PyTorch version at the
+   serving chunk (B=36 series x K=1000 samples), each state group against its
+   own tolerance, with its time, the plain version's time and its bound; the
+   backward kernel at the training shape (B=36 x K=200) with a seeded random
+   cotangent, read per constant, state and row of the weight matrix against
+   the plain version in float64 beside the plain version in float32, with
+   its time, the plain version's time and its bound; the forward timed at
+   the training shape too; two runs of a ``_prec`` backward must give the
+   same weight cotangent bit for bit;
+4. serving ``dr_constant_icml`` at full width: three ``predict`` requests at
+   K=1000 with ``eval_solver: pallas_midpoint``, one with a counterfactual,
+   with the kernel's launch count; 4b, the kernel route held against the
+   generic solver on a small input; 4c, a profile of one request;
+5. training ``dr_constant_icml``: ``run_xval.run_on_split`` with ``solver:
+   pallas_midpoint`` for 4 epochs (7 optimizer steps of B=36 x K=200 each,
+   evaluation every 2 epochs at K=200 on the train split and K=1000 on the
+   valid split), the xval artifacts, the step times and the kernels' launch
+   counts (the backward once per step); 5b, one step through the kernels
+   held against the plain online log-likelihood route on a small input; 5c,
+   a profile of one step;
+6. serving ``dr_constant_precisions`` as phase 4 (three requests, one with a
+   counterfactual), and one request of ``dr_constant_precisions_v2``;
+7. training ``dr_constant_precisions`` as phase 5 (the precision nets'
+   weights must move), 7b and 7c as 5b and 5c;
+8. serving ``relay_constant_precisions`` (its 96-series CSV, three 36-row
+   chunks, with a counterfactual); 8b, the kernel route against the generic
+   solver; 8d, the plain ``relay`` kind through ``OdeModel.simulate`` of a
+   directly built ``Relay_Constant`` (no shipped spec names it), forward and
+   gradient, against the generic solver, with its kernels' launch counts;
+9. training ``relay_constant_precisions`` as phase 7 (2 steps per epoch,
+   T=99), 9b and 9c as 7b and 7c;
+10. serving ``degrader_constant_precisions`` (two CSVs of its device, a
+   counterfactual that sets Ara), 10b and 10d as 8b and 8d with
+   ``Degrader_Constant``;
+11. training ``degrader_constant_precisions`` (T=135), 11b and 11c;
+12. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
@@ -59,63 +65,104 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SPEC = os.path.join(HERE, "specs", "dr_constant_icml.yaml")
 SPEC_PREC = os.path.join(HERE, "specs", "dr_constant_precisions.yaml")
 SPEC_PREC_V2 = os.path.join(HERE, "specs", "dr_constant_precisions_v2.yaml")
+SPEC_RELAY = os.path.join(HERE, "specs", "relay_constant_precisions.yaml")
+SPEC_DEGRADER = os.path.join(HERE, "specs", "degrader_constant_precisions.yaml")
 REQUESTS = ["proc141021.csv", "proc141023.csv", "proc141028.csv"]
 COUNTERFACTUAL = "C6=25000;C12=0"
+RELAY_REQUESTS = ["proc_Relays_RemovedOutlier.csv"]
+DEGRADER_REQUESTS = ["proc_degrader_RemovedDuplicates.csv", "proc_PBadAiia_Ara_C6C12.csv"]
+DEGRADER_COUNTERFACTUAL = "Ara=5"
+#: the spec whose model feeds each kind its operands in phase 3 (the plain
+#: relay / degrader kinds take the species of the precisions models')
+KIND_SPEC = {"dr": SPEC, "dr_prec": SPEC_PREC, "relay": SPEC_RELAY, "relay_prec": SPEC_RELAY,
+             "degrader": SPEC_DEGRADER, "degrader_prec": SPEC_DEGRADER}
 K_SERVE = 1000
+K_TRAIN = 200
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# float32 operations of one fixed-grid step of the dr RHS per sample row,
-# counted from csrc/dr_fwd.cu (an expf or a division counts as one):
-# 59 per right-hand side evaluation, plus each method's state updates
-DR_FLOPS_PER_STEP = {"modeuler": 2 * 59 + 42, "midpoint": 2 * 59 + 35, "rk4": 4 * 59 + 109}
-# the same for one step of the reverse sweep, counted from csrc/dr_bwd.cu:
-# 157 per right-hand side pullback (31 to recompute the forward
-# intermediates, 126 to pull back), the stages' right-hand sides recomputed,
-# and each method's stage and adjoint updates
-DR_BWD_FLOPS_PER_STEP = {"modeuler": 447, "midpoint": 431, "rk4": 977}
-# the same for the 12-state dr_prec kernels, counted from csrc/dr_common.cuh:
-# a right-hand side is the species' 59 plus the precision block's 209 (9
-# tanhf, 8 dot products of length 10 at 2 flop a term, 8 sigmoids at 4, 8
-# for dprec); its pullback the species' 157 plus the block's 593 (the
-# block's forward 201, 40 for dp, dd and dprec, 320 for the dW and df
-# accumulations, 32 for the species' share).  The stage and adjoint updates
-# grow with the 12 states as counted for dr: forward 2 + 5 S / 3 + 4 S /
-# 5 + 13 S, backward 2 + 9 S / 2 + 7 S / 4 + 21 S (modeuler / midpoint / rk4)
-PREC_S, PREC_RHS, PREC_VJP = 12, 59 + 209, 157 + 593
-DR_PREC_FLOPS_PER_STEP = {
-    "modeuler": 2 * PREC_RHS + 2 + 5 * PREC_S,
-    "midpoint": 2 * PREC_RHS + 3 + 4 * PREC_S,
-    "rk4": 4 * PREC_RHS + 5 + 13 * PREC_S,
-}
-DR_PREC_BWD_FLOPS_PER_STEP = {
-    "modeuler": PREC_RHS + 2 * PREC_VJP + 2 + 9 * PREC_S,
-    "midpoint": PREC_RHS + 2 * PREC_VJP + 2 + 7 * PREC_S,
-    "rk4": 3 * PREC_RHS + 4 * PREC_VJP + 4 + 21 * PREC_S,
-}
-K_TRAIN = 200
+# float32 operations per sample row, counted from csrc/dr_common.cuh (an
+# expf, a tanhf or a division counts as one), of one right-hand side and of
+# one right-hand side pullback of each family.  dr: 59 and 157 (31 to
+# recompute the core's terms, 126 to pull back); relay adds 20 for its four
+# rows and 80 for their pullback; degrader 9 and 26.
+RHS_FLOPS = {"dr": 59, "relay": 59 + 20, "degrader": 59 + 9}
+VJP_FLOPS = {"dr": 157, "relay": 157 + 80, "degrader": 157 + 26}
+
+
+def prec_block_flops(ns):
+    """(right-hand side, pullback) operations of the precision block over
+    ``ns`` species: ns + 1 tanhf, 8 dot products of length 2 + ns at 2 flop
+    a term, 8 sigmoids at 4, 8 for dprec; the pullback recomputes all but the
+    dprec, then 40 for dp, dd and dprec, 32 (2 + ns) for the dW and df
+    accumulations and 4 ns for the species' share (209 and 593 at ns = 8)."""
+    forward = (ns + 1) + 16 * (2 + ns) + 32
+    return forward + 8, forward + 40 + 32 * (2 + ns) + 4 * ns
+
+
+def flops_per_step(kind):
+    """(forward, backward) operations of one fixed-grid step per sample row
+    for each method: the right-hand sides (and pullbacks) a step evaluates,
+    and each method's state updates, forward 2 + 5 S / 3 + 4 S / 5 + 13 S,
+    backward 2 + 9 S / 2 + 7 S / 4 + 21 S (modeuler / midpoint / rk4) for S
+    states."""
+    from vihds_tpu_torch.ops import fused_ode
+
+    k = fused_ode.KINDS[kind]
+    family = kind[: -len("_prec")] if k.prec else kind
+    rhs, vjp = RHS_FLOPS[family], VJP_FLOPS[family]
+    if k.prec:
+        b_rhs, b_vjp = prec_block_flops(k.n_species)
+        rhs, vjp = rhs + b_rhs, vjp + b_vjp
+    S = k.n_states
+    fwd = {"modeuler": 2 * rhs + 2 + 5 * S, "midpoint": 2 * rhs + 3 + 4 * S,
+           "rk4": 4 * rhs + 5 + 13 * S}
+    bwd = {"modeuler": rhs + 2 * vjp + 2 + 9 * S, "midpoint": rhs + 2 * vjp + 2 + 7 * S,
+           "rk4": 3 * rhs + 4 * vjp + 4 + 21 * S}
+    return fwd, bwd
+
+
 # kernel vs plain PyTorch: the kernel contracts a*b+c into FMAs and the two
 # evaluate expf differently, each step rounding differently from the plain
-# version; over 85 steps the states then differ by float32 rounding only
+# version; over the grid's steps the states then differ by float32 rounding
+# only
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
-# dr_prec_fwd vs plain PyTorch, per state group.  The 8 species as above.
-# The 4 precision states start near e^6 ~ 400 and span ~0.2 to ~1e4; their
-# dynamics dprec = sigmoid(.) - sigmoid(.) prec contract, so the kernel's
-# tanhf / expf, which differ from PyTorch's by float32 ulps, leave them within
-# float32 rounding too (the TPU's approximate tanh / sigmoid moved them by
-# up to 2e-2, pallas_ode.py:268-273; the card's are accurate to a few ulps).
-# Their smallest values are ~0.2, so an absolute floor matters little
+# the precision states of the _prec kinds, held on their own.  They start
+# near e^6 ~ 400 and span ~0.2 to ~1e4; their dynamics dprec = sigmoid(.) -
+# sigmoid(.) prec contract, so the kernel's tanhf / expf, which differ from
+# PyTorch's by float32 ulps, leave them within float32 rounding too (the
+# TPU's approximate tanh / sigmoid moved them by up to 2e-2,
+# pallas_ode.py:268-273; the card's are accurate to a few ulps).  Their
+# smallest values are ~0.2, so an absolute floor matters little
 PREC_RTOL, PREC_ATOL = 1e-4, 1e-5
-# dr_bwd vs its plain version run in float64 on the same operands (see
-# cotangent_readings): each of the 23 constant rows of dc and the 8 state
-# rows of dy0 is held on its own, by its largest error over its largest
-# value across the R sample rows, and by the 99th percentile of its
-# elements' relative errors (float32 sums over 85 steps cancel, so a few
-# elements near zero may be off by more).  The plain version run in
-# float32 is held to the same limits in the same run, and phase 3' prints
-# its readings beside the kernel's: the limits stand well above them
+# the relay and degrader kinds' C6 and C12, which no row of the right-hand
+# side reads: they start at the treatments (0 to 2.5e4) and integrate
+# KC rc x luxI / (1 + luxI / Klux) (relay) or x rC aiiA (degrader, with
+# aiiA of either sign, so on prior draws they reach ~1e9 and cross zero).
+# An element near a crossing carries the rounding of the trajectory's
+# largest values: there the plain version in float32 is itself off from
+# float64 by more than the species rule.  So each sample row's trajectory
+# of each is held against its own largest magnitude
+SIGNAL_STATES = {"relay": (10, 11), "degrader": (9, 10)}
+SIGNAL_RTOL, SIGNAL_ATOL = 1e-4, 1e-5
+# the degrader_prec precision nets read tanh(C6), tanh(C12): where a signal
+# crosses zero its rounding flips that feature between -1 and 1, which moves
+# the precision states by more than their own rounding (the plain version in
+# float32 is off from float64 by about the element rule on prior draws).
+# Its precision states are held against each trajectory's largest magnitude
+# too, with PREC_RTOL / PREC_ATOL
+PREC_OVER_T = ("degrader_prec",)
+# a backward kernel vs its plain version run in float64 on the same operands
+# (see cotangent_readings): each constant row of dc, each state row of dy0
+# and each row of dW is held on its own, by its largest error over its
+# largest value across the R sample rows (or the row's weights), and by the
+# 99th percentile of its elements' relative errors (float32 sums over the
+# grid's steps cancel, so a few elements near zero may be off by more).  The
+# plain version run in float32 is held to the same limits in the same run,
+# and phase 3 prints its readings beside the kernel's: the limits stand well
+# above them
 BWD_NORM_TOL, BWD_P99_TOL = 1e-4, 1e-3
 # kernel route vs the generic Python-stepped solver, through the whole
 # serving forward (the weights exponentiate log-likelihoods of ~1e4 nats,
@@ -123,10 +170,10 @@ BWD_NORM_TOL, BWD_P99_TOL = 1e-4, 1e-3
 ROUTE_RTOL, ROUTE_ATOL = 1e-3, 1e-4
 ELBO_ATOL = 0.5
 # one training step, kernel route vs the plain fold route on the card: the
-# loss (~1e5 nats at random weights for dr_constant_icml, ~1e2 for
-# dr_constant_precisions, whose precisions are states) sums the same float32
-# terms in another order, and each gradient leaf is compared by the norm of
-# its difference
+# loss (~1e5 nats at random weights for dr_constant_icml, ~1e2 for the
+# models whose precisions are states) sums the same float32 terms in another
+# order, and each gradient leaf (or theta's gradient in phases 8d, 10d) is
+# compared by the norm of its difference
 LOSS_ATOL, GRAD_RTOL = 1.0, 1e-3
 
 
@@ -171,7 +218,7 @@ def phase_build():
     t0 = time.perf_counter()
     logs = build.build()
     seconds = time.perf_counter() - t0
-    for name, log in logs.items():
+    for name, log in sorted(logs.items()):
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print("  %s ptxas: %s" % (name, ln.strip()))
@@ -199,56 +246,49 @@ def serving_setup(device, eval_solver="pallas_midpoint", spec=SPEC):
     return args, settings, data, program, model, params
 
 
-def _decoder_inputs(device, K, seed, spec):
-    """The kernel constants and initial states of one ``n_batch``-row chunk
-    at K samples: theta drawn from the prior and clipped as the decoder sees
-    it, then conditioned and turned into the kernels' constants, i.e. the
-    inputs the serving and training paths hand the kernels, in the prior's
-    range.  Returns (params, constants dict, y0 [B, K, S], times)."""
+def _prior_theta(device, program, model, params, ds, rows, K, seed):
+    """theta drawn from the prior for the train split's ``rows`` at K
+    samples, clipped and conditioned as the decoder sees it.  Returns (theta
+    dict, inputs, dev_1hot, times)."""
     import torch
 
-    _, settings, data, program, model, params = serving_setup(device, spec=spec)
-    ds = data.train.dataset
-    B = settings.params.n_batch
     gen = torch.Generator(device=device).manual_seed(seed)
     times = torch.as_tensor(ds.times, dtype=torch.float32, device=device)
-    inputs = torch.as_tensor(ds.inputs[:B], dtype=torch.float32, device=device)
-    dev_1hot = torch.as_tensor(ds.dev_1hot[:B], dtype=torch.float32, device=device)
+    inputs = torch.as_tensor(ds.inputs[rows], dtype=torch.float32, device=device)
+    dev_1hot = torch.as_tensor(ds.dev_1hot[rows], dtype=torch.float32, device=device)
+    u = model.sample_u(gen, inputs.shape[0], K, device)
+    theta = program.clip(program.sample(program.prior_q(device), u))
+    th = model.ode_model.condition_theta(params["dec"], program.theta_dict(theta), dev_1hot)
+    return th, inputs, dev_1hot, times
+
+
+def kind_inputs(device, kind, K, seed):
+    """The operands of ``kind``'s kernels for one n_batch-row chunk of
+    ``KIND_SPEC[kind]``'s model at K samples: theta from the prior, turned
+    into the kernels' constants and initial states, i.e. the inputs the
+    serving and training paths hand the kernels, in the prior's range, with
+    the model's seeded random precision nets.  Returns (constants dict,
+    precision params, y0 [B, K, S], wmat [8, 2 + NS], packed [NC, R], y0
+    [S, R], times); the precision params and wmat are None for a plain
+    kind."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_ode
+
+    k = fused_ode.KINDS[kind]
+    _, settings, data, program, model, params = serving_setup(device, spec=KIND_SPEC[kind])
+    B = settings.params.n_batch
     ode = model.ode_model
-    n_states = ode.n_species + (4 if ode.precisions.dynamic else 0)
     with torch.no_grad():
-        u = model.sample_u(gen, B, K, device)
-        theta = program.clip(program.sample(program.prior_q(device), u))
-        th = ode.condition_theta(params["dec"], program.theta_dict(theta), dev_1hot)
+        th, inputs, _, times = _prior_theta(device, program, model, params, data.train.dataset,
+                                            slice(0, B), K, seed)
         consts = ode._pallas_constants(th, inputs)
-        y0 = torch.broadcast_to(
-            ode.initialize_state(params["dec"], th, inputs, B, K), (B, K, n_states)
-        )
-    return params, consts, y0, times
-
-
-def kernel_inputs(device, K, seed):
-    """The dr kernels' operands of one dr_constant_icml chunk at K samples
-    (``_decoder_inputs``).  Returns (constants dict, y0 [B, K, 8], packed
-    [23, R], y0 [8, R], times)."""
-    from vihds_tpu_torch.ops import fused_ode
-
-    _, consts, y0, times = _decoder_inputs(device, K, seed, SPEC)
-    packed, y0_cols = fused_ode._pack(consts, y0)
-    return consts, y0, packed, y0_cols, times
-
-
-def prec_kernel_inputs(device, K, seed):
-    """The dr_prec kernels' operands of one dr_constant_precisions chunk at K
-    samples, with the model's seeded random precision nets.  Returns
-    (constants dict, precision params, y0 [B, K, 12], wmat [8, 10], packed
-    [23, R], y0 [12, R], times)."""
-    from vihds_tpu_torch.ops import fused_ode
-
-    params, consts, y0, times = _decoder_inputs(device, K, seed, SPEC_PREC)
-    prec_params = params["dec"]["precisions"]
-    packed, y0_cols = fused_ode._pack(consts, y0, y0.shape[-1])
-    return consts, prec_params, y0, fused_ode._prec_wmat(prec_params), packed, y0_cols, times
+        y0 = ode.initialize_state(params["dec"], th, inputs, B, K)
+        y0 = torch.broadcast_to(y0, (B, K, y0.shape[-1]))[..., : k.n_states].contiguous()
+    prec_params = params["dec"]["precisions"] if k.prec else None
+    wmat = fused_ode._prec_wmat(prec_params) if k.prec else None
+    packed, y0_cols = fused_ode._pack(consts, y0, kind)
+    return consts, prec_params, y0, wmat, packed, y0_cols, times
 
 
 def bound(n_bytes, n_flops):
@@ -259,57 +299,54 @@ def bound(n_bytes, n_flops):
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
-def fwd_row(packed, y0_cols, times, method):
-    """dr_fwd's kernel time, plain time and bound on these operands."""
+def fwd_row(kind, wmat, packed, y0_cols, times, method):
+    """The forward kernel's time, its plain version's time and its bound on
+    these operands: each input read once, the trajectory written once."""
     from vihds_tpu_torch.ops import fused_ode
 
-    R, T = packed.shape[1], times.shape[0]
-    ms = cuda_ms(lambda: fused_ode._integrate_cuda(packed, y0_cols, times, method), 20)
-    plain_ms = cuda_ms(
-        lambda: fused_ode._integrate_plain(packed, y0_cols, times, method), 3, warmup=1
-    )
-    n_bytes = 4 * (packed.numel() + y0_cols.numel() + times.numel() + T * 8 * R)
-    n_flops = DR_FLOPS_PER_STEP[method] * (T - 1) * R
+    R, T, S = packed.shape[1], times.shape[0], y0_cols.shape[0]
+    ms = cuda_ms(lambda: fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method), 20)
+    plain_ms = cuda_ms(lambda: fused_ode._plain_fwd(kind, wmat, packed, y0_cols, times, method),
+                       3, warmup=1)
+    n_w = wmat.numel() if wmat is not None else 0
+    n_bytes = 4 * (n_w + packed.numel() + y0_cols.numel() + times.numel() + T * S * R)
+    n_flops = flops_per_step(kind)[0][method] * (T - 1) * R
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bytes=n_bytes, flops=n_flops)
 
 
-def phase_kernels(device):
-    """dr_fwd against its plain version at the serving chunk's shapes."""
+def states_ok(got, ref, kind):
+    """A forward trajectory [T, ..., S] of ``kind`` against the plain
+    version's, each state group to its own tolerance: the species element by
+    element, the signal states (``SIGNAL_STATES``) against each trajectory's
+    largest magnitude over T, the precision states element by element (or,
+    for a kind in ``PREC_OVER_T``, as the signals).  Returns ([max relative
+    error of each group, None for a group the kind lacks], ok); where a
+    group is held to its trajectories' scale, so is its relative error."""
     import torch
 
     from vihds_tpu_torch.ops import fused_ode
 
-    consts, y0, packed, y0_cols, times = kernel_inputs(device, K_SERVE, SEED + 1)
-    B = y0.shape[0]
-    R, T = packed.shape[1], times.shape[0]
-    print("phase 3: dr_fwd vs plain PyTorch at B=%d K=%d (R=%d) T=%d, rtol %g atol %g"
-          % (B, K_SERVE, R, T, KERNEL_RTOL, KERNEL_ATOL))
-    rows = {}
-    with torch.no_grad():
-        for method in fused_ode.METHODS:
-            got = fused_ode.dr_constant_simulate(consts, y0, times, method)
-            ref = fused_ode.dr_constant_simulate_plain(consts, y0, times, method)
-            torch.cuda.synchronize()
-            if tuple(got.shape) != (T, B, K_SERVE, 8):
-                fail("dr_fwd %s: shape %s" % (method, tuple(got.shape)))
-            if not bool(torch.isfinite(ref).all()):
-                fail("dr_fwd %s: the plain version is not finite on these inputs" % method)
-            err = (got - ref).abs()
-            max_abs = float(err.max())
-            max_rel = float((err / ref.abs().clamp_min(1e-30)).max())
-            ok = bool((err <= KERNEL_ATOL + KERNEL_RTOL * ref.abs()).all())
-            rows[method] = dict(max_abs_err=max_abs, max_rel_err=max_rel,
-                                **fwd_row(packed, y0_cols, times, method))
-            r = rows[method]
-            print("  %-9s max_abs_err %.3e max_rel_err %.3e  kernel %.4f ms  plain %.2f ms  "
-                  "bound %.4f ms (%s: %d B, %d flop)  %s"
-                  % (method, max_abs, max_rel, r["ms"], r["plain_ms"], r["bound_ms"],
-                     r["bound_by"], r["bytes"], r["flops"], "ok" if ok else "MISMATCH"))
-            if not ok:
-                fail("dr_fwd %s disagrees with its plain version" % method)
-    return rows
+    k = fused_ode.KINDS[kind]
+    signals = list(SIGNAL_STATES.get(kind[: -len("_prec")] if k.prec else kind, ()))
+    species = [s for s in range(k.n_species) if s not in signals]
+    out = []
+    ok = bool(torch.isfinite(got).all())
+    for idx, rtol, atol, scale_over_t in (
+            (species, KERNEL_RTOL, KERNEL_ATOL, False),
+            (signals, SIGNAL_RTOL, SIGNAL_ATOL, True),
+            (list(range(k.n_species, k.n_states)), PREC_RTOL, PREC_ATOL,
+             kind in PREC_OVER_T)):
+        if not idx:
+            out.append(None)
+            continue
+        a, b = got[..., idx], ref[..., idx]
+        err = (a - b).abs()
+        scale = b.abs().amax(dim=0, keepdim=True) if scale_over_t else b.abs()
+        out.append(float((err / scale.clamp_min(1e-30)).max()))
+        ok = ok and bool((err <= atol + rtol * scale).all())
+    return out, ok
 
 
 def cotangent_readings(got, ref):
@@ -335,225 +372,131 @@ def cotangents_ok(got, ref):
             and bool((rel <= BWD_P99_TOL).all()))
 
 
-def phase_bwd(device):
-    """Phase 3': dr_bwd against its plain version at the training shape
-    (B=36 series x K=200 samples, T=86), all three methods, with a seeded
-    random trajectory cotangent.  Both the kernel and the plain version in
-    float32 are read against the plain version in float64 on the same
-    operands, per constant; dr_fwd timed at the same shape."""
+def _fmt(x):
+    return "-" if x is None else "%.3e" % x
+
+
+def phase_kind_kernels(device, kind, seed):
+    """Phase 3 for one kind: its forward kernel against the plain version
+    at the serving chunk and its backward kernel at the training shape, all
+    three methods (see the module's docstring).  Returns (forward rows at
+    the serving chunk, backward rows, forward rows at the training shape),
+    each {method: readings and times}."""
     import torch
 
     from vihds_tpu_torch.ops import fused_ode
 
-    _, y0, packed, y0_cols, times = kernel_inputs(device, K_TRAIN, SEED + 3)
+    k = fused_ode.KINDS[kind]
+    consts, prec_params, y0, wmat, packed, y0_cols, times = kind_inputs(device, kind, K_SERVE,
+                                                                        seed)
     B = y0.shape[0]
-    R, T = packed.shape[1], times.shape[0]
-    row_names = list(fused_ode.DR_CONST_NAMES) + ["y0[%d]" % s for s in range(8)]
-    print("phase 3': dr_bwd vs plain PyTorch at B=%d K=%d (R=%d) T=%d, both read against the "
-          "plain version in float64; every constant's and state's row within %g normwise and "
-          "%g at the 99th percentile of relative error"
-          % (B, K_TRAIN, R, T, BWD_NORM_TOL, BWD_P99_TOL))
-    rows, fwd_rows, readings = {}, {}, {}
-    with torch.no_grad():
-        for method in fused_ode.METHODS:
-            traj = fused_ode._integrate_cuda(packed, y0_cols, times, method)
-            gen = torch.Generator(device=device).manual_seed(SEED + 4)
-            g = torch.randn(traj.shape, generator=gen, device=device)
-            got = torch.cat(fused_ode.dr_bwd(packed, times, traj, g, method))
-            plain = torch.cat(fused_ode._integrate_plain_bwd(packed, times, traj, g, method))
-            ref = torch.cat(fused_ode._integrate_plain_bwd(
-                packed.double(), times.double(), traj.double(), g.double(), method))
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(ref).all()):
-                fail("dr_bwd %s: the plain version is not finite on these inputs" % method)
-            k_norm, k_rel = cotangent_readings(got, ref)
-            p_norm, p_rel = cotangent_readings(plain, ref)
-            readings[method] = (k_norm, k_rel, p_norm, p_rel)
-            err = (got.double() - ref).abs()
-            ms = cuda_ms(lambda: fused_ode.dr_bwd(packed, times, traj, g, method), 20)
-            plain_ms = cuda_ms(
-                lambda: fused_ode._integrate_plain_bwd(packed, times, traj, g, method), 3, warmup=1
-            )
-            n_bytes = 4 * (2 * packed.numel() + times.numel() + 2 * T * 8 * R + 8 * R)
-            n_flops = DR_BWD_FLOPS_PER_STEP[method] * (T - 1) * R
-            bound_ms, bound_by = bound(n_bytes, n_flops)
-            rows[method] = dict(
-                max_abs_err=float(err.max()),
-                max_rel_err=float((err / ref.abs().clamp_min(1e-300)).max()),
-                worst_norm=float(k_norm.max()), worst_p99=float(k_rel.max()),
-                plain_worst_norm=float(p_norm.max()), plain_worst_p99=float(p_rel.max()),
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=n_bytes, flops=n_flops,
-            )
-            fwd_rows[method] = fwd_row(packed, y0_cols, times, method)
-            r, f = rows[method], fwd_rows[method]
-            ok = cotangents_ok(got, ref)
-            print("  %-9s kernel: worst normwise %.3e (%s), worst p99 rel %.3e (%s); plain "
-                  "float32: %.3e, %.3e | max_abs_err %.3e on |ref| up to %.3e, max_rel_err %.3e  "
-                  "kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
-                  % (method, r["worst_norm"], row_names[int(k_norm.argmax())], r["worst_p99"],
-                     row_names[int(k_rel.argmax())], r["plain_worst_norm"],
-                     r["plain_worst_p99"], r["max_abs_err"], float(ref.abs().max()),
-                     r["max_rel_err"], ms, plain_ms, bound_ms, bound_by, n_bytes, n_flops,
-                     "ok" if ok else "MISMATCH"))
-            print("  %-9s dr_fwd at this shape: kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s)"
-                  % (method, f["ms"], f["plain_ms"], f["bound_ms"], f["bound_by"]))
-            if not ok:
-                fail("dr_bwd %s disagrees with its plain version" % method)
-            if not cotangents_ok(plain, ref):
-                fail("dr_bwd %s: the plain version in float32 is outside the tolerance itself"
-                     % method)
-    print("  per row, normwise error / 99th percentile relative error against float64, "
-          "kernel then plain float32, for %s:" % ", ".join(fused_ode.METHODS))
-    for i, name in enumerate(row_names):
-        print("    %-9s" % name + "  |".join(
-            " %.1e %.1e / %.1e %.1e" % tuple(float(x[i]) for x in readings[m])
-            for m in fused_ode.METHODS))
-    return rows, fwd_rows
-
-
-def prec_fwd_row(wmat, packed, y0_cols, times, method):
-    """dr_prec_fwd's kernel time, plain time and bound on these operands."""
-    from vihds_tpu_torch.ops import fused_ode
-
-    R, T, S = packed.shape[1], times.shape[0], y0_cols.shape[0]
-    ms = cuda_ms(lambda: fused_ode._integrate_prec_cuda(wmat, packed, y0_cols, times, method), 20)
-    plain_ms = cuda_ms(
-        lambda: fused_ode._integrate_prec_plain(wmat, packed, y0_cols, times, method), 3, warmup=1
-    )
-    n_bytes = 4 * (wmat.numel() + packed.numel() + y0_cols.numel() + times.numel() + T * S * R)
-    n_flops = DR_PREC_FLOPS_PER_STEP[method] * (T - 1) * R
-    bound_ms, bound_by = bound(n_bytes, n_flops)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=n_bytes, flops=n_flops)
-
-
-def prec_states_ok(got, ref):
-    """dr_prec_fwd's trajectory [T, B, K, 12] against the plain version's,
-    each state group to its own tolerance: (species max relative error,
-    precisions max relative error, ok)."""
-    import torch
-
-    out = []
-    ok = bool(torch.isfinite(got).all())
-    for sl, rtol, atol in ((slice(0, 8), KERNEL_RTOL, KERNEL_ATOL),
-                           (slice(8, 12), PREC_RTOL, PREC_ATOL)):
-        a, b = got[..., sl], ref[..., sl]
-        err = (a - b).abs()
-        out.append(float((err / b.abs().clamp_min(1e-30)).max()))
-        ok = ok and bool((err <= atol + rtol * b.abs()).all())
-    return out[0], out[1], ok
-
-
-def phase_prec_kernels(device):
-    """Phase 3'': the dr_constant_precisions kernels against their plain
-    versions, all three methods: dr_prec_fwd at the serving chunk (B=36,
-    K=1000) and at the training shape (B=36, K=200), dr_prec_bwd at the
-    training shape with a seeded random cotangent, read as phase 3' reads
-    dr_bwd, plus the 8 rows of the weight cotangent over their 10 columns."""
-    import torch
-
-    from vihds_tpu_torch.ops import fused_ode
-
-    consts, prec_params, y0, wmat, packed, y0_cols, times = prec_kernel_inputs(
-        device, K_SERVE, SEED + 7)
-    B = y0.shape[0]
-    R, T = packed.shape[1], times.shape[0]
-    print("phase 3'': dr_prec_fwd vs plain PyTorch at B=%d K=%d (R=%d) T=%d; species rtol %g "
-          "atol %g, precisions rtol %g atol %g" % (B, K_SERVE, R, T, KERNEL_RTOL, KERNEL_ATOL,
-                                                  PREC_RTOL, PREC_ATOL))
+    R, T, S = packed.shape[1], times.shape[0], k.n_states
+    family = kind[: -len("_prec")] if k.prec else kind
+    print("phase 3 (%s): %s vs plain PyTorch at B=%d K=%d (R=%d) T=%d; species rtol %g atol %g%s%s"
+          % (kind, k.fwd, B, K_SERVE, R, T, KERNEL_RTOL, KERNEL_ATOL,
+             ", signals %s rtol %g atol %g of each trajectory's largest |value|"
+             % (list(SIGNAL_STATES[family]), SIGNAL_RTOL, SIGNAL_ATOL)
+             if family in SIGNAL_STATES else "",
+             ", precisions rtol %g atol %g%s" % (PREC_RTOL, PREC_ATOL,
+                                                 " of each trajectory's largest |value|"
+                                                 if kind in PREC_OVER_T else "")
+             if k.prec else ""))
     fwd_rows = {}
     with torch.no_grad():
         for method in fused_ode.METHODS:
-            got = fused_ode.dr_constant_precisions_simulate(consts, prec_params, y0, times, method)
-            ref = fused_ode.dr_constant_precisions_simulate_plain(consts, prec_params, y0, times,
-                                                                  method)
+            got = fused_ode.simulate_kind(kind, consts, y0, times, method, prec_params)
+            ref = fused_ode._simulate_plain(kind, consts, prec_params, y0, times, method)
             torch.cuda.synchronize()
-            if tuple(got.shape) != (T, B, K_SERVE, 12):
-                fail("dr_prec_fwd %s: shape %s" % (method, tuple(got.shape)))
+            if tuple(got.shape) != (T, B, K_SERVE, S):
+                fail("%s %s: shape %s" % (k.fwd, method, tuple(got.shape)))
             if not bool(torch.isfinite(ref).all()):
-                fail("dr_prec_fwd %s: the plain version is not finite on these inputs" % method)
-            rel_x, rel_p, ok = prec_states_ok(got, ref)
+                fail("%s %s: the plain version is not finite on these inputs" % (k.fwd, method))
+            (rel_x, rel_s, rel_p), ok = states_ok(got, ref, kind)
             r = fwd_rows[method] = dict(max_abs_err=float((got - ref).abs().max()),
-                                        max_rel_species=rel_x, max_rel_precisions=rel_p,
-                                        **prec_fwd_row(wmat, packed, y0_cols, times, method))
-            print("  %-9s max_rel_err species %.3e precisions %.3e (max_abs_err %.3e on |ref| up "
-                  "to %.3e)  kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
-                  % (method, rel_x, rel_p, r["max_abs_err"], float(ref.abs().max()), r["ms"],
-                     r["plain_ms"], r["bound_ms"], r["bound_by"], r["bytes"], r["flops"],
-                     "ok" if ok else "MISMATCH"))
+                                        max_rel_species=rel_x, max_rel_signals=rel_s,
+                                        max_rel_precisions=rel_p,
+                                        **fwd_row(kind, wmat, packed, y0_cols, times, method))
+            print("  %-9s max_rel_err species %s signals %s precisions %s (max_abs_err %.3e on "
+                  "|ref| up to %.3e)  kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, "
+                  "%d flop)  %s"
+                  % (method, _fmt(rel_x), _fmt(rel_s), _fmt(rel_p), r["max_abs_err"],
+                     float(ref.abs().max()),
+                     r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"], r["bytes"],
+                     r["flops"], "ok" if ok else "MISMATCH"))
             if not ok:
-                fail("dr_prec_fwd %s disagrees with its plain version" % method)
+                fail("%s %s disagrees with its plain version" % (k.fwd, method))
 
-    _, _, y0, wmat, packed, y0_cols, times = prec_kernel_inputs(device, K_TRAIN, SEED + 8)
+    _, _, y0, wmat, packed, y0_cols, times = kind_inputs(device, kind, K_TRAIN, seed + 1)
     R = packed.shape[1]
-    S = y0_cols.shape[0]
-    row_names = (list(fused_ode.DR_CONST_NAMES) + ["y0[%d]" % s for s in range(S)]
-                 + ["W[%d,:]" % j for j in range(fused_ode.WMAT_SHAPE[0])])
-    print("phase 3'': dr_prec_bwd vs plain PyTorch at B=%d K=%d (R=%d) T=%d, both read against "
-          "the plain version in float64: every constant's and state's row over the samples, "
-          "and every row of the weight cotangent over its 10 columns, within %g normwise and %g "
-          "at the 99th percentile of relative error"
-          % (B, K_TRAIN, R, T, BWD_NORM_TOL, BWD_P99_TOL))
+    row_names = (list(k.names) + ["y0[%d]" % s for s in range(S)]
+                 + (["W[%d,:]" % j for j in range(k.wmat_shape[0])] if k.prec else []))
+    print("phase 3 (%s): %s vs plain PyTorch at B=%d K=%d (R=%d) T=%d, both read against the "
+          "plain version in float64: every constant's and state's row over the samples%s, "
+          "within %g normwise and %g at the 99th percentile of relative error"
+          % (kind, k.bwd, B, K_TRAIN, R, T,
+             ", and every row of the weight cotangent over its %d columns" % k.wmat_shape[1]
+             if k.prec else "", BWD_NORM_TOL, BWD_P99_TOL))
+
+    def rows_of(dw, dc, dy0):
+        return [torch.cat([dc, dy0])] + ([dw] if k.prec else [])
+
     rows, train_fwd_rows, readings = {}, {}, {}
     with torch.no_grad():
         for method in fused_ode.METHODS:
-            traj = fused_ode._integrate_prec_cuda(wmat, packed, y0_cols, times, method)
-            gen = torch.Generator(device=device).manual_seed(SEED + 9)
+            traj = fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method)
+            gen = torch.Generator(device=device).manual_seed(seed + 2)
             g = torch.randn(traj.shape, generator=gen, device=device)
-            dw, dc, dy0 = fused_ode.dr_prec_bwd(wmat, packed, times, traj, g, method)
-            dw_again = fused_ode.dr_prec_bwd(wmat, packed, times, traj, g, method)[0]
-            pw, pc, py = fused_ode._integrate_prec_plain_bwd(wmat, packed, times, traj, g, method)
-            rw, rc, ry = fused_ode._integrate_prec_plain_bwd(
-                wmat.double(), packed.double(), times.double(), traj.double(), g.double(), method)
+            got = rows_of(*fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method))
+            same = (not k.prec or bool(torch.equal(
+                got[1], fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method)[0])))
+            plain = rows_of(*fused_ode._plain_bwd(kind, wmat, packed, times, traj, g, method))
+            ref = rows_of(*fused_ode._plain_bwd(
+                kind, wmat.double() if k.prec else None, packed.double(), times.double(),
+                traj.double(), g.double(), method))
             torch.cuda.synchronize()
-            ref = torch.cat([rc, ry])
-            if not (bool(torch.isfinite(ref).all()) and bool(torch.isfinite(rw).all())):
-                fail("dr_prec_bwd %s: the plain version is not finite on these inputs" % method)
-            k_norm, k_rel = (torch.cat(x) for x in zip(
-                cotangent_readings(torch.cat([dc, dy0]), ref), cotangent_readings(dw, rw)))
-            p_norm, p_rel = (torch.cat(x) for x in zip(
-                cotangent_readings(torch.cat([pc, py]), ref), cotangent_readings(pw, rw)))
+            if not all(bool(torch.isfinite(x).all()) for x in ref):
+                fail("%s %s: the plain version is not finite on these inputs" % (k.bwd, method))
+            k_norm, k_rel = (torch.cat(x) for x in zip(*map(cotangent_readings, got, ref)))
+            p_norm, p_rel = (torch.cat(x) for x in zip(*map(cotangent_readings, plain, ref)))
             readings[method] = (k_norm, k_rel, p_norm, p_rel)
-            ok = (cotangents_ok(torch.cat([dc, dy0]), ref) and cotangents_ok(dw, rw))
-            plain_ok = (cotangents_ok(torch.cat([pc, py]), ref) and cotangents_ok(pw, rw))
-            same = bool(torch.equal(dw, dw_again))
-            err = (torch.cat([dc, dy0]).double() - ref).abs()
-            ms = cuda_ms(lambda: fused_ode.dr_prec_bwd(wmat, packed, times, traj, g, method), 20)
-            plain_ms = cuda_ms(lambda: fused_ode._integrate_prec_plain_bwd(
-                wmat, packed, times, traj, g, method), 3, warmup=1)
+            ok = all(map(cotangents_ok, got, ref))
+            plain_ok = all(map(cotangents_ok, plain, ref))
+            err = (got[0].double() - ref[0]).abs()
+            ms = cuda_ms(lambda: fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method), 20)
+            plain_ms = cuda_ms(lambda: fused_ode._plain_bwd(kind, wmat, packed, times, traj, g,
+                                                            method), 3, warmup=1)
             # inputs read once (weights, constants, grid, traj, g), outputs
             # written once (dW, dc, dy0)
-            n_bytes = 4 * (2 * wmat.numel() + 2 * packed.numel() + times.numel()
-                           + 2 * T * S * R + S * R)
-            n_flops = DR_PREC_BWD_FLOPS_PER_STEP[method] * (T - 1) * R
+            n_w = wmat.numel() if k.prec else 0
+            n_bytes = 4 * (2 * n_w + 2 * packed.numel() + times.numel() + 2 * T * S * R + S * R)
+            n_flops = flops_per_step(kind)[1][method] * (T - 1) * R
             bound_ms, bound_by = bound(n_bytes, n_flops)
             r = rows[method] = dict(
                 max_abs_err=float(err.max()),
-                max_rel_err=float((err / ref.abs().clamp_min(1e-300)).max()),
-                dw_max_rel_err=float(((dw.double() - rw).abs() / rw.abs().clamp_min(1e-300)).max()),
+                max_rel_err=float((err / ref[0].abs().clamp_min(1e-300)).max()),
                 worst_norm=float(k_norm.max()), worst_p99=float(k_rel.max()),
                 plain_worst_norm=float(p_norm.max()), plain_worst_p99=float(p_rel.max()),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bytes=n_bytes, flops=n_flops,
             )
-            f = train_fwd_rows[method] = prec_fwd_row(wmat, packed, y0_cols, times, method)
+            f = train_fwd_rows[method] = fwd_row(kind, wmat, packed, y0_cols, times, method)
             print("  %-9s kernel: worst normwise %.3e (%s), worst p99 rel %.3e (%s); plain "
-                  "float32: %.3e, %.3e | dW max rel err %.3e, repeat run bit-equal: %s  kernel "
-                  "%.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
+                  "float32: %.3e, %.3e | max_abs_err %.3e on |ref| up to %.3e%s  kernel %.4f ms  "
+                  "plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
                   % (method, r["worst_norm"], row_names[int(k_norm.argmax())], r["worst_p99"],
                      row_names[int(k_rel.argmax())], r["plain_worst_norm"],
-                     r["plain_worst_p99"], r["dw_max_rel_err"], same, ms, plain_ms, bound_ms,
-                     bound_by, n_bytes, n_flops, "ok" if ok else "MISMATCH"))
-            print("  %-9s dr_prec_fwd at this shape: kernel %.4f ms  plain %.2f ms  bound %.4f ms "
-                  "(%s)" % (method, f["ms"], f["plain_ms"], f["bound_ms"], f["bound_by"]))
+                     r["plain_worst_p99"], r["max_abs_err"], float(ref[0].abs().max()),
+                     ", repeat run dW bit-equal: %s" % same if k.prec else "", ms, plain_ms,
+                     bound_ms, bound_by, n_bytes, n_flops, "ok" if ok else "MISMATCH"))
+            print("  %-9s %s at this shape: kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s)"
+                  % (method, k.fwd, f["ms"], f["plain_ms"], f["bound_ms"], f["bound_by"]))
             if not ok:
-                fail("dr_prec_bwd %s disagrees with its plain version" % method)
+                fail("%s %s disagrees with its plain version" % (k.bwd, method))
             if not plain_ok:
-                fail("dr_prec_bwd %s: the plain version in float32 is outside the tolerance "
-                     "itself" % method)
+                fail("%s %s: the plain version in float32 is outside the tolerance itself"
+                     % (k.bwd, method))
             if not same:
-                fail("dr_prec_bwd %s: two runs gave different weight cotangents" % method)
+                fail("%s %s: two runs gave different weight cotangents" % (k.bwd, method))
     print("  per row, normwise error / 99th percentile relative error against float64, "
           "kernel then plain float32, for %s:" % ", ".join(fused_ode.METHODS))
     for i, name in enumerate(row_names):
@@ -563,7 +506,7 @@ def phase_prec_kernels(device):
     return fwd_rows, rows, train_fwd_rows
 
 
-def check_request(out, n_theta):
+def check_request(out, n_theta, n_species):
     m = out.merged
     B, S, T = out.host.observations.shape
     if not math.isfinite(m.elbo):
@@ -574,7 +517,7 @@ def check_request(out, n_theta):
         "q_prec": (B, n_theta),
         "iw_predict_mu": (B, 4, T),
         "iw_predict_std": (B, 4, T),
-        "iw_states": (B, 8, T),
+        "iw_states": (B, n_species, T),
         "iw_variance": (B, 4, T),
     }
     import numpy as np
@@ -595,21 +538,19 @@ def _counter(kernel):
     """The function whose ``launches`` attribute counts ``kernel``'s launches."""
     from vihds_tpu_torch.ops import fused_ode
 
-    return {"dr_fwd": fused_ode.dr_constant_simulate, "dr_bwd": fused_ode.dr_bwd,
-            "dr_prec_fwd": fused_ode.dr_constant_precisions_simulate,
-            "dr_prec_bwd": fused_ode.dr_prec_bwd}[kernel]
+    return fused_ode.COUNTERS[kernel]
 
 
-def serve(device, spec, files, phase, kernel):
+def serve(device, spec, files, phase, kernel, counterfactual=COUNTERFACTUAL):
     """``predict`` one request per CSV of ``files`` on ``spec``'s model at
     K=1000 through the kernels (``eval_solver: pallas_midpoint``), the first
-    with a counterfactual.  Counts ``kernel``'s launches from 0; returns
+    with ``counterfactual``.  Counts ``kernel``'s launches from 0; returns
     (launches, request walls, the first request's output)."""
     import torch
 
     from vihds_tpu_torch.predict import create_parser, predict
 
-    _, settings, _, program, _, params = serving_setup(device, spec=spec)
+    _, settings, _, program, model, params = serving_setup(device, spec=spec)
     name = os.path.basename(spec)[: -len(".yaml")]
     print("phase %s: serving %s, K=%d, eval_solver=%s"
           % (phase, name, K_SERVE, settings.params.eval_solver))
@@ -617,7 +558,7 @@ def serve(device, spec, files, phase, kernel):
     for i, f in enumerate(files):
         argv = [spec, "--data", f, "--test_samples", str(K_SERVE), "--seed", str(SEED)]
         if i == 0:
-            argv += ["--treatments", COUNTERFACTUAL]
+            argv += ["--treatments", counterfactual]
         requests.append(create_parser().parse_args(argv))
 
     _counter(kernel).launches = 0
@@ -631,8 +572,8 @@ def serve(device, spec, files, phase, kernel):
     launches = _counter(kernel).launches
 
     for args, out, wall in zip(requests, outs, walls):
-        B = check_request(out, program.n_theta)
-        print("  request %-16s %3d series  wall %.3f s  elbo %.3f%s"
+        B = check_request(out, program.n_theta, model.ode_model.n_species)
+        print("  request %-36s %3d series  wall %.3f s  elbo %.3f%s"
               % (os.path.basename(args.data[0]), B, wall, out.merged.elbo,
                  "  + counterfactual %s" % args.treatments[0] if args.treatments else ""))
     print("  %s launches on the serving path of %s: %d" % (kernel, name, launches))
@@ -641,10 +582,26 @@ def serve(device, spec, files, phase, kernel):
     return launches, walls, outs[0]
 
 
-def phase_route_check(device, served):
+def route_close(got, ref, family):
+    """States [..., S, T] of the kernel route against the generic solver's
+    (numpy): within ROUTE_RTOL / ROUTE_ATOL element by element, the family's
+    signal states (``SIGNAL_STATES``) against each trajectory's largest
+    magnitude over T.  Returns (the largest error over its scale, ok)."""
+    import numpy as np
+
+    scale = np.abs(ref)
+    idx = list(SIGNAL_STATES.get(family, ()))
+    if idx:
+        scale[..., idx, :] = np.abs(ref[..., idx, :]).max(axis=-1, keepdims=True)
+    err = np.abs(got - ref)
+    ok = bool(np.isfinite(got).all() and (err <= ROUTE_ATOL + ROUTE_RTOL * scale).all())
+    return float((err / np.maximum(scale, 1e-30)).max()), ok
+
+
+def phase_route_check(device, served, spec=SPEC, phase="4b"):
     """The kernel route through OdeModel.simulate against the generic
-    Python-stepped solver (models/dr_constant._dr_species_rhs) on a small
-    input from the first request, with the same draws u."""
+    Python-stepped solver on a small input from the first request, with the
+    same draws u."""
     import numpy as np
     import torch
 
@@ -654,7 +611,7 @@ def phase_route_check(device, served):
     rows = np.arange(min(4, host.observations.shape[0]))
     results = {}
     for solver in ("pallas_midpoint", "midpoint"):
-        _, _, _, program, model, params = serving_setup(device, eval_solver=solver)
+        _, _, _, program, model, params = serving_setup(device, eval_solver=solver, spec=spec)
         times = torch.as_tensor(host.times, dtype=torch.float32, device=device)
         batch = batch_tensors(host, rows, times, device)
         u = torch.randn((len(rows), 50, program.n_theta),
@@ -664,13 +621,78 @@ def phase_route_check(device, served):
             res = eval_step(model, program, params, batch, 50, u=u)
         results[solver] = {k: v.cpu().numpy() for k, v in res.items()}
     a, b = results["pallas_midpoint"], results["midpoint"]
-    for k in ("iw_predict_mu", "iw_states"):
-        np.testing.assert_allclose(a[k], b[k], rtol=ROUTE_RTOL, atol=ROUTE_ATOL, err_msg=k)
+    family = model.ode_model.pallas_kinds[0]
+    np.testing.assert_allclose(a["iw_predict_mu"], b["iw_predict_mu"], rtol=ROUTE_RTOL,
+                               atol=ROUTE_ATOL, err_msg="iw_predict_mu")
+    rel, ok = route_close(a["iw_states"], b["iw_states"], family)
+    if not ok:
+        fail("phase %s: iw_states of the kernel route disagree with the generic solver's (%.3e)"
+             % (phase, rel))
     np.testing.assert_allclose(a["per_item_elbo"], b["per_item_elbo"], rtol=0, atol=ELBO_ATOL)
-    print("phase 4b: kernel route == generic midpoint solver on %d series x 50 samples "
-          "(iw moments rtol %g atol %g, per-item ELBO within %g nats; max ELBO diff %.3e)"
-          % (len(rows), ROUTE_RTOL, ROUTE_ATOL, ELBO_ATOL,
-             float(np.abs(a["per_item_elbo"] - b["per_item_elbo"]).max())))
+    print("phase %s: %s kernel route == generic midpoint solver on %d series x 50 samples "
+          "(iw moments rtol %g atol %g%s, per-item ELBO within %g nats; max ELBO diff %.3e)"
+          % (phase, os.path.basename(spec)[: -len(".yaml")], len(rows), ROUTE_RTOL, ROUTE_ATOL,
+             ", signal states %s of each trajectory's largest |value|"
+             % list(SIGNAL_STATES[family]) if family in SIGNAL_STATES else "",
+             ELBO_ATOL, float(np.abs(a["per_item_elbo"] - b["per_item_elbo"]).max())))
+
+
+def phase_plain_kind(device, spec, model_cls, phase):
+    """The plain kind of ``spec``'s family (``relay`` / ``degrader``, which
+    no shipped spec names) through ``OdeModel.simulate`` of a ``model_cls``
+    built from the spec's settings, as the JAX package's tests build it: on
+    the train split's first 4 rows x 50 prior draws, the trajectory and the
+    gradient of a seeded weighted sum of it with respect to theta, through
+    the kernels (``pallas_midpoint``) and through the generic midpoint
+    solver.  The kernels' counts run from 0 over this path.  Returns their
+    launches {kernel: n}."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_ode
+
+    _, settings, data, program, model, params = serving_setup(device, spec=spec)
+    ode = model_cls(settings)
+    k = fused_ode.KINDS[ode.pallas_kinds[0]]
+    ds = data.train.dataset
+    with torch.no_grad():
+        gen = torch.Generator(device=device).manual_seed(SEED + 11)
+        u = model.sample_u(gen, 4, 50, device)
+        theta = program.clip(program.sample(program.prior_q(device), u))
+    inputs = torch.as_tensor(ds.inputs[:4], dtype=torch.float32, device=device)
+    dev_1hot = torch.as_tensor(ds.dev_1hot[:4], dtype=torch.float32, device=device)
+    times = torch.as_tensor(ds.times, dtype=torch.float32, device=device)
+    weights = torch.randn((4, 50, ode.n_species, times.shape[0]), device=device,
+                          generator=torch.Generator(device=device).manual_seed(SEED + 12))
+    out = {}
+    for solver in ("pallas_midpoint", "midpoint"):
+        if solver == "pallas_midpoint":
+            _counter(k.fwd).launches = 0
+            _counter(k.bwd).launches = 0
+        ode.solver = solver
+        leaf = theta.clone().requires_grad_(True)
+        th = ode.condition_theta(params["dec"], program.theta_dict(leaf), dev_1hot)
+        sol = ode.simulate(params["dec"], th, times, inputs, dev_1hot, 50)
+        (grad,) = torch.autograd.grad((sol * weights).sum(), leaf)
+        torch.cuda.synchronize()
+        if solver == "pallas_midpoint":
+            launches = {k.fwd: _counter(k.fwd).launches, k.bwd: _counter(k.bwd).launches}
+        out[solver] = (sol.detach(), grad)
+    (sk, gk), (sg, gg) = out["pallas_midpoint"], out["midpoint"]
+    sol_rel, sol_ok = route_close(sk.cpu().numpy(), sg.cpu().numpy(), k.name)
+    ok = sol_ok and bool(torch.isfinite(gk).all())
+    rel = float((gk - gg).norm() / gg.norm().clamp_min(1e-30))
+    print("phase %s: %s (kind %s) built from %s's settings, 4 series x 50 samples: trajectory "
+          "max rel diff %.3e vs the generic midpoint solver (rtol %g atol %g, signal states %s "
+          "of each trajectory's largest |value|), theta gradient relative norm diff %.3e (tol "
+          "%g); %s launches %d, %s launches %d"
+          % (phase, model_cls.__name__, k.name, os.path.basename(spec)[: -len(".yaml")],
+             sol_rel, ROUTE_RTOL, ROUTE_ATOL, list(SIGNAL_STATES[k.name]), rel, GRAD_RTOL,
+             k.fwd, launches[k.fwd], k.bwd, launches[k.bwd]))
+    if not (ok and rel <= GRAD_RTOL):
+        fail("the %s kernel route disagrees with the generic solver" % k.name)
+    if min(launches.values()) == 0:
+        fail("the %s path did not launch %s" % (k.name, launches))
+    return launches
 
 
 def phase_profile(device, wall_s):
@@ -765,8 +787,8 @@ def train(device, spec, phase, fwd, bwd):
     with tempfile.TemporaryDirectory() as results_dir:
         os.environ["INFERENCE_RESULTS_DIR"] = results_dir
         settings.trainer = Trainer(args, add_timestamp=True)
-        print("phase %s: training %s, split 1 of 4, solver %s, B=%d, K=%d, T=86, "
-              "epochs %d, eval every %d at K=%d (train split) / %d (valid split)"
+        print("phase %s: training %s, split 1 of 4, solver %s, B=%d, K=%d, epochs %d, eval every "
+              "%d at K=%d (train split) / %d (valid split)"
               % (phase, name, settings.params.solver, settings.params.n_batch, args.train_samples,
                  args.epochs, args.test_epoch, args.train_samples, args.test_samples))
         _counter(fwd).launches = 0
@@ -792,9 +814,10 @@ def train(device, spec, phase, fwd, bwd):
     steps = len(training.step_ms)
     spe = training.steps_per_epoch
     step_ms = statistics.median(training.step_ms[spe:])
-    print("  %d optimizer steps (%d per epoch) in %.2f s wall; median step %.2f ms after the "
-          "first epoch (first epoch's steps: %s ms)"
-          % (steps, spe, wall, step_ms, ", ".join("%.1f" % t for t in training.step_ms[:spe])))
+    print("  %d train / %d valid series, T=%d; %d optimizer steps (%d per epoch) in %.2f s wall; "
+          "median step %.2f ms after the first epoch (first epoch's steps: %s ms)"
+          % (data.n_train, data.n_test, len(data.train.dataset.times), steps, spe, wall, step_ms,
+             ", ".join("%.1f" % t for t in training.step_ms[:spe])))
     print("  best-val cache %s and %d xval_* files written" % (os.path.basename(cache), n_xval))
     print("  %s launches %d, %s launches %d (optimizer steps %d)"
           % (fwd, launches[fwd], bwd, launches[bwd], steps))
@@ -806,13 +829,13 @@ def train(device, spec, phase, fwd, bwd):
     return launches, step_ms, training
 
 
-def phase_training_precisions(device):
-    """Phase 7: train dr_constant_precisions as phase 5 trains
-    dr_constant_icml; the weight cotangent of dr_prec_bwd must move every
-    leaf of the precision nets away from its seeded initial value."""
+def train_precisions(device, spec, phase, kind):
+    """Train a ``_precisions`` model as ``train`` does; the weight cotangent
+    of the kind's backward kernel must move every leaf of the precision nets
+    away from its seeded initial value."""
     import torch
 
-    launches, step_ms, training = train(device, SPEC_PREC, "7", "dr_prec_fwd", "dr_prec_bwd")
+    launches, step_ms, training = train(device, spec, phase, kind + "_fwd", kind + "_bwd")
     init = training.model.init_params(torch.Generator().manual_seed(SEED), device=device)
     moved = []
     for net in ("prod", "degr"):
@@ -860,10 +883,9 @@ def one_step(device, solver, rows, K, seed, spec=SPEC):
 
 
 def phase_route_check_training(device, spec=SPEC, phase="5b"):
-    """Phase 5b (7b for dr_constant_precisions): one loss and gradient on 4
-    series x 50 samples, with the same params and u, through the kernels
-    (pallas_midpoint) and through the plain online log-likelihood route
-    (midpoint) on the card."""
+    """One loss and gradient on 4 series x 50 samples, with the same params
+    and u, through the kernels (pallas_midpoint) and through the plain
+    online log-likelihood route (midpoint) on the card."""
     import torch
 
     from vihds_tpu_torch.training import param_leaves
@@ -893,11 +915,10 @@ def phase_route_check_training(device, spec=SPEC, phase="5b"):
     return wk, wf
 
 
-def phase_profile_training(device, spec=SPEC, phase="5c", kernels=("dr_fwd", "dr_bwd")):
-    """Phase 5c (7c for dr_constant_precisions): torch.profiler over one
-    full-size training step (B=36, K=200) after a warm-up step: device busy
-    share of the step's wall and where the model's two kernels stand among
-    the kernels."""
+def phase_profile_training(device, spec=SPEC, phase="5c"):
+    """torch.profiler over one full-size training step (B=36, K=200) after
+    a warm-up step: device busy share of the step's wall and where the
+    model's two fused kernels stand among the kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -925,9 +946,37 @@ def phase_profile_training(device, spec=SPEC, phase="5c", kernels=("dr_fwd", "dr
              sum(e.count for e in events), total_us / 1e3, wall * 1e3, total_us / 1e6 / wall,
              prof_wall * 1e3))
     for i, e in enumerate(events):
-        if i < 10 or any(k + "_kernel" in e.key for k in kernels):
-            print("  #%-3d %9.3f ms  %5d calls  %s" % (i + 1, dev_us(e) / 1e3, e.count, e.key[:100]))
+        if i < 10 or "fwd_kernel" in e.key or "bwd_kernel" in e.key:
+            print("  #%-3d %9.3f ms  %5d calls  %s"
+                  % (i + 1, dev_us(e) / 1e3, e.count, e.key[:100]))
     return dict(busy_ms=total_us / 1e3, wall_ms=wall * 1e3)
+
+
+def kernel_row(kind, direction, rows, launches, **extra):
+    """One entry of the ``kernels`` line: the midpoint readings of phase 3
+    (the forward's at the serving chunk), the launches on the main path."""
+    row = rows["midpoint"]
+    first_line = {("fwd", False): 340, ("bwd", False): 364, ("fwd", True): 473, ("bwd", True): 500}
+    from vihds_tpu_torch.ops import fused_ode
+
+    return dict(
+        name="%s_%s" % (kind, direction),
+        route="cuda",
+        source="vihds_tpu_torch/csrc/%s_%s.cu" % (kind, direction),
+        replaces="vihds_tpu/ops/pallas_ode.py:%d" % first_line[(direction,
+                                                                fused_ode.KINDS[kind].prec)],
+        kind=kind,
+        method="midpoint",
+        launches=launches,
+        max_abs_err=row["max_abs_err"],
+        ms=row["ms"],
+        plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"],
+        # no single PyTorch call integrates these ODEs or computes their VJPs
+        library_ms=None,
+        **extra,
+    )
 
 
 def main():
@@ -940,96 +989,57 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    from vihds_tpu_torch.models.degrader_constant import Degrader_Constant
+    from vihds_tpu_torch.models.relay_constant import Relay_Constant
+    from vihds_tpu_torch.ops import fused_ode
     from vihds_tpu_torch.utils import resolve_device
 
     device = resolve_device("cuda")
     t_start = time.perf_counter()
     phase_card()
     phase_build()
-    rows = phase_kernels(device)
-    bwd_rows, fwd_train_rows = phase_bwd(device)
-    prec_rows, prec_bwd_rows, prec_fwd_train_rows = phase_prec_kernels(device)
-    launches, walls, served = serve(device, SPEC, REQUESTS, "4", "dr_fwd")
+    measured = {kind: phase_kind_kernels(device, kind, SEED + 10 * i + 1)
+                for i, kind in enumerate(fused_ode.KINDS)}
+
+    serving, training = {}, {}
+    serving["dr"], walls, served = serve(device, SPEC, REQUESTS, "4", "dr_fwd")
     phase_route_check(device, served)
     phase_profile(device, walls[1])
-    train_launches, _, _ = train(device, SPEC, "5", "dr_fwd", "dr_bwd")
+    training["dr"] = train(device, SPEC, "5", "dr_fwd", "dr_bwd")[0]
     phase_route_check_training(device)
     phase_profile_training(device)
-    prec_launches, _, _ = serve(device, SPEC_PREC, REQUESTS, "6", "dr_prec_fwd")
+
+    serving["dr_prec"] = serve(device, SPEC_PREC, REQUESTS, "6", "dr_prec_fwd")[0]
     # v2's version lives in the host-side fracLuxR / fracLasR: the same kernel
     serve(device, SPEC_PREC_V2, REQUESTS[:1], "6", "dr_prec_fwd")
-    prec_train_launches, _, _ = phase_training_precisions(device)
+    training["dr_prec"] = train_precisions(device, SPEC_PREC, "7", "dr_prec")[0]
     phase_route_check_training(device, SPEC_PREC, "7b")
-    phase_profile_training(device, SPEC_PREC, "7c", ("dr_prec_fwd", "dr_prec_bwd"))
+    phase_profile_training(device, SPEC_PREC, "7c")
 
-    fwd, fwd_train, bwd = rows["midpoint"], fwd_train_rows["midpoint"], bwd_rows["midpoint"]
-    kernels = [
-        dict(
-            name="dr_fwd",
-            route="cuda",
-            source="vihds_tpu_torch/csrc/dr_fwd.cu",
-            replaces="vihds_tpu/ops/pallas_ode.py:340",
-            method="midpoint",
-            # the training path's count; the serving path's beside it
-            launches=train_launches["dr_fwd"],
-            launches_serving=launches,
-            # at the serving chunk (B=36, K=1000); the training shape beside it
-            max_abs_err=fwd["max_abs_err"],
-            ms=fwd["ms"],
-            plain_ms=fwd["plain_ms"],
-            bound_ms=fwd["bound_ms"],
-            bound_by=fwd["bound_by"],
-            train_shape={k: fwd_train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            library_ms=None,  # no single PyTorch call integrates this ODE
-        ),
-        dict(
-            name="dr_bwd",
-            route="cuda",
-            source="vihds_tpu_torch/csrc/dr_bwd.cu",
-            replaces="vihds_tpu/ops/pallas_ode.py:364",
-            method="midpoint",
-            launches=train_launches["dr_bwd"],
-            max_abs_err=bwd["max_abs_err"],
-            ms=bwd["ms"],
-            plain_ms=bwd["plain_ms"],
-            bound_ms=bwd["bound_ms"],
-            bound_by=bwd["bound_by"],
-            library_ms=None,  # no single PyTorch call computes this ODE's VJP
-        ),
-        dict(
-            name="dr_prec_fwd",
-            route="cuda",
-            source="vihds_tpu_torch/csrc/dr_prec_fwd.cu",
-            replaces="vihds_tpu/ops/pallas_ode.py:473",
-            method="midpoint",
-            # the training path's count; the serving path's beside it
-            launches=prec_train_launches["dr_prec_fwd"],
-            launches_serving=prec_launches,
-            # at the serving chunk (B=36, K=1000); the training shape beside it
-            max_abs_err=prec_rows["midpoint"]["max_abs_err"],
-            ms=prec_rows["midpoint"]["ms"],
-            plain_ms=prec_rows["midpoint"]["plain_ms"],
-            bound_ms=prec_rows["midpoint"]["bound_ms"],
-            bound_by=prec_rows["midpoint"]["bound_by"],
-            train_shape={k: prec_fwd_train_rows["midpoint"][k]
+    for family, spec, files, cf, cls, p in (
+            ("relay", SPEC_RELAY, RELAY_REQUESTS, COUNTERFACTUAL, Relay_Constant, 8),
+            ("degrader", SPEC_DEGRADER, DEGRADER_REQUESTS, DEGRADER_COUNTERFACTUAL,
+             Degrader_Constant, 10)):
+        kind = family + "_prec"
+        serving[kind], _, served = serve(device, spec, files, str(p), kind + "_fwd", cf)
+        phase_route_check(device, served, spec, "%db" % p)
+        training[family] = phase_plain_kind(device, spec, cls, "%dd" % p)
+        training[kind] = train_precisions(device, spec, str(p + 1), kind)[0]
+        phase_route_check_training(device, spec, "%db" % (p + 1))
+        phase_profile_training(device, spec, "%dc" % (p + 1))
+
+    kernels = []
+    for kind, (fwd_rows, bwd_rows, train_fwd_rows) in measured.items():
+        # the launches: the training path's (for the plain relay / degrader
+        # kinds, phase 8d's / 10d's path); the serving path's beside them
+        launches = training[kind]
+        extra = {"launches_serving": serving[kind]} if kind in serving else {}
+        kernels.append(kernel_row(
+            kind, "fwd", fwd_rows, launches[kind + "_fwd"],
+            train_shape={k: train_fwd_rows["midpoint"][k]
                          for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            library_ms=None,  # no single PyTorch call integrates this ODE
-        ),
-        dict(
-            name="dr_prec_bwd",
-            route="cuda",
-            source="vihds_tpu_torch/csrc/dr_prec_bwd.cu",
-            replaces="vihds_tpu/ops/pallas_ode.py:500",
-            method="midpoint",
-            launches=prec_train_launches["dr_prec_bwd"],
-            max_abs_err=prec_bwd_rows["midpoint"]["max_abs_err"],
-            ms=prec_bwd_rows["midpoint"]["ms"],
-            plain_ms=prec_bwd_rows["midpoint"]["plain_ms"],
-            bound_ms=prec_bwd_rows["midpoint"]["bound_ms"],
-            bound_by=prec_bwd_rows["midpoint"]["bound_by"],
-            library_ms=None,  # no single PyTorch call computes this ODE's VJP
-        ),
-    ]
+            **extra))
+        kernels.append(kernel_row(kind, "bwd", bwd_rows, launches[kind + "_bwd"]))
     print("total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card (dr_fwd, dr_bwd, dr_prec_fwd,
-dr_prec_bwd): built from csrc/, launched through their wrappers and held
-against their plain PyTorch versions.  Marked
+"""The port's CUDA kernels on the card (the forward and backward kernels of
+the dr, dr_prec, relay, relay_prec, degrader and degrader_prec kinds): built
+from csrc/, launched through their wrappers and held against their plain
+PyTorch versions.  Marked
 ``cuda``; each test skips where no CUDA device is visible (decided inside
 the fixture, never at import).  On a machine with a card:
 
@@ -9,7 +10,10 @@ the fixture, never at import).  On a machine with a card:
 Tolerance of the forward: rtol 1e-4, atol 1e-5 (the kernel contracts a*b+c
 into FMAs and computes expf its own way, so each step rounds differently
 from the plain version; chip_smoke.py holds the serving-size run to the same
-bound).  The backward's is stated at ``_assert_cotangents_close``."""
+bound); the relay and degrader kinds' C6 / C12, and degrader_prec's
+precision states, are held against each trajectory's largest magnitude
+(``chip_smoke.states_ok``).  The backward's is stated at
+``_assert_cotangents_close``."""
 
 import numpy as np
 import pytest
@@ -140,13 +144,13 @@ def _prec_operands(device, seed=0):
     y0 = torch.cat([y0, torch.as_tensor(prec0, dtype=torch.float32, device=device)], dim=-1)
     wmat = torch.as_tensor(rng.uniform(-0.68, 0.68, fused_ode.WMAT_SHAPE), dtype=torch.float32,
                            device=device)
-    packed, y0_cols = fused_ode._pack(c, y0, 12)
+    packed, y0_cols = fused_ode._pack(c, y0, "dr_prec")
     return c, y0, wmat, packed, y0_cols, times
 
 
 @pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
 def test_dr_prec_fwd_kernel_matches_plain(cuda, method):
-    """Each state group to its own tolerance, as chip_smoke.py phase 3''."""
+    """Each state group to its own tolerance, as chip_smoke.py phase 3."""
     import chip_smoke
 
     _, _, wmat, packed, y0_cols, times = _prec_operands(cuda)
@@ -283,3 +287,108 @@ def test_resume_on_the_card_follows_the_uninterrupted_run(cuda, tmp_path):
     for a, b in zip(param_leaves(whole.final_params), param_leaves(resumed.final_params)):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+# ----------------------------------------------------- the relay / degrader kinds
+NEW_KINDS = ["relay", "relay_prec", "degrader", "degrader_prec"]
+
+
+def _kind_operands(device, kind):
+    """The kind's operands from its spec's model at K=5 (chip_smoke's
+    ``kind_inputs``: theta from the prior, the model's seeded precision
+    nets)."""
+    import chip_smoke
+
+    return chip_smoke.kind_inputs(device, kind, 5, 0)
+
+
+@pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
+@pytest.mark.parametrize("kind", NEW_KINDS)
+def test_kind_fwd_kernel_matches_plain(cuda, kind, method):
+    """Each state group to its own tolerance, as chip_smoke.py phase 3."""
+    import chip_smoke
+
+    k = fused_ode.KINDS[kind]
+    _, _, _, wmat, packed, y0_cols, times = _kind_operands(cuda, kind)
+    counter = fused_ode.COUNTERS[k.fwd]
+    before = counter.launches
+    got = fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = fused_ode._plain_fwd(kind, wmat, packed, y0_cols, times, method)
+    assert got.shape == ref.shape == (times.shape[0], k.n_states, packed.shape[1])
+    assert torch.isfinite(ref).all()
+    rel, ok = chip_smoke.states_ok(got.movedim(1, -1), ref.movedim(1, -1), kind)
+    assert ok, rel
+
+
+@pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
+@pytest.mark.parametrize("kind", NEW_KINDS)
+def test_kind_bwd_kernel_matches_plain(cuda, kind, method):
+    """dc and dy0 per constant and state row, dW per row of the weight
+    matrix, each against the plain sweep in float64; a _prec kind's weight
+    cotangent is the same bit for bit from run to run."""
+    k = fused_ode.KINDS[kind]
+    _, _, _, wmat, packed, y0_cols, times = _kind_operands(cuda, kind)
+    traj = fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method)
+    g = torch.as_tensor(
+        np.random.default_rng(1).standard_normal(tuple(traj.shape)).astype(np.float32), device=cuda
+    )
+    counter = fused_ode.COUNTERS[k.bwd]
+    before = counter.launches
+    dw, dc, dy0 = fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref_dw, ref_dc, ref_dy0 = fused_ode._plain_bwd(
+        kind, wmat.double() if k.prec else None, packed.double(), times.double(), traj.double(),
+        g.double(), method)
+    R = packed.shape[1]
+    assert dc.shape == (len(k.names), R) and dy0.shape == (k.n_states, R)
+    _assert_cotangents_close(torch.cat([dc, dy0]), torch.cat([ref_dc, ref_dy0]))
+    if k.prec:
+        assert dw.shape == k.wmat_shape
+        _assert_cotangents_close(dw, ref_dw)
+        assert torch.equal(dw, fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method)[0])
+    else:
+        assert dw is None
+
+
+@pytest.mark.parametrize("kind", NEW_KINDS)
+def test_kind_autograd_function_matches_float64_autograd(cuda, kind):
+    """The kind's wrapper on the card (forward and backward kernels,
+    float32) against torch.autograd through its plain version in float64 on
+    the CPU: the constants, y0 and, for a _prec kind, the precision nets'
+    four leaves."""
+    k = fused_ode.KINDS[kind]
+    c, pp, y0, _, _, _, times = _kind_operands(cuda, kind)
+    w = np.random.default_rng(2).standard_normal((times.shape[0],) + tuple(y0.shape))
+
+    def leaves(dev, dtype):
+        cl = {n: c[n].detach().to(dev, dtype).broadcast_to(y0.shape[:2]).clone()
+              .requires_grad_(True) for n in k.names}
+        pl = ({n: {l: v.detach().to(dev, dtype).clone().requires_grad_(True)
+                   for l, v in d.items()} for n, d in pp.items()} if k.prec else None)
+        return cl, pl, y0.detach().to(dev, dtype).clone().requires_grad_(True)
+
+    got = leaves(cuda, torch.float32)
+    ref = leaves("cpu", torch.float64)
+    counts = [fused_ode.COUNTERS[n].launches for n in (k.fwd, k.bwd)]
+    for (cl, pl, yl), sim, dev, dtype in ((got, fused_ode.simulate_kind, cuda, torch.float32),
+                                          (ref, fused_ode._simulate_plain, "cpu", torch.float64)):
+        if sim is fused_ode.simulate_kind:
+            sol = sim(kind, cl, yl, times.to(dev, dtype), "midpoint", pl)
+        else:
+            sol = sim(kind, cl, pl, yl, times.to(dev, dtype), "midpoint")
+        (sol * torch.as_tensor(w, dtype=dtype, device=dev)).sum().backward()
+    torch.cuda.synchronize()
+    assert [fused_ode.COUNTERS[n].launches for n in (k.fwd, k.bwd)] == [c + 1 for c in counts]
+    S = k.n_states
+    _assert_cotangents_close(torch.stack([got[0][n].grad.reshape(-1) for n in k.names]),
+                             torch.stack([ref[0][n].grad.reshape(-1) for n in k.names]))
+    _assert_cotangents_close(got[2].grad.reshape(-1, S).t(), ref[2].grad.reshape(-1, S).t())
+    if k.prec:
+        def dw(p):  # the leaves' gradients as the rows of the weight matrix
+            return torch.cat([torch.cat([p[n]["b"].grad[:, None], p[n]["w"].grad.t()], dim=1)
+                              for n in ("prod", "degr")])
+
+        _assert_cotangents_close(dw(got[1]), dw(ref[1]))

@@ -135,7 +135,7 @@ def test_times_get_no_cotangent(setup):
     packed, y0, times = _packed(setup, torch.float32)
     times = times.clone().requires_grad_(True)
     pk = packed.clone().requires_grad_(True)
-    out = fused_ode._DrIntegrate.apply(pk, y0, times, "midpoint")
+    out = fused_ode._KindIntegrate.apply("dr", None, pk, y0, times, "midpoint")
     out.sum().backward()
     assert times.grad is None and pk.grad is not None
 
@@ -169,13 +169,13 @@ def test_bwd_kernel_refuses_cpu_tensors(setup):
 # float32 sweep, which rounds as a float32 kernel does, must pass it; a sweep
 # with one derivative 1% off must not, whichever constant or state it is.
 # Operands: dr_constant_icml, B=36 series x K=20 samples, theta from the
-# prior, as phase 3' draws them at K=200.
+# prior, as phase 3 draws them at K=200.
 # ------------------------------------------------------------------------- #
 @pytest.fixture(scope="module")
 def icml_operands():
     import chip_smoke
 
-    _, _, packed, y0, times = chip_smoke.kernel_inputs("cpu", 20, 3)
+    _, _, _, _, packed, y0, times = chip_smoke.kind_inputs("cpu", "dr", 20, 3)
     g = torch.as_tensor(np.random.default_rng(4).standard_normal((times.shape[0],) + y0.shape),
                         dtype=torch.float32)
     return packed, y0, times, g

@@ -19,7 +19,8 @@ from vihds_tpu_torch.data.datasets import build_datasets as t_build
 from vihds_tpu_torch.predict import load_new_data as t_load_new_data
 from vihds_tpu_torch.prob import ParamProgram as TProgram, parse_parameters as t_parse
 
-SPECS = ["dr_constant_one.yaml", "dr_constant_icml.yaml"]
+SPECS = ["dr_constant_one.yaml", "dr_constant_icml.yaml", "relay_constant_precisions.yaml",
+         "degrader_constant_precisions.yaml"]
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 
 

@@ -100,7 +100,7 @@ def _torch_pp(setup, dtype=torch.float32):
 
 def _packed(setup, dtype=torch.float64):
     c = {k: torch.as_tensor(v, dtype=dtype) for k, v in setup["c"].items()}
-    packed, y0 = fused_ode._pack(c, torch.as_tensor(setup["y0"], dtype=dtype), S)
+    packed, y0 = fused_ode._pack(c, torch.as_tensor(setup["y0"], dtype=dtype), "dr_prec")
     wmat = fused_ode._prec_wmat(_torch_pp(setup, dtype))
     return wmat, packed, y0, torch.as_tensor(setup["times"], dtype=dtype)
 
@@ -226,7 +226,7 @@ def test_times_get_no_cotangent(setup):
     wmat, packed, y0, times = _packed(setup, torch.float32)
     times = times.clone().requires_grad_(True)
     wm = wmat.clone().requires_grad_(True)
-    out = fused_ode._DrPrecIntegrate.apply(wm, packed, y0, times, "midpoint")
+    out = fused_ode._KindIntegrate.apply("dr_prec", wm, packed, y0, times, "midpoint")
     out.sum().backward()
     assert times.grad is None and wm.grad is not None
 
@@ -249,15 +249,17 @@ def test_prec_kernel_sources_match_the_wrapper():
     sizes the dW partials by."""
     common = open(os.path.join(CSRC, "dr_common.cuh")).read()
     consts = {m.group(1): m.group(2) for m in re.finditer(r"constexpr int (\w+) = ([^;]+);", common)}
-    assert consts["N_SPECIES"] == str(fused_ode.N_SPECIES)
     assert consts["N_PREC"] == str(fused_ode.N_PREC)
-    assert fused_ode.WMAT_SHAPE == (2 * fused_ode.N_PREC, 2 + fused_ode.N_SPECIES)
-    assert consts["N_FEAT"] == "2 + N_SPECIES" and consts["N_W"] == "2 * N_PREC * N_FEAT"
+    assert re.search(r"struct Dr \{\s*enum : int \{ NC = N_CONST, NS = (\d+) \};", common).group(
+        1) == str(fused_ode.N_SPECIES)
+    assert fused_ode.WMAT_SHAPE == fused_ode.KINDS["dr_prec"].wmat_shape == (
+        2 * fused_ode.N_PREC, 2 + fused_ode.N_SPECIES)
+    assert "constexpr int n_feat(int ns) { return 2 + ns; }" in common
+    assert "constexpr int n_w(int ns) { return 2 * N_PREC * n_feat(ns); }" in common
     for name in ("dr_prec_fwd.cu", "dr_prec_bwd.cu"):
-        assert '#include "dr_common.cuh"' in open(os.path.join(CSRC, name)).read(), name
-    bwd = open(os.path.join(CSRC, "dr_prec_bwd.cu")).read()
-    assert re.search(r"constexpr int THREADS = (\d+);", bwd).group(1) == str(
-        fused_ode.PREC_BWD_THREADS)
+        src = open(os.path.join(CSRC, name)).read()
+        assert '#include "dr_common.cuh"' in src and "<Dr, true>" in src, name
+    assert consts["BWD_THREADS"] == str(fused_ode.PREC_BWD_THREADS)
 
 
 def test_build_hashes_the_shared_header(tmp_path, monkeypatch):
@@ -404,19 +406,19 @@ def test_params_from_jax_maps_the_precision_leaves():
 
 
 # ------------------------------------------------------------------------- #
-# The rule chip_smoke.py holds dr_prec_bwd to on the card (phase 3''): each
+# The rule chip_smoke.py holds dr_prec_bwd to on the card (phase 3): each
 # constant's and state's row over the samples, and each of the 8 rows of dW
 # over its 10 columns, against the plain sweep in float64.  The plain float32
 # sweep, which rounds as a float32 kernel does, must pass it; a sweep with
 # one derivative 1% off must not, whichever weight entry or state it is.
 # Operands: dr_constant_precisions, B=36 series x K=20 samples, theta from
-# the prior, as phase 3'' draws them at K=200.
+# the prior, as phase 3 draws them at K=200.
 # ------------------------------------------------------------------------- #
 @pytest.fixture(scope="module")
 def prec_operands():
     import chip_smoke
 
-    _, _, _, wmat, packed, y0, times = chip_smoke.prec_kernel_inputs("cpu", 20, 3)
+    _, _, _, wmat, packed, y0, times = chip_smoke.kind_inputs("cpu", "dr_prec", 20, 3)
     g = torch.as_tensor(np.random.default_rng(4).standard_normal((times.shape[0],) + y0.shape),
                         dtype=torch.float32)
     traj = fused_ode._integrate_prec_plain(wmat, packed, y0, times, "midpoint")
@@ -441,7 +443,7 @@ def _prec_ok(operands, method="midpoint"):
 def test_float32_prec_sweep_is_within_the_card_tolerance(method):
     import chip_smoke
 
-    _, _, _, wmat, packed, y0, times = chip_smoke.prec_kernel_inputs("cpu", 20, 3)
+    _, _, _, wmat, packed, y0, times = chip_smoke.kind_inputs("cpu", "dr_prec", 20, 3)
     g = torch.as_tensor(np.random.default_rng(4).standard_normal((times.shape[0],) + y0.shape),
                         dtype=torch.float32)
     traj = fused_ode._integrate_prec_plain(wmat, packed, y0, times, method)

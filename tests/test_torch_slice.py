@@ -45,7 +45,8 @@ from vihds_tpu_torch.vae import VAE as TVAE
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "data")
 SPECS = ["dr_constant_one.yaml", "dr_constant_icml.yaml", "dr_constant_v2.yaml",
-         "dr_constant_precisions.yaml", "dr_constant_precisions_v2.yaml"]
+         "dr_constant_precisions.yaml", "dr_constant_precisions_v2.yaml",
+         "relay_constant_precisions.yaml", "degrader_constant_precisions.yaml"]
 B, K = 3, 4
 
 
@@ -97,6 +98,7 @@ def forward_pair(request):
             elbo=t_iwae_elbo(tt), **t_iw(tt, tout),
         )
         step = eval_step(tmodel, tprog, tparams, tbatch, K, u=torch.as_tensor(u))
+    j["n_species"] = jmodel.ode_model.n_species
     return (
         {k: np.asarray(v) for k, v in j.items()},
         {k: v.numpy() for k, v in t.items()},
@@ -106,7 +108,8 @@ def forward_pair(request):
 
 def test_forward_trajectories_match(forward_pair):
     j, t, _ = forward_pair
-    assert t["x_states"].shape == j["x_states"].shape == (B, K, 8, j["x_states"].shape[-1])
+    S = int(j["n_species"])
+    assert t["x_states"].shape == j["x_states"].shape == (B, K, S, j["x_states"].shape[-1])
     for k in ("x_states", "x_predict"):
         np.testing.assert_allclose(t[k], j[k], rtol=1e-4, atol=1e-6, err_msg=k)
 
@@ -191,9 +194,12 @@ def test_evaluate_chunks_like_one_batch():
 
 def test_unknown_model_lists_available():
     tset, tdata, tprog, _ = _port("dr_constant_one.yaml")
-    tset.model = "relay_constant"
-    with pytest.raises(ValueError, match="available: dr_constant, dr_constant_precisions, "
-                                         "dr_constant_precisions_v2, dr_constant_v2"):
+    tset.model = "dr_blackbox"
+    with pytest.raises(ValueError, match="available: degrader_constant, "
+                                         "degrader_constant_precisions, dr_constant, "
+                                         "dr_constant_precisions, dr_constant_precisions_v2, "
+                                         "dr_constant_v2, relay_constant, "
+                                         "relay_constant_precisions$"):
         TVAE(tset, tdata, tprog)
 
 

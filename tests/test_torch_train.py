@@ -13,9 +13,11 @@ JAX loss body (``vihds_tpu.training.make_step_fns.loss_fn``) and the port's
   versions, whose arithmetic is the kernels' (tests/test_torch_fused_bwd.py,
   tests/test_torch_prec.py).
 
-Both routes for dr_constant_one and for dr_constant_precisions (the kernel
-``dr_prec``, whose weight cotangent reaches the precision nets' leaves), and
-the kernel route for dr_constant_icml.
+Both routes for dr_constant_one, for dr_constant_precisions (the kernel
+``dr_prec``, whose weight cotangent reaches the precision nets' leaves) and
+for relay_constant_precisions and degrader_constant_precisions (kernels
+``relay_prec`` and ``degrader_prec``), and the kernel route for
+dr_constant_icml.
 
 Tolerance: the loss (~1e2-1e6 nats, float32 sums of 86 x 4 log-likelihoods
 in another order) to rtol 1e-6; each gradient leaf to 1e-4 of its own
@@ -48,6 +50,7 @@ from vihds_tpu_torch import training as T
 from vihds_tpu_torch.config import Config as TConfig
 from vihds_tpu_torch.convert import params_from_jax
 from vihds_tpu_torch.data.datasets import build_datasets as t_build
+from vihds_tpu_torch.ops import fused_ode
 from vihds_tpu_torch.prob import ParamProgram as TProgram, parse_parameters as t_parse
 from vihds_tpu_torch.utils.attrdict import AttrDict as TAttrDict
 from vihds_tpu_torch.vae import VAE as TVAE
@@ -68,8 +71,9 @@ def _jax_loss_and_grads(spec_name, solver, u, mask, monkeypatch):
     if solver.startswith("pallas_"):
         import vihds_tpu.ops.pallas_ode as pk
 
-        name = ("dr_constant_precisions_simulate" if jmodel.ode_model.precisions.dynamic
-                else "dr_constant_simulate")
+        ode = jmodel.ode_model
+        kind = ode.pallas_kinds[1 if ode.precisions.dynamic else 0]
+        name = fused_ode.KINDS[kind].simulate  # the JAX wrapper of the same name
         orig = getattr(pk, name)
         calls = []
 
@@ -103,9 +107,14 @@ def _jax_loss_and_grads(spec_name, solver, u, mask, monkeypatch):
     "spec_name,solver",
     [("dr_constant_one.yaml", "midpoint"), ("dr_constant_one.yaml", "pallas_midpoint"),
      ("dr_constant_icml.yaml", "pallas_midpoint"), ("dr_constant_precisions.yaml", "midpoint"),
-     ("dr_constant_precisions.yaml", "pallas_midpoint")],
+     ("dr_constant_precisions.yaml", "pallas_midpoint"),
+     ("relay_constant_precisions.yaml", "midpoint"),
+     ("relay_constant_precisions.yaml", "pallas_midpoint"),
+     ("degrader_constant_precisions.yaml", "midpoint"),
+     ("degrader_constant_precisions.yaml", "pallas_midpoint")],
     ids=["fold-route", "kernel-route", "kernel-route-icml", "fold-route-precisions",
-         "kernel-route-precisions"],
+         "kernel-route-precisions", "fold-route-relay", "kernel-route-relay",
+         "fold-route-degrader", "kernel-route-degrader"],
 )
 def test_one_step_loss_and_grads_match(spec_name, solver, monkeypatch):
     rng = np.random.default_rng(7)

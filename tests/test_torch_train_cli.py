@@ -1,6 +1,7 @@
 """The port's training entry point on the CPU: ``run_xval.main`` end to end
-on dr_constant_one and dr_constant_precisions (2 epochs, K=4, the specs'
-own ``solver: midpoint``), its artifacts against the JAX package's
+on dr_constant_one, dr_constant_precisions, relay_constant_precisions and
+degrader_constant_precisions (2 epochs, K=4, the specs' own ``solver:
+midpoint``), its artifacts against the JAX package's
 ``XvalMerge`` given the same fold results, checkpoint and resume, and the
 one-line errors for flags whose feature is not ported yet."""
 
@@ -37,6 +38,14 @@ def test_run_xval_main_trains_the_precisions_model(tmp_results, capsys):
     """dr_constant_precisions: the 12-state model with learned precisions,
     on its spec's fold route (``NeuralPrecisions.at_time``)."""
     _check_run_xval_artifacts("dr_constant_precisions.yaml", tmp_results, capsys)
+
+
+@pytest.mark.parametrize("spec_name", ["relay_constant_precisions.yaml",
+                                       "degrader_constant_precisions.yaml"])
+def test_run_xval_main_trains_the_relay_and_degrader_models(spec_name, tmp_results, capsys):
+    """The 16- and 15-state models (their grids of 99 and 135 points; the
+    degrader's three treatments), on their specs' fold route."""
+    _check_run_xval_artifacts(spec_name, tmp_results, capsys)
 
 
 def _check_run_xval_artifacts(spec_name, tmp_results, capsys):

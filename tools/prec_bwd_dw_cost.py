@@ -9,7 +9,7 @@ This script builds a second copy of the kernel from the same sources with
 the two accumulating statements of ``prec_rhs_vjp`` (csrc/dr_common.cuh)
 removed, so that it computes everything else (dc, dy0, the block sum of the
 untouched zeros), and times both on the dr_constant_precisions operands of
-chip_smoke.py's phase 3'' at the training shape (B=36 x K=200, T=86), for the
+chip_smoke.py's phase 3 (dr_prec) at the training shape (B=36 x K=200, T=86), for the
 three methods, by CUDA events in turns (kernel, copy, copy, kernel).  It
 prints both ptxas reports and the time of the wrapper's sum over the
 per-block partials.  The copy lives under build/ (git-ignored) and is used
@@ -79,8 +79,8 @@ def main():
     fn.argtypes = launchers["kernel"].argtypes
     fn.restype = ctypes.c_int
 
-    _, _, _, wmat, packed, y0_cols, times = chip_smoke.prec_kernel_inputs(
-        device, chip_smoke.K_TRAIN, chip_smoke.SEED + 8)
+    _, _, _, wmat, packed, y0_cols, times = chip_smoke.kind_inputs(
+        device, "dr_prec", chip_smoke.K_TRAIN, chip_smoke.SEED + 8)
     R, T, S = packed.shape[1], times.shape[0], y0_cols.shape[0]
     print("dr_prec_bwd with and without its dW accumulation, B=36 x K=%d (R=%d), T=%d, "
           "median of 20 launches by CUDA events, in turns" % (chip_smoke.K_TRAIN, R, T))

@@ -1,0 +1,32 @@
+// degrader_bwd: reverse sweep of the fused fixed-grid degrader_constant
+// integration on Hopper, the backward of degrader_fwd.cu.
+//
+// Replaces the Pallas TPU kernel of vihds_tpu/ops/pallas_ode.py, kind
+// "degrader": _make_bwd_kernel, launched by _integrate_padded_bwd
+// (pallas_ode.py:443). Given the stored forward trajectory and its cotangent g
+// it walks the grid backwards, pulling the adjoint through each step's
+// pullback, and returns the cotangents of the 28 per-row constants and of y0.
+// The kernel is dr_common.cuh's bwd_kernel over Degrader; the right-hand side's
+// pullback is written out by hand there (degrader_rhs_vjp).
+//
+// Layout (the wrapper fused_ode.kind_bwd checks it):
+//   consts [28, R]    per-row constants in DEGRADER_CONST_NAMES order
+//   times  [T]        the time grid (it gets no cotangent)
+//   traj   [T, 11, R] the forward trajectory, traj[0] = y0
+//   g      [T, 11, R] cotangent of the trajectory
+//   dc     [28, R]    out: cotangent of the constants
+//   dy0    [11, R]    out: cotangent of y0
+//
+// Bound on an H100 SXM (3.35 TB/s): at the training shape B=36, K=200 (R =
+// 7,200), T = 135: traj and g, 2 * 135*11*7,200*4 B = 85.5 MB, plus 0.81 MB of
+// constants read and 1.12 MB of dc and dy0 written: 87.4 MB, >= 26.1 us. The
+// operation count per step is in chip_smoke.py (FLOPS).
+
+#include "dr_common.cuh"
+
+extern "C" int degrader_bwd_launch(const float* consts, const float* times, const float* traj,
+                                   const float* g, float* dc, float* dy0, int R, int T, int method,
+                                   void* stream) {
+  return bwd_launch<Degrader, false>(nullptr, consts, times, traj, g, nullptr, dc, dy0, R, T,
+                                     method, stream);
+}

@@ -1,0 +1,38 @@
+// degrader_prec_bwd: reverse sweep of the fused fixed-grid
+// degrader_constant_precisions integration on Hopper, the backward of
+// degrader_prec_fwd.cu.
+//
+// Replaces the Pallas TPU kernel of vihds_tpu/ops/pallas_ode.py, kind
+// "degrader_prec": _make_bwd_kernel, launched by _integrate_padded_w_bwd
+// (pallas_ode.py:500). Given the stored forward trajectory and its cotangent g
+// it walks the grid backwards, pulling the adjoint through each step's
+// pullback, and returns the cotangents of the 28 per-row constants and of y0,
+// and of the precision nets' weight matrix, summed over every row and step. The
+// kernel is dr_common.cuh's bwd_kernel over Degrader with the precision block;
+// the right-hand side's pullback is written out by hand there (degrader_rhs_vjp
+// and prec_rhs_vjp).
+//
+// Layout (the wrapper fused_ode.kind_bwd checks it):
+//   wmat   [8, 13]    the precision nets' weights: rows 0..3 production,
+//                     4..7 degradation, column 0 the bias
+//   consts [28, R]    per-row constants in DEGRADER_CONST_NAMES order
+//   times  [T]        the time grid (it gets no cotangent)
+//   traj   [T, 15, R] the forward trajectory, traj[0] = y0
+//   g      [T, 15, R] cotangent of the trajectory
+//   dw     [n_blocks, 8, 13]  out: each 32-row block's partial sum of dW
+//   dc     [28, R]    out: cotangent of the constants
+//   dy0    [15, R]    out: cotangent of y0
+//
+// Bound on an H100 SXM (3.35 TB/s): at the training shape B=36, K=200 (R =
+// 7,200), T = 135: traj and g, 2 * 135*15*7,200*4 B = 116.6 MB, plus 0.81 MB of
+// constants read and 1.24 MB of dc and dy0 written: 118.7 MB, >= 35.4 us. The
+// operation count per step is in chip_smoke.py (FLOPS).
+
+#include "dr_common.cuh"
+
+extern "C" int degrader_prec_bwd_launch(const float* wmat, const float* consts, const float* times,
+                                        const float* traj, const float* g, float* dw, float* dc,
+                                        float* dy0, int R, int T, int method, void* stream) {
+  return bwd_launch<Degrader, true>(wmat, consts, times, traj, g, dw, dc, dy0, R, T, method,
+                                    stream);
+}

@@ -1,0 +1,31 @@
+// degrader_prec_fwd: fused fixed-grid forward integration of the
+// degrader_constant_precisions ODE (15 states, the last 4 the learned
+// precisions, 28 per-row constants) on Hopper.
+//
+// Replaces the Pallas TPU kernel of vihds_tpu/ops/pallas_ode.py, kind
+// "degrader_prec": _make_kernel with the _with_precisions right-hand side,
+// launched by _integrate_padded_w (pallas_ode.py:473). It computes the same
+// thing: y(t0) = y0, then T-1 fixed-grid steps of modeuler / midpoint / rk4 of
+// the right-hand side, storing every state. The kernel and the right-hand side
+// are dr_common.cuh's (fwd_kernel over Degrader with the precision block).
+//
+// Layout (the wrapper vihds_tpu_torch/ops/fused_ode.py packs and checks it):
+//   wmat   [8, 13]    the precision nets' weights: rows 0..3 production,
+//                     4..7 degradation, column 0 the bias
+//   consts [28, R]    per-row constants in DEGRADER_CONST_NAMES order
+//   y0     [15, R]    initial state, state-major
+//   times  [T]        the time grid
+//   out    [T, 15, R] trajectory; out[0] = y0
+//
+// Bound on an H100 SXM (3.35 TB/s): at the serving chunk B=36, K=1000 (R =
+// 36,000), T = 135: it writes 135*15*36,000*4 B = 291.6 MB and reads 6.2 MB of
+// constants and y0: 297.8 MB, >= 88.9 us of memory traffic. The operation count
+// per step is in chip_smoke.py (FLOPS).
+
+#include "dr_common.cuh"
+
+extern "C" int degrader_prec_fwd_launch(const float* wmat, const float* consts, const float* y0,
+                                        const float* times, float* out, int R, int T, int method,
+                                        void* stream) {
+  return fwd_launch<Degrader, true>(wmat, consts, y0, times, out, R, T, method, stream);
+}

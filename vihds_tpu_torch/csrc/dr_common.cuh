@@ -1,10 +1,19 @@
-// Device code shared by the fused dr_constant kernels (dr_fwd.cu, dr_bwd.cu,
-// dr_prec_fwd.cu, dr_prec_bwd.cu): the packed constant order, the 8-species
-// right-hand side and its hand-derived pullback, the learned-precision block
-// of the *_precisions models and its pullback, and the fixed-grid steps and
-// their pullbacks, written once over any right-hand side.
+// Device code shared by the port's fused ODE kernels, one .cu per kind and
+// direction (dr, dr_prec, relay, relay_prec, degrader, degrader_prec; _fwd
+// and _bwd):
+//   * the packed constant orders of the three mechanistic families;
+//   * the 8-species core that all three share (the dr_constant species) and
+//     its hand-derived pullback, written once over a constant layout;
+//   * each family's right-hand side and pullback: dr is the core alone,
+//     relay and degrader add rows that feed back into the core's terms;
+//   * the learned-precision block of the *_precisions models over any number
+//     of species, and its pullback;
+//   * the fixed-grid steps and their pullbacks over any right-hand side;
+//   * the forward and backward kernels over any kind, and their launchers.
+// Each .cu under csrc/ is a C entry point <kind>_<fwd|bwd>_launch that calls
+// one launcher here.
 //
-// Each function here has a plain PyTorch twin in
+// Each right-hand side and pullback here has a plain PyTorch twin in
 // vihds_tpu_torch/ops/fused_ode.py that repeats its arithmetic line for line
 // (named beside each one); the CPU tests hold the twins against
 // torch.autograd and against the JAX package's Pallas kernels in interpret
@@ -49,129 +58,378 @@ enum DrConst {
   N_CONST
 };
 
-constexpr int N_SPECIES = 8;
+// Packed constant rows of the relay family, in fused_ode.RELAY_CONST_NAMES order.
+enum RelayConst {
+  RL_r = 0,
+  RL_K,
+  RL_tlag,
+  RL_rc,
+  RL_a530,
+  RL_a480,
+  RL_drfp,
+  RL_dyfp,
+  RL_dcfp,
+  RL_dR,
+  RL_dS,
+  RL_dluxI,
+  RL_dlasI,
+  RL_e76,
+  RL_e81,
+  RL_aCFP,
+  RL_aYFP,
+  RL_KGR_76,
+  RL_KGS_76,
+  RL_KGR_81,
+  RL_KGS_81,
+  RL_KC6,
+  RL_KC12,
+  RL_Klux,
+  RL_Klas,
+  RL_aR,
+  RL_aS,
+  RL_fracLuxR,
+  RL_fracLasR,
+  N_RELAY_CONST
+};
+
+// Packed constant rows of the degrader family, in
+// fused_ode.DEGRADER_CONST_NAMES order.  PBAD, rC6 and rC12 are computed per
+// row on the host, like fracLuxR / fracLasR.
+enum DegraderConst {
+  DG_r = 0,
+  DG_K,
+  DG_tlag,
+  DG_rc,
+  DG_a530,
+  DG_a480,
+  DG_drfp,
+  DG_dyfp,
+  DG_dcfp,
+  DG_dR,
+  DG_dS,
+  DG_e76,
+  DG_e81,
+  DG_aCFP,
+  DG_aYFP,
+  DG_KGR_76,
+  DG_KGS_76,
+  DG_KGR_81,
+  DG_KGS_81,
+  DG_aR,
+  DG_aS,
+  DG_aI,
+  DG_daiiA,
+  DG_PBAD,
+  DG_rC6,
+  DG_rC12,
+  DG_fracLuxR,
+  DG_fracLasR,
+  N_DEGRADER_CONST
+};
+
 // learned-precision states of the *_precisions models, after the species
 constexpr int N_PREC = 4;
-// the precision nets' input features [1, tanh t, tanh y_0 .. tanh y_7]
-constexpr int N_FEAT = 2 + N_SPECIES;
-// the weight matrix [2 N_PREC, N_FEAT], row-major: rows 0..3 production,
-// 4..7 degradation, column 0 the bias (fused_ode.WMAT_SHAPE)
-constexpr int N_W = 2 * N_PREC * N_FEAT;
+
+// The precision nets' input features [1, tanh t, tanh y_0 .. tanh y_{ns-1}]
+// and their weight matrix [2 N_PREC, n_feat(ns)], row-major: rows 0..3
+// production, 4..7 degradation, column 0 the bias (fused_ode.KINDS[..].wmat_shape).
+__host__ __device__ constexpr int n_feat(int ns) { return 2 + ns; }
+__host__ __device__ constexpr int n_w(int ns) { return 2 * N_PREC * n_feat(ns); }
 
 enum Method { MODEULER = 0, MIDPOINT = 1, RK4 = 2 };
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// dr_constant right-hand side over y[0..7] (_dr_rhs_cols).
-__device__ __forceinline__ void dr_rhs(const float* c, float t, const float* y, float* f) {
-  const float x = y[0], rfp = y[1], yfp = y[2], cfp = y[3];
-  const float f530 = y[4], f480 = y[5], luxR = y[6], lasR = y[7];
-  const float gr = c[C_r] * sigmoidf(4.0f * (t - c[C_tlag]));
-  const float gamma = gr * (1.0f - x / c[C_K]);
-  const float boundLuxR = luxR * luxR * c[C_fracLuxR];
-  const float boundLasR = lasR * lasR * c[C_fracLasR];
-  const float denom76 = 1.0f + c[C_KGR_76] * boundLuxR + c[C_KGS_76] * boundLasR;
-  const float denom81 = 1.0f + c[C_KGR_81] * boundLuxR + c[C_KGS_81] * boundLasR;
-  const float P76 = (c[C_e76] + c[C_KGR_76] * boundLuxR + c[C_KGS_76] * boundLasR) / denom76;
-  const float P81 = (c[C_e81] + c[C_KGR_81] * boundLuxR + c[C_KGS_81] * boundLasR) / denom81;
-  const float rc = c[C_rc];
-  f[0] = gamma * x;
-  f[1] = rc - (gamma + c[C_drfp]) * rfp;
-  f[2] = rc * c[C_aYFP] * P81 - (gamma + c[C_dyfp]) * yfp;
-  f[3] = rc * c[C_aCFP] * P76 - (gamma + c[C_dcfp]) * cfp;
-  f[4] = rc * c[C_a530] - gamma * f530;
-  f[5] = rc * c[C_a480] - gamma * f480;
-  f[6] = rc * c[C_aR] - (gamma + c[C_dR]) * luxR;
-  f[7] = rc * c[C_aS] - (gamma + c[C_dS]) * lasR;
+// --------------------------------------------------------------------------
+// The 8-species core (OD, RFP, YFP, CFP, F530, F480, LuxR, LasR), over the
+// row indices L:: of a family's constants.
+// --------------------------------------------------------------------------
+#define CORE_LAYOUT(P)                                                                      \
+  enum : int {                                                                              \
+    r = P##r, K = P##K, tlag = P##tlag, rc = P##rc, a530 = P##a530, a480 = P##a480,         \
+    drfp = P##drfp, dyfp = P##dyfp, dcfp = P##dcfp, dR = P##dR, dS = P##dS, e76 = P##e76,   \
+    e81 = P##e81, aCFP = P##aCFP, aYFP = P##aYFP, KGR_76 = P##KGR_76, KGS_76 = P##KGS_76,   \
+    KGR_81 = P##KGR_81, KGS_81 = P##KGS_81, aR = P##aR, aS = P##aS,                         \
+    fracLuxR = P##fracLuxR, fracLasR = P##fracLasR                                          \
+  }
+struct DrCore { CORE_LAYOUT(C_); };
+struct RelayCore { CORE_LAYOUT(RL_); };
+struct DegraderCore { CORE_LAYOUT(DG_); };
+#undef CORE_LAYOUT
+
+// The core's intermediates at (t, y) (_core_terms)
+struct CoreTerms {
+  float sig, gr, omx, gamma, luxR2, lasR2, boundLuxR, boundLasR, denom76, denom81, P76, P81;
+};
+
+template <class L>
+__device__ __forceinline__ CoreTerms core_terms(const float* c, float t, const float* y) {
+  CoreTerms k;
+  k.sig = sigmoidf(4.0f * (t - c[L::tlag]));
+  k.gr = c[L::r] * k.sig;
+  k.omx = 1.0f - y[0] / c[L::K];
+  k.gamma = k.gr * k.omx;
+  k.luxR2 = y[6] * y[6];
+  k.lasR2 = y[7] * y[7];
+  k.boundLuxR = k.luxR2 * c[L::fracLuxR];
+  k.boundLasR = k.lasR2 * c[L::fracLasR];
+  k.denom76 = 1.0f + c[L::KGR_76] * k.boundLuxR + c[L::KGS_76] * k.boundLasR;
+  k.denom81 = 1.0f + c[L::KGR_81] * k.boundLuxR + c[L::KGS_81] * k.boundLasR;
+  k.P76 = (c[L::e76] + c[L::KGR_76] * k.boundLuxR + c[L::KGS_76] * k.boundLasR) / k.denom76;
+  k.P81 = (c[L::e81] + c[L::KGR_81] * k.boundLuxR + c[L::KGS_81] * k.boundLasR) / k.denom81;
+  return k;
 }
 
-// Pullback of dr_rhs at (t, y): for the cotangent w[0..7] of its output,
-// writes dy[0..7] = (df/dy)^T w and adds (df/dc)^T w into dc
-// (_dr_rhs_vjp_cols, which spells out the derivatives):
+// The core's eight rows f[0..7] (_core_rows)
+template <class L>
+__device__ __forceinline__ void core_rhs(const float* c, const CoreTerms& k, const float* y,
+                                         float* f) {
+  const float rc = c[L::rc], gamma = k.gamma;
+  f[0] = gamma * y[0];
+  f[1] = rc - (gamma + c[L::drfp]) * y[1];
+  f[2] = rc * c[L::aYFP] * k.P81 - (gamma + c[L::dyfp]) * y[2];
+  f[3] = rc * c[L::aCFP] * k.P76 - (gamma + c[L::dcfp]) * y[3];
+  f[4] = rc * c[L::a530] - gamma * y[4];
+  f[5] = rc * c[L::a480] - gamma * y[5];
+  f[6] = rc * c[L::aR] - (gamma + c[L::dR]) * y[6];
+  f[7] = rc * c[L::aS] - (gamma + c[L::dS]) * y[7];
+}
+
+// Pullback of the core, first half (_core_rows_vjp): for the cotangent
+// w[0..7] of the core's rows, adds the share of the constants each row reads
+// directly into dc and returns the rows' cotangents of gamma, P76 and P81.
+// A family's extra rows add their own shares to these three before the
+// second half pulls them back through the core's terms.
+template <class L>
+__device__ __forceinline__ void core_rows_vjp(const float* c, const CoreTerms& k, const float* y,
+                                              const float* w, float* dc, float& dgamma,
+                                              float& dP76, float& dP81) {
+  const float rc = c[L::rc];
+  dgamma = w[0] * y[0] - w[1] * y[1] - w[2] * y[2] - w[3] * y[3] - w[4] * y[4] - w[5] * y[5] -
+           w[6] * y[6] - w[7] * y[7];
+  dP81 = w[2] * rc * c[L::aYFP];
+  dP76 = w[3] * rc * c[L::aCFP];
+  dc[L::rc] += w[1] + w[2] * c[L::aYFP] * k.P81 + w[3] * c[L::aCFP] * k.P76 + w[4] * c[L::a530] +
+               w[5] * c[L::a480] + w[6] * c[L::aR] + w[7] * c[L::aS];
+  dc[L::aYFP] += w[2] * rc * k.P81;
+  dc[L::aCFP] += w[3] * rc * k.P76;
+  dc[L::a530] += w[4] * rc;
+  dc[L::a480] += w[5] * rc;
+  dc[L::aR] += w[6] * rc;
+  dc[L::aS] += w[7] * rc;
+  dc[L::drfp] -= w[1] * y[1];
+  dc[L::dyfp] -= w[2] * y[2];
+  dc[L::dcfp] -= w[3] * y[3];
+  dc[L::dR] -= w[6] * y[6];
+  dc[L::dS] -= w[7] * y[7];
+}
+
+// Pullback of the core, second half (_core_terms_vjp): pulls dgamma, dP76
+// and dP81 back through the core's terms into dc, and writes dy[0..7]
+// (the states' cotangent through the core's rows and terms):
 //   gr = r s, s = sigmoid(4 (t - tlag))          dgr/dtlag = -4 r s (1 - s)
 //   gamma = gr (1 - x/K)                         dgamma/dx = -gr/K, dgamma/dK = gr x/K^2
 //   P = (e + A)/(1 + A), A = KGR bL + KGS bS     dP/dA = (1 - e)/(1 + A)^2, dP/de = 1/(1 + A)
 //   bL = luxR^2 fracLuxR (bS likewise)           the gradient reaches fracLuxR / fracLasR
-__device__ __forceinline__ void dr_rhs_vjp(const float* c, float t, const float* y,
-                                           const float* w, float* dy, float* dc) {
-  const float x = y[0], rfp = y[1], yfp = y[2], cfp = y[3];
-  const float f530 = y[4], f480 = y[5], luxR = y[6], lasR = y[7];
-  // forward intermediates, recomputed
-  const float sig = sigmoidf(4.0f * (t - c[C_tlag]));
-  const float gr = c[C_r] * sig;
-  const float omx = 1.0f - x / c[C_K];
-  const float gamma = gr * omx;
-  const float luxR2 = luxR * luxR;
-  const float lasR2 = lasR * lasR;
-  const float boundLuxR = luxR2 * c[C_fracLuxR];
-  const float boundLasR = lasR2 * c[C_fracLasR];
-  const float denom76 = 1.0f + c[C_KGR_76] * boundLuxR + c[C_KGS_76] * boundLasR;
-  const float denom81 = 1.0f + c[C_KGR_81] * boundLuxR + c[C_KGS_81] * boundLasR;
-  const float P76 = (c[C_e76] + c[C_KGR_76] * boundLuxR + c[C_KGS_76] * boundLasR) / denom76;
-  const float P81 = (c[C_e81] + c[C_KGR_81] * boundLuxR + c[C_KGS_81] * boundLasR) / denom81;
-  const float rc = c[C_rc];
-  // pull w back through the eight outputs
-  const float dgamma = w[0] * x - w[1] * rfp - w[2] * yfp - w[3] * cfp - w[4] * f530 -
-                       w[5] * f480 - w[6] * luxR - w[7] * lasR;
-  const float dP81 = w[2] * rc * c[C_aYFP];
-  const float dP76 = w[3] * rc * c[C_aCFP];
-  dc[C_rc] += w[1] + w[2] * c[C_aYFP] * P81 + w[3] * c[C_aCFP] * P76 + w[4] * c[C_a530] +
-              w[5] * c[C_a480] + w[6] * c[C_aR] + w[7] * c[C_aS];
-  dc[C_aYFP] += w[2] * rc * P81;
-  dc[C_aCFP] += w[3] * rc * P76;
-  dc[C_a530] += w[4] * rc;
-  dc[C_a480] += w[5] * rc;
-  dc[C_aR] += w[6] * rc;
-  dc[C_aS] += w[7] * rc;
-  dc[C_drfp] -= w[1] * rfp;
-  dc[C_dyfp] -= w[2] * yfp;
-  dc[C_dcfp] -= w[3] * cfp;
-  dc[C_dR] -= w[6] * luxR;
-  dc[C_dS] -= w[7] * lasR;
+template <class L>
+__device__ __forceinline__ void core_terms_vjp(const float* c, const CoreTerms& k, const float* y,
+                                               const float* w, float dgamma, float dP76,
+                                               float dP81, float* dy, float* dc) {
   // P = (e + A) / (1 + A)
-  const float dA76 = dP76 * (1.0f - c[C_e76]) / (denom76 * denom76);
-  const float dA81 = dP81 * (1.0f - c[C_e81]) / (denom81 * denom81);
-  dc[C_e76] += dP76 / denom76;
-  dc[C_e81] += dP81 / denom81;
-  dc[C_KGR_76] += dA76 * boundLuxR;
-  dc[C_KGS_76] += dA76 * boundLasR;
-  dc[C_KGR_81] += dA81 * boundLuxR;
-  dc[C_KGS_81] += dA81 * boundLasR;
-  const float dbL = dA76 * c[C_KGR_76] + dA81 * c[C_KGR_81];
-  const float dbS = dA76 * c[C_KGS_76] + dA81 * c[C_KGS_81];
-  dc[C_fracLuxR] += dbL * luxR2;
-  dc[C_fracLasR] += dbS * lasR2;
+  const float dA76 = dP76 * (1.0f - c[L::e76]) / (k.denom76 * k.denom76);
+  const float dA81 = dP81 * (1.0f - c[L::e81]) / (k.denom81 * k.denom81);
+  dc[L::e76] += dP76 / k.denom76;
+  dc[L::e81] += dP81 / k.denom81;
+  dc[L::KGR_76] += dA76 * k.boundLuxR;
+  dc[L::KGS_76] += dA76 * k.boundLasR;
+  dc[L::KGR_81] += dA81 * k.boundLuxR;
+  dc[L::KGS_81] += dA81 * k.boundLasR;
+  const float dbL = dA76 * c[L::KGR_76] + dA81 * c[L::KGR_81];
+  const float dbS = dA76 * c[L::KGS_76] + dA81 * c[L::KGS_81];
+  dc[L::fracLuxR] += dbL * k.luxR2;
+  dc[L::fracLasR] += dbS * k.lasR2;
   // gamma = gr (1 - x/K), gr = r sig
-  const float dgr = dgamma * omx;
-  dc[C_K] += dgamma * gr * x / (c[C_K] * c[C_K]);
-  dc[C_r] += dgr * sig;
-  dc[C_tlag] -= 4.0f * dgr * c[C_r] * sig * (1.0f - sig);
-  dy[0] = w[0] * gamma - dgamma * gr / c[C_K];
-  dy[1] = -w[1] * (gamma + c[C_drfp]);
-  dy[2] = -w[2] * (gamma + c[C_dyfp]);
-  dy[3] = -w[3] * (gamma + c[C_dcfp]);
+  const float dgr = dgamma * k.omx;
+  dc[L::K] += dgamma * k.gr * y[0] / (c[L::K] * c[L::K]);
+  dc[L::r] += dgr * k.sig;
+  dc[L::tlag] -= 4.0f * dgr * c[L::r] * k.sig * (1.0f - k.sig);
+  const float gamma = k.gamma;
+  dy[0] = w[0] * gamma - dgamma * k.gr / c[L::K];
+  dy[1] = -w[1] * (gamma + c[L::drfp]);
+  dy[2] = -w[2] * (gamma + c[L::dyfp]);
+  dy[3] = -w[3] * (gamma + c[L::dcfp]);
   dy[4] = -w[4] * gamma;
   dy[5] = -w[5] * gamma;
-  dy[6] = 2.0f * dbL * luxR * c[C_fracLuxR] - w[6] * (gamma + c[C_dR]);
-  dy[7] = 2.0f * dbS * lasR * c[C_fracLasR] - w[7] * (gamma + c[C_dS]);
+  dy[6] = 2.0f * dbL * y[6] * c[L::fracLuxR] - w[6] * (gamma + c[L::dR]);
+  dy[7] = 2.0f * dbS * y[7] * c[L::fracLasR] - w[7] * (gamma + c[L::dS]);
 }
 
+// --------------------------------------------------------------------------
+// The three families' right-hand sides and pullbacks.  For the cotangent w
+// of a right-hand side's output, its pullback writes dy = (df/dy)^T w and
+// adds (df/dc)^T w into dc.
+// --------------------------------------------------------------------------
+
+// dr_constant, y[0..7] (_dr_rhs_cols): the core alone.
+__device__ __forceinline__ void dr_rhs(const float* c, float t, const float* y, float* f) {
+  core_rhs<DrCore>(c, core_terms<DrCore>(c, t, y), y, f);
+}
+
+// (_dr_rhs_vjp_cols)
+__device__ __forceinline__ void dr_rhs_vjp(const float* c, float t, const float* y,
+                                           const float* w, float* dy, float* dc) {
+  const CoreTerms k = core_terms<DrCore>(c, t, y);
+  float dgamma, dP76, dP81;
+  core_rows_vjp<DrCore>(c, k, y, w, dc, dgamma, dP76, dP81);
+  core_terms_vjp<DrCore>(c, k, y, w, dgamma, dP76, dP81, dy, dc);
+}
+
+// relay_constant, y[0..11] (_relay_rhs_cols): the core, the synthases LuxI
+// (y[8]) and LasI (y[9]) driven by P81 / P76, and the secreted C6 (y[10])
+// and C12 (y[11]), which no row reads (fracLuxR / fracLasR stay at the
+// initial treatments).
+__device__ __forceinline__ void relay_rhs(const float* c, float t, const float* y, float* f) {
+  const CoreTerms k = core_terms<RelayCore>(c, t, y);
+  core_rhs<RelayCore>(c, k, y, f);
+  const float x = y[0], luxI = y[8], lasI = y[9], rc = c[RL_rc];
+  f[8] = rc * k.P81 - (k.gamma + c[RL_dluxI]) * luxI;
+  f[9] = rc * k.P76 - (k.gamma + c[RL_dlasI]) * lasI;
+  f[10] = (c[RL_KC6] * rc * x * luxI) / (1.0f + luxI / c[RL_Klux]);
+  f[11] = (c[RL_KC12] * rc * x * lasI) / (1.0f + lasI / c[RL_Klas]);
+}
+
+// (_relay_rhs_vjp_cols)  The extra rows feed the core's gamma, P76 and P81,
+// so their shares join the core rows' before the core's terms are pulled
+// back.  With C6' = n6 / D6, n6 = KC6 rc x luxI, D6 = 1 + luxI / Klux:
+//   dn6 = w10 / D6, dD6 = -dn6 n6 / D6; D6 passes dD6 / Klux to luxI and
+//   -dD6 luxI / Klux^2 to Klux (C12' likewise with KC12, lasI, Klas).
+__device__ __forceinline__ void relay_rhs_vjp(const float* c, float t, const float* y,
+                                              const float* w, float* dy, float* dc) {
+  const CoreTerms k = core_terms<RelayCore>(c, t, y);
+  float dgamma, dP76, dP81;
+  core_rows_vjp<RelayCore>(c, k, y, w, dc, dgamma, dP76, dP81);
+  const float x = y[0], luxI = y[8], lasI = y[9], rc = c[RL_rc];
+  // luxI' = rc P81 - (gamma + dluxI) luxI, lasI' = rc P76 - (gamma + dlasI) lasI
+  dgamma -= w[8] * luxI + w[9] * lasI;
+  dP81 += w[8] * rc;
+  dP76 += w[9] * rc;
+  dc[RL_rc] += w[8] * k.P81 + w[9] * k.P76;
+  dc[RL_dluxI] -= w[8] * luxI;
+  dc[RL_dlasI] -= w[9] * lasI;
+  // C6' = n6 / D6, C12' = n12 / D12
+  const float D6 = 1.0f + luxI / c[RL_Klux];
+  const float D12 = 1.0f + lasI / c[RL_Klas];
+  const float dn6 = w[10] / D6;
+  const float dn12 = w[11] / D12;
+  const float dD6 = -dn6 * (c[RL_KC6] * rc * x * luxI) / D6;
+  const float dD12 = -dn12 * (c[RL_KC12] * rc * x * lasI) / D12;
+  dc[RL_KC6] += dn6 * rc * x * luxI;
+  dc[RL_KC12] += dn12 * rc * x * lasI;
+  dc[RL_rc] += dn6 * c[RL_KC6] * x * luxI + dn12 * c[RL_KC12] * x * lasI;
+  dc[RL_Klux] -= dD6 * luxI / (c[RL_Klux] * c[RL_Klux]);
+  dc[RL_Klas] -= dD12 * lasI / (c[RL_Klas] * c[RL_Klas]);
+  core_terms_vjp<RelayCore>(c, k, y, w, dgamma, dP76, dP81, dy, dc);
+  dy[0] += dn6 * c[RL_KC6] * rc * luxI + dn12 * c[RL_KC12] * rc * lasI;
+  dy[8] = -w[8] * (k.gamma + c[RL_dluxI]) + dn6 * c[RL_KC6] * rc * x + dD6 / c[RL_Klux];
+  dy[9] = -w[9] * (k.gamma + c[RL_dlasI]) + dn12 * c[RL_KC12] * rc * x + dD12 / c[RL_Klas];
+  dy[10] = 0.0f;
+  dy[11] = 0.0f;
+}
+
+// degrader_constant, y[0..10] (_degrader_rhs_cols): the core, the lactonase
+// AiiA (y[8]) driven by the arabinose input PBAD, and C6 (y[9]) and C12
+// (y[10]), which no row reads.  aiiA' is copied as the reference writes it:
+// daiiA is not multiplied by aiiA.
+__device__ __forceinline__ void degrader_rhs(const float* c, float t, const float* y, float* f) {
+  const CoreTerms k = core_terms<DegraderCore>(c, t, y);
+  core_rhs<DegraderCore>(c, k, y, f);
+  const float x = y[0], aiiA = y[8];
+  f[8] = c[DG_rc] * c[DG_aI] * c[DG_PBAD] - (c[DG_daiiA] + k.gamma * aiiA);
+  f[9] = x * c[DG_rC6] * aiiA;
+  f[10] = x * c[DG_rC12] * aiiA;
+}
+
+// (_degrader_rhs_vjp_cols)  aiiA' feeds gamma; C6' and C12' read x, aiiA
+// and the host-side rC6 / rC12.
+__device__ __forceinline__ void degrader_rhs_vjp(const float* c, float t, const float* y,
+                                                 const float* w, float* dy, float* dc) {
+  const CoreTerms k = core_terms<DegraderCore>(c, t, y);
+  float dgamma, dP76, dP81;
+  core_rows_vjp<DegraderCore>(c, k, y, w, dc, dgamma, dP76, dP81);
+  const float x = y[0], aiiA = y[8], rc = c[DG_rc];
+  dgamma -= w[8] * aiiA;
+  dc[DG_rc] += w[8] * c[DG_aI] * c[DG_PBAD];
+  dc[DG_aI] += w[8] * rc * c[DG_PBAD];
+  dc[DG_PBAD] += w[8] * rc * c[DG_aI];
+  dc[DG_daiiA] -= w[8];
+  dc[DG_rC6] += w[9] * x * aiiA;
+  dc[DG_rC12] += w[10] * x * aiiA;
+  core_terms_vjp<DegraderCore>(c, k, y, w, dgamma, dP76, dP81, dy, dc);
+  const float dC = w[9] * c[DG_rC6] + w[10] * c[DG_rC12];
+  dy[0] += dC * aiiA;
+  dy[8] = -w[8] * k.gamma + dC * x;
+  dy[9] = 0.0f;
+  dy[10] = 0.0f;
+}
+
+// The families as the kernels take them: constant count NC, species count
+// NS, right-hand side and pullback.
+struct Dr {
+  enum : int { NC = N_CONST, NS = 8 };
+  static __device__ __forceinline__ void rhs(const float* c, float t, const float* y, float* f) {
+    dr_rhs(c, t, y, f);
+  }
+  static __device__ __forceinline__ void vjp(const float* c, float t, const float* y,
+                                             const float* w, float* dy, float* dc) {
+    dr_rhs_vjp(c, t, y, w, dy, dc);
+  }
+};
+
+struct Relay {
+  enum : int { NC = N_RELAY_CONST, NS = 12 };
+  static __device__ __forceinline__ void rhs(const float* c, float t, const float* y, float* f) {
+    relay_rhs(c, t, y, f);
+  }
+  static __device__ __forceinline__ void vjp(const float* c, float t, const float* y,
+                                             const float* w, float* dy, float* dc) {
+    relay_rhs_vjp(c, t, y, w, dy, dc);
+  }
+};
+
+struct Degrader {
+  enum : int { NC = N_DEGRADER_CONST, NS = 11 };
+  static __device__ __forceinline__ void rhs(const float* c, float t, const float* y, float* f) {
+    degrader_rhs(c, t, y, f);
+  }
+  static __device__ __forceinline__ void vjp(const float* c, float t, const float* y,
+                                             const float* w, float* dy, float* dc) {
+    degrader_rhs_vjp(c, t, y, w, dy, dc);
+  }
+};
+
+// --------------------------------------------------------------------------
+// The learned-precision block over NS species
+// --------------------------------------------------------------------------
+
 // The precision nets' input at (t, y) (_prec_features).
+template <int NS>
 __device__ __forceinline__ void prec_features(float t, const float* y, float* f) {
   f[0] = 1.0f;
   f[1] = tanhf(t);
 #pragma unroll
-  for (int s = 0; s < N_SPECIES; ++s) f[2 + s] = tanhf(y[s]);
+  for (int s = 0; s < NS; ++s) f[2 + s] = tanhf(y[s]);
 }
 
-// The learned-precision block of the *_precisions right-hand side over
-// y[0..11] (the precision rows of _dr_prec_rhs_cols):
-//   dv_j = sigmoid(W_j . f) - sigmoid(W_{4+j} . f) * y[8 + j],  j = 0..3.
-// W is the [8, 10] weight matrix, read from shared memory (every thread of a
-// warp reads the same word, which the hardware broadcasts).
+// The learned-precision block of a *_precisions right-hand side over
+// y[0..NS+3] (the precision rows of _prec_rhs_cols):
+//   dv_j = sigmoid(W_j . f) - sigmoid(W_{4+j} . f) * y[NS + j],  j = 0..3.
+// W is the [8, 2 + NS] weight matrix, read from shared memory (every thread
+// of a warp reads the same word, which the hardware broadcasts).
+template <int NS>
 __device__ __forceinline__ void prec_rhs(const float* W, float t, const float* y, float* dv) {
+  constexpr int N_FEAT = n_feat(NS);
   float f[N_FEAT];
-  prec_features(t, y, f);
+  prec_features<NS>(t, y, f);
 #pragma unroll
   for (int j = 0; j < N_PREC; ++j) {
     float p = 0.0f, d = 0.0f;
@@ -180,24 +438,25 @@ __device__ __forceinline__ void prec_rhs(const float* W, float t, const float* y
       p += W[j * N_FEAT + k] * f[k];
       d += W[(N_PREC + j) * N_FEAT + k] * f[k];
     }
-    dv[j] = sigmoidf(p) - sigmoidf(d) * y[N_SPECIES + j];
+    dv[j] = sigmoidf(p) - sigmoidf(d) * y[NS + j];
   }
 }
 
-// Pullback of prec_rhs at (t, y) for the cotangent w[0..11] of the whole
+// Pullback of prec_rhs at (t, y) for the cotangent w[0..NS+3] of the whole
 // right-hand side (_prec_rhs_vjp_cols): adds the block's share into
-// dy[0..7], writes dy[8..11], and adds the weights' share into this
-// thread's accumulators dW[e * STRIDE], e = 0..79 (a column of the block's
-// shared [80][STRIDE] array).  With p = Wp f, d = Wd f, sp = sigmoid(p),
-// sd = sigmoid(d) and w_j the cotangent of dprec_j:
+// dy[0..NS-1], writes dy[NS..NS+3], and adds the weights' share into this
+// thread's accumulators dW[e * STRIDE], e = 0 .. n_w(NS)-1 (a column of the
+// block's shared [n_w(NS)][STRIDE] array).  With p = Wp f, d = Wd f,
+// sp = sigmoid(p), sd = sigmoid(d) and w_j the cotangent of dprec_j:
 //   dprec_j = -w_j sd_j;  dp_j = w_j sp_j (1 - sp_j);  dd_j = -w_j prec_j sd_j (1 - sd_j)
 //   dW[j, :] += dp_j f,  dW[4 + j, :] += dd_j f,  df = Wp^T dp + Wd^T dd
 //   dy_s += df[2 + s] (1 - tanh^2 y_s); f[0] = 1 and f[1] = tanh t pass nothing on.
-template <int STRIDE>
+template <int NS, int STRIDE>
 __device__ __forceinline__ void prec_rhs_vjp(const float* W, float t, const float* y,
                                              const float* w, float* dy, float* dW) {
+  constexpr int N_FEAT = n_feat(NS);
   float f[N_FEAT], df[N_FEAT];
-  prec_features(t, y, f);
+  prec_features<NS>(t, y, f);
 #pragma unroll
   for (int k = 0; k < N_FEAT; ++k) df[k] = 0.0f;
 #pragma unroll
@@ -209,10 +468,10 @@ __device__ __forceinline__ void prec_rhs_vjp(const float* W, float t, const floa
       d += W[(N_PREC + j) * N_FEAT + k] * f[k];
     }
     const float sp = sigmoidf(p), sd = sigmoidf(d);
-    const float wv = w[N_SPECIES + j];
+    const float wv = w[NS + j];
     const float dp = wv * sp * (1.0f - sp);
-    const float dd = -wv * y[N_SPECIES + j] * sd * (1.0f - sd);
-    dy[N_SPECIES + j] = -wv * sd;
+    const float dd = -wv * y[NS + j] * sd * (1.0f - sd);
+    dy[NS + j] = -wv * sd;
 #pragma unroll
     for (int k = 0; k < N_FEAT; ++k) {
       dW[(j * N_FEAT + k) * STRIDE] += dp * f[k];
@@ -221,8 +480,12 @@ __device__ __forceinline__ void prec_rhs_vjp(const float* W, float t, const floa
     }
   }
 #pragma unroll
-  for (int s = 0; s < N_SPECIES; ++s) dy[s] += df[2 + s] * (1.0f - f[2 + s] * f[2 + s]);
+  for (int s = 0; s < NS; ++s) dy[s] += df[2 + s] * (1.0f - f[2 + s] * f[2 + s]);
 }
+
+// --------------------------------------------------------------------------
+// Fixed-grid steps over any right-hand side
+// --------------------------------------------------------------------------
 
 // One fixed-grid update of the S states y in place under rhs(t, y, f)
 // (_one_step).
@@ -334,43 +597,235 @@ __device__ __forceinline__ void step_vjp(const Rhs& rhs, const Vjp& vjp, float t
   }
 }
 
-// The right-hand sides and pullbacks as the step templates call them.
-struct DrRhs {
+// A kind (family F, with the precision block or not) as the step templates
+// call it: the right-hand side over S = F::NS (+ N_PREC) states ...
+template <class F, bool PREC>
+struct KindRhs {
   const float* c;
+  const float* W;  // the precision nets' weights; unused without the block
   __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
-    dr_rhs(c, t, y, f);
+    F::rhs(c, t, y, f);
+    if constexpr (PREC) prec_rhs<F::NS>(W, t, y, f + F::NS);
   }
 };
 
-struct DrVjp {
-  const float* c;
-  float* dc;
-  __device__ __forceinline__ void operator()(float t, const float* y, const float* w,
-                                             float* dy) const {
-    dr_rhs_vjp(c, t, y, w, dy, dc);
-  }
-};
-
-struct DrPrecRhs {
-  const float* c;
-  const float* W;
-  __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
-    dr_rhs(c, t, y, f);
-    prec_rhs(W, t, y, f + N_SPECIES);
-  }
-};
-
-template <int STRIDE>
-struct DrPrecVjp {
+// ... and its pullback, accumulating into the constants' cotangents dc and
+// the weights' column dW (with the block).
+template <class F, bool PREC, int STRIDE>
+struct KindVjp {
   const float* c;
   float* dc;
   const float* W;
   float* dW;
   __device__ __forceinline__ void operator()(float t, const float* y, const float* w,
                                              float* dy) const {
-    dr_rhs_vjp(c, t, y, w, dy, dc);
-    prec_rhs_vjp<STRIDE>(W, t, y, w, dy, dW);
+    F::vjp(c, t, y, w, dy, dc);
+    if constexpr (PREC) prec_rhs_vjp<F::NS, STRIDE>(W, t, y, w, dy, dW);
   }
 };
+
+// --------------------------------------------------------------------------
+// The kernels
+//
+// Forward (the TPU kernel's _make_kernel): one thread per sample row.  The
+// constants and the states stay in registers for the whole time loop; the
+// time grid is read through the read-only cache; each step stores
+// out[t, s, r], so the 32 threads of a warp write 32 consecutive floats of
+// one state row and every store coalesces.  The ragged edge is masked with
+// r < R.  The TPU kernel padded R up to its block size with constants = 1
+// and y0 = 1e-3 (pallas_ode.py:551-560) only because a grid cell there
+// processes a whole block; with the mask no padded row exists.  With the
+// precision block, the weight matrix, which every row shares, is loaded into
+// shared memory once per block before the mask (so every thread reaches the
+// barrier).
+//
+// Backward (_make_bwd_kernel): the reverse sweep over the stored trajectory,
+// one thread per sample row in 32-thread blocks (225 blocks at the training
+// shape R = 7,200, so every one of the 132 SMs holds a warp).  The constants
+// load into registers once, their cotangents start at zero and the adjoint
+// at a = g[T-1]; for i = T-2 ... 0 the thread reads y_i = traj[i, :, r],
+// recomputes the step's stages from it, pulls a back through them (adding
+// the constants' share into dc), and sets a = a_y + g[i].  Nothing but traj
+// and g is read from device memory, each read coalesced.  The TPU kernel got
+// each step's VJP by tracing jax.vjp of _one_step; here the pullbacks above
+// are written out by hand.  With the precision block the sweep also returns
+// dW, one sum over all rows and steps:
+//   * each thread accumulates its own n_w(NS) partials over the whole sweep
+//     in a column of the block's shared [n_w(NS)][32] array, not in
+//     registers, which the sweep already fills; column-per-thread keeps the
+//     32 threads of a warp on 32 banks;
+//   * the block then sums its 32 columns in a fixed order and writes one
+//     partial; the wrapper sums the partials over blocks.  No float atomics
+//     anywhere, so two runs give the same dW bit for bit, as the TPU
+//     kernel's per-cell partials summed on the host (pallas_ode.py:533);
+//   * threads past the edge (r >= R) zero their column and skip the sweep,
+//     so they add exact zeros and read no uninitialised shared memory; they
+//     stay in the block for its barriers.
+// --------------------------------------------------------------------------
+constexpr int FWD_THREADS = 128;
+constexpr int BWD_THREADS = 32;
+
+template <class F, bool PREC, int METHOD>
+__global__ void __launch_bounds__(FWD_THREADS)
+fwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts,
+           const float* __restrict__ y0, const float* __restrict__ times,
+           float* __restrict__ out, int R, int T) {
+  constexpr int S = F::NS + (PREC ? N_PREC : 0);
+  __shared__ float W[PREC ? n_w(F::NS) : 1];
+  if constexpr (PREC) {
+    for (int e = threadIdx.x; e < n_w(F::NS); e += blockDim.x) W[e] = wmat[e];
+    __syncthreads();
+  }
+
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const size_t stride = (size_t)R;
+
+  float c[F::NC];
+#pragma unroll
+  for (int j = 0; j < F::NC; ++j) c[j] = consts[j * stride + r];
+  const KindRhs<F, PREC> rhs{c, W};
+
+  float y[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    y[s] = y0[s * stride + r];
+    out[s * stride + r] = y[s];
+  }
+
+  float t1 = __ldg(times);
+  for (int i = 1; i < T; ++i) {
+    const float t2 = __ldg(times + i);
+    one_step<METHOD, S>(rhs, t1, t2, y);
+    float* o = out + (size_t)i * S * stride + r;
+#pragma unroll
+    for (int s = 0; s < S; ++s) o[s * stride] = y[s];
+    t1 = t2;
+  }
+}
+
+template <class F, bool PREC, int METHOD>
+__global__ void __launch_bounds__(BWD_THREADS)
+bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts,
+           const float* __restrict__ times, const float* __restrict__ traj,
+           const float* __restrict__ g, float* __restrict__ dw_out,
+           float* __restrict__ dc_out, float* __restrict__ dy0_out, int R, int T) {
+  constexpr int S = F::NS + (PREC ? N_PREC : 0);
+  constexpr int NW = PREC ? n_w(F::NS) : 1;
+  __shared__ float W[NW];
+  __shared__ float dWs[PREC ? NW * BWD_THREADS : 1];  // [NW][32]: column tid is thread tid's
+  const int tid = threadIdx.x;
+  if constexpr (PREC) {
+    for (int e = tid; e < NW; e += BWD_THREADS) W[e] = wmat[e];
+#pragma unroll 4
+    for (int e = 0; e < NW; ++e) dWs[e * BWD_THREADS + tid] = 0.0f;
+    __syncthreads();
+  }
+
+  const int r = blockIdx.x * BWD_THREADS + tid;
+  if (r < R) {
+    const size_t stride = (size_t)R;
+    const size_t tstride = (size_t)S * stride;
+
+    float c[F::NC], dc[F::NC];
+#pragma unroll
+    for (int j = 0; j < F::NC; ++j) {
+      c[j] = consts[j * stride + r];
+      dc[j] = 0.0f;
+    }
+    const KindRhs<F, PREC> rhs{c, W};
+    const KindVjp<F, PREC, BWD_THREADS> vjp{c, dc, W, dWs + tid};
+
+    float a[S];
+    const float* gT = g + (size_t)(T - 1) * tstride + r;
+#pragma unroll
+    for (int s = 0; s < S; ++s) a[s] = gT[s * stride];
+
+    float t2 = __ldg(times + (T - 1));
+    for (int i = T - 2; i >= 0; --i) {
+      const float t1 = __ldg(times + i);
+      const float* yi = traj + (size_t)i * tstride + r;
+      const float* gi = g + (size_t)i * tstride + r;
+      float y[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) y[s] = yi[s * stride];
+      step_vjp<METHOD, S>(rhs, vjp, t1, t2, y, a);
+#pragma unroll
+      for (int s = 0; s < S; ++s) a[s] += gi[s * stride];
+      t2 = t1;
+    }
+
+#pragma unroll
+    for (int j = 0; j < F::NC; ++j) dc_out[j * stride + r] = dc[j];
+#pragma unroll
+    for (int s = 0; s < S; ++s) dy0_out[s * stride + r] = a[s];
+  }
+
+  if constexpr (PREC) {
+    // the block's partial sum of dW, each entry summed over the 32 columns
+    // in thread order
+    __syncthreads();
+    for (int e = tid; e < NW; e += BWD_THREADS) {
+      float sum = 0.0f;
+      for (int i = 0; i < BWD_THREADS; ++i) sum += dWs[e * BWD_THREADS + i];
+      dw_out[(size_t)blockIdx.x * NW + e] = sum;
+    }
+  }
+}
+
+// The launchers behind the C entry points.  All pointers are device pointers
+// of contiguous float32 tensors (wmat and dw null without the precision
+// block; dw holds ceil(R / 32) partials of [8, 2 + NS]); stream is a
+// cudaStream_t.  They return the cudaError_t of the launch (0 on success); a
+// bad method or shape returns cudaErrorInvalidValue without launching.
+template <class F, bool PREC>
+int fwd_launch(const float* wmat, const float* consts, const float* y0, const float* times,
+               float* out, int R, int T, int method, void* stream) {
+  if (R <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 block(FWD_THREADS);
+  const dim3 grid((unsigned)((R + FWD_THREADS - 1) / FWD_THREADS));
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (method) {
+    case MODEULER:
+      fwd_kernel<F, PREC, MODEULER><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
+      break;
+    case MIDPOINT:
+      fwd_kernel<F, PREC, MIDPOINT><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
+      break;
+    case RK4:
+      fwd_kernel<F, PREC, RK4><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class F, bool PREC>
+int bwd_launch(const float* wmat, const float* consts, const float* times, const float* traj,
+               const float* g, float* dw, float* dc, float* dy0, int R, int T, int method,
+               void* stream) {
+  if (R <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 block(BWD_THREADS);
+  const dim3 grid((unsigned)((R + BWD_THREADS - 1) / BWD_THREADS));
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (method) {
+    case MODEULER:
+      bwd_kernel<F, PREC, MODEULER><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc,
+                                                           dy0, R, T);
+      break;
+    case MIDPOINT:
+      bwd_kernel<F, PREC, MIDPOINT><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc,
+                                                           dy0, R, T);
+      break;
+    case RK4:
+      bwd_kernel<F, PREC, RK4><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc, dy0,
+                                                      R, T);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace

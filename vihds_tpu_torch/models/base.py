@@ -28,6 +28,29 @@ def split_treatments(treatments, n):
     return [tt[:, i : i + 1] for i in range(n)]
 
 
+def rhs_from_cols(rhs_cols, c, n_species, precisions, prec_params):
+    """The generic solver's RHS over state[..., S] from a fused kind's plain
+    right-hand side ``rhs_cols`` over [n_species, ...] columns (the kernels'
+    own arithmetic), with the precision block when the precisions are
+    states."""
+
+    def rhs(t, state):
+        dX = rhs_cols(c, t, state[..., :n_species].movedim(-1, 0)).movedim(0, -1)
+        if precisions.dynamic:
+            return torch.cat([dX, precisions.rhs(prec_params, t, state, None)], dim=-1)
+        return dX
+
+    return rhs
+
+
+def with_prec_state0(mech, theta, n_batch, n_iwae):
+    """The mechanistic initial state [B, K, NS] of a ``_precisions`` model
+    followed by its 4 precision states' initial values."""
+    precs = [torch.broadcast_to(theta[v], (n_batch, n_iwae))
+             for v in ("init_prec_x", "init_prec_rfp", "init_prec_yfp", "init_prec_cfp")]
+    return torch.cat([mech, torch.stack(precs, dim=-1)], dim=-1)
+
+
 class ConstantPrecisions:
     """Observation precisions are latent thetas, constant over time."""
 

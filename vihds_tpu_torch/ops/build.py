@@ -21,12 +21,12 @@ BUILD_DIR = os.path.join(
     "build",
     "kernels",
 )
-#: kernel library name -> source file under csrc/
+#: kernel library name -> source file under csrc/: each fused kind's forward
+#: and backward (ops/fused_ode.KINDS)
 SOURCES = {
-    "dr_fwd": "dr_fwd.cu",
-    "dr_bwd": "dr_bwd.cu",
-    "dr_prec_fwd": "dr_prec_fwd.cu",
-    "dr_prec_bwd": "dr_prec_bwd.cu",
+    "%s_%s" % (kind, d): "%s_%s.cu" % (kind, d)
+    for kind in ("dr", "dr_prec", "relay", "relay_prec", "degrader", "degrader_prec")
+    for d in ("fwd", "bwd")
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,33 +1,34 @@
 """Fused ODE integration for the mechanistic families: the port's counterpart
 of ``vihds_tpu/ops/pallas_ode.py``.
 
-Ported so far, forward and backward, as hand-written CUDA kernels:
+Six kinds, each ported forward and backward as a hand-written CUDA kernel
+(``csrc/<kind>_fwd.cu`` and ``csrc/<kind>_bwd.cu``, the TPU kernel's
+``_make_kernel`` and ``_make_bwd_kernel``):
 
-* kind ``"dr"`` (dr_constant v1/v2, 8 states): ``csrc/dr_fwd.cu`` (the TPU
-  kernel's ``_make_kernel``) integrates and stores the trajectory, and
-  ``csrc/dr_bwd.cu`` (``_make_bwd_kernel``) sweeps the stored trajectory
-  backwards with a hand-derived per-step VJP;
-* kind ``"dr_prec"`` (dr_constant_precisions v1/v2, 12 states: the 8 species
-  and 4 learned precisions, ``_with_precisions`` on the TPU):
-  ``csrc/dr_prec_fwd.cu`` and ``csrc/dr_prec_bwd.cu``, which also return the
-  cotangent of the precision nets' weight matrix, summed over all rows.
+* ``"dr"`` (dr_constant v1/v2, 8 states) and ``"dr_prec"``
+  (dr_constant_precisions v1/v2: the 8 species and 4 learned precisions,
+  ``_with_precisions`` on the TPU);
+* ``"relay"`` (relay_constant, 12 states) and ``"relay_prec"`` (16);
+* ``"degrader"`` (degrader_constant, 11 states) and ``"degrader_prec"`` (15).
 
-All four run one thread per sample row with the whole time loop in
-registers, and share the right-hand sides in ``csrc/dr_common.cuh``.
+All run one thread per sample row with the whole time loop in registers and
+share their device code in ``csrc/dr_common.cuh``: the three families share
+the dr species' 8-row core, and the ``_prec`` kinds the precision block, whose
+backward also returns the cotangent of the precision nets' weight matrix,
+summed over all rows.  ``KINDS`` lists the kinds.
 
-``dr_constant_simulate`` and ``dr_constant_precisions_simulate`` are the
-differentiable wrappers: ``_DrIntegrate`` / ``_DrPrecIntegrate``,
-``torch.autograd.Function``s at the packed ``[23, R]`` / ``[S, R]`` /
-``[T, S, R]`` level, launch the forward kernel in their forward and the
-backward kernel in their backward; the packing around them is ordinary
-differentiable torch.  On a CPU tensor a Function runs the plain versions
-beside the kernels (``_integrate_plain``, ``_integrate_plain_bwd`` and their
-``_prec_`` twins); on a CUDA tensor it launches the kernels or raises.  The
-``relay`` / ``degrader`` kinds and their ``_prec`` forms are not ported yet
-(ROADMAP queue 2).
+``<family>_simulate`` (``dr_constant_simulate``, ...,
+``degrader_constant_precisions_simulate``) are the differentiable wrappers:
+``_KindIntegrate``, a ``torch.autograd.Function`` at the packed ``[NC, R]`` /
+``[S, R]`` / ``[T, S, R]`` level, launches the forward kernel in its forward
+and the backward kernel in its backward; the packing around it is ordinary
+differentiable torch.  On a CPU tensor the Function runs the plain versions
+beside the kernels (``_plain_fwd``, ``_plain_bwd``); on a CUDA tensor it
+launches the kernels or raises.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -61,67 +62,451 @@ DR_CONST_NAMES = (
     "fracLuxR",
     "fracLasR",
 )
+# relay_constant: dr_constant's constants and the synthases' and secreted
+# signals' (csrc/dr_common.cuh's RelayConst enum follows this order)
+RELAY_CONST_NAMES = (
+    "r",
+    "K",
+    "tlag",
+    "rc",
+    "a530",
+    "a480",
+    "drfp",
+    "dyfp",
+    "dcfp",
+    "dR",
+    "dS",
+    "dluxI",
+    "dlasI",
+    "e76",
+    "e81",
+    "aCFP",
+    "aYFP",
+    "KGR_76",
+    "KGS_76",
+    "KGR_81",
+    "KGS_81",
+    "KC6",
+    "KC12",
+    "Klux",
+    "Klas",
+    "aR",
+    "aS",
+    "fracLuxR",
+    "fracLasR",
+)
+# degrader_constant: dr_constant's constants and the lactonase's, with the
+# arabinose input PBAD and the degradation rates rC6 / rC12 computed per row
+# before the kernel, like fracLuxR / fracLasR (DegraderConst enum)
+DEGRADER_CONST_NAMES = (
+    "r",
+    "K",
+    "tlag",
+    "rc",
+    "a530",
+    "a480",
+    "drfp",
+    "dyfp",
+    "dcfp",
+    "dR",
+    "dS",
+    "e76",
+    "e81",
+    "aCFP",
+    "aYFP",
+    "KGR_76",
+    "KGS_76",
+    "KGR_81",
+    "KGS_81",
+    "aR",
+    "aS",
+    "aI",
+    "daiiA",
+    "PBAD",
+    "rC6",
+    "rC12",
+    "fracLuxR",
+    "fracLasR",
+)
+#: species of the dr family, and of the core all three families share
 N_SPECIES = 8
 #: learned-precision states of the *_precisions models
 N_PREC = 4
-#: the precision nets' weight matrix: rows 0..3 production, 4..7 degradation;
-#: column 0 the bias, columns 1.. the weights of tanh([t, species 0..7])
+#: the dr_prec weight matrix (each kind's is ``KINDS[kind].wmat_shape``)
 WMAT_SHAPE = (2 * N_PREC, 2 + N_SPECIES)
 #: fixed-grid methods of the kernels; the index is csrc/dr_common.cuh's Method enum
 METHODS = ("modeuler", "midpoint", "rk4")
-#: threads per block of csrc/dr_prec_bwd.cu: its weight cotangent comes back
-#: as one [8, 10] partial sum per block
+#: threads per block of the _prec backward kernels: each returns its weight
+#: cotangent as one partial sum per block
 PREC_BWD_THREADS = 32
+
+
+class Kind(NamedTuple):
+    """A fused kernel kind: its packed constant order, its species, whether
+    it carries the precision block, and the public wrapper it is reached by."""
+
+    name: str
+    names: tuple
+    n_species: int
+    prec: bool
+    simulate: str
+
+    @property
+    def n_states(self):
+        return self.n_species + (N_PREC if self.prec else 0)
+
+    @property
+    def wmat_shape(self):
+        """The precision nets' weight matrix: rows 0..3 production, 4..7
+        degradation; column 0 the bias, columns 1.. the weights of
+        tanh([t, species 0 .. n_species-1])."""
+        return (2 * N_PREC, 2 + self.n_species)
+
+    @property
+    def fwd(self):
+        """The forward kernel's library (``csrc/<fwd>.cu``)."""
+        return self.name + "_fwd"
+
+    @property
+    def bwd(self):
+        return self.name + "_bwd"
+
+
+KINDS = {
+    k.name: k
+    for k in (
+        Kind("dr", DR_CONST_NAMES, 8, False, "dr_constant_simulate"),
+        Kind("dr_prec", DR_CONST_NAMES, 8, True, "dr_constant_precisions_simulate"),
+        Kind("relay", RELAY_CONST_NAMES, 12, False, "relay_constant_simulate"),
+        Kind("relay_prec", RELAY_CONST_NAMES, 12, True, "relay_constant_precisions_simulate"),
+        Kind("degrader", DEGRADER_CONST_NAMES, 11, False, "degrader_constant_simulate"),
+        Kind("degrader_prec", DEGRADER_CONST_NAMES, 11, True,
+             "degrader_constant_precisions_simulate"),
+    )
+}
 
 
 # --------------------------------------------------------------------------- #
 # Plain PyTorch version
 # --------------------------------------------------------------------------- #
-def _dr_rhs_cols(c, t, y):
-    """dr_constant RHS on [8, R] state columns; ``c`` maps constant names to
-    [R] rows.  Same math and order as the kernels' ``dr_rhs``."""
-    x, rfp, yfp, cfp, f530, f480, luxR, lasR = y
-    gr = c["r"] * torch.sigmoid(4.0 * (t - c["tlag"]))
-    gamma = gr * (1.0 - x / c["K"])
-    boundLuxR = luxR * luxR * c["fracLuxR"]
-    boundLasR = lasR * lasR * c["fracLasR"]
+class _Terms(NamedTuple):
+    sig: torch.Tensor
+    gr: torch.Tensor
+    omx: torch.Tensor
+    gamma: torch.Tensor
+    luxR2: torch.Tensor
+    lasR2: torch.Tensor
+    boundLuxR: torch.Tensor
+    boundLasR: torch.Tensor
+    denom76: torch.Tensor
+    denom81: torch.Tensor
+    P76: torch.Tensor
+    P81: torch.Tensor
+
+
+def _core_terms(c, t, y):
+    """The intermediates of the 8-species core at (t, y) on [S, R] columns;
+    ``c`` maps constant names to [R] rows.  csrc/dr_common.cuh's
+    ``core_terms``."""
+    sig = torch.sigmoid(4.0 * (t - c["tlag"]))
+    gr = c["r"] * sig
+    omx = 1.0 - y[0] / c["K"]
+    luxR2 = y[6] * y[6]
+    lasR2 = y[7] * y[7]
+    boundLuxR = luxR2 * c["fracLuxR"]
+    boundLasR = lasR2 * c["fracLasR"]
     denom76 = 1.0 + c["KGR_76"] * boundLuxR + c["KGS_76"] * boundLasR
     denom81 = 1.0 + c["KGR_81"] * boundLuxR + c["KGS_81"] * boundLasR
     P76 = (c["e76"] + c["KGR_76"] * boundLuxR + c["KGS_76"] * boundLasR) / denom76
     P81 = (c["e81"] + c["KGR_81"] * boundLuxR + c["KGS_81"] * boundLasR) / denom81
-    return torch.stack(
-        [
-            gamma * x,
-            c["rc"] - (gamma + c["drfp"]) * rfp,
-            c["rc"] * c["aYFP"] * P81 - (gamma + c["dyfp"]) * yfp,
-            c["rc"] * c["aCFP"] * P76 - (gamma + c["dcfp"]) * cfp,
-            c["rc"] * c["a530"] - gamma * f530,
-            c["rc"] * c["a480"] - gamma * f480,
-            c["rc"] * c["aR"] - (gamma + c["dR"]) * luxR,
-            c["rc"] * c["aS"] - (gamma + c["dS"]) * lasR,
-        ],
-        dim=0,
-    )
+    return _Terms(sig, gr, omx, gr * omx, luxR2, lasR2, boundLuxR, boundLasR, denom76, denom81,
+                  P76, P81)
 
 
-def _prec_features(t, y):
-    """The precision nets' input on [S, R] columns: [1; tanh(t); tanh(y_0..7)]
-    [10, R] (the activation covers the whole input [t, species], as
+def _core_rows(c, k, y):
+    """The core's eight rows (``core_rhs``): OD, RFP, YFP, CFP, F530, F480,
+    LuxR, LasR."""
+    rc, gamma = c["rc"], k.gamma
+    return [
+        gamma * y[0],
+        rc - (gamma + c["drfp"]) * y[1],
+        rc * c["aYFP"] * k.P81 - (gamma + c["dyfp"]) * y[2],
+        rc * c["aCFP"] * k.P76 - (gamma + c["dcfp"]) * y[3],
+        rc * c["a530"] - gamma * y[4],
+        rc * c["a480"] - gamma * y[5],
+        rc * c["aR"] - (gamma + c["dR"]) * y[6],
+        rc * c["aS"] - (gamma + c["dS"]) * y[7],
+    ]
+
+
+def _core_rows_vjp(c, k, y, w, dc):
+    """First half of the core's pullback (``core_rows_vjp``): for the
+    cotangent ``w`` of the core's rows, adds the share of the constants each
+    row reads directly into ``dc`` (a dict of [R] tensors, replaced, not
+    written in place) and returns the rows' cotangents (dgamma, dP76, dP81).
+    A family's extra rows add their shares to these before
+    ``_core_terms_vjp`` pulls them back."""
+    rc = c["rc"]
+    dgamma = (w[0] * y[0] - w[1] * y[1] - w[2] * y[2] - w[3] * y[3]
+              - w[4] * y[4] - w[5] * y[5] - w[6] * y[6] - w[7] * y[7])
+    dP81 = w[2] * rc * c["aYFP"]
+    dP76 = w[3] * rc * c["aCFP"]
+    dc["rc"] = dc["rc"] + (w[1] + w[2] * c["aYFP"] * k.P81 + w[3] * c["aCFP"] * k.P76
+                           + w[4] * c["a530"] + w[5] * c["a480"] + w[6] * c["aR"]
+                           + w[7] * c["aS"])
+    dc["aYFP"] = dc["aYFP"] + w[2] * rc * k.P81
+    dc["aCFP"] = dc["aCFP"] + w[3] * rc * k.P76
+    dc["a530"] = dc["a530"] + w[4] * rc
+    dc["a480"] = dc["a480"] + w[5] * rc
+    dc["aR"] = dc["aR"] + w[6] * rc
+    dc["aS"] = dc["aS"] + w[7] * rc
+    dc["drfp"] = dc["drfp"] - w[1] * y[1]
+    dc["dyfp"] = dc["dyfp"] - w[2] * y[2]
+    dc["dcfp"] = dc["dcfp"] - w[3] * y[3]
+    dc["dR"] = dc["dR"] - w[6] * y[6]
+    dc["dS"] = dc["dS"] - w[7] * y[7]
+    return dgamma, dP76, dP81
+
+
+def _core_terms_vjp(c, k, y, w, dgamma, dP76, dP81, dc):
+    """Second half of the core's pullback (``core_terms_vjp``): pulls
+    dgamma, dP76 and dP81 back through the core's terms into ``dc`` and
+    returns the states' cotangent through the core, 8 rows.  The places where
+    a derivative is easy to get wrong:
+
+    * ``gr = r * s`` with ``s = sigmoid(4 (t - tlag))``: dgr/dtlag = -4 r s (1 - s);
+    * ``gamma = gr (1 - x/K)``: dgamma/dx = -gr/K, dgamma/dK = gr x / K^2;
+    * ``P = (e + A) / (1 + A)`` with ``A = KGR bL + KGS bS`` (P76 and P81):
+      dP/dA = (1 - e) / (1 + A)^2 and dP/de = 1 / (1 + A);
+    * ``bL = luxR^2 fracLuxR`` (and bS): the gradient reaches fracLuxR and
+      fracLasR, and through them theta;
+    * time gets no cotangent (the TPU kernel returns zeros for it)."""
+    dA76 = dP76 * (1.0 - c["e76"]) / (k.denom76 * k.denom76)
+    dA81 = dP81 * (1.0 - c["e81"]) / (k.denom81 * k.denom81)
+    dc["e76"] = dc["e76"] + dP76 / k.denom76
+    dc["e81"] = dc["e81"] + dP81 / k.denom81
+    dc["KGR_76"] = dc["KGR_76"] + dA76 * k.boundLuxR
+    dc["KGS_76"] = dc["KGS_76"] + dA76 * k.boundLasR
+    dc["KGR_81"] = dc["KGR_81"] + dA81 * k.boundLuxR
+    dc["KGS_81"] = dc["KGS_81"] + dA81 * k.boundLasR
+    dbL = dA76 * c["KGR_76"] + dA81 * c["KGR_81"]
+    dbS = dA76 * c["KGS_76"] + dA81 * c["KGS_81"]
+    dc["fracLuxR"] = dc["fracLuxR"] + dbL * k.luxR2
+    dc["fracLasR"] = dc["fracLasR"] + dbS * k.lasR2
+    # gamma = gr (1 - x/K), gr = r sig
+    dgr = dgamma * k.omx
+    dc["K"] = dc["K"] + dgamma * k.gr * y[0] / (c["K"] * c["K"])
+    dc["r"] = dc["r"] + dgr * k.sig
+    dc["tlag"] = dc["tlag"] - 4.0 * dgr * c["r"] * k.sig * (1.0 - k.sig)
+    gamma = k.gamma
+    return [
+        w[0] * gamma - dgamma * k.gr / c["K"],
+        -w[1] * (gamma + c["drfp"]),
+        -w[2] * (gamma + c["dyfp"]),
+        -w[3] * (gamma + c["dcfp"]),
+        -w[4] * gamma,
+        -w[5] * gamma,
+        2.0 * dbL * y[6] * c["fracLuxR"] - w[6] * (gamma + c["dR"]),
+        2.0 * dbS * y[7] * c["fracLasR"] - w[7] * (gamma + c["dS"]),
+    ]
+
+
+def _dr_rhs_cols(c, t, y):
+    """dr_constant RHS on [8, R] state columns: the core alone.  Same math
+    and order as the kernels' ``dr_rhs``."""
+    return torch.stack(_core_rows(c, _core_terms(c, t, y), y))
+
+
+def _dr_rhs_vjp_cols(c, t, y, w, dc):
+    """Pullback of ``_dr_rhs_cols`` at (t, y): for the cotangent ``w`` [8, R]
+    of its output, returns (df/dy)^T w [8, R] and adds (df/dc)^T w into the
+    per-constant rows of ``dc``.  Hand-derived, and line for line the
+    arithmetic of csrc/dr_common.cuh's ``dr_rhs_vjp``, so the CPU tests pin
+    the kernels' derivative."""
+    k = _core_terms(c, t, y)
+    dgamma, dP76, dP81 = _core_rows_vjp(c, k, y, w, dc)
+    return torch.stack(_core_terms_vjp(c, k, y, w, dgamma, dP76, dP81, dc))
+
+
+def _relay_rhs_cols(c, t, y):
+    """relay_constant RHS on [12, R] columns (``relay_rhs``): the core, the
+    synthases LuxI / LasI driven by P81 / P76, and the secreted C6 / C12,
+    which no row reads (fracLuxR / fracLasR stay at the initial
+    treatments)."""
+    k = _core_terms(c, t, y)
+    x, luxI, lasI, rc = y[0], y[8], y[9], c["rc"]
+    return torch.stack(_core_rows(c, k, y) + [
+        rc * k.P81 - (k.gamma + c["dluxI"]) * luxI,
+        rc * k.P76 - (k.gamma + c["dlasI"]) * lasI,
+        (c["KC6"] * rc * x * luxI) / (1.0 + luxI / c["Klux"]),
+        (c["KC12"] * rc * x * lasI) / (1.0 + lasI / c["Klas"]),
+    ])
+
+
+def _relay_rhs_vjp_cols(c, t, y, w, dc):
+    """Pullback of ``_relay_rhs_cols`` (``relay_rhs_vjp``).  The extra rows
+    feed the core's gamma, P81 and P76, so their shares join the core rows'
+    before the core's terms are pulled back.  With C6' = n6 / D6,
+    n6 = KC6 rc x luxI, D6 = 1 + luxI / Klux: dn6 = w10 / D6,
+    dD6 = -dn6 n6 / D6, and D6 passes dD6 / Klux to luxI and
+    -dD6 luxI / Klux^2 to Klux (C12' likewise)."""
+    k = _core_terms(c, t, y)
+    dgamma, dP76, dP81 = _core_rows_vjp(c, k, y, w, dc)
+    x, luxI, lasI, rc = y[0], y[8], y[9], c["rc"]
+    # luxI' = rc P81 - (gamma + dluxI) luxI, lasI' = rc P76 - (gamma + dlasI) lasI
+    dgamma = dgamma - (w[8] * luxI + w[9] * lasI)
+    dP81 = dP81 + w[8] * rc
+    dP76 = dP76 + w[9] * rc
+    dc["rc"] = dc["rc"] + (w[8] * k.P81 + w[9] * k.P76)
+    dc["dluxI"] = dc["dluxI"] - w[8] * luxI
+    dc["dlasI"] = dc["dlasI"] - w[9] * lasI
+    # C6' = n6 / D6, C12' = n12 / D12
+    D6 = 1.0 + luxI / c["Klux"]
+    D12 = 1.0 + lasI / c["Klas"]
+    dn6 = w[10] / D6
+    dn12 = w[11] / D12
+    dD6 = -dn6 * (c["KC6"] * rc * x * luxI) / D6
+    dD12 = -dn12 * (c["KC12"] * rc * x * lasI) / D12
+    dc["KC6"] = dc["KC6"] + dn6 * rc * x * luxI
+    dc["KC12"] = dc["KC12"] + dn12 * rc * x * lasI
+    dc["rc"] = dc["rc"] + (dn6 * c["KC6"] * x * luxI + dn12 * c["KC12"] * x * lasI)
+    dc["Klux"] = dc["Klux"] - dD6 * luxI / (c["Klux"] * c["Klux"])
+    dc["Klas"] = dc["Klas"] - dD12 * lasI / (c["Klas"] * c["Klas"])
+    dy = _core_terms_vjp(c, k, y, w, dgamma, dP76, dP81, dc)
+    dy[0] = dy[0] + (dn6 * c["KC6"] * rc * luxI + dn12 * c["KC12"] * rc * lasI)
+    zero = torch.zeros_like(x)
+    return torch.stack(dy + [
+        -w[8] * (k.gamma + c["dluxI"]) + dn6 * c["KC6"] * rc * x + dD6 / c["Klux"],
+        -w[9] * (k.gamma + c["dlasI"]) + dn12 * c["KC12"] * rc * x + dD12 / c["Klas"],
+        zero,
+        zero,
+    ])
+
+
+def _degrader_rhs_cols(c, t, y):
+    """degrader_constant RHS on [11, R] columns (``degrader_rhs``): the
+    core, the lactonase AiiA driven by the arabinose input PBAD, and C6 / C12,
+    which no row reads.  aiiA' as the reference writes it: daiiA is not
+    multiplied by aiiA."""
+    k = _core_terms(c, t, y)
+    x, aiiA = y[0], y[8]
+    return torch.stack(_core_rows(c, k, y) + [
+        c["rc"] * c["aI"] * c["PBAD"] - (c["daiiA"] + k.gamma * aiiA),
+        x * c["rC6"] * aiiA,
+        x * c["rC12"] * aiiA,
+    ])
+
+
+def _degrader_rhs_vjp_cols(c, t, y, w, dc):
+    """Pullback of ``_degrader_rhs_cols`` (``degrader_rhs_vjp``): aiiA' feeds
+    gamma; C6' and C12' read x, aiiA and the host-side rC6 / rC12, whose
+    cotangents (and PBAD's) reach theta through autograd of the model's
+    constants."""
+    k = _core_terms(c, t, y)
+    dgamma, dP76, dP81 = _core_rows_vjp(c, k, y, w, dc)
+    x, aiiA, rc = y[0], y[8], c["rc"]
+    dgamma = dgamma - w[8] * aiiA
+    dc["rc"] = dc["rc"] + w[8] * c["aI"] * c["PBAD"]
+    dc["aI"] = dc["aI"] + w[8] * rc * c["PBAD"]
+    dc["PBAD"] = dc["PBAD"] + w[8] * rc * c["aI"]
+    dc["daiiA"] = dc["daiiA"] - w[8]
+    dc["rC6"] = dc["rC6"] + w[9] * x * aiiA
+    dc["rC12"] = dc["rC12"] + w[10] * x * aiiA
+    dy = _core_terms_vjp(c, k, y, w, dgamma, dP76, dP81, dc)
+    dC = w[9] * c["rC6"] + w[10] * c["rC12"]
+    dy[0] = dy[0] + dC * aiiA
+    zero = torch.zeros_like(x)
+    return torch.stack(dy + [-w[8] * k.gamma + dC * x, zero, zero])
+
+
+def _prec_features(t, y, n_species):
+    """The precision nets' input on [S, R] columns: [1; tanh(t); tanh(y_0 ..
+    y_{n_species-1})] (the activation covers the whole input [t, species], as
     ``NeuralPrecisions.rhs`` applies it)."""
     t_row = torch.broadcast_to(torch.as_tensor(t, dtype=y.dtype, device=y.device), y[:1].shape)
-    return torch.cat([torch.ones_like(y[:1]), torch.tanh(torch.cat([t_row, y[:N_SPECIES]]))])
+    return torch.cat([torch.ones_like(y[:1]), torch.tanh(torch.cat([t_row, y[:n_species]]))])
+
+
+def _with_prec_rhs(base_rhs, c, t, y):
+    """A *_precisions RHS on [NS + 4, R] columns, ``c = (constants, wmat)``:
+    the species of ``base_rhs`` and the n_hidden=0 NeuralPrecisions block
+    (the TPU kernel's ``_with_precisions``)
+        dprec_j = sigmoid(Wp_j . f) - sigmoid(Wd_j . f) * prec_j,
+    with f = ``_prec_features(t, y, NS)`` and [Wp; Wd] = ``wmat`` [8, 2 + NS]."""
+    cdict, wmat = c
+    ns = wmat.shape[1] - 2
+    gates = torch.sigmoid(wmat @ _prec_features(t, y, ns))  # [8, R]
+    dV = gates[:N_PREC] - gates[N_PREC:] * y[ns:]
+    return torch.cat([base_rhs(cdict, t, y[:ns]), dV])
+
+
+def _prec_rhs_vjp_cols(wmat, t, y, w, dc):
+    """Pullback of the precision block of ``_with_prec_rhs`` at (t, y) for
+    the cotangent ``w`` [NS + 4, R] of the whole right-hand side (only its
+    last 4 rows, those of dprec, reach the block).  Returns the block's share
+    of (df/dy)^T w [NS + 4, R] and adds the weights' share into ``dc["W"]``
+    [8, 2 + NS, R] (per row, summed over the rows at the end of the sweep, as
+    the backward kernel sums each thread's partials).  Hand-derived, line for
+    line csrc/dr_common.cuh's ``prec_rhs_vjp``.  With p = Wp f, d = Wd f,
+    sp = sigmoid(p), sd = sigmoid(d) and w_j the cotangent of dprec_j:
+
+    * dprec_j gets -w_j sd_j;
+    * dp_j = w_j sp_j (1 - sp_j), dd_j = -w_j prec_j sd_j (1 - sd_j);
+    * dW[j, :] += dp_j f and dW[4 + j, :] += dd_j f;
+    * df = Wp^T dp + Wd^T dd, and species s gets df[2 + s] (1 - tanh^2 y_s);
+    * f[0] is the constant 1 and f[1] = tanh(t): neither passes anything on."""
+    ns = wmat.shape[1] - 2
+    f = _prec_features(t, y, ns)
+    sig = torch.sigmoid(wmat @ f)  # [8, R]
+    sp, sd = sig[:N_PREC], sig[N_PREC:]
+    prec = y[ns:]
+    wv = w[ns:]
+    dpd = torch.cat([wv * sp * (1.0 - sp), -wv * prec * sd * (1.0 - sd)])  # [8, R]
+    dc["W"] = dc["W"] + dpd[:, None, :] * f[None, :, :]
+    df = wmat.t() @ dpd  # [2 + NS, R]
+    th = f[2:]
+    return torch.cat([df[2:] * (1.0 - th * th), -wv * sd])
+
+
+def _with_prec_vjp(base_vjp, c, t, y, w, dc):
+    """Pullback of ``_with_prec_rhs``: the species' pullback ``base_vjp``
+    plus the precision block's ``_prec_rhs_vjp_cols``; ``c = (constants,
+    wmat)``, ``dc`` the constants' rows and ``"W"``."""
+    cdict, wmat = c
+    ns = wmat.shape[1] - 2
+    dy = _prec_rhs_vjp_cols(wmat, t, y, w, dc)
+    dx = base_vjp(cdict, t, y[:ns], w[:ns], dc)
+    return torch.cat([dx + dy[:ns], dy[ns:]])
 
 
 def _dr_prec_rhs_cols(c, t, y):
-    """dr_constant_precisions RHS on [12, R] columns, ``c = (constants,
-    wmat)``: the 8 species of ``_dr_rhs_cols`` and the n_hidden=0
-    NeuralPrecisions block (the TPU kernel's ``_with_precisions``)
-        dprec_j = sigmoid(Wp_j . f) - sigmoid(Wd_j . f) * prec_j,
-    with f = ``_prec_features(t, y)`` and [Wp; Wd] = ``wmat`` [8, 10]."""
-    cdict, wmat = c
-    gates = torch.sigmoid(wmat @ _prec_features(t, y))  # [8, R]
-    dV = gates[:N_PREC] - gates[N_PREC:] * y[N_SPECIES:]
-    return torch.cat([_dr_rhs_cols(cdict, t, y[:N_SPECIES]), dV])
+    return _with_prec_rhs(_dr_rhs_cols, c, t, y)
+
+
+def _dr_prec_rhs_vjp_cols(c, t, y, w, dc):
+    return _with_prec_vjp(_dr_rhs_vjp_cols, c, t, y, w, dc)
+
+
+def _relay_prec_rhs_cols(c, t, y):
+    return _with_prec_rhs(_relay_rhs_cols, c, t, y)
+
+
+def _relay_prec_rhs_vjp_cols(c, t, y, w, dc):
+    return _with_prec_vjp(_relay_rhs_vjp_cols, c, t, y, w, dc)
+
+
+def _degrader_prec_rhs_cols(c, t, y):
+    return _with_prec_rhs(_degrader_rhs_cols, c, t, y)
+
+
+def _degrader_prec_rhs_vjp_cols(c, t, y, w, dc):
+    return _with_prec_vjp(_degrader_rhs_vjp_cols, c, t, y, w, dc)
+
+
+def _rhs_and_vjp(kind):
+    """``_<kind>_rhs_cols`` and ``_<kind>_rhs_vjp_cols``, looked up when
+    called, so that a test may replace one of them."""
+    return globals()["_%s_rhs_cols" % kind], globals()["_%s_rhs_vjp_cols" % kind]
 
 
 def _one_step(rhs, c, t1, t2, y, method):
@@ -151,138 +536,6 @@ def _integrate(rhs, c, y0_cols, times, method):
         y = _one_step(rhs, c, times[i], times[i + 1], y, method)
         ys.append(y)
     return torch.stack(ys, dim=0)
-
-
-def _integrate_plain(packed, y0_cols, times, method):
-    """[23, R] constants, [8, R] y0, [T] times -> [T, 8, R] trajectory."""
-    return _integrate(_dr_rhs_cols, dict(zip(DR_CONST_NAMES, packed)), y0_cols, times, method)
-
-
-def _integrate_prec_plain(wmat, packed, y0_cols, times, method):
-    """[8, 10] weights, [23, R] constants, [12, R] y0, [T] times -> [T, 12, R]
-    trajectory: the plain version of csrc/dr_prec_fwd.cu."""
-    c = (dict(zip(DR_CONST_NAMES, packed)), wmat)
-    return _integrate(_dr_prec_rhs_cols, c, y0_cols, times, method)
-
-
-def _dr_rhs_vjp_cols(c, t, y, w, dc):
-    """Pullback of ``_dr_rhs_cols`` at (t, y): for the cotangent ``w`` [8, R]
-    of its output, returns (df/dy)^T w [8, R] and adds (df/dc)^T w into the
-    per-constant rows of ``dc`` (a dict of [R] tensors, replaced, not written
-    in place).  Hand-derived, and line for line the arithmetic of
-    csrc/dr_common.cuh's ``dr_rhs_vjp``, so the CPU tests pin the kernels'
-    derivative.  The places where a derivative is easy to get wrong:
-
-    * ``gr = r * s`` with ``s = sigmoid(4 (t - tlag))``: dgr/dtlag = -4 r s (1 - s);
-    * ``gamma = gr (1 - x/K)``: dgamma/dx = -gr/K, dgamma/dK = gr x / K^2;
-    * ``P = (e + A) / (1 + A)`` with ``A = KGR bL + KGS bS`` (P76 and P81):
-      dP/dA = (1 - e) / (1 + A)^2 and dP/de = 1 / (1 + A);
-    * ``bL = luxR^2 fracLuxR`` (and bS): the gradient reaches fracLuxR and
-      fracLasR, and through them theta;
-    * time gets no cotangent (the TPU kernel returns zeros for it)."""
-    x, rfp, yfp, cfp, f530, f480, luxR, lasR = y
-    # forward intermediates, recomputed
-    sig = torch.sigmoid(4.0 * (t - c["tlag"]))
-    gr = c["r"] * sig
-    omx = 1.0 - x / c["K"]
-    gamma = gr * omx
-    luxR2 = luxR * luxR
-    lasR2 = lasR * lasR
-    boundLuxR = luxR2 * c["fracLuxR"]
-    boundLasR = lasR2 * c["fracLasR"]
-    denom76 = 1.0 + c["KGR_76"] * boundLuxR + c["KGS_76"] * boundLasR
-    denom81 = 1.0 + c["KGR_81"] * boundLuxR + c["KGS_81"] * boundLasR
-    P76 = (c["e76"] + c["KGR_76"] * boundLuxR + c["KGS_76"] * boundLasR) / denom76
-    P81 = (c["e81"] + c["KGR_81"] * boundLuxR + c["KGS_81"] * boundLasR) / denom81
-    rc = c["rc"]
-    # pull w back through the eight outputs
-    dgamma = (w[0] * x - w[1] * rfp - w[2] * yfp - w[3] * cfp
-              - w[4] * f530 - w[5] * f480 - w[6] * luxR - w[7] * lasR)
-    dP81 = w[2] * rc * c["aYFP"]
-    dP76 = w[3] * rc * c["aCFP"]
-    dc["rc"] = dc["rc"] + (w[1] + w[2] * c["aYFP"] * P81 + w[3] * c["aCFP"] * P76
-                           + w[4] * c["a530"] + w[5] * c["a480"] + w[6] * c["aR"]
-                           + w[7] * c["aS"])
-    dc["aYFP"] = dc["aYFP"] + w[2] * rc * P81
-    dc["aCFP"] = dc["aCFP"] + w[3] * rc * P76
-    dc["a530"] = dc["a530"] + w[4] * rc
-    dc["a480"] = dc["a480"] + w[5] * rc
-    dc["aR"] = dc["aR"] + w[6] * rc
-    dc["aS"] = dc["aS"] + w[7] * rc
-    dc["drfp"] = dc["drfp"] - w[1] * rfp
-    dc["dyfp"] = dc["dyfp"] - w[2] * yfp
-    dc["dcfp"] = dc["dcfp"] - w[3] * cfp
-    dc["dR"] = dc["dR"] - w[6] * luxR
-    dc["dS"] = dc["dS"] - w[7] * lasR
-    # P = (e + A) / (1 + A)
-    dA76 = dP76 * (1.0 - c["e76"]) / (denom76 * denom76)
-    dA81 = dP81 * (1.0 - c["e81"]) / (denom81 * denom81)
-    dc["e76"] = dc["e76"] + dP76 / denom76
-    dc["e81"] = dc["e81"] + dP81 / denom81
-    dc["KGR_76"] = dc["KGR_76"] + dA76 * boundLuxR
-    dc["KGS_76"] = dc["KGS_76"] + dA76 * boundLasR
-    dc["KGR_81"] = dc["KGR_81"] + dA81 * boundLuxR
-    dc["KGS_81"] = dc["KGS_81"] + dA81 * boundLasR
-    dbL = dA76 * c["KGR_76"] + dA81 * c["KGR_81"]
-    dbS = dA76 * c["KGS_76"] + dA81 * c["KGS_81"]
-    dc["fracLuxR"] = dc["fracLuxR"] + dbL * luxR2
-    dc["fracLasR"] = dc["fracLasR"] + dbS * lasR2
-    # gamma = gr (1 - x/K), gr = r sig
-    dgr = dgamma * omx
-    dc["K"] = dc["K"] + dgamma * gr * x / (c["K"] * c["K"])
-    dc["r"] = dc["r"] + dgr * sig
-    dc["tlag"] = dc["tlag"] - 4.0 * dgr * c["r"] * sig * (1.0 - sig)
-    return torch.stack(
-        [
-            w[0] * gamma - dgamma * gr / c["K"],
-            -w[1] * (gamma + c["drfp"]),
-            -w[2] * (gamma + c["dyfp"]),
-            -w[3] * (gamma + c["dcfp"]),
-            -w[4] * gamma,
-            -w[5] * gamma,
-            2.0 * dbL * luxR * c["fracLuxR"] - w[6] * (gamma + c["dR"]),
-            2.0 * dbS * lasR * c["fracLasR"] - w[7] * (gamma + c["dS"]),
-        ],
-        dim=0,
-    )
-
-
-def _prec_rhs_vjp_cols(wmat, t, y, w, dc):
-    """Pullback of the precision block of ``_dr_prec_rhs_cols`` at (t, y) for
-    the cotangent ``w`` [12, R] of the whole right-hand side (only its rows
-    8..11, those of dprec, reach the block).  Returns the block's share of
-    (df/dy)^T w [12, R] and adds the weights' share into ``dc["W"]``
-    [8, 10, R] (per row, summed over the rows at the end of the sweep, as
-    csrc/dr_prec_bwd.cu sums each thread's partials).  Hand-derived, line
-    for line csrc/dr_common.cuh's ``prec_rhs_vjp``.  With p = Wp f,
-    d = Wd f, sp = sigmoid(p), sd = sigmoid(d) and w_j the cotangent of
-    dprec_j:
-
-    * dprec_j gets -w_j sd_j;
-    * dp_j = w_j sp_j (1 - sp_j), dd_j = -w_j prec_j sd_j (1 - sd_j);
-    * dW[j, :] += dp_j f and dW[4 + j, :] += dd_j f;
-    * df = Wp^T dp + Wd^T dd, and species s gets df[2 + s] (1 - tanh^2 y_s);
-    * f[0] is the constant 1 and f[1] = tanh(t): neither passes anything on."""
-    f = _prec_features(t, y)
-    sig = torch.sigmoid(wmat @ f)  # [8, R]
-    sp, sd = sig[:N_PREC], sig[N_PREC:]
-    prec = y[N_SPECIES:]
-    wv = w[N_SPECIES:]
-    dpd = torch.cat([wv * sp * (1.0 - sp), -wv * prec * sd * (1.0 - sd)])  # [8, R]
-    dc["W"] = dc["W"] + dpd[:, None, :] * f[None, :, :]
-    df = wmat.t() @ dpd  # [10, R]
-    th = f[2:]
-    return torch.cat([df[2:] * (1.0 - th * th), -wv * sd])
-
-
-def _dr_prec_rhs_vjp_cols(c, t, y, w, dc):
-    """Pullback of ``_dr_prec_rhs_cols``: the species' pullback
-    ``_dr_rhs_vjp_cols`` plus the precision block's ``_prec_rhs_vjp_cols``;
-    ``c = (constants, wmat)``, ``dc`` the constants' rows and ``"W"``."""
-    cdict, wmat = c
-    dy = _prec_rhs_vjp_cols(wmat, t, y, w, dc)
-    dx = _dr_rhs_vjp_cols(cdict, t, y[:N_SPECIES], w[:N_SPECIES], dc)
-    return torch.cat([dx + dy[:N_SPECIES], dy[N_SPECIES:]])
 
 
 def _step_vjp(rhs, vjp, c, t1, t2, y, a, dc, method):
@@ -332,26 +585,52 @@ def _sweep(rhs, vjp, c, dc, times, traj, g, method):
     return a
 
 
+def _plain_fwd(kind, wmat, packed, y0_cols, times, method):
+    """Plain version of csrc/<kind>_fwd.cu: [8, 2 + NS] weights (``_prec``
+    kinds; else None), [NC, R] constants, [S, R] y0, [T] times -> [T, S, R]
+    trajectory."""
+    k = KINDS[kind]
+    cdict = dict(zip(k.names, packed))
+    return _integrate(_rhs_and_vjp(kind)[0], (cdict, wmat) if k.prec else cdict, y0_cols, times,
+                      method)
+
+
+def _plain_bwd(kind, wmat, packed, times, traj, g, method):
+    """Plain version of csrc/<kind>_bwd.cu: the reverse sweep over the stored
+    trajectory ``traj`` [T, S, R] for the trajectory cotangent ``g``
+    [T, S, R].  Returns (dW [8, 2 + NS] summed over the rows, or None without
+    the precision block; dc [NC, R]; dy0 [S, R])."""
+    k = KINDS[kind]
+    rhs, vjp = _rhs_and_vjp(kind)
+    cdict = dict(zip(k.names, packed))
+    dc = {name: torch.zeros_like(packed[0]) for name in k.names}
+    if k.prec:
+        dc["W"] = torch.zeros(k.wmat_shape + (packed.shape[1],), dtype=packed.dtype,
+                              device=packed.device)
+    dy0 = _sweep(rhs, vjp, (cdict, wmat) if k.prec else cdict, dc, times, traj, g, method)
+    return (dc["W"].sum(dim=-1) if k.prec else None,
+            torch.stack([dc[name] for name in k.names]), dy0)
+
+
+def _integrate_plain(packed, y0_cols, times, method):
+    """[23, R] constants, [8, R] y0, [T] times -> [T, 8, R]: plain dr_fwd."""
+    return _plain_fwd("dr", None, packed, y0_cols, times, method)
+
+
+def _integrate_prec_plain(wmat, packed, y0_cols, times, method):
+    """[8, 10] weights, [23, R] constants, [12, R] y0, [T] times ->
+    [T, 12, R]: plain dr_prec_fwd."""
+    return _plain_fwd("dr_prec", wmat, packed, y0_cols, times, method)
+
+
 def _integrate_plain_bwd(packed, times, traj, g, method):
-    """Plain version of csrc/dr_bwd.cu: the reverse sweep over the stored
-    trajectory ``traj`` [T, 8, R] for the trajectory cotangent ``g``
-    [T, 8, R].  Returns (dc [23, R], dy0 [8, R])."""
-    c = dict(zip(DR_CONST_NAMES, packed))
-    dc = {name: torch.zeros_like(packed[0]) for name in DR_CONST_NAMES}
-    dy0 = _sweep(_dr_rhs_cols, _dr_rhs_vjp_cols, c, dc, times, traj, g, method)
-    return torch.stack([dc[name] for name in DR_CONST_NAMES]), dy0
+    """Plain dr_bwd: (dc [23, R], dy0 [8, R])."""
+    return _plain_bwd("dr", None, packed, times, traj, g, method)[1:]
 
 
 def _integrate_prec_plain_bwd(wmat, packed, times, traj, g, method):
-    """Plain version of csrc/dr_prec_bwd.cu: the reverse sweep over
-    ``traj`` [T, 12, R] for ``g`` [T, 12, R].  Returns (dW [8, 10] summed over
-    the rows, dc [23, R], dy0 [12, R])."""
-    c = (dict(zip(DR_CONST_NAMES, packed)), wmat)
-    dc = {name: torch.zeros_like(packed[0]) for name in DR_CONST_NAMES}
-    dc["W"] = torch.zeros(WMAT_SHAPE + (packed.shape[1],), dtype=packed.dtype,
-                          device=packed.device)
-    dy0 = _sweep(_dr_prec_rhs_cols, _dr_prec_rhs_vjp_cols, c, dc, times, traj, g, method)
-    return dc["W"].sum(dim=-1), torch.stack([dc[name] for name in DR_CONST_NAMES]), dy0
+    """Plain dr_prec_bwd: (dW [8, 10], dc [23, R], dy0 [12, R])."""
+    return _plain_bwd("dr_prec", wmat, packed, times, traj, g, method)
 
 
 # --------------------------------------------------------------------------- #
@@ -394,128 +673,112 @@ def _launch(name, R, T, method, device, *tensors):
         raise RuntimeError("%s kernel launch failed with cudaError %d" % (name, err))
 
 
-def _integrate_cuda(packed, y0_cols, times, method):
-    """Launch csrc/dr_fwd.cu on the current stream; returns [T, 8, R]."""
+def _weights(k, wmat):
+    """The weight operand of kind ``k``'s kernels: [(name, tensor, shape)]
+    with the precision block, else []."""
+    return [("weights", wmat, k.wmat_shape)] if k.prec else []
+
+
+def kind_fwd(kind, wmat, packed, y0_cols, times, method):
+    """Launch csrc/<kind>_fwd.cu on the current stream; returns [T, S, R].
+    ``wmat`` is the weight matrix of a ``_prec`` kind, else None.  CUDA
+    tensors only; ``_plain_fwd`` is its plain version."""
+    k = KINDS[kind]
     R, T = packed.shape[1], times.shape[0]
-    _check_operands("dr_fwd", packed.device, (
-        ("constants", packed, (len(DR_CONST_NAMES), R)),
-        ("y0", y0_cols, (N_SPECIES, R)),
+    operands = _weights(k, wmat) + [
+        ("constants", packed, (len(k.names), R)),
+        ("y0", y0_cols, (k.n_states, R)),
         ("times", times, (T,)),
-    ))
-    out = torch.empty((T, N_SPECIES, R), dtype=torch.float32, device=packed.device)
-    _launch("dr_fwd", R, T, method, packed.device, packed, y0_cols, times, out)
-    dr_constant_simulate.launches += 1
+    ]
+    _check_operands(k.fwd, packed.device, operands)
+    out = torch.empty((T, k.n_states, R), dtype=torch.float32, device=packed.device)
+    _launch(k.fwd, R, T, method, packed.device, *[t for _, t, _ in operands], out)
+    COUNTERS[k.fwd].launches += 1
     return out
 
 
-def dr_bwd(packed, times, traj, g, method):
-    """Launch csrc/dr_bwd.cu on the current stream: the reverse sweep for
-    the trajectory cotangent ``g``.  Returns (dc [23, R], dy0 [8, R]).
-    CUDA tensors only; ``_integrate_plain_bwd`` is its plain version."""
-    R, T = packed.shape[1], times.shape[0]
-    _check_operands("dr_bwd", packed.device, (
-        ("constants", packed, (len(DR_CONST_NAMES), R)),
-        ("times", times, (T,)),
-        ("trajectory", traj, (T, N_SPECIES, R)),
-        ("cotangent", g, (T, N_SPECIES, R)),
-    ))
-    dc = torch.empty_like(packed)
-    dy0 = torch.empty((N_SPECIES, R), dtype=torch.float32, device=packed.device)
-    _launch("dr_bwd", R, T, method, packed.device, packed, times, traj, g, dc, dy0)
-    dr_bwd.launches += 1
-    return dc, dy0
-
-
-#: launches of csrc/dr_bwd.cu since the count was last set to 0
-dr_bwd.launches = 0
-
-
-def _integrate_prec_cuda(wmat, packed, y0_cols, times, method):
-    """Launch csrc/dr_prec_fwd.cu on the current stream; returns [T, 12, R]."""
-    R, T, S = packed.shape[1], times.shape[0], N_SPECIES + N_PREC
-    _check_operands("dr_prec_fwd", packed.device, (
-        ("weights", wmat, WMAT_SHAPE),
-        ("constants", packed, (len(DR_CONST_NAMES), R)),
-        ("y0", y0_cols, (S, R)),
-        ("times", times, (T,)),
-    ))
-    out = torch.empty((T, S, R), dtype=torch.float32, device=packed.device)
-    _launch("dr_prec_fwd", R, T, method, packed.device, wmat, packed, y0_cols, times, out)
-    dr_constant_precisions_simulate.launches += 1
-    return out
-
-
-def dr_prec_bwd(wmat, packed, times, traj, g, method):
-    """Launch csrc/dr_prec_bwd.cu on the current stream: the reverse sweep
-    for the trajectory cotangent ``g``.  Returns (dW [8, 10], dc [23, R],
-    dy0 [12, R]).  The kernel writes one [8, 10] partial sum of dW per block
-    of ``PREC_BWD_THREADS`` rows; their sum here is the last step of a
-    reduction whose order is fixed, so two runs give the same dW bit for
-    bit.  CUDA tensors only; ``_integrate_prec_plain_bwd`` is its plain
-    version."""
-    R, T, S = packed.shape[1], times.shape[0], N_SPECIES + N_PREC
-    _check_operands("dr_prec_bwd", packed.device, (
-        ("weights", wmat, WMAT_SHAPE),
-        ("constants", packed, (len(DR_CONST_NAMES), R)),
+def kind_bwd(kind, wmat, packed, times, traj, g, method):
+    """Launch csrc/<kind>_bwd.cu on the current stream: the reverse sweep
+    for the trajectory cotangent ``g``.  Returns (dW [8, 2 + NS] or None,
+    dc [NC, R], dy0 [S, R]).  A ``_prec`` kernel writes one partial sum of dW
+    per block of ``PREC_BWD_THREADS`` rows; their sum here is the last step
+    of a reduction whose order is fixed, so two runs give the same dW bit for
+    bit.  CUDA tensors only; ``_plain_bwd`` is its plain version."""
+    k = KINDS[kind]
+    R, T, S = packed.shape[1], times.shape[0], k.n_states
+    operands = _weights(k, wmat) + [
+        ("constants", packed, (len(k.names), R)),
         ("times", times, (T,)),
         ("trajectory", traj, (T, S, R)),
         ("cotangent", g, (T, S, R)),
-    ))
-    n_blocks = -(-R // PREC_BWD_THREADS)
-    dw = torch.empty((n_blocks,) + WMAT_SHAPE, dtype=torch.float32, device=packed.device)
+    ]
+    _check_operands(k.bwd, packed.device, operands)
+    outs = []
+    if k.prec:
+        n_blocks = -(-R // PREC_BWD_THREADS)
+        outs.append(torch.empty((n_blocks,) + k.wmat_shape, dtype=torch.float32,
+                                device=packed.device))
     dc = torch.empty_like(packed)
     dy0 = torch.empty((S, R), dtype=torch.float32, device=packed.device)
-    _launch("dr_prec_bwd", R, T, method, packed.device, wmat, packed, times, traj, g, dw, dc,
-            dy0)
-    dr_prec_bwd.launches += 1
-    return dw.sum(dim=0), dc, dy0
+    _launch(k.bwd, R, T, method, packed.device, *[t for _, t, _ in operands], *outs, dc, dy0)
+    COUNTERS[k.bwd].launches += 1
+    return (outs[0].sum(dim=0) if k.prec else None), dc, dy0
 
 
-#: launches of csrc/dr_prec_bwd.cu since the count was last set to 0
-dr_prec_bwd.launches = 0
+def _integrate_cuda(packed, y0_cols, times, method):
+    """dr_fwd: [T, 8, R]."""
+    return kind_fwd("dr", None, packed, y0_cols, times, method)
 
 
-class _DrIntegrate(torch.autograd.Function):
-    """[23, R] constants, [8, R] y0, [T] times -> [T, 8, R] trajectory,
-    differentiable in the constants and y0 (the TPU kernel's
-    ``_integrate_padded`` custom VJP).  CUDA tensors launch dr_fwd / dr_bwd;
-    CPU tensors run the plain versions."""
+def _integrate_prec_cuda(wmat, packed, y0_cols, times, method):
+    """dr_prec_fwd: [T, 12, R]."""
+    return kind_fwd("dr_prec", wmat, packed, y0_cols, times, method)
+
+
+def dr_bwd(packed, times, traj, g, method):
+    """Launch csrc/dr_bwd.cu: (dc [23, R], dy0 [8, R]) (``kind_bwd``)."""
+    return kind_bwd("dr", None, packed, times, traj, g, method)[1:]
+
+
+def dr_prec_bwd(wmat, packed, times, traj, g, method):
+    """Launch csrc/dr_prec_bwd.cu: (dW [8, 10], dc [23, R], dy0 [12, R])."""
+    return kind_bwd("dr_prec", wmat, packed, times, traj, g, method)
+
+
+def relay_bwd(packed, times, traj, g, method):
+    """Launch csrc/relay_bwd.cu: (dc [29, R], dy0 [12, R])."""
+    return kind_bwd("relay", None, packed, times, traj, g, method)[1:]
+
+
+def relay_prec_bwd(wmat, packed, times, traj, g, method):
+    """Launch csrc/relay_prec_bwd.cu: (dW [8, 14], dc [29, R], dy0 [16, R])."""
+    return kind_bwd("relay_prec", wmat, packed, times, traj, g, method)
+
+
+def degrader_bwd(packed, times, traj, g, method):
+    """Launch csrc/degrader_bwd.cu: (dc [28, R], dy0 [11, R])."""
+    return kind_bwd("degrader", None, packed, times, traj, g, method)[1:]
+
+
+def degrader_prec_bwd(wmat, packed, times, traj, g, method):
+    """Launch csrc/degrader_prec_bwd.cu: (dW [8, 13], dc [28, R], dy0 [15, R])."""
+    return kind_bwd("degrader_prec", wmat, packed, times, traj, g, method)
+
+
+class _KindIntegrate(torch.autograd.Function):
+    """(kind, [8, 2 + NS] weights or None, [NC, R] constants, [S, R] y0, [T]
+    times, method) -> [T, S, R] trajectory, differentiable in the weights, the
+    constants and y0 (the TPU kernel's ``_integrate_padded`` /
+    ``_integrate_padded_w`` custom VJPs).  CUDA tensors launch the kind's
+    forward and backward kernels; CPU tensors run the plain versions."""
 
     @staticmethod
-    def forward(ctx, packed, y0_cols, times, method):
+    def forward(ctx, kind, wmat, packed, y0_cols, times, method):
         if packed.device.type == "cuda":
-            traj = _integrate_cuda(packed, y0_cols, times, method)
+            traj = kind_fwd(kind, wmat, packed, y0_cols, times, method)
         else:
-            traj = _integrate_plain(packed, y0_cols, times, method)
-        ctx.method = method
-        ctx.save_for_backward(packed, times, traj)
-        return traj
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad_traj):
-        packed, times, traj = ctx.saved_tensors
-        g = grad_traj.contiguous()
-        if packed.device.type == "cuda":
-            dc, dy0 = dr_bwd(packed, times, traj, g, ctx.method)
-        else:
-            dc, dy0 = _integrate_plain_bwd(packed, times, traj, g, ctx.method)
-        return dc, dy0, None, None
-
-
-class _DrPrecIntegrate(torch.autograd.Function):
-    """[8, 10] weights, [23, R] constants, [12, R] y0, [T] times ->
-    [T, 12, R] trajectory, differentiable in the weights, the constants and
-    y0 (the TPU kernel's ``_integrate_padded_w`` custom VJP).  CUDA tensors
-    launch dr_prec_fwd / dr_prec_bwd; CPU tensors run the plain versions."""
-
-    @staticmethod
-    def forward(ctx, wmat, packed, y0_cols, times, method):
-        if packed.device.type == "cuda":
-            traj = _integrate_prec_cuda(wmat, packed, y0_cols, times, method)
-        else:
-            traj = _integrate_prec_plain(wmat, packed, y0_cols, times, method)
-        ctx.method = method
+            traj = _plain_fwd(kind, wmat, packed, y0_cols, times, method)
+        ctx.kind, ctx.method = kind, method
         ctx.save_for_backward(wmat, packed, times, traj)
         return traj
 
@@ -524,25 +787,24 @@ class _DrPrecIntegrate(torch.autograd.Function):
     def backward(ctx, grad_traj):
         wmat, packed, times, traj = ctx.saved_tensors
         g = grad_traj.contiguous()
-        if packed.device.type == "cuda":
-            dw, dc, dy0 = dr_prec_bwd(wmat, packed, times, traj, g, ctx.method)
-        else:
-            dw, dc, dy0 = _integrate_prec_plain_bwd(wmat, packed, times, traj, g, ctx.method)
-        return dw, dc, dy0, None, None
+        bwd = kind_bwd if packed.device.type == "cuda" else _plain_bwd
+        dw, dc, dy0 = bwd(ctx.kind, wmat, packed, times, traj, g, ctx.method)
+        return None, dw, dc, dy0, None, None
 
 
 # --------------------------------------------------------------------------- #
 # Public wrappers
 # --------------------------------------------------------------------------- #
-def _pack(constants, y0, n_states=N_SPECIES):
-    """[B,K]-broadcastable constants -> [23, R]; y0[B,K,S] -> [S, R]."""
+def _pack(constants, y0, kind="dr"):
+    """[B,K]-broadcastable constants -> [NC, R] in the kind's order;
+    y0[B,K,S] -> [S, R]."""
+    k = KINDS[kind]
     B, K, S = y0.shape
-    if S != n_states:
-        raise ValueError("fused ODE: y0 has %d states, want %d" % (S, n_states))
+    if S != k.n_states:
+        raise ValueError("fused ODE %s: y0 has %d states, want %d" % (kind, S, k.n_states))
     R = B * K
-    packed = torch.stack(
-        [torch.broadcast_to(constants[name], (B, K)).reshape(R) for name in DR_CONST_NAMES]
-    )
+    packed = torch.stack([torch.broadcast_to(constants[name], (B, K)).reshape(R)
+                          for name in k.names])
     return packed, y0.reshape(R, S).t().contiguous()
 
 
@@ -558,10 +820,11 @@ def _check_method(method):
 
 def _prec_wmat(prec_params):
     """Stack the NeuralPrecisions(n_hidden=0) weights into the kernels'
-    single [8, 10] matrix operand: rows 0..3 ``prod``, 4..7 ``degr``; column
-    0 the bias, columns 1.. ``w.T`` over the input [t, species 0..7].
-    ``prec_params``: {'prod': {'w': [9, 4], 'b': [4]}, 'degr': {...}}.  Plain
-    torch, so autograd carries dW back to the ``w`` and ``b`` leaves."""
+    single [8, 2 + NS] matrix operand (``Kind.wmat_shape``): rows 0..3
+    ``prod``, 4..7 ``degr``; column 0 the bias, columns 1.. ``w.T`` over the
+    input [t, species 0 .. NS-1].  ``prec_params``: {'prod': {'w': [1 + NS,
+    4], 'b': [4]}, 'degr': {...}}.  Plain torch, so autograd carries dW back
+    to the ``w`` and ``b`` leaves."""
     return torch.cat(
         [torch.cat([prec_params[net]["b"][:, None], prec_params[net]["w"].t()], dim=1)
          for net in ("prod", "degr")],
@@ -569,12 +832,23 @@ def _prec_wmat(prec_params):
     ).contiguous()
 
 
-def dr_constant_simulate_plain(constants, y0, times, method="midpoint"):
-    """Plain PyTorch version of ``dr_constant_simulate`` on any device."""
+def _simulate(kind, constants, prec_params, y0, times, method):
     _check_method(method)
     B, K, _ = y0.shape
-    packed, y0_cols = _pack(constants, y0)
-    return _unpack(_integrate_plain(packed, y0_cols, times, method), B, K)
+    if y0.device.type not in ("cpu", "cuda"):
+        raise ValueError("%s: no kernel for device %s" % (KINDS[kind].simulate, y0.device))
+    packed, y0_cols = _pack(constants, y0, kind)
+    wmat = _prec_wmat(prec_params) if KINDS[kind].prec else None
+    return _unpack(_KindIntegrate.apply(kind, wmat, packed, y0_cols, times.contiguous(), method),
+                   B, K)
+
+
+def _simulate_plain(kind, constants, prec_params, y0, times, method):
+    _check_method(method)
+    B, K, _ = y0.shape
+    packed, y0_cols = _pack(constants, y0, kind)
+    wmat = _prec_wmat(prec_params) if KINDS[kind].prec else None
+    return _unpack(_plain_fwd(kind, wmat, packed, y0_cols, times, method), B, K)
 
 
 def dr_constant_simulate(constants, y0, times, method="midpoint"):
@@ -586,57 +860,98 @@ def dr_constant_simulate(constants, y0, times, method="midpoint"):
     trajectory [T, B, K, 8] (the JAX package's layout).  CPU tensors take the
     plain PyTorch versions; CUDA tensors launch csrc/dr_fwd.cu, and
     csrc/dr_bwd.cu when the gradient is taken."""
-    _check_method(method)
-    B, K, _ = y0.shape
-    if y0.device.type not in ("cpu", "cuda"):
-        raise ValueError("dr_constant_simulate: no kernel for device %s" % y0.device)
-    packed, y0_cols = _pack(constants, y0)
-    return _unpack(_DrIntegrate.apply(packed, y0_cols, times.contiguous(), method), B, K)
+    return _simulate("dr", constants, None, y0, times, method)
 
 
-#: launches of csrc/dr_fwd.cu since the count was last set to 0
-dr_constant_simulate.launches = 0
-
-
-def dr_constant_precisions_simulate_plain(constants, prec_params, y0, times, method="midpoint"):
-    """Plain PyTorch version of ``dr_constant_precisions_simulate`` on any
-    device."""
-    _check_method(method)
-    B, K, _ = y0.shape
-    packed, y0_cols = _pack(constants, y0, N_SPECIES + N_PREC)
-    return _unpack(_integrate_prec_plain(_prec_wmat(prec_params), packed, y0_cols, times,
-                                         method), B, K)
+def dr_constant_simulate_plain(constants, y0, times, method="midpoint"):
+    """Plain PyTorch version of ``dr_constant_simulate`` on any device."""
+    return _simulate_plain("dr", constants, None, y0, times, method)
 
 
 def dr_constant_precisions_simulate(constants, prec_params, y0, times, method="midpoint"):
     """Fused integration of dr_constant_precisions (8 species + 4 learned
     precisions; NeuralPrecisions with n_hidden=0, tanh, non-inverse, the
-    configuration of specs/dr_constant_precisions*.yaml), differentiable in
-    the constants, the precision nets' params and y0.
+    configuration of specs/*_precisions*.yaml), differentiable in the
+    constants, the precision nets' params and y0.
 
     ``prec_params``: {'prod', 'degr'} -> {'w': [9, 4], 'b': [4]}; ``y0``:
     [B, K, 12]; the rest as ``dr_constant_simulate``.  Returns [T, B, K, 12].
     CPU tensors take the plain versions; CUDA tensors launch
     csrc/dr_prec_fwd.cu, and csrc/dr_prec_bwd.cu when the gradient is taken."""
-    _check_method(method)
-    B, K, _ = y0.shape
-    if y0.device.type not in ("cpu", "cuda"):
-        raise ValueError("dr_constant_precisions_simulate: no kernel for device %s" % y0.device)
-    packed, y0_cols = _pack(constants, y0, N_SPECIES + N_PREC)
-    traj = _DrPrecIntegrate.apply(_prec_wmat(prec_params), packed, y0_cols, times.contiguous(),
-                                  method)
-    return _unpack(traj, B, K)
+    return _simulate("dr_prec", constants, prec_params, y0, times, method)
 
 
-#: launches of csrc/dr_prec_fwd.cu since the count was last set to 0
-dr_constant_precisions_simulate.launches = 0
+def dr_constant_precisions_simulate_plain(constants, prec_params, y0, times, method="midpoint"):
+    """Plain PyTorch version of ``dr_constant_precisions_simulate``."""
+    return _simulate_plain("dr_prec", constants, prec_params, y0, times, method)
+
+
+def relay_constant_simulate(constants, y0, times, method="midpoint"):
+    """Fused integration of the 12-state relay_constant family (the 29
+    ``RELAY_CONST_NAMES``; ``y0`` [B, K, 12]); otherwise as
+    ``dr_constant_simulate``, through csrc/relay_fwd.cu and relay_bwd.cu."""
+    return _simulate("relay", constants, None, y0, times, method)
+
+
+def relay_constant_simulate_plain(constants, y0, times, method="midpoint"):
+    return _simulate_plain("relay", constants, None, y0, times, method)
+
+
+def relay_constant_precisions_simulate(constants, prec_params, y0, times, method="midpoint"):
+    """Fused relay_constant_precisions: 12 species + 4 learned precisions
+    whose nets read [t, the 12 species] (``w``: [13, 4]); ``y0`` [B, K, 16];
+    otherwise as ``dr_constant_precisions_simulate``, through
+    csrc/relay_prec_fwd.cu and relay_prec_bwd.cu."""
+    return _simulate("relay_prec", constants, prec_params, y0, times, method)
+
+
+def relay_constant_precisions_simulate_plain(constants, prec_params, y0, times,
+                                             method="midpoint"):
+    return _simulate_plain("relay_prec", constants, prec_params, y0, times, method)
+
+
+def degrader_constant_simulate(constants, y0, times, method="midpoint"):
+    """Fused integration of the 11-state degrader_constant family (the 28
+    ``DEGRADER_CONST_NAMES``; ``y0`` [B, K, 11]), through
+    csrc/degrader_fwd.cu and degrader_bwd.cu."""
+    return _simulate("degrader", constants, None, y0, times, method)
+
+
+def degrader_constant_simulate_plain(constants, y0, times, method="midpoint"):
+    return _simulate_plain("degrader", constants, None, y0, times, method)
+
+
+def degrader_constant_precisions_simulate(constants, prec_params, y0, times, method="midpoint"):
+    """Fused degrader_constant_precisions: 11 species + 4 learned
+    precisions (``w``: [12, 4]); ``y0`` [B, K, 15]; through
+    csrc/degrader_prec_fwd.cu and degrader_prec_bwd.cu."""
+    return _simulate("degrader_prec", constants, prec_params, y0, times, method)
+
+
+def degrader_constant_precisions_simulate_plain(constants, prec_params, y0, times,
+                                                method="midpoint"):
+    return _simulate_plain("degrader_prec", constants, prec_params, y0, times, method)
+
+
+#: kernel -> the function whose ``launches`` attribute counts its launches
+#: since the count was last set to 0: the forward kernels' on the kinds'
+#: public wrappers, the backward kernels' on their launch functions
+COUNTERS = {}
+for _k in KINDS.values():
+    COUNTERS[_k.fwd] = globals()[_k.simulate]
+    COUNTERS[_k.bwd] = globals()[_k.bwd]
+for _fn in COUNTERS.values():
+    _fn.launches = 0
+del _k, _fn
 
 
 def simulate_kind(kind, constants, y0, times, method="midpoint", prec_params=None):
     """Family dispatcher used by OdeModel's fused route; ``prec_params`` are
-    the precision nets' params of the ``*_prec`` kinds."""
-    if kind == "dr":
-        return dr_constant_simulate(constants, y0, times, method=method)
-    if kind == "dr_prec":
-        return dr_constant_precisions_simulate(constants, prec_params, y0, times, method=method)
-    raise NotImplementedError("fused kernel kind %r is not ported yet (ROADMAP queue 2)" % kind)
+    the precision nets' params of the ``*_prec`` kinds.  The kind's wrapper
+    is looked up when called, so that a test may spy on it."""
+    if kind not in KINDS:
+        raise ValueError("no fused kernel kind %r (kinds: %s)" % (kind, ", ".join(KINDS)))
+    fn = globals()[KINDS[kind].simulate]
+    if KINDS[kind].prec:
+        return fn(constants, prec_params, y0, times, method=method)
+    return fn(constants, y0, times, method=method)

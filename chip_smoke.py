@@ -19,7 +19,12 @@ Phases, each printing lines of its own:
    the plain version in float64 beside the plain version in float32, with
    its time, the plain version's time and its bound; the forward timed at
    the training shape too; two runs of a ``_prec`` backward must give the
-   same weight cotangent bit for bit;
+   same weight cotangent bit for bit; then the black-box kernels
+   (``blackbox_fwd``, ``blackbox_bwd``; operands from ``dr_blackbox_icml``),
+   the forward against its plain version at the serving chunk and at the
+   training shape, the backward per weight leaf, constant and state row
+   against float64 run on the plain float32 sweep's relu masks, and two
+   backward runs bit-equal in dW;
 4. serving ``dr_constant_icml`` at full width: three ``predict`` requests at
    K=1000 with ``eval_solver: pallas_midpoint``, one with a counterfactual,
    with the kernel's launch count; 4b, the kernel route held against the
@@ -30,7 +35,8 @@ Phases, each printing lines of its own:
    valid split), the xval artifacts, the step times and the kernels' launch
    counts (the backward once per step); 5b, one step through the kernels
    held against the plain online log-likelihood route on a small input; 5c,
-   a profile of one step;
+   a profile of one step; 5d, k-fold cross-validation through ``call_run_xval.execute``,
+   4 folds of 2 epochs, its merged xval artifacts;
 6. serving ``dr_constant_precisions`` as phase 4 (three requests, one with a
    counterfactual), and one request of ``dr_constant_precisions_v2``;
 7. training ``dr_constant_precisions`` as phase 5 (the precision nets'
@@ -46,7 +52,11 @@ Phases, each printing lines of its own:
    counterfactual that sets Ara), 10b and 10d as 8b and 8d with
    ``Degrader_Constant``;
 11. training ``degrader_constant_precisions`` (T=135), 11b and 11c;
-12. the ``kernels`` JSON line, then the last line
+12. serving ``dr_blackbox_icml`` as phase 4 (the black-box forward kernel),
+   12b and 12c as 4b and 4c;
+13. training ``dr_blackbox_icml`` as phase 7 (both nets' weights must
+   move), 13b and 13c;
+14. the total time and the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
@@ -67,6 +77,7 @@ SPEC_PREC = os.path.join(HERE, "specs", "dr_constant_precisions.yaml")
 SPEC_PREC_V2 = os.path.join(HERE, "specs", "dr_constant_precisions_v2.yaml")
 SPEC_RELAY = os.path.join(HERE, "specs", "relay_constant_precisions.yaml")
 SPEC_DEGRADER = os.path.join(HERE, "specs", "degrader_constant_precisions.yaml")
+SPEC_BB = os.path.join(HERE, "specs", "dr_blackbox_icml.yaml")
 REQUESTS = ["proc141021.csv", "proc141023.csv", "proc141028.csv"]
 COUNTERFACTUAL = "C6=25000;C12=0"
 RELAY_REQUESTS = ["proc_Relays_RemovedOutlier.csv"]
@@ -102,12 +113,55 @@ def prec_block_flops(ns):
     return forward + 8, forward + 40 + 32 * (2 + ns) + 4 * ns
 
 
-def flops_per_step(kind):
+def bb_flops():
+    """(right-hand side, pullback) operations per sample row of the
+    black-box nets at the kernels' widths (an expf or a division counts as
+    one; a sigmoid is 4).  Per net with input n_in, hidden width H and n_out
+    outputs: the right-hand side is 2 n_in H + 2 H (bias, relu) + 4 H n_out
+    + 2 n_out (biases) + 8 n_out (sigmoids) + 2 n_out; the pullback, given
+    the activations the right-hand side computed, is 9 n_out for the output
+    layer's cotangents, 4 H n_out + H for dh and dah, 2 m H for the cotangent
+    of the m inputs that get one (all 27 of each net: the precision net's
+    time input gets none), and the weights' share summed over the rows, a
+    multiply-add per weight and an add per bias (3,455 over both nets)."""
+    nets = ((27, 25, 6, 27), (28, 20, 4, 27))  # (n_in, H, n_out, inputs pulled back)
+    rhs = sum(2 * n * h + 2 * h + 4 * h * o + 12 * o for n, h, o, _ in nets)
+    pull = sum(9 * o + 4 * h * o + h + 2 * m * h + 2 * (n * h + 2 * h * o) + h + 2 * o
+               for n, h, o, m in nets)
+    return rhs, pull
+
+
+def bb_step_flops(S):
     """(forward, backward) operations of one fixed-grid step per sample row
-    for each method: the right-hand sides (and pullbacks) a step evaluates,
-    and each method's state updates, forward 2 + 5 S / 3 + 4 S / 5 + 13 S,
-    backward 2 + 9 S / 2 + 7 S / 4 + 21 S (modeuler / midpoint / rk4) for S
-    states."""
+    of the black-box kernels for each method: the forward as ``step_flops``;
+    the backward as the function needs it, each stage's right-hand side once
+    (2 for modeuler and midpoint, 4 for rk4) and one pullback through each
+    stage with its activations, plus the state updates of ``step_flops``.
+    csrc/blackbox_bwd.cu recomputes each stage's activations once more in its
+    pullback; that is the kernel's own cost, not the function's, and the
+    bound leaves it out."""
+    rhs, pull = bb_flops()
+    fwd = step_flops(rhs, pull, S)[0]
+    bwd = {"modeuler": 2 * (rhs + pull) + 2 + 9 * S, "midpoint": 2 * (rhs + pull) + 2 + 7 * S,
+           "rk4": 4 * (rhs + pull) + 4 + 21 * S}
+    return fwd, bwd
+
+
+def step_flops(rhs, vjp, S):
+    """(forward, backward) operations of one fixed-grid step per sample row
+    for each method, from a right-hand side's and a pullback's: the
+    right-hand sides (and pullbacks) a step evaluates, and each method's
+    state updates, forward 2 + 5 S / 3 + 4 S / 5 + 13 S, backward 2 + 9 S /
+    2 + 7 S / 4 + 21 S (modeuler / midpoint / rk4) for S states."""
+    fwd = {"modeuler": 2 * rhs + 2 + 5 * S, "midpoint": 2 * rhs + 3 + 4 * S,
+           "rk4": 4 * rhs + 5 + 13 * S}
+    bwd = {"modeuler": rhs + 2 * vjp + 2 + 9 * S, "midpoint": rhs + 2 * vjp + 2 + 7 * S,
+           "rk4": 3 * rhs + 4 * vjp + 4 + 21 * S}
+    return fwd, bwd
+
+
+def flops_per_step(kind):
+    """``step_flops`` of a fused kind of ``fused_ode.KINDS``."""
     from vihds_tpu_torch.ops import fused_ode
 
     k = fused_ode.KINDS[kind]
@@ -116,12 +170,7 @@ def flops_per_step(kind):
     if k.prec:
         b_rhs, b_vjp = prec_block_flops(k.n_species)
         rhs, vjp = rhs + b_rhs, vjp + b_vjp
-    S = k.n_states
-    fwd = {"modeuler": 2 * rhs + 2 + 5 * S, "midpoint": 2 * rhs + 3 + 4 * S,
-           "rk4": 4 * rhs + 5 + 13 * S}
-    bwd = {"modeuler": rhs + 2 * vjp + 2 + 9 * S, "midpoint": rhs + 2 * vjp + 2 + 7 * S,
-           "rk4": 3 * rhs + 4 * vjp + 4 + 21 * S}
-    return fwd, bwd
+    return step_flops(rhs, vjp, k.n_states)
 
 
 # kernel vs plain PyTorch: the kernel contracts a*b+c into FMAs and the two
@@ -164,6 +213,17 @@ PREC_OVER_T = ("degrader_prec",)
 # and phase 3 prints its readings beside the kernel's: the limits stand well
 # above them
 BWD_NORM_TOL, BWD_P99_TOL = 1e-4, 1e-3
+# the black-box backward is held to the same limits, against the plain sweep
+# in float64 run on the relu masks of the plain float32 sweep (ReluMasks):
+# where a hidden unit's pre-activation lies within float32 rounding of 0 a
+# float64 recompute of the same stored trajectory may take the other side of
+# the kink, and that unit's whole share then moves its row.  Phase 3 counts
+# those units and prints the kernel's reading against the float64 sweep on
+# its own masks beside it.  The plain float32 sweep's readings are printed
+# beside the kernel's, not held: its weight leaves are PyTorch's reductions
+# over all rows, and the 99th percentile of a leaf of 80 entries is near its
+# largest relative error, that of an entry the sum over rows cancels to near
+# 0 (midpoint's precisions/prod/w reads ~1.0e-3 on the card)
 # kernel route vs the generic Python-stepped solver, through the whole
 # serving forward (the weights exponentiate log-likelihoods of ~1e4 nats,
 # so the per-item ELBO is compared in absolute nats)
@@ -220,7 +280,7 @@ def phase_build():
     seconds = time.perf_counter() - t0
     for name, log in sorted(logs.items()):
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "registers" in ln or "spill" in ln or "entry function" in ln:
                 print("  %s ptxas: %s" % (name, ln.strip()))
     print("phase 2: built %s in %.2f s" % (sorted(build.SOURCES), seconds))
 
@@ -299,21 +359,27 @@ def bound(n_bytes, n_flops):
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
+def timed(kernel, plain, n_bytes, n_flops):
+    """A kernel's time (median of 20 launches), its plain version's (of 3)
+    and the bound of the work: ``n_bytes`` moved, ``n_flops`` done."""
+    ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=n_bytes, flops=n_flops)
+
+
 def fwd_row(kind, wmat, packed, y0_cols, times, method):
     """The forward kernel's time, its plain version's time and its bound on
     these operands: each input read once, the trajectory written once."""
     from vihds_tpu_torch.ops import fused_ode
 
     R, T, S = packed.shape[1], times.shape[0], y0_cols.shape[0]
-    ms = cuda_ms(lambda: fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method), 20)
-    plain_ms = cuda_ms(lambda: fused_ode._plain_fwd(kind, wmat, packed, y0_cols, times, method),
-                       3, warmup=1)
     n_w = wmat.numel() if wmat is not None else 0
-    n_bytes = 4 * (n_w + packed.numel() + y0_cols.numel() + times.numel() + T * S * R)
-    n_flops = flops_per_step(kind)[0][method] * (T - 1) * R
-    bound_ms, bound_by = bound(n_bytes, n_flops)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=n_bytes, flops=n_flops)
+    return timed(lambda: fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method),
+                 lambda: fused_ode._plain_fwd(kind, wmat, packed, y0_cols, times, method),
+                 4 * (n_w + packed.numel() + y0_cols.numel() + times.numel() + T * S * R),
+                 flops_per_step(kind)[0][method] * (T - 1) * R)
 
 
 def states_ok(got, ref, kind):
@@ -462,23 +528,19 @@ def phase_kind_kernels(device, kind, seed):
             ok = all(map(cotangents_ok, got, ref))
             plain_ok = all(map(cotangents_ok, plain, ref))
             err = (got[0].double() - ref[0]).abs()
-            ms = cuda_ms(lambda: fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method), 20)
-            plain_ms = cuda_ms(lambda: fused_ode._plain_bwd(kind, wmat, packed, times, traj, g,
-                                                            method), 3, warmup=1)
             # inputs read once (weights, constants, grid, traj, g), outputs
             # written once (dW, dc, dy0)
             n_w = wmat.numel() if k.prec else 0
-            n_bytes = 4 * (2 * n_w + 2 * packed.numel() + times.numel() + 2 * T * S * R + S * R)
-            n_flops = flops_per_step(kind)[1][method] * (T - 1) * R
-            bound_ms, bound_by = bound(n_bytes, n_flops)
             r = rows[method] = dict(
                 max_abs_err=float(err.max()),
                 max_rel_err=float((err / ref[0].abs().clamp_min(1e-300)).max()),
                 worst_norm=float(k_norm.max()), worst_p99=float(k_rel.max()),
                 plain_worst_norm=float(p_norm.max()), plain_worst_p99=float(p_rel.max()),
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=n_bytes, flops=n_flops,
-            )
+                **timed(lambda: fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method),
+                        lambda: fused_ode._plain_bwd(kind, wmat, packed, times, traj, g, method),
+                        4 * (2 * n_w + 2 * packed.numel() + times.numel() + 2 * T * S * R
+                             + S * R),
+                        flops_per_step(kind)[1][method] * (T - 1) * R))
             f = train_fwd_rows[method] = fwd_row(kind, wmat, packed, y0_cols, times, method)
             print("  %-9s kernel: worst normwise %.3e (%s), worst p99 rel %.3e (%s); plain "
                   "float32: %.3e, %.3e | max_abs_err %.3e on |ref| up to %.3e%s  kernel %.4f ms  "
@@ -486,8 +548,9 @@ def phase_kind_kernels(device, kind, seed):
                   % (method, r["worst_norm"], row_names[int(k_norm.argmax())], r["worst_p99"],
                      row_names[int(k_rel.argmax())], r["plain_worst_norm"],
                      r["plain_worst_p99"], r["max_abs_err"], float(ref[0].abs().max()),
-                     ", repeat run dW bit-equal: %s" % same if k.prec else "", ms, plain_ms,
-                     bound_ms, bound_by, n_bytes, n_flops, "ok" if ok else "MISMATCH"))
+                     ", repeat run dW bit-equal: %s" % same if k.prec else "", r["ms"],
+                     r["plain_ms"], r["bound_ms"], r["bound_by"], r["bytes"], r["flops"],
+                     "ok" if ok else "MISMATCH"))
             print("  %-9s %s at this shape: kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s)"
                   % (method, k.fwd, f["ms"], f["plain_ms"], f["bound_ms"], f["bound_by"]))
             if not ok:
@@ -506,7 +569,257 @@ def phase_kind_kernels(device, kind, seed):
     return fwd_rows, rows, train_fwd_rows
 
 
-def check_request(out, n_theta, n_species):
+# the black-box kernels' state groups: the 4 observed and 2 latent species
+# (they start at init_x and 0, and at 1e-3, and stay positive: dx =
+# sigmoid(.) - sigmoid(.) x) and the 4 precision states (from 1e-5, the same
+# form), each held element by element to the species' tolerance
+BB_GROUPS = (("observed", 0, 4), ("latent", 4, 6), ("precisions", 6, 10))
+
+
+def blackbox_inputs(device, K, seed):
+    """The operands of the black-box kernels for one n_batch-row chunk of
+    dr_blackbox_icml at K samples: theta from the prior, turned into the
+    kernels' constants and initial states by the model, with the model's
+    seeded random nets.  Returns (the decoder's params, constants [B, K, 21],
+    y0 [B, K, 10], the packed [1760] weights, [21, R] constants, [10, R] y0,
+    times, the leaves' shapes)."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_blackbox as fb
+
+    _, settings, data, program, model, params = serving_setup(device, spec=SPEC_BB)
+    B = settings.params.n_batch
+    ode = model.ode_model
+    with torch.no_grad():
+        th, inputs, dev_1hot, times = _prior_theta(device, program, model, params,
+                                                   data.train.dataset, slice(0, B), K, seed)
+        consts = ode._constants(th, inputs, dev_1hot, K)
+        y0 = ode.initialize_state(params["dec"], th, inputs, B, K)
+    wv, wflat, packed, y0_cols = fb._pack(params["dec"], consts, y0)
+    return (params["dec"], consts, y0, wflat, packed, y0_cols, times,
+            tuple(tuple(w.shape) for w in wv))
+
+
+def bb_states_ok(got, ref):
+    """A black-box trajectory [T, ..., 10] against the plain version's:
+    ([max relative error of each of ``BB_GROUPS``], ok)."""
+    import torch
+
+    out, ok = [], bool(torch.isfinite(got).all())
+    for _, lo, hi in BB_GROUPS:
+        a, b = got[..., lo:hi], ref[..., lo:hi]
+        err = (a - b).abs()
+        out.append(float((err / b.abs().clamp_min(1e-30)).max()))
+        ok = ok and bool((err <= KERNEL_ATOL + KERNEL_RTOL * b.abs()).all())
+    return out, ok
+
+
+def bb_fwd_row(wflat, packed, y0_cols, times, shapes, method):
+    """blackbox_fwd's time, its plain version's and its bound on these
+    operands: each input read once, the trajectory written once."""
+    from vihds_tpu_torch.ops import fused_blackbox as fb
+
+    R, T, S = packed.shape[1], times.shape[0], y0_cols.shape[0]
+    wv = fb._split(wflat, shapes)
+    return timed(
+        lambda: fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, fb.KERNEL_N_STATES,
+                                method),
+        lambda: fb._plain_fwd(wv, packed, y0_cols, times, fb.KERNEL_N_STATES, method),
+        4 * (wflat.numel() + packed.numel() + y0_cols.numel() + times.numel() + T * S * R),
+        bb_step_flops(S)[0][method] * (T - 1) * R)
+
+
+def bb_cotangent_readings(dw, dc, dy0, ref, shapes):
+    """A black-box backward's outputs (dW packed [1760], dc [21, R], dy0
+    [10, R]) against the plain sweep's in float64 ``ref`` = (the 12 leaves,
+    dc, dy0): the ``cotangent_readings`` of each constant's and state's row
+    over the samples, then of each weight leaf over its entries, and whether
+    every reading is within BWD_NORM_TOL / BWD_P99_TOL."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_blackbox as fb
+
+    rw, rc, ry = ref
+    norm, rel = cotangent_readings(torch.cat([dc, dy0]), torch.cat([rc, ry]))
+    for a, b in zip(fb._split(dw, shapes), rw):
+        n, p = cotangent_readings(a.reshape(1, -1), b.reshape(1, -1))
+        norm, rel = torch.cat([norm, n]), torch.cat([rel, p])
+    finite = all(bool(torch.isfinite(x).all()) for x in (dw, dc, dy0))
+    return norm, rel, (finite and bool((norm <= BWD_NORM_TOL).all())
+                       and bool((rel <= BWD_P99_TOL).all()))
+
+
+class ReluMasks:
+    """The ``relu_mask`` of ``fused_blackbox._plain_bwd`` that records the
+    masks a sweep takes, in their order; ``replay()`` returns one that hands
+    them out in the same order to another sweep on the same operands and
+    counts, per sample row, the hidden units whose own mask differs
+    (``flips``)."""
+
+    def __init__(self, recorded=None):
+        self.recorded = [] if recorded is None else recorded
+        self.flips, self._next = None, None if recorded is None else iter(recorded)
+
+    def replay(self):
+        return ReluMasks(self.recorded)
+
+    def __call__(self, h):
+        own = h > 0
+        if self._next is None:
+            self.recorded.append(own)
+            return own
+        mask = next(self._next)
+        flips = (mask != own).sum(dim=0)
+        self.flips = flips if self.flips is None else self.flips + flips
+        return mask
+
+
+def bb_references(wv, packed, times, traj, g, n_states, method):
+    """The plain sweeps of the black-box backward on these float32 operands:
+    (the float32 sweep's (dW leaves, dc, dy0); the float64 sweep on the
+    float32 sweep's relu masks, the reference the kernel is held to; the
+    float64 sweep on its own masks; the hidden units per sample row [R]
+    whose float64 mask differs from the float32 one, over the whole sweep)."""
+    from vihds_tpu_torch.ops import fused_blackbox as fb
+
+    masks = ReluMasks()
+    plain = fb._plain_bwd(wv, packed, times, traj, g, n_states, method, masks)
+    f64 = ([w.double() for w in wv], packed.double(), times.double(), traj.double(),
+           g.double(), n_states, method)
+    replay = masks.replay()
+    ref = fb._plain_bwd(*f64, replay)
+    return plain, ref, fb._plain_bwd(*f64), replay.flips
+
+
+def phase_blackbox_kernels(device, seed):
+    """Phase 3 for the black-box kernels: the forward against its plain
+    version at the serving chunk and at the training shape, the backward at
+    the training shape against the plain sweep in float64 per weight leaf,
+    constant row and state row (beside the plain float32 sweep's readings),
+    and two backward runs bit-equal in dW; all three methods.  Returns
+    (forward rows at the serving chunk, backward rows, forward rows at the
+    training shape), each {method: readings and times}."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_blackbox as fb, fused_ode
+
+    NS = fb.KERNEL_N_STATES
+    fwd_rows, train_fwd_rows = {}, {}
+    for K, rows, seed_k in ((K_SERVE, fwd_rows, seed), (K_TRAIN, train_fwd_rows, seed + 1)):
+        params, consts, y0, wflat, packed, y0_cols, times, shapes = blackbox_inputs(device, K,
+                                                                                    seed_k)
+        B, R, T = y0.shape[0], packed.shape[1], times.shape[0]
+        print("phase 3 (blackbox): blackbox_fwd vs plain PyTorch at B=%d K=%d (R=%d) T=%d; "
+              "%s each rtol %g atol %g"
+              % (B, K, R, T, "/".join(g for g, _, _ in BB_GROUPS), KERNEL_RTOL, KERNEL_ATOL))
+        with torch.no_grad():
+            for method in fused_ode.METHODS:
+                got = fb.blackbox_simulate(params, consts, y0, times, NS, method)
+                ref = fb.blackbox_simulate_plain(params, consts, y0, times, NS, method)
+                torch.cuda.synchronize()
+                if tuple(got.shape) != (T, B, K, NS + fb.N_PREC):
+                    fail("blackbox_fwd %s: shape %s" % (method, tuple(got.shape)))
+                if not bool(torch.isfinite(ref).all()):
+                    fail("blackbox_fwd %s: the plain version is not finite on these inputs"
+                         % method)
+                rel, ok = bb_states_ok(got, ref)
+                r = rows[method] = dict(max_abs_err=float((got - ref).abs().max()),
+                                        max_rel=rel,
+                                        **bb_fwd_row(wflat, packed, y0_cols, times, shapes,
+                                                     method))
+                print("  %-9s max_rel_err %s (max_abs_err %.3e on |ref| up to %.3e)  kernel "
+                      "%.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
+                      % (method, " / ".join(_fmt(x) for x in rel), r["max_abs_err"],
+                         float(ref.abs().max()), r["ms"], r["plain_ms"], r["bound_ms"],
+                         r["bound_by"], r["bytes"], r["flops"], "ok" if ok else "MISMATCH"))
+                if not ok:
+                    fail("blackbox_fwd %s disagrees with its plain version" % method)
+
+    # the backward at the training shape (the operands of the last pass)
+    leaves = ["/".join(x) for x in fb.WEIGHT_LEAVES]
+    row_names = ["c[%d]" % j for j in range(packed.shape[0])] + ["y0[%d]" % s
+                                                                  for s in range(NS + 4)]
+    print("phase 3 (blackbox): blackbox_bwd vs plain PyTorch at B=%d K=%d (R=%d) T=%d, both read "
+          "against the plain version in float64 on the plain float32 sweep's relu masks: every "
+          "constant's and state's row over the samples and every weight leaf over its entries, "
+          "within %g normwise and %g at the 99th percentile of relative error"
+          % (B, K, R, T, BWD_NORM_TOL, BWD_P99_TOL))
+
+    names = row_names + leaves
+    rows, table = {}, {}
+    wv = fb._split(wflat, shapes)
+    with torch.no_grad():
+        for method in fused_ode.METHODS:
+            traj = fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method)
+            gen = torch.Generator(device=device).manual_seed(seed + 2)
+            g = torch.randn(traj.shape, generator=gen, device=device)
+            dw, dc, dy0 = fb.blackbox_bwd(wflat, packed, times, traj, g, shapes, NS, method)
+            same = bool(torch.equal(dw, fb.blackbox_bwd(wflat, packed, times, traj, g, shapes, NS,
+                                                        method)[0]))
+            (pw, pc, py), ref, own, flips = bb_references(wv, packed, times, traj, g, NS, method)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(x).all()) for x in (ref[1], ref[2], *ref[0])):
+                fail("blackbox_bwd %s: the plain version is not finite on these inputs" % method)
+            k_norm, k_rel, ok = bb_cotangent_readings(dw, dc, dy0, ref, shapes)
+            p_norm, p_rel, plain_ok = bb_cotangent_readings(
+                torch.cat([x.reshape(-1) for x in pw]), pc, py, ref, shapes)
+            table[method] = (k_norm, k_rel, p_norm, p_rel)
+            got = torch.cat([dc, dy0]).double()
+            err = (got - torch.cat([ref[1], ref[2]])).abs()
+            # the kernel against the float64 sweep on its own masks: its worst
+            # constant or state row, the sample row where that row's error
+            # peaks and the units flipped there; and its worst reading over
+            # the sample rows where no unit flipped
+            o_norm, _ = cotangent_readings(got, torch.cat([own[1], own[2]]))
+            worst = int(o_norm.argmax())
+            at = int((got[worst] - torch.cat([own[1], own[2]])[worst]).abs().argmax())
+            calm = flips == 0
+            c_norm = (cotangent_readings(got[:, calm], torch.cat([own[1], own[2]])[:, calm])[0]
+                      if bool(calm.any()) else torch.full((1,), math.nan))
+            # inputs read once (weights, constants, grid, traj, g), outputs
+            # written once (dW, dc, dy0)
+            S = NS + fb.N_PREC
+            r = rows[method] = dict(
+                max_abs_err=float(err.max()), worst_norm=float(k_norm.max()),
+                worst_p99=float(k_rel.max()), plain_worst_norm=float(p_norm.max()),
+                plain_worst_p99=float(p_rel.max()), plain_within_limits=plain_ok,
+                dw_bit_equal=same, relu_flips=int(flips.sum()), rows_with_flips=int((~calm).sum()),
+                own_masks_worst_norm=float(o_norm.max()), own_masks_worst_row=names[worst],
+                flips_in_its_sample_row=int(flips[at]),
+                own_masks_worst_norm_without_flips=float(c_norm.max()),
+                **timed(lambda: fb.blackbox_bwd(wflat, packed, times, traj, g, shapes, NS, method),
+                        lambda: fb._plain_bwd(wv, packed, times, traj, g, NS, method),
+                        4 * (2 * wflat.numel() + 2 * packed.numel() + times.numel()
+                             + 2 * T * S * R + S * R),
+                        bb_step_flops(S)[1][method] * (T - 1) * R))
+            print("  %-9s kernel: worst normwise %.3e (%s), worst p99 rel %.3e (%s); plain "
+                  "float32: %.3e, %.3e (within the limits: %s) | repeat run dW bit-equal: %s  "
+                  "kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
+                  % (method, r["worst_norm"], names[int(k_norm.argmax())], r["worst_p99"],
+                     names[int(k_rel.argmax())], r["plain_worst_norm"], r["plain_worst_p99"],
+                     plain_ok, same, r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
+                     r["bytes"], r["flops"], "ok" if ok else "MISMATCH"))
+            print("  %-9s relu units whose float64 mask differs from float32's: %d in %d of %d "
+                  "sample rows; against the float64 sweep on its own masks the kernel reads "
+                  "%.3e normwise at %s, whose largest error lies in a sample row with %d flipped "
+                  "unit(s), and %.3e over the sample rows with none"
+                  % (method, r["relu_flips"], r["rows_with_flips"], R, r["own_masks_worst_norm"],
+                     r["own_masks_worst_row"], r["flips_in_its_sample_row"],
+                     r["own_masks_worst_norm_without_flips"]))
+            if not ok:
+                fail("blackbox_bwd %s disagrees with its plain version" % method)
+            if not same:
+                fail("blackbox_bwd %s: two runs gave different weight cotangents" % method)
+    print("  per row and leaf, normwise error / 99th percentile relative error against "
+          "float64, kernel then plain float32, for modeuler, midpoint, rk4:")
+    for i, name in enumerate(names):
+        print("    %-22s" % name + "  |".join(
+            " %.1e %.1e / %.1e %.1e" % tuple(float(x[i]) for x in table[m])
+            for m in fused_ode.METHODS))
+    return fwd_rows, rows, train_fwd_rows
+
+
+def check_request(out, n_theta, n_states):
     m = out.merged
     B, S, T = out.host.observations.shape
     if not math.isfinite(m.elbo):
@@ -517,7 +830,7 @@ def check_request(out, n_theta, n_species):
         "q_prec": (B, n_theta),
         "iw_predict_mu": (B, 4, T),
         "iw_predict_std": (B, 4, T),
-        "iw_states": (B, n_species, T),
+        "iw_states": (B, n_states, T),
         "iw_variance": (B, 4, T),
     }
     import numpy as np
@@ -534,11 +847,17 @@ def check_request(out, n_theta, n_species):
     return B
 
 
+def iw_state_count(ode):
+    """The states of ``iw_states``: a mechanistic model's species, or all
+    the ODE states the black-box nets model."""
+    return getattr(ode, "n_states", ode.n_species)
+
+
 def _counter(kernel):
     """The function whose ``launches`` attribute counts ``kernel``'s launches."""
-    from vihds_tpu_torch.ops import fused_ode
+    from vihds_tpu_torch.ops import fused_blackbox, fused_ode
 
-    return fused_ode.COUNTERS[kernel]
+    return {**fused_ode.COUNTERS, **fused_blackbox.COUNTERS}[kernel]
 
 
 def serve(device, spec, files, phase, kernel, counterfactual=COUNTERFACTUAL):
@@ -572,7 +891,7 @@ def serve(device, spec, files, phase, kernel, counterfactual=COUNTERFACTUAL):
     launches = _counter(kernel).launches
 
     for args, out, wall in zip(requests, outs, walls):
-        B = check_request(out, program.n_theta, model.ode_model.n_species)
+        B = check_request(out, program.n_theta, iw_state_count(model.ode_model))
         print("  request %-36s %3d series  wall %.3f s  elbo %.3f%s"
               % (os.path.basename(args.data[0]), B, wall, out.merged.elbo,
                  "  + counterfactual %s" % args.treatments[0] if args.treatments else ""))
@@ -621,7 +940,7 @@ def phase_route_check(device, served, spec=SPEC, phase="4b"):
             res = eval_step(model, program, params, batch, 50, u=u)
         results[solver] = {k: v.cpu().numpy() for k, v in res.items()}
     a, b = results["pallas_midpoint"], results["midpoint"]
-    family = model.ode_model.pallas_kinds[0]
+    family = (model.ode_model.pallas_kinds or (None,))[0]
     np.testing.assert_allclose(a["iw_predict_mu"], b["iw_predict_mu"], rtol=ROUTE_RTOL,
                                atol=ROUTE_ATOL, err_msg="iw_predict_mu")
     rel, ok = route_close(a["iw_states"], b["iw_states"], family)
@@ -695,10 +1014,10 @@ def phase_plain_kind(device, spec, model_cls, phase):
     return launches
 
 
-def phase_profile(device, wall_s):
+def phase_profile(device, wall_s, spec=SPEC, phase="4c"):
     """Where one request's time goes: torch.profiler over the second
-    request (after the counted run), device time by kernel against the
-    unprofiled wall time of the same request."""
+    request of ``spec``'s model (after the counted run), device time by
+    kernel against the unprofiled wall time of the same request."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -706,9 +1025,9 @@ def phase_profile(device, wall_s):
     from vihds_tpu_torch.predict import create_parser, load_new_data, predict
     from vihds_tpu_torch.training import Training
 
-    _, settings, _, program, model, params = serving_setup(device)
+    _, settings, _, program, model, params = serving_setup(device, spec=spec)
     args = create_parser().parse_args(
-        [SPEC, "--data", REQUESTS[1], "--test_samples", str(K_SERVE), "--seed", str(SEED)]
+        [spec, "--data", REQUESTS[1], "--test_samples", str(K_SERVE), "--seed", str(SEED)]
     )
     # the request's steps, timed one by one on the host clock
     t0 = time.perf_counter()
@@ -722,18 +1041,18 @@ def phase_profile(device, wall_s):
     )
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    print("phase 4c: request %s steps: build_datasets %.4f s, load_new_data %.4f s, "
-          "evaluate %.4f s" % (REQUESTS[1], t1 - t0, t2 - t1, t3 - t2))
+    print("phase %s: request %s steps: build_datasets %.4f s, load_new_data %.4f s, "
+          "evaluate %.4f s" % (phase, REQUESTS[1], t1 - t0, t2 - t1, t3 - t2))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         predict(args, settings, params=params, device=device)
         torch.cuda.synchronize()
     events, total_us = device_events(prof)
     if total_us == 0:
-        print("phase 4c: profiler saw no device time (device busy share: not measured)")
+        print("phase %s: profiler saw no device time (device busy share: not measured)" % phase)
         return
-    print("phase 4c: request %s: %d kernel launches, device busy %.3f ms of %.3f ms "
+    print("phase %s: request %s: %d kernel launches, device busy %.3f ms of %.3f ms "
           "unprofiled wall (busy share %.4f); top kernels by device time:"
-          % (REQUESTS[1], sum(e.count for e in events), total_us / 1e3, wall_s * 1e3,
+          % (phase, REQUESTS[1], sum(e.count for e in events), total_us / 1e3, wall_s * 1e3,
              total_us / 1e6 / wall_s))
     for e in events[:8]:
         print("  %9.3f ms  %5d calls  %s" % (dev_us(e) / 1e3, e.count, e.key[:100]))
@@ -829,26 +1148,27 @@ def train(device, spec, phase, fwd, bwd):
     return launches, step_ms, training
 
 
-def train_precisions(device, spec, phase, kind):
-    """Train a ``_precisions`` model as ``train`` does; the weight cotangent
-    of the kind's backward kernel must move every leaf of the precision nets
-    away from its seeded initial value."""
+def train_nets(device, spec, phase, kind, nets=("precisions",)):
+    """Train a model whose kernels carry net weights (a ``_prec`` kind's
+    precision nets, the black-box kind's two nets) as ``train`` does; the
+    weight cotangent of the kind's backward kernel must move every leaf of
+    each of ``nets`` away from its seeded initial value."""
     import torch
 
     launches, step_ms, training = train(device, spec, phase, kind + "_fwd", kind + "_bwd")
     init = training.model.init_params(torch.Generator().manual_seed(SEED), device=device)
     moved = []
-    for net in ("prod", "degr"):
-        for leaf in ("w", "b"):
-            a = training.final_params["dec"]["precisions"][net][leaf].detach()
-            b = init["dec"]["precisions"][net][leaf]
-            if not bool(torch.isfinite(a).all()):
-                fail("precisions/%s/%s is not finite after training" % (net, leaf))
-            moved.append(("%s.%s" % (net, leaf), float((a - b).abs().max())))
-    print("  precision nets' leaves moved by (max abs change): %s"
+    for net in nets:
+        for layer, leaves in init["dec"][net].items():
+            for leaf, b in leaves.items():
+                a = training.final_params["dec"][net][layer][leaf].detach()
+                if not bool(torch.isfinite(a).all()):
+                    fail("%s/%s/%s is not finite after training" % (net, layer, leaf))
+                moved.append(("%s.%s.%s" % (net, layer, leaf), float((a - b).abs().max())))
+    print("  the nets' leaves moved by (max abs change): %s"
           % ", ".join("%s %.3e" % m for m in moved))
     if not all(d > 0 for _, d in moved):
-        fail("a precision net's leaf did not move: the weight cotangent did not reach it")
+        fail("a net's leaf did not move: the weight cotangent did not reach it")
     return launches, step_ms, training
 
 
@@ -952,6 +1272,62 @@ def phase_profile_training(device, spec=SPEC, phase="5c"):
     return dict(busy_ms=total_us / 1e3, wall_ms=wall * 1e3)
 
 
+XVAL_FLAGS = ["--experiment", "chip_smoke_xval", "--epochs", "2", "--test_epoch", "2",
+              "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed", str(SEED),
+              "--folds", "4"]
+
+
+def phase_call_run_xval(device, spec=SPEC, phase="5d"):
+    """k-fold cross-validation: ``call_run_xval.execute`` on ``spec``'s model, 4
+    folds of 2 epochs each (the depth cut to the smoke's time; evaluation at
+    the end of each fold), ``solver: pallas_midpoint``.  It must write each
+    fold's best-validation cache, the merged ``xval_*`` set and the completed
+    marker, with each series held out by exactly one fold.  Counts the dr
+    kernels' launches over the path from 0."""
+    import tempfile
+
+    import numpy as np
+
+    from vihds_tpu_torch import call_run_xval
+    from vihds_tpu_torch.config import Config, Trainer
+
+    args = call_run_xval.create_parser(False).parse_args([spec] + XVAL_FLAGS)
+    settings = Config(args)
+    settings.params.solver = TRAIN_SOLVER
+    name = os.path.basename(spec)[: -len(".yaml")]
+    print("phase %s: call_run_xval on %s, %d folds of %d epochs, solver %s, K=%d / %d"
+          % (phase, name, args.folds, args.epochs, settings.params.solver, args.train_samples,
+             args.test_samples))
+    with tempfile.TemporaryDirectory() as results_dir:
+        os.environ["INFERENCE_RESULTS_DIR"] = results_dir
+        settings.trainer = Trainer(args, add_timestamp=True)
+        for k in ("dr_fwd", "dr_bwd"):
+            _counter(k).launches = 0
+        t0 = time.perf_counter()
+        merge = call_run_xval.execute(args, settings, device=device)
+        wall = time.perf_counter() - t0
+        launches = {k: _counter(k).launches for k in ("dr_fwd", "dr_bwd")}
+        names = set(os.listdir(settings.trainer.tb_log_dir))
+    del os.environ["INFERENCE_RESULTS_DIR"]
+    xval = sorted(n for n in names if n.startswith("xval_"))
+    caches = sorted(n for n in names if n.startswith(".vihds_cache_"))
+    if merge is None or len(xval) != 16 or "completed.txt" not in names or len(caches) != 4:
+        fail("call_run_xval left %s" % sorted(names))
+    ids = np.asarray(merge.ids).tolist()
+    elbo = np.asarray(merge.elbo, dtype=float)
+    if elbo.shape != (args.folds,) or not np.isfinite(elbo).all():
+        fail("call_run_xval: fold ELBOs %s" % elbo)
+    if len(set(ids)) != len(ids) or sum(int(c) for c in merge.chunk_sizes) != len(ids):
+        fail("call_run_xval: a series was held out by more than one fold")
+    print("  %d folds in %.1f s wall; fold ELBOs %s; %d xval_* files, caches %s, completed.txt; "
+          "%d series held out (per fold %s); dr_fwd launches %d, dr_bwd launches %d"
+          % (args.folds, wall, ", ".join("%.1f" % e for e in elbo), len(xval), caches, len(ids),
+             [int(c) for c in merge.chunk_sizes], launches["dr_fwd"], launches["dr_bwd"]))
+    if min(launches.values()) == 0:
+        fail("call_run_xval did not launch the dr kernels: %s" % launches)
+    return launches
+
+
 def kernel_row(kind, direction, rows, launches, **extra):
     """One entry of the ``kernels`` line: the midpoint readings of phase 3
     (the forward's at the serving chunk), the launches on the main path."""
@@ -959,12 +1335,16 @@ def kernel_row(kind, direction, rows, launches, **extra):
     first_line = {("fwd", False): 340, ("bwd", False): 364, ("fwd", True): 473, ("bwd", True): 500}
     from vihds_tpu_torch.ops import fused_ode
 
+    if kind == "blackbox":
+        replaces = "vihds_tpu/ops/pallas_blackbox.py:%d" % {"fwd": 88, "bwd": 108}[direction]
+    else:
+        replaces = "vihds_tpu/ops/pallas_ode.py:%d" % first_line[(direction,
+                                                                 fused_ode.KINDS[kind].prec)]
     return dict(
         name="%s_%s" % (kind, direction),
         route="cuda",
         source="vihds_tpu_torch/csrc/%s_%s.cu" % (kind, direction),
-        replaces="vihds_tpu/ops/pallas_ode.py:%d" % first_line[(direction,
-                                                                fused_ode.KINDS[kind].prec)],
+        replaces=replaces,
         kind=kind,
         method="midpoint",
         launches=launches,
@@ -1000,6 +1380,7 @@ def main():
     phase_build()
     measured = {kind: phase_kind_kernels(device, kind, SEED + 10 * i + 1)
                 for i, kind in enumerate(fused_ode.KINDS)}
+    measured["blackbox"] = phase_blackbox_kernels(device, SEED + 101)
 
     serving, training = {}, {}
     serving["dr"], walls, served = serve(device, SPEC, REQUESTS, "4", "dr_fwd")
@@ -1008,11 +1389,12 @@ def main():
     training["dr"] = train(device, SPEC, "5", "dr_fwd", "dr_bwd")[0]
     phase_route_check_training(device)
     phase_profile_training(device)
+    phase_call_run_xval(device)
 
     serving["dr_prec"] = serve(device, SPEC_PREC, REQUESTS, "6", "dr_prec_fwd")[0]
     # v2's version lives in the host-side fracLuxR / fracLasR: the same kernel
     serve(device, SPEC_PREC_V2, REQUESTS[:1], "6", "dr_prec_fwd")
-    training["dr_prec"] = train_precisions(device, SPEC_PREC, "7", "dr_prec")[0]
+    training["dr_prec"] = train_nets(device, SPEC_PREC, "7", "dr_prec")[0]
     phase_route_check_training(device, SPEC_PREC, "7b")
     phase_profile_training(device, SPEC_PREC, "7c")
 
@@ -1024,9 +1406,17 @@ def main():
         serving[kind], _, served = serve(device, spec, files, str(p), kind + "_fwd", cf)
         phase_route_check(device, served, spec, "%db" % p)
         training[family] = phase_plain_kind(device, spec, cls, "%dd" % p)
-        training[kind] = train_precisions(device, spec, str(p + 1), kind)[0]
+        training[kind] = train_nets(device, spec, str(p + 1), kind)[0]
         phase_route_check_training(device, spec, "%db" % (p + 1))
         phase_profile_training(device, spec, "%dc" % (p + 1))
+
+    serving["blackbox"], walls, served = serve(device, SPEC_BB, REQUESTS, "12", "blackbox_fwd")
+    phase_route_check(device, served, SPEC_BB, "12b")
+    phase_profile(device, walls[1], SPEC_BB, "12c")
+    training["blackbox"] = train_nets(device, SPEC_BB, "13", "blackbox",
+                                      nets=("states", "precisions"))[0]
+    phase_route_check_training(device, SPEC_BB, "13b")
+    phase_profile_training(device, SPEC_BB, "13c")
 
     kernels = []
     for kind, (fwd_rows, bwd_rows, train_fwd_rows) in measured.items():
@@ -1040,7 +1430,7 @@ def main():
                          for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             **extra))
         kernels.append(kernel_row(kind, "bwd", bwd_rows, launches[kind + "_bwd"]))
-    print("total %.1f s" % (time.perf_counter() - t_start))
+    print("phase 14: total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

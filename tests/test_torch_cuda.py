@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card (the forward and backward kernels of
-the dr, dr_prec, relay, relay_prec, degrader and degrader_prec kinds): built
+the dr, dr_prec, relay, relay_prec, degrader and degrader_prec kinds and of
+the black-box ODE): built
 from csrc/, launched through their wrappers and held against their plain
 PyTorch versions.  Marked
 ``cuda``; each test skips where no CUDA device is visible (decided inside
@@ -392,3 +393,109 @@ def test_kind_autograd_function_matches_float64_autograd(cuda, kind):
                               for n in ("prod", "degr")])
 
         _assert_cotangents_close(dw(got[1]), dw(ref[1]))
+
+
+# ------------------------------------------------------------- the black-box kernels
+def _bb_operands(device, K=5, seed=0):
+    """dr_blackbox_icml's kernel operands at K samples (chip_smoke's
+    ``blackbox_inputs``: theta from the prior, the model's seeded nets)."""
+    import chip_smoke
+
+    return chip_smoke.blackbox_inputs(device, K, seed)
+
+
+@pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
+def test_blackbox_fwd_kernel_matches_plain(cuda, method):
+    """Each state group (observed, latent, precisions) to the species'
+    tolerance, as chip_smoke.py phase 3."""
+    import chip_smoke
+    from vihds_tpu_torch.ops import fused_blackbox as fb
+
+    params, consts, y0, wflat, packed, y0_cols, times, shapes = _bb_operands(cuda)
+    before = fb.blackbox_simulate.launches
+    got = fb.blackbox_simulate(params, consts, y0, times, fb.KERNEL_N_STATES, method)
+    torch.cuda.synchronize()
+    assert fb.blackbox_simulate.launches == before + 1
+    ref = fb.blackbox_simulate_plain(params, consts, y0, times, fb.KERNEL_N_STATES, method)
+    assert got.shape == ref.shape == (times.shape[0],) + tuple(y0.shape)
+    assert torch.isfinite(ref).all()
+    rel, ok = chip_smoke.bb_states_ok(got, ref)
+    assert ok, rel
+
+
+def _assert_blackbox_cotangents_close(got, ref, shapes):
+    """The black-box backward's outputs (dW packed, dc, dy0) against a
+    float64 sweep ``ref`` by chip_smoke.py's rule for it: each constant's
+    and state's row and each weight leaf within the limits of
+    ``_assert_cotangents_close``."""
+    import chip_smoke
+
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else [t.cpu() for t in x]
+
+    norm, rel, ok = chip_smoke.bb_cotangent_readings(*cpu(got), tuple(cpu(x) for x in ref),
+                                                     shapes)
+    assert ok, (float(norm.max()), float(rel.max()))
+
+
+@pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
+def test_blackbox_bwd_kernel_matches_plain(cuda, method):
+    """dc and dy0 per constant and state row and each weight leaf against
+    the plain sweep in float64; dW the same bit for bit from run to run."""
+    import chip_smoke
+    from vihds_tpu_torch.ops import fused_blackbox as fb
+
+    NS = fb.KERNEL_N_STATES
+    _, _, _, wflat, packed, y0_cols, times, shapes = _bb_operands(cuda)
+    traj = fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method)
+    g = torch.as_tensor(
+        np.random.default_rng(1).standard_normal(tuple(traj.shape)).astype(np.float32), device=cuda
+    )
+    before = fb.blackbox_bwd.launches
+    dw, dc, dy0 = fb.blackbox_bwd(wflat, packed, times, traj, g, shapes, NS, method)
+    torch.cuda.synchronize()
+    assert fb.blackbox_bwd.launches == before + 1
+    # the float64 sweep on the plain float32 sweep's relu masks, as phase 3
+    ref = chip_smoke.bb_references(fb._split(wflat, shapes), packed, times, traj, g, NS,
+                                   method)[1]
+    R = packed.shape[1]
+    assert dc.shape == (fb.KERNEL_N_CONST, R) and dy0.shape == (NS + fb.N_PREC, R)
+    assert dw.shape == (fb.KERNEL_N_W,)
+    _assert_blackbox_cotangents_close((dw, dc, dy0), ref, shapes)
+    assert torch.equal(dw, fb.blackbox_bwd(wflat, packed, times, traj, g, shapes, NS, method)[0])
+
+
+def test_blackbox_autograd_function_matches_float64_autograd(cuda):
+    """``blackbox_simulate`` on the card (both kernels, float32) against
+    torch.autograd through its plain version in float64 on the CPU: the 12
+    weight leaves, the constants and y0."""
+    from vihds_tpu_torch.ops import fused_blackbox as fb
+
+    params, consts, y0, _, _, _, times = _bb_operands(cuda)[:7]
+    w = np.random.default_rng(2).standard_normal((times.shape[0],) + tuple(y0.shape))
+
+    def leaves(dev, dtype):
+        nets = {n: {layer: {k: v.detach().to(dev, dtype).clone().requires_grad_(True)
+                            for k, v in d.items()} for layer, d in params[n].items()}
+                for n in ("states", "precisions")}
+        return (nets, consts.detach().to(dev, dtype).clone().requires_grad_(True),
+                y0.detach().to(dev, dtype).clone().requires_grad_(True))
+
+    got, ref = leaves(cuda, torch.float32), leaves("cpu", torch.float64)
+    counts = (fb.blackbox_simulate.launches, fb.blackbox_bwd.launches)
+    for (nets, c, y), sim, dev, dtype in ((got, fb.blackbox_simulate, cuda, torch.float32),
+                                          (ref, fb.blackbox_simulate_plain, "cpu", torch.float64)):
+        sol = sim(nets, c, y, times.to(dev, dtype), fb.KERNEL_N_STATES, "midpoint")
+        (sol * torch.as_tensor(w, dtype=dtype, device=dev)).sum().backward()
+    torch.cuda.synchronize()
+    assert (fb.blackbox_simulate.launches, fb.blackbox_bwd.launches) == (counts[0] + 1,
+                                                                         counts[1] + 1)
+    NC, S = fb.KERNEL_N_CONST, fb.KERNEL_N_STATES + fb.N_PREC
+
+    def outs(x):
+        dw = torch.cat([x[0][a][b][c].grad.reshape(-1) for a, b, c in fb.WEIGHT_LEAVES])
+        return dw, x[1].grad.reshape(-1, NC).t(), x[2].grad.reshape(-1, S).t()
+
+    rw, rc, ry = outs(ref)
+    shapes = fb.KERNEL_LEAF_SHAPES
+    _assert_blackbox_cotangents_close(outs(got), (fb._split(rw, shapes), rc, ry), shapes)

@@ -579,8 +579,12 @@ def test_kernel_sources_instantiate_their_kind(kind):
 
 
 def test_build_lists_every_kernel():
-    assert build.SOURCES == {n: n + ".cu" for k in fused_ode.KINDS.values()
-                             for n in (k.fwd, k.bwd)}
+    """Every fused kind's two kernels and the black-box ODE's two."""
+    from vihds_tpu_torch.ops import fused_blackbox
+
+    assert build.SOURCES == {n: n + ".cu" for n in [
+        n for k in fused_ode.KINDS.values() for n in (k.fwd, k.bwd)] + list(
+        fused_blackbox.COUNTERS)}
     assert all(os.path.exists(os.path.join(CSRC, f)) for f in build.SOURCES.values())
 
 

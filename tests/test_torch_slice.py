@@ -194,9 +194,10 @@ def test_evaluate_chunks_like_one_batch():
 
 def test_unknown_model_lists_available():
     tset, tdata, tprog, _ = _port("dr_constant_one.yaml")
-    tset.model = "dr_blackbox"
+    tset.model = "auto_constant"
     with pytest.raises(ValueError, match="available: degrader_constant, "
-                                         "degrader_constant_precisions, dr_constant, "
+                                         "degrader_constant_precisions, dr_blackbox, "
+                                         "dr_constant, "
                                          "dr_constant_precisions, dr_constant_precisions_v2, "
                                          "dr_constant_v2, relay_constant, "
                                          "relay_constant_precisions$"):
@@ -209,7 +210,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "import vihds_tpu_torch.predict, vihds_tpu_torch.convert, vihds_tpu_torch.run_xval\n"
-        "import vihds_tpu_torch.checkpoint, chip_smoke\n"
+        "import vihds_tpu_torch.checkpoint, vihds_tpu_torch.call_run_xval, chip_smoke\n"
+        "import vihds_tpu_torch.models.dr_blackbox, vihds_tpu_torch.ops.fused_blackbox\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vihds_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n" % REPO

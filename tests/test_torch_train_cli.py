@@ -122,12 +122,15 @@ def test_resumed_run_ends_where_the_uninterrupted_run_ends(tmp_results):
 
 @pytest.mark.parametrize(
     "flags,item",
-    [(["--dreg"], "item 12"), (["--mesh", "auto"], "item 17"), (["--mesh_data", "2"], "item 17"),
-     (["--distributed", "auto"], "item 17"), (["--vmap_folds"], "item 13"),
-     (["--profile_dir", "p"], "item 18"), (["--figures"], "item 8")],
+    [(["--dreg"], "DReG"), (["--mesh", "auto"], "parallel/ + parallel/multihost.py"),
+     (["--mesh_data", "2"], "parallel/ + parallel/multihost.py"),
+     (["--distributed", "auto"], "parallel/ + parallel/multihost.py"),
+     (["--vmap_folds"], "xfold.py"), (["--profile_dir", "p"], "profiling.py"),
+     (["--figures"], "TensorBoard scalars and figures")],
     ids=lambda v: v if isinstance(v, str) else v[0],
 )
 def test_unported_flags_stop_with_their_roadmap_item(flags, item, tmp_results):
-    with pytest.raises(SystemExit, match="%s is not ported .*ROADMAP queue 1, %s" % (flags[0], item)):
+    with pytest.raises(SystemExit, match='%s is not ported .*ROADMAP queue 1, "%s"'
+                       % (flags[0], re.escape(item))):
         run_xval.main([spec("dr_constant_one.yaml")] + flags, device="cpu")
     assert os.listdir(tmp_results) == []

@@ -156,7 +156,7 @@ def build_datasets(args, config):
     data_settings = config.data
     if not data_settings.merge:
         raise NotImplementedError(
-            "merge: false datasets are not ported yet (ROADMAP queue 1, item 1)"
+            "merge: false datasets are not ported yet (ROADMAP queue 1, \"Host layer: merge: false\")"
         )
     dataset = TimeSeriesDataset(data_settings, config.params)
     dataset.init_multiple_merge()

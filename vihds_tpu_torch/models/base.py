@@ -134,6 +134,31 @@ class NeuralPrecisions:
         return y[..., : -self.n_outputs], prec
 
 
+class NeuralStates:
+    """Black-box RHS: dx = sigmoid(prod(h)) - sigmoid(degr(h)) * x with
+    h = relu(hidden([x, constants]))."""
+
+    def __init__(self, n_inputs, n_hidden, n_states, n_latents):
+        self.n_inputs = n_inputs
+        self.n_hidden = n_hidden
+        self.n_states = n_states
+        self.n_latents = n_latents
+
+    def init_params(self, generator):
+        return {
+            "hidden": layers.linear_init(generator, self.n_inputs, self.n_hidden, mode="xavier"),
+            "prod": layers.linear_init(generator, self.n_hidden, self.n_states, mode="xavier"),
+            "degr": layers.linear_init(generator, self.n_hidden, self.n_states, mode="xavier"),
+        }
+
+    def __call__(self, params, x, constants):
+        aug = torch.cat([x, constants], dim=-1)
+        hidden = torch.relu(layers.linear_apply(params["hidden"], aug))
+        return torch.sigmoid(layers.linear_apply(params["prod"], hidden)) - torch.sigmoid(
+            layers.linear_apply(params["degr"], hidden)
+        ) * x
+
+
 class OdeModel:
     """Base class for mechanistic device models.
 
@@ -228,12 +253,14 @@ class OdeModel:
         """Integrate and return x_states[B, K, S, T].  ``solver:
         pallas_<method>`` (or ``eval_solver`` in eval mode) routes families
         that declare ``pallas_kinds`` through the fused CUDA integrator,
-        which is differentiable (its backward is a kernel too)."""
+        which is differentiable (its backward is a kernel too); any other
+        family or configuration takes the same fixed-grid method on the
+        generic solver."""
         n_batch = treatments.shape[0]
         method = self._solver_for(eval_mode)
-        if method.startswith("pallas_") and self.pallas_kinds:
+        if method.startswith("pallas_"):
             method = method[len("pallas_"):]
-            if self._pallas_supported():
+            if self.pallas_kinds and self._pallas_supported():
                 from vihds_tpu_torch.ops import fused_ode
 
                 dynamic = self.precisions.dynamic
@@ -250,8 +277,6 @@ class OdeModel:
                     prec_params=params.get("precisions") if dynamic else None,
                 )
                 return sol.permute(1, 2, 3, 0)
-            # a configuration the kernels do not cover: the same fixed-grid
-            # method on the generic solver
         init_state = self.initialize_state(params, theta, treatments, n_batch, n_iwae)
         rhs = self.make_rhs(params, theta, treatments, dev_1hot)
         sol = integrate(rhs, init_state, times, method=method, adjoint=self.adjoint)  # [T,B,K,S]

@@ -22,10 +22,11 @@ BUILD_DIR = os.path.join(
     "kernels",
 )
 #: kernel library name -> source file under csrc/: each fused kind's forward
-#: and backward (ops/fused_ode.KINDS)
+#: and backward (ops/fused_ode.KINDS) and the black-box ODE's
+#: (ops/fused_blackbox.py)
 SOURCES = {
     "%s_%s" % (kind, d): "%s_%s.cu" % (kind, d)
-    for kind in ("dr", "dr_prec", "relay", "relay_prec", "degrader", "degrader_prec")
+    for kind in ("dr", "dr_prec", "relay", "relay_prec", "degrader", "degrader_prec", "blackbox")
     for d in ("fwd", "bwd")
 }
 NVCC_FLAGS = [

@@ -88,7 +88,7 @@ def integrate(rhs, y0, times, method="midpoint", adjoint=False):
     if method in ADAPTIVE_SOLVERS or adjoint:
         raise NotImplementedError(
             "adaptive solvers and the continuous adjoint (%s) are not ported yet "
-            "(ROADMAP queue 1, item 10)" % method
+            "(ROADMAP queue 1, \"ops/dopri.py + ops/adjoint.py\")" % method
         )
     if method not in FIXED_GRID_SOLVERS:
         raise ValueError(

@@ -8,7 +8,7 @@ draws -> the ODE decoder (the fused ``dr`` CUDA kernel under
 moments, with no retraining.  ``--treatments`` re-simulates the inferred
 posterior under counterfactual inputs.
 
-Restoring a checkpoint is not ported yet (ROADMAP queue 1, item 11), so
+Restoring a checkpoint is not ported yet (ROADMAP queue 1, "predict.py rest"), so
 ``predict`` takes the trained params from its caller::
 
   from vihds_tpu_torch.predict import create_parser, predict, save_predictions
@@ -126,7 +126,7 @@ def predict(args, settings=None, params=None, device="cuda", generator=None):
     if params is None:
         raise ValueError(
             "predict needs the trained params from its caller: checkpoint restore "
-            "is not ported yet (ROADMAP queue 1, item 11)"
+            "is not ported yet (ROADMAP queue 1, \"predict.py rest\")"
         )
     if settings is None:
         settings = Config(args)

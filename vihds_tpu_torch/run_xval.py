@@ -23,16 +23,16 @@ from vihds_tpu_torch.utils import resolve_device
 from vihds_tpu_torch.vae import VAE
 from vihds_tpu_torch.xval import XvalMerge
 
-#: flag -> (is it set?, the ROADMAP item that ports it)
+#: flag -> (is it set?, the title of the ROADMAP item that ports it)
 NOT_PORTED = {
-    "--dreg": (lambda a: a.dreg, "queue 1, item 12"),
-    "--mesh": (lambda a: a.mesh != "off", "queue 1, item 17"),
-    "--mesh_data": (lambda a: a.mesh_data is not None, "queue 1, item 17"),
-    "--mesh_sample": (lambda a: a.mesh_sample is not None, "queue 1, item 17"),
-    "--distributed": (lambda a: a.distributed is not None, "queue 1, item 17"),
-    "--vmap_folds": (lambda a: a.vmap_folds, "queue 1, item 13"),
-    "--profile_dir": (lambda a: a.profile_dir is not None, "queue 1, item 18"),
-    "--figures": (lambda a: getattr(a, "figures", False), "queue 1, item 8"),
+    "--dreg": (lambda a: a.dreg, "DReG"),
+    "--mesh": (lambda a: a.mesh != "off", "parallel/ + parallel/multihost.py"),
+    "--mesh_data": (lambda a: a.mesh_data is not None, "parallel/ + parallel/multihost.py"),
+    "--mesh_sample": (lambda a: a.mesh_sample is not None, "parallel/ + parallel/multihost.py"),
+    "--distributed": (lambda a: a.distributed is not None, "parallel/ + parallel/multihost.py"),
+    "--vmap_folds": (lambda a: a.vmap_folds, "xfold.py"),
+    "--profile_dir": (lambda a: a.profile_dir is not None, "profiling.py"),
+    "--figures": (lambda a: getattr(a, "figures", False), "TensorBoard scalars and figures"),
 }
 
 
@@ -113,7 +113,8 @@ def check_ported(args):
     """Stop with a one-line error on a flag whose feature is not ported."""
     for flag, (is_set, item) in NOT_PORTED.items():
         if is_set(args):
-            raise SystemExit("%s is not ported to vihds_tpu_torch yet (ROADMAP %s)" % (flag, item))
+            raise SystemExit('%s is not ported to vihds_tpu_torch yet (ROADMAP queue 1, "%s")'
+                             % (flag, item))
 
 
 def make_training(args, settings, split=None, device="cuda"):

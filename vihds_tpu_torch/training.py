@@ -13,7 +13,7 @@ forward and ``dr_bwd`` in the backward, or ``dr_prec_fwd`` / ``dr_prec_bwd``
 for the precisions models); under a plain fixed-grid solver it
 takes the online log-likelihood route (``VAE.forward_logprob``).
 TensorBoard summaries and figures are not ported yet (ROADMAP queue 1,
-items 7 and 8).
+"TensorBoard scalars and figures").
 """
 
 import math

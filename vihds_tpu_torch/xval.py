@@ -4,7 +4,7 @@ artifact set.
 The same ``xval_*.npy`` / ``.txt`` names and contents as ``vihds_tpu.xval``
 (they are the data contract between folds, the figures and the inference
 graph).  The figures (``make_images``) are not ported yet (ROADMAP queue 1,
-item 8).
+"TensorBoard scalars and figures").
 """
 
 import os

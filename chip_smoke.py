@@ -810,6 +810,14 @@ def phase_blackbox_kernels(device, seed):
                 fail("blackbox_bwd %s disagrees with its plain version" % method)
             if not same:
                 fail("blackbox_bwd %s: two runs gave different weight cotangents" % method)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_blocks = -(-R // fb.BWD_ROWS)
+    for method in fused_ode.METHODS:
+        threads, smem, per_sm = fb.bwd_block(method)
+        print("  %-9s blackbox_bwd block: %d rows x %d threads, %d B of dynamic shared memory, "
+              "%d blocks (%d warps) resident per SM; at R=%d %d blocks on %d SMs: %.2f waves"
+              % (method, fb.BWD_ROWS, threads, smem, per_sm, per_sm * threads // 32, R, n_blocks,
+                 sms, n_blocks / max(per_sm * sms, 1)))
     print("  per row and leaf, normwise error / 99th percentile relative error against "
           "float64, kernel then plain float32, for modeuler, midpoint, rk4:")
     for i, name in enumerate(names):

@@ -276,7 +276,7 @@ def test_kernel_sources_match_the_wrapper():
     assert consts["NS"] == str(fb.KERNEL_N_STATES) and consts["NC"] == str(fb.KERNEL_N_CONST)
     assert (consts["H"], consts["HP"]) == ("25", "20")
     assert fb.KERNEL_LEAF_SHAPES[0] == (27, 25) and fb.KERNEL_LEAF_SHAPES[6] == (28, 20)
-    assert consts["BWD_ROWS"] == str(fb.BWD_THREADS) and fb.KERNEL_N_W == 1760
+    assert consts["BWD_ROWS"] == str(fb.BWD_ROWS) and fb.KERNEL_N_W == 1760
     assert "static_assert(N_W == 1760" in common
     offsets = re.findall(r"constexpr int (\w\w_[WB]) = ", common)
     assert offsets == ["SH_W", "SH_B", "SP_W", "SP_B", "SD_W", "SD_B", "PH_W", "PH_B", "PP_W",
@@ -287,6 +287,19 @@ def test_kernel_sources_match_the_wrapper():
         assert '#include "blackbox_common.cuh"' in src
         assert 'extern "C" int blackbox_%s_launch(' % d in src
         assert "pallas_blackbox.py" in src
+
+
+def test_bwd_partials_follow_the_kernel_block():
+    """The wrapper sizes blackbox_bwd's dW partials as one per BWD_ROWS
+    sample rows: the header's block rows, by which the entry point sizes its
+    grid and each block offsets its rows and its partial."""
+    common = open(os.path.join(CSRC, "blackbox_common.cuh")).read()
+    rows = re.findall(r"^constexpr int BWD_ROWS = (\d+);", common, re.M)
+    assert rows == [str(fb.BWD_ROWS)]
+    launch = open(os.path.join(CSRC, "blackbox_bwd.cu")).read()
+    assert "(R + bb::BWD_ROWS - 1) / bb::BWD_ROWS" in launch
+    assert "blockIdx.x * BWD_ROWS + th.row" in common
+    assert "dw_out[(size_t)blockIdx.x * N_W + e]" in common
 
 
 # ------------------------------------------------------------- NeuralStates

@@ -439,14 +439,18 @@ def _assert_blackbox_cotangents_close(got, ref, shapes):
 
 
 @pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
-def test_blackbox_bwd_kernel_matches_plain(cuda, method):
+@pytest.mark.parametrize("R", [180, 20, 256])
+def test_blackbox_bwd_kernel_matches_plain(cuda, R, method):
     """dc and dy0 per constant and state row and each weight leaf against
-    the plain sweep in float64; dW the same bit for bit from run to run."""
+    the plain sweep in float64; dW the same bit for bit from run to run.  At
+    R = 180 (K = 5: five full 32-row blocks and a masked one), below one
+    block, and at eight full blocks."""
     import chip_smoke
     from vihds_tpu_torch.ops import fused_blackbox as fb
 
     NS = fb.KERNEL_N_STATES
-    _, _, _, wflat, packed, y0_cols, times, shapes = _bb_operands(cuda)
+    _, _, _, wflat, packed, y0_cols, times, shapes = _bb_operands(cuda, K=-(-R // 36))
+    packed, y0_cols = packed[:, :R].contiguous(), y0_cols[:, :R].contiguous()
     traj = fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method)
     g = torch.as_tensor(
         np.random.default_rng(1).standard_normal(tuple(traj.shape)).astype(np.float32), device=cuda
@@ -458,7 +462,6 @@ def test_blackbox_bwd_kernel_matches_plain(cuda, method):
     # the float64 sweep on the plain float32 sweep's relu masks, as phase 3
     ref = chip_smoke.bb_references(fb._split(wflat, shapes), packed, times, traj, g, NS,
                                    method)[1]
-    R = packed.shape[1]
     assert dc.shape == (fb.KERNEL_N_CONST, R) and dy0.shape == (NS + fb.N_PREC, R)
     assert dw.shape == (fb.KERNEL_N_W,)
     _assert_blackbox_cotangents_close((dw, dc, dy0), ref, shapes)

@@ -1,8 +1,10 @@
 // Device code of the fused black-box ODE kernels (blackbox_fwd.cu and
 // blackbox_bwd.cu): the right-hand side of models/dr_blackbox.py, its
-// hand-derived pullback and the two kernels.  The fixed-grid steps and their
-// pullbacks are the mechanistic kernels' (one_step and step_vjp in
-// dr_common.cuh), so all kernels step the same three methods.
+// hand-derived pullback and the two kernels.  The forward steps with the
+// mechanistic kernels' one_step (dr_common.cuh); the backward has its own
+// step pullback (step_vjp below), which keeps each stage's activations from
+// its right-hand side for the stage's pullback, with the arithmetic of
+// dr_common.cuh's step_vjp.
 //
 // The right-hand side is two small nets whose weights every sample row shares
 // (NeuralStates and NeuralPrecisions with a relu hidden layer):
@@ -57,123 +59,37 @@ constexpr int PD_B = PD_W + HP * NP;
 constexpr int N_W = PD_B + NP;  // 1,760
 static_assert(N_W == 1760, "the dr_blackbox_icml weight count");
 
-// --------------------------------------------------------------------------
-// The backward's block: BWD_ROWS sample rows, one thread each, one warp.
-//
-// The weight cotangent is a sum over every row and every pullback of outer
-// products, 1,760 entries per pullback and row.  The mechanistic _prec
-// backwards keep a per-thread column of their 80-112 entries in shared
-// memory; at 1,760 entries that would be 225 KB per 32-row block.  Instead
-// each pullback stages, per row, the vectors whose outer products make dW
-// into a shared tile (feature f of row r at tile[f * LD + r]; LD = rows + 1,
-// so both the per-row writes and the per-entry reads below fall on distinct
-// banks):
-//   inputs:      t, x (6), c (21, staged once), 1 (for the biases), h (25), hp (20)
-//   cotangents:  dah (25), dap | dad (12), dahp (20), dapp | dapd (8)
-// and after a barrier the block's threads reduce it: thread i owns the
-// entries e = i, i + 32, ... of the weight vector and adds, for each, the
-// sum over the tile's rows in row order of input[e] * cotangent[e] into its
-// entry of the block's shared accumulator dWs.  The arithmetic equals the
-// per-row outer products'; the order is fixed, no atomics anywhere, so two
-// runs give the same dW bit for bit.  A second barrier frees the tile for the
-// next pullback.  At the end each block writes dWs as its partial, and the
-// wrapper sums the partials over the blocks (fused_blackbox.blackbox_bwd).
-// Rows past the edge (r >= R) run the sweep on row R - 1, to reach every
-// barrier, and stage zero cotangents, so they add exact zeros.
-// --------------------------------------------------------------------------
 constexpr int FWD_THREADS = 128;
-constexpr int BWD_ROWS = 32;
-constexpr int LD = BWD_ROWS + 1;
-
-// tile features; pin = [t; x; c] is F_T .. F_T + N_INP - 1 and aug = [x; c]
-// is F_X .. F_X + N_IN - 1
-enum Feature : int {
-  F_T = 0,
-  F_X = F_T + 1,
-  F_C = F_X + NS,
-  F_ONE = F_C + NC,
-  F_H = F_ONE + 1,
-  F_HP = F_H + H,
-  F_DAH = F_HP + HP,
-  F_DAP = F_DAH + H,  // dap (NS), then dad (NS)
-  F_DAHP = F_DAP + 2 * NS,
-  F_DAPP = F_DAHP + HP,  // dapp (NP), then dapd (NP)
-  N_F = F_DAPP + 2 * NP
-};
-static_assert(N_F <= 256, "feature indices are packed in 8 bits");
-
-// (input feature, cotangent feature) of weight entry e, packed as in | cot << 8
-__device__ __forceinline__ unsigned short entry_features(int e) {
-  int in, cot;
-  if (e < SH_B) {
-    in = F_X + e / H;
-    cot = F_DAH + e % H;
-  } else if (e < SP_W) {
-    in = F_ONE;
-    cot = F_DAH + (e - SH_B);
-  } else if (e < SP_B) {
-    in = F_H + (e - SP_W) / NS;
-    cot = F_DAP + (e - SP_W) % NS;
-  } else if (e < SD_W) {
-    in = F_ONE;
-    cot = F_DAP + (e - SP_B);
-  } else if (e < SD_B) {
-    in = F_H + (e - SD_W) / NS;
-    cot = F_DAP + NS + (e - SD_W) % NS;
-  } else if (e < PH_W) {
-    in = F_ONE;
-    cot = F_DAP + NS + (e - SD_B);
-  } else if (e < PH_B) {
-    in = F_T + (e - PH_W) / HP;
-    cot = F_DAHP + (e - PH_W) % HP;
-  } else if (e < PP_W) {
-    in = F_ONE;
-    cot = F_DAHP + (e - PH_B);
-  } else if (e < PP_B) {
-    in = F_HP + (e - PP_W) / NP;
-    cot = F_DAPP + (e - PP_W) % NP;
-  } else if (e < PD_W) {
-    in = F_ONE;
-    cot = F_DAPP + (e - PP_B);
-  } else if (e < PD_B) {
-    in = F_HP + (e - PD_W) / NP;
-    cot = F_DAPP + NP + (e - PD_W) % NP;
-  } else {
-    in = F_ONE;
-    cot = F_DAPP + NP + (e - PD_B);
-  }
-  return (unsigned short)(in | (cot << 8));
-}
 
 // --------------------------------------------------------------------------
 // The two nets, and the right-hand side (fused_blackbox._bb_rhs_cols) for
-// one row: W the weights (shared memory, read by every thread at the same
-// address, so each read is a broadcast), c the row's constants, y its S
-// states.  The hidden units are visited one at a time and each is folded into
-// the output sums at once, so no hidden vector is held in registers.
+// one row in one thread, as the forward kernel runs it: W the weights
+// (shared memory, read by every thread at the same address, so each read is
+// a broadcast), c the row's constants, y its S states.  The hidden units are
+// visited one at a time and each is folded into the output sums at once, so
+// no hidden vector is held in registers.
 // --------------------------------------------------------------------------
 
 // A net of the right-hand side: its weight leaves' offsets, its hidden and
 // output widths, the first state it writes (its outputs are the derivatives
 // of y[Y0 .. Y0 + OUT - 1], which its degradation term multiplies), whether
-// its input begins with the time, and the backward tile's features of its
-// hidden units, their cotangents and its output layer's cotangents.
+// its input begins with the time, and, for the backward's block below, its
+// first hidden unit U0 among both nets' NU units and its first output sum O0
+// among their NO.
 struct StatesNet {
   static constexpr int W_H = SH_W, B_H = SH_B, W_P = SP_W, B_P = SP_B, W_D = SD_W, B_D = SD_B;
-  static constexpr int HID = H, OUT = NS, Y0 = 0, TIME = 0;
-  static constexpr int F_HID = F_H, F_DHID = F_DAH, F_DOUT = F_DAP;
+  static constexpr int HID = H, OUT = NS, Y0 = 0, TIME = 0, U0 = 0, O0 = 0;
 };
 struct PrecNet {
   static constexpr int W_H = PH_W, B_H = PH_B, W_P = PP_W, B_P = PP_B, W_D = PD_W, B_D = PD_B;
-  static constexpr int HID = HP, OUT = NP, Y0 = NS, TIME = 1;
-  static constexpr int F_HID = F_HP, F_DHID = F_DAHP, F_DOUT = F_DAPP;
+  static constexpr int HID = HP, OUT = NP, Y0 = NS, TIME = 1, U0 = H, O0 = 2 * NS;
 };
 
 // The net's hidden layer and the sums of its output layer (before the
-// biases) into p, d; with STORE, hidden unit k also goes to hid[k * LD].
-template <class N, bool STORE>
+// biases) into p, d.
+template <class N>
 __device__ __forceinline__ void net_forward(const float* W, const float* c, float t,
-                                            const float* y, float* p, float* d, float* hid) {
+                                            const float* y, float* p, float* d) {
 #pragma unroll
   for (int j = 0; j < N::OUT; ++j) p[j] = d[j] = 0.0f;
 #pragma unroll 5
@@ -184,7 +100,6 @@ __device__ __forceinline__ void net_forward(const float* W, const float* c, floa
 #pragma unroll
     for (int j = 0; j < NC; ++j) a += W[N::W_H + (N::TIME + NS + j) * N::HID + k] * c[j];
     const float hk = fmaxf(a + W[N::B_H + k], 0.0f);
-    if constexpr (STORE) hid[k * LD] = hk;
 #pragma unroll
     for (int j = 0; j < N::OUT; ++j) {
       p[j] += W[N::W_P + k * N::OUT + j] * hk;
@@ -200,7 +115,7 @@ struct Rhs {
   template <class N>
   __device__ __forceinline__ void net(float t, const float* y, float* f) const {
     float p[N::OUT], d[N::OUT];
-    net_forward<N, false>(W, c, t, y, p, d, nullptr);
+    net_forward<N>(W, c, t, y, p, d);
 #pragma unroll
     for (int j = 0; j < N::OUT; ++j)
       f[N::Y0 + j] = sigmoidf(p[j] + W[N::B_P + j]) - sigmoidf(d[j] + W[N::B_D + j]) * y[N::Y0 + j];
@@ -212,89 +127,517 @@ struct Rhs {
   }
 };
 
-// The pullback of Rhs at (t, y) for the cotangent w of its output
-// (fused_blackbox._bb_rhs_vjp_cols, _net_vjp): writes dy, adds the constants'
-// share into the row's dc and, with the block, the weights' share into dWs.
-// Every thread of the block must call it at the same point of the sweep.  Per
-// net, with sp, sd the sigmoids of the output layer:
-//   dy_out = -w sd;  dap = w sp (1 - sp);  dad = -w y_out sd (1 - sd)
-//   dah_k = (h_k > 0) (W_p[k, :] . dap + W_d[k, :] . dad);  d input = W_h dah
-// The time input passes nothing on.  The hidden units are kept in the row's
-// tile column between the two passes over them.
-struct Vjp {
-  const float* c;
-  float* dc;
-  const float* W;
-  float* tile;                   // [N_F][LD]
-  float* dWs;                    // [N_W], the block's accumulator
-  const unsigned short* pairs;   // [N_W], entry_features of each entry
-  bool live;                     // r < R: stage this row's cotangents
+// --------------------------------------------------------------------------
+// The backward's block: BWD_ROWS sample rows x BWD_SLICES warps.
+//
+// Lane l of warp q works on sample row l of the block and on slice q of the
+// two nets' NU = 45 hidden units (units u = q, q + 8, ...; the states net's
+// 25 first, then the precision net's 20).  The row's states, adjoint and
+// constants are held by all of its BWD_SLICES threads alike; the nets' work
+// is split among them, each float sum done by one thread in the order a
+// sweep with one thread per row takes (each dot product's terms in index
+// order, then the bias), so the results are that sweep's bit for bit:
+//   forward of a stage: each thread computes its units' pre-activations
+//     (inputs in index order, then the bias) and relus into the stage's slot;
+//     after a barrier each of the NO = 20 output sums (p and d of the states
+//     net, then of the precision net) is summed by one thread over its net's
+//     units in index order, and its sigmoid goes to the slot; after a second
+//     barrier every thread reads the 20 sigmoids and forms the right-hand
+//     side of its row.
+//   pullback of a stage: every thread forms the output layer's cotangents
+//     from the slot's sigmoids, and each its units' cotangents dah_k; after a
+//     barrier each of the NX = 27 input cotangent sums (dx 6, dc 21) is
+//     summed by one thread over the units in index order, the states net's
+//     then the precision net's, and the block's threads reduce the weights'
+//     share (below); after a second barrier every thread reads its row's dx.
+// A stage's slot keeps its input (t, z), its hidden units and its sigmoids
+// from its forward until its pullback, so a midpoint or modeuler step
+// evaluates the nets twice and an rk4 step four times, not 3 and 7 times.
+//
+// The weight cotangent is a sum over every row and every pullback of outer
+// products, 1,760 entries per pullback and row.  Each pullback has in the
+// shared tile, per row, the vectors whose outer products make dW (feature f
+// of row r at tile[f * LD + r]; LD = rows + 4, so the per-row writes fall on
+// distinct banks and the per-entry reads, four rows a 16-byte load, on
+// distinct 16-byte bank groups):
+//   inputs:      t, z (the stage's slot), c, 1 (for the biases), h, hp (slot)
+//   cotangents:  dah | dahp (45), dap | dad | dapp | dapd (20)
+// and after the pullback's first barrier the block's threads reduce it: for
+// each entry e one thread takes the sum over the tile's rows, in row order,
+// of input[e] * cotangent[e] and adds it into e's place in the block's shared
+// accumulator dWs.  A thread takes a strip of entries of one leaf row, which
+// share their input, and the lanes of its warp the same strip of other rows,
+// so the strip's cotangent loads are broadcasts (dw_items below).  The order
+// is fixed, no atomics anywhere, so two runs give the same dW bit for bit.  At the end each block writes dWs as its partial,
+// and the wrapper sums the partials over the blocks
+// (fused_blackbox.blackbox_bwd, whose BWD_ROWS is this one).  Rows past the
+// edge (r >= R) run the sweep on row R - 1, to reach every barrier, and stage
+// zero cotangents, so they add exact zeros.
+//
+// Weights are staged in shared memory in the order each thread reads them,
+// so one 16-byte broadcast load feeds four multiply-adds: each unit's input
+// weights contiguous (WF_H), each output sum's weights over its units
+// (WF_O), each unit's (W_p, W_d) pairs over the outputs (WB_O) and, per
+// slice, each unit's weights into the slice's input cotangent sums (WB_I).
+// --------------------------------------------------------------------------
+constexpr int BWD_ROWS = 32;
+constexpr int BWD_SLICES = 8;
+constexpr int BWD_THREADS = BWD_ROWS * BWD_SLICES;
+constexpr int BWD_MIN_BLOCKS = 65536 / (128 * BWD_THREADS);  // at most 128 registers a thread
+constexpr int LD = BWD_ROWS + 4;     // a feature's row: 16-byte aligned, banks staggered
+constexpr int NU = H + HP;           // hidden units of both nets
+constexpr int NO = 2 * (NS + NP);    // output sums: p, d of the states net, then p, d of the precisions'
+constexpr int NX = NS + NC;          // input cotangent sums: dx, then dc
+constexpr int SUMS = (NX + BWD_SLICES - 1) / BWD_SLICES;  // input cotangent sums a thread owns
+static_assert(SUMS == 4, "a slice's input cotangent weights are one float4 per unit");
 
-  // one net's pullback: sets dy of its outputs, adds its share into
-  // dy[0 .. NS-1] and the constants' dcl, stages its vectors in col
+// staged weights (floats; each block 16-byte aligned)
+constexpr int OUT_LD = 28;                       // a WF_O row: a net's units, padded
+constexpr int WB_LD = 2 * NS;                    // a WB_O row: (W_p, W_d) per output, padded
+constexpr int WF_H = 0;                          // [NU][N_INP]: a states unit's row starts with a 0
+constexpr int WF_HB = WF_H + NU * N_INP;         // [NU]: hidden biases
+constexpr int WF_O = WF_HB + (NU + 3) / 4 * 4;   // [NO][OUT_LD]: output sums' weights
+constexpr int WF_OB = WF_O + NO * OUT_LD;        // [NO]: output biases
+constexpr int WB_O = WF_OB + NO;                 // [NU][WB_LD]
+constexpr int WB_I = WB_O + NU * WB_LD;          // [BWD_SLICES][NU][SUMS]
+constexpr int N_WS = WB_I + BWD_SLICES * NU * SUMS;
+static_assert(WF_HB % 4 == 0 && WF_O % 4 == 0 && WB_O % 4 == 0 && WB_I % 4 == 0 && N_WS % 4 == 0,
+              "float4 loads of the staged weights");
+static_assert(BWD_ROWS % 4 == 0 && LD % 4 == 0 && (N_WS + 2 * N_W) % 4 == 0,
+              "float4 loads of the tile's rows");
+
+// tile features: the common ones, then one slot of N_SLOT per stage
+enum Common : int {
+  F_C = 0,
+  F_ONE = F_C + NC,
+  F_DAH = F_ONE + 1,   // dah (H), then dahp (HP)
+  F_DOUT = F_DAH + NU, // dap (NS), dad (NS), dapp (NP), dapd (NP)
+  F_DYO = F_DOUT + NO, // -w sd of the states net's outputs
+  F_DY = F_DYO + NS,   // dy of the states net's outputs: -w sd, then dx of both nets
+  N_COMMON = F_DY + NS
+};
+enum Slot : int {
+  F_T = 0,
+  F_Z = F_T + 1,       // the stage's input states
+  F_H = F_Z + S,       // h (H), then hp (HP)
+  F_SIG = F_H + NU,    // the output sums' sigmoids, in F_DOUT's order
+  N_SLOT = F_SIG + NO
+};
+static_assert(N_COMMON + 4 * N_SLOT < (1 << 16), "feature indices are packed in 16 bits");
+
+// stages a step keeps: one slot each
+__host__ __device__ constexpr int bwd_slots(int method) { return method == RK4 ? 4 : 2; }
+
+// dynamic shared memory of the backward block: staged weights, dWs, the
+// entries' features, the tile
+__host__ __device__ constexpr int bwd_smem_bytes(int method) {
+  return 4 * (N_WS + 2 * N_W + (N_COMMON + bwd_slots(method) * N_SLOT) * LD);
+}
+
+// The staged weight at WF_H .. N_WS (zero in the pads) from the weight vector
+__device__ __forceinline__ float staged_weight(const float* __restrict__ w, int e) {
+  if (e < WF_HB) {  // WF_H
+    const int u = e / N_INP, i = e % N_INP;
+    if (u < H) return i == 0 ? 0.0f : w[SH_W + (i - 1) * H + u];
+    return w[PH_W + i * HP + (u - H)];
+  }
+  if (e < WF_O) {
+    const int u = e - WF_HB;
+    return u < H ? w[SH_B + u] : u < NU ? w[PH_B + (u - H)] : 0.0f;
+  }
+  if (e < WF_OB) {
+    const int o = (e - WF_O) / OUT_LD, k = (e - WF_O) % OUT_LD;
+    if (o < 2 * NS) return k < H ? w[(o < NS ? SP_W : SD_W) + k * NS + o % NS] : 0.0f;
+    return k < HP ? w[(o < 2 * NS + NP ? PP_W : PD_W) + k * NP + (o - 2 * NS) % NP] : 0.0f;
+  }
+  if (e < WB_O) {
+    const int o = e - WF_OB;
+    return o < NS ? w[SP_B + o] : o < 2 * NS ? w[SD_B + o - NS]
+         : o < 2 * NS + NP ? w[PP_B + o - 2 * NS] : w[PD_B + o - 2 * NS - NP];
+  }
+  if (e < WB_I) {
+    const int u = (e - WB_O) / WB_LD, j = (e - WB_O) % WB_LD / 2, d = (e - WB_O) % 2;
+    if (u < H) return w[(d ? SD_W : SP_W) + u * NS + j];
+    return j < NP ? w[(d ? PD_W : PP_W) + (u - H) * NP + j] : 0.0f;
+  }
+  const int q = (e - WB_I) / (NU * SUMS), u = (e - WB_I) / SUMS % NU, m = (e - WB_I) % SUMS;
+  const int s = q + BWD_SLICES * m;  // the input: x_s (s < NS) or c_(s - NS)
+  if (s >= NX) return 0.0f;
+  return u < H ? w[SH_W + s * H + u] : w[PH_W + (1 + s) * HP + (u - H)];
+}
+
+// (input feature, cotangent feature) of weight entry e, packed as in | cot
+// << 16; an input feature >= N_COMMON lies in a stage's slot (slot 0's index)
+__device__ __forceinline__ unsigned entry_features(int e) {
+  constexpr int SL = N_COMMON;  // slot 0
+  int in, cot;
+  if (e < SH_B) {
+    const int i = e / H;
+    in = i < NS ? SL + F_Z + i : F_C + (i - NS);
+    cot = F_DAH + e % H;
+  } else if (e < SP_W) {
+    in = F_ONE;
+    cot = F_DAH + (e - SH_B);
+  } else if (e < SP_B) {
+    in = SL + F_H + (e - SP_W) / NS;
+    cot = F_DOUT + (e - SP_W) % NS;
+  } else if (e < SD_W) {
+    in = F_ONE;
+    cot = F_DOUT + (e - SP_B);
+  } else if (e < SD_B) {
+    in = SL + F_H + (e - SD_W) / NS;
+    cot = F_DOUT + NS + (e - SD_W) % NS;
+  } else if (e < PH_W) {
+    in = F_ONE;
+    cot = F_DOUT + NS + (e - SD_B);
+  } else if (e < PH_B) {
+    const int i = (e - PH_W) / HP;
+    in = i == 0 ? SL + F_T : i <= NS ? SL + F_Z + (i - 1) : F_C + (i - 1 - NS);
+    cot = F_DAH + H + (e - PH_W) % HP;
+  } else if (e < PP_W) {
+    in = F_ONE;
+    cot = F_DAH + H + (e - PH_B);
+  } else if (e < PP_B) {
+    in = SL + F_H + H + (e - PP_W) / NP;
+    cot = F_DOUT + 2 * NS + (e - PP_W) % NP;
+  } else if (e < PD_W) {
+    in = F_ONE;
+    cot = F_DOUT + 2 * NS + (e - PP_B);
+  } else if (e < PD_B) {
+    in = SL + F_H + H + (e - PD_W) / NP;
+    cot = F_DOUT + 2 * NS + NP + (e - PD_W) % NP;
+  } else {
+    in = F_ONE;
+    cot = F_DOUT + 2 * NS + NP + (e - PD_B);
+  }
+  return (unsigned)in | ((unsigned)cot << 16);
+}
+
+// The weights' share of a pullback is reduced in warp items: lane l of item
+// (e0, stride, lanes, len) takes the len entries e0 + l stride + t, t < len,
+// of one leaf row, which share their input feature, and the item's lanes
+// share the cotangent features of t, so each of those loads is a broadcast.
+// Warp w takes items w, w + 8, w + 16, ordered so that each warp's strips sum
+// to 9 entries (10 and 7 for two); every weight entry lies in one item.
+struct DwItem {
+  short e0, stride, lanes, len;
+};
+constexpr int DW_LEN = 5;  // the longest strip
+constexpr int N_DW_ITEMS = 24;
+__constant__ DwItem dw_items[N_DW_ITEMS] = {
+    // the hidden layers' weights: a leaf row per lane, strips of 5 units
+    {SH_W, H, N_IN, 5}, {SH_W + 5, H, N_IN, 5}, {SH_W + 10, H, N_IN, 5},
+    {SH_W + 15, H, N_IN, 5}, {SH_W + 20, H, N_IN, 5}, {PH_W, HP, N_INP, 5},
+    {PH_W + 5, HP, N_INP, 5}, {PH_W + 15, HP, N_INP, 5},
+    // the output layers' weights: a hidden unit per lane
+    {SP_W, NS, H, 3}, {SP_W + 3, NS, H, 3}, {SD_W, NS, H, 3}, {SD_W + 3, NS, H, 3},
+    {PP_W, NP, HP, NP}, {PD_W, NP, HP, NP}, {PH_W + 10, HP, N_INP, 5},
+    // the biases: an entry per lane
+    {SH_B, 1, H, 1}, {SP_B, 1, NS, 1}, {SD_B, 1, NS, 1}, {PH_B, 1, HP, 1}, {PP_B, 1, NP, 1},
+    {0, 0, 0, 0}, {0, 0, 0, 0}, {0, 0, 0, 0}, {PD_B, 1, NP, 1}};
+
+// the first of net N's units (or output sums) that slice q owns, counted in
+// the net: units u = N::U0 + k with u = q mod BWD_SLICES
+template <class N>
+__device__ __forceinline__ int first_unit(int q) {
+  return (q + BWD_SLICES - N::U0 % BWD_SLICES) % BWD_SLICES;
+}
+template <class N>
+__device__ __forceinline__ int first_sum(int q) {
+  return (q + BWD_SLICES - N::O0 % BWD_SLICES) % BWD_SLICES;
+}
+
+// One thread of the backward block: lane `row` of warp `q`.
+struct BwdThread {
+  const float* Ws;         // staged weights
+  float* dWs;              // [N_W] the block's accumulator
+  const unsigned* pairs;   // [N_W] entry_features of each entry
+  float* tile;             // [N_COMMON + slots * N_SLOT][LD]
+  int tid, row, q;
+  bool live;               // r < R: stage this row's cotangents
+  float c[NC];             // the row's constants
+  float dc[SUMS];          // this thread's input cotangent sums of dc, over the sweep
+
+  __device__ __forceinline__ float* common() const { return tile + row; }
+  __device__ __forceinline__ float* slot(int s) const {
+    return tile + (N_COMMON + s * N_SLOT) * LD + row;
+  }
+
+  // net N's hidden units of this slice at the input in = [t; x; c] into col
   template <class N>
-  __device__ __forceinline__ void net(float t, const float* y, const float* w, float* dy,
-                                      float* dcl, float* col) const {
-    float p[N::OUT], d[N::OUT], dap[N::OUT], dad[N::OUT], dx[NS];
-    net_forward<N, true>(W, c, t, y, p, d, col + N::F_HID * LD);
+  __device__ __forceinline__ void hidden(const float* in, float* col) const {
+    for (int k = first_unit<N>(q); k < N::HID; k += BWD_SLICES) {
+      const int u = N::U0 + k;
+      const float4* w = reinterpret_cast<const float4*>(Ws + WF_H + u * N_INP);
+      float4 w4 = w[0];
+      float a = N::TIME ? w4.x * in[0] : 0.0f;
+      a += w4.y * in[1];
+      a += w4.z * in[2];
+      a += w4.w * in[3];
+#pragma unroll
+      for (int i = 4; i < N_INP; i += 4) {
+        w4 = w[i / 4];
+        a += w4.x * in[i];
+        a += w4.y * in[i + 1];
+        a += w4.z * in[i + 2];
+        a += w4.w * in[i + 3];
+      }
+      col[(F_H + u) * LD] = fmaxf(a + Ws[WF_HB + u], 0.0f);
+    }
+  }
+
+  // net N's output sums of this slice over the units in col, their sigmoids into col
+  template <class N>
+  __device__ __forceinline__ void outputs(float* col) const {
+    const float* h = col + (F_H + N::U0) * LD;
+    for (int j = first_sum<N>(q); j < 2 * N::OUT; j += BWD_SLICES) {
+      const int o = N::O0 + j;
+      const float* w = Ws + WF_O + o * OUT_LD;
+      float p = 0.0f;
+#pragma unroll
+      for (int k = 0; k < N::HID; k += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(w + k);
+        p += w4.x * h[k * LD];
+        if (k + 1 < N::HID) p += w4.y * h[(k + 1) * LD];
+        if (k + 2 < N::HID) p += w4.z * h[(k + 2) * LD];
+        if (k + 3 < N::HID) p += w4.w * h[(k + 3) * LD];
+      }
+      col[(F_SIG + o) * LD] = sigmoidf(p + Ws[WF_OB + o]);
+    }
+  }
+
+  // The forward of one stage at (t, z) into slot s; with F, the right-hand
+  // side f of the row.  Every thread of the block calls it at the same point.
+  template <bool F>
+  __device__ __forceinline__ void stage(int s, float t, const float* z, float* f) const {
+    float* col = slot(s);
+    if (q == 0) col[F_T * LD] = t;
+#pragma unroll
+    for (int i = 0; i < S; ++i)
+      if (i % BWD_SLICES == q) col[(F_Z + i) * LD] = z[i];
+    float in[N_INP];
+    in[0] = t;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) in[1 + i] = z[i];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) in[1 + NS + j] = c[j];
+    hidden<StatesNet>(in, col);
+    hidden<PrecNet>(in, col);
+    __syncthreads();
+    outputs<StatesNet>(col);
+    outputs<PrecNet>(col);
+    __syncthreads();
+    if constexpr (F) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        f[j] = col[(F_SIG + j) * LD] - col[(F_SIG + NS + j) * LD] * z[j];
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        f[NS + j] = col[(F_SIG + 2 * NS + j) * LD] - col[(F_SIG + 2 * NS + NP + j) * LD] * z[NS + j];
+    }
+  }
+
+  // net N's output cotangents for w (all of them, in registers; the slice's
+  // share staged) and its units' cotangents of this slice, staged; the
+  // precision net also sets dy of its outputs
+  template <class N>
+  __device__ __forceinline__ void unit_cotangents(const float* col, const float* w,
+                                                  float* dy) const {
+    float* cc = common();
+    float dap[N::OUT], dad[N::OUT];
 #pragma unroll
     for (int j = 0; j < N::OUT; ++j) {
-      const float sp = sigmoidf(p[j] + W[N::B_P + j]);
-      const float sd = sigmoidf(d[j] + W[N::B_D + j]);
+      const float sp = col[(F_SIG + N::O0 + j) * LD];
+      const float sd = col[(F_SIG + N::O0 + N::OUT + j) * LD];
       const float wj = w[N::Y0 + j];
-      dy[N::Y0 + j] = -wj * sd;
+      if (N::TIME)
+        dy[N::Y0 + j] = -wj * sd;
+      else if (j % BWD_SLICES == q)
+        cc[(F_DYO + j) * LD] = -wj * sd;
       dap[j] = wj * sp * (1.0f - sp);
-      dad[j] = -wj * y[N::Y0 + j] * sd * (1.0f - sd);
-      col[(N::F_DOUT + j) * LD] = live ? dap[j] : 0.0f;
-      col[(N::F_DOUT + N::OUT + j) * LD] = live ? dad[j] : 0.0f;
+      dad[j] = -wj * col[(F_Z + N::Y0 + j) * LD] * sd * (1.0f - sd);
+      if ((N::O0 + j) % BWD_SLICES == q) cc[(F_DOUT + N::O0 + j) * LD] = live ? dap[j] : 0.0f;
+      if ((N::O0 + N::OUT + j) % BWD_SLICES == q)
+        cc[(F_DOUT + N::O0 + N::OUT + j) * LD] = live ? dad[j] : 0.0f;
     }
-#pragma unroll
-    for (int i = 0; i < NS; ++i) dx[i] = 0.0f;
-#pragma unroll 5
-    for (int k = 0; k < N::HID; ++k) {
+    for (int k = first_unit<N>(q); k < N::HID; k += BWD_SLICES) {
+      const int u = N::U0 + k;
+      const float4* wo = reinterpret_cast<const float4*>(Ws + WB_O + u * WB_LD);
       float dh = 0.0f;
 #pragma unroll
-      for (int j = 0; j < N::OUT; ++j)
-        dh += W[N::W_P + k * N::OUT + j] * dap[j] + W[N::W_D + k * N::OUT + j] * dad[j];
-      const float dah = col[(N::F_HID + k) * LD] > 0.0f ? dh : 0.0f;
-      col[(N::F_DHID + k) * LD] = live ? dah : 0.0f;
-#pragma unroll
-      for (int i = 0; i < NS; ++i) dx[i] += W[N::W_H + (N::TIME + i) * N::HID + k] * dah;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) dcl[j] += W[N::W_H + (N::TIME + NS + j) * N::HID + k] * dah;
+      for (int j = 0; j < N::OUT; j += 2) {
+        const float4 w4 = wo[j / 2];
+        dh += w4.x * dap[j] + w4.y * dad[j];
+        dh += w4.z * dap[j + 1] + w4.w * dad[j + 1];
+      }
+      const float dah = col[(F_H + u) * LD] > 0.0f ? dh : 0.0f;
+      cc[(F_DAH + u) * LD] = live ? dah : 0.0f;
     }
-#pragma unroll
-    for (int i = 0; i < NS; ++i) dy[i] += dx[i];
   }
 
-  __device__ __forceinline__ void operator()(float t, const float* y, const float* w,
-                                             float* dy) const {
-    float* col = tile + threadIdx.x;
-    float dcl[NC];
+  // the slice's input cotangent sums over net N's units into acc
+  template <class N>
+  __device__ __forceinline__ void input_sums(float* acc) const {
+    const float* cc = common();
+    const float4* wi = reinterpret_cast<const float4*>(Ws + WB_I) + q * NU;
+#pragma unroll 5
+    for (int k = 0; k < N::HID; ++k) {
+      const int u = N::U0 + k;
+      const float dah = cc[(F_DAH + u) * LD];
+      const float4 w4 = wi[u];
+      acc[0] += w4.x * dah;
+      acc[1] += w4.y * dah;
+      acc[2] += w4.z * dah;
+      acc[3] += w4.w * dah;
+    }
+  }
+
+  // The pullback of slot s's stage for the cotangent w of its right-hand
+  // side (fused_blackbox._bb_rhs_vjp_cols, _net_vjp): writes dy, adds the
+  // constants' share into dc and, with the block, the weights' share into
+  // dWs.  Every thread of the block calls it at the same point.  Per net,
+  // with sp, sd the sigmoids of the output layer:
+  //   dy_out = -w sd;  dap = w sp (1 - sp);  dad = -w y_out sd (1 - sd)
+  //   dah_k = (h_k > 0) (W_p[k, :] . dap + W_d[k, :] . dad);  d input = W_h dah
+  // The time input passes nothing on.
+  __device__ __forceinline__ void pull(int s, const float* w, float* dy) {
+    const float* col = slot(s);
+    float* cc = common();
+    unit_cotangents<StatesNet>(col, w, dy);
+    unit_cotangents<PrecNet>(col, w, dy);
+    __syncthreads();
+
+    // the slice's input cotangent sums: dx_q (q < NS) per net, each added
+    // to dy_q = -w_q sd_q in turn, and dc over both nets
+    float acc[SUMS] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float dyq = q < NS ? cc[(F_DYO + q) * LD] : 0.0f;
+    input_sums<StatesNet>(acc);
+    if (q < NS) {
+      dyq += acc[0];
+      acc[0] = 0.0f;
+    }
+    input_sums<PrecNet>(acc);
+    if (q < NS) {
+      dyq += acc[0];
+      cc[(F_DY + q) * LD] = dyq;
+    }
 #pragma unroll
-    for (int j = 0; j < NC; ++j) dcl[j] = 0.0f;
-    col[F_T * LD] = t;
-#pragma unroll
-    for (int i = 0; i < NS; ++i) col[(F_X + i) * LD] = y[i];
-    net<StatesNet>(t, y, w, dy, dcl, col);
-    net<PrecNet>(t, y, w, dy, dcl, col);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dc[j] += dcl[j];
+    for (int m = 0; m < SUMS; ++m) {
+      const int x = q + BWD_SLICES * m;
+      if (x >= NS && x < NX) dc[m] += acc[m];
+    }
 
     // the weights' share: the block's rows reduced per entry, in row order
-    __syncthreads();
-    for (int e = threadIdx.x; e < N_W; e += BWD_ROWS) {
-      const unsigned short pr = pairs[e];
-      const float* in = tile + (pr & 0xff) * LD;
-      const float* ct = tile + (pr >> 8) * LD;
-      float sum = 0.0f;
-#pragma unroll 8
-      for (int r = 0; r < BWD_ROWS; ++r) sum += in[r] * ct[r];
-      dWs[e] += sum;
+    const int shift = s * N_SLOT;
+    const int lane = tid % 32;
+    for (int it = tid / 32; it < N_DW_ITEMS; it += BWD_THREADS / 32) {
+      const DwItem d = dw_items[it];
+      if (lane >= d.lanes) continue;
+      const int e = d.e0 + lane * d.stride;
+      int fi = (int)(pairs[e] & 0xffffu);
+      if (fi >= N_COMMON) fi += shift;
+      const float4* in = reinterpret_cast<const float4*>(tile + fi * LD);
+      int ct[DW_LEN];  // the strip's cotangent rows, in float4s from the tile's start
+      float sum[DW_LEN];
+#pragma unroll
+      for (int t = 0; t < DW_LEN; ++t) {
+        ct[t] = (int)(pairs[e + min(t, d.len - 1)] >> 16) * (LD / 4);
+        sum[t] = 0.0f;
+      }
+      const float4* rows4 = reinterpret_cast<const float4*>(tile);
+#pragma unroll
+      for (int r = 0; r < BWD_ROWS / 4; ++r) {
+        const float4 a = in[r];
+#pragma unroll
+        for (int t = 0; t < DW_LEN; ++t)
+          if (t < d.len) {
+            const float4 b = rows4[ct[t] + r];
+            sum[t] += a.x * b.x;
+            sum[t] += a.y * b.y;
+            sum[t] += a.z * b.z;
+            sum[t] += a.w * b.w;
+          }
+      }
+#pragma unroll
+      for (int t = 0; t < DW_LEN; ++t)
+        if (t < d.len) dWs[e + t] += sum[t];
     }
     __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NS; ++i) dy[i] = cc[(F_DY + i) * LD];
   }
 };
+
+// Pullback of one fixed-grid step at y = y_i: a holds the cotangent of
+// y_{i+1} on entry and that of y_i on exit.  The arithmetic of dr_common.cuh's
+// step_vjp, with each stage's forward kept in its slot for its pullback
+// instead of recomputed there.
+template <int METHOD>
+__device__ __forceinline__ void step_vjp(BwdThread& th, float t1, float t2, const float* y,
+                                         float* a) {
+  const float h = t2 - t1;
+  const float hh = 0.5f * h;
+  float f1[S], z[S], w[S], dz[S], d1[S];
+  if (METHOD == MODEULER) {
+    // y' = y + hh (f1 + f2), f1 = F(t1, y), f2 = F(t2, y + h f1)
+    th.stage<true>(0, t1, y, f1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      z[s] = y[s] + h * f1[s];
+      w[s] = hh * a[s];
+    }
+    th.stage<false>(1, t2, z, nullptr);
+    th.pull(1, w, dz);
+#pragma unroll
+    for (int s = 0; s < S; ++s) w[s] = hh * a[s] + h * dz[s];
+    th.pull(0, w, d1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) a[s] = a[s] + dz[s] + d1[s];
+  } else if (METHOD == MIDPOINT) {
+    // y' = y + h f2, f2 = F(t1 + hh, y + hh f1), f1 = F(t1, y)
+    th.stage<true>(0, t1, y, f1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      z[s] = y[s] + hh * f1[s];
+      w[s] = h * a[s];
+    }
+    th.stage<false>(1, t1 + hh, z, nullptr);
+    th.pull(1, w, dz);
+#pragma unroll
+    for (int s = 0; s < S; ++s) w[s] = hh * dz[s];
+    th.pull(0, w, d1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) a[s] = a[s] + dz[s] + d1[s];
+  } else {  // RK4: y' = y + h6 (k1 + 2 k2 + 2 k3 + k4), stage k_j = F(t_j, z_j)
+    const float tm = t1 + hh;
+    const float h6 = h / 6.0f;
+    float k[S], d4[S], d3[S];
+    th.stage<true>(0, t1, y, k);
+#pragma unroll
+    for (int s = 0; s < S; ++s) z[s] = y[s] + hh * k[s];  // z2
+    th.stage<true>(1, tm, z, k);
+#pragma unroll
+    for (int s = 0; s < S; ++s) z[s] = y[s] + hh * k[s];  // z3
+    th.stage<true>(2, tm, z, k);
+#pragma unroll
+    for (int s = 0; s < S; ++s) z[s] = y[s] + h * k[s];  // z4
+    th.stage<false>(3, t2, z, nullptr);
+#pragma unroll
+    for (int s = 0; s < S; ++s) w[s] = h6 * a[s];
+    th.pull(3, w, d4);
+#pragma unroll
+    for (int s = 0; s < S; ++s) w[s] = 2.0f * h6 * a[s] + h * d4[s];
+    th.pull(2, w, d3);
+#pragma unroll
+    for (int s = 0; s < S; ++s) w[s] = 2.0f * h6 * a[s] + hh * d3[s];
+    th.pull(1, w, dz);  // d2
+#pragma unroll
+    for (int s = 0; s < S; ++s) w[s] = h6 * a[s] + hh * dz[s];
+    th.pull(0, w, d1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) a[s] = a[s] + d4[s] + d3[s] + dz[s] + d1[s];
+  }
+}
 
 // --------------------------------------------------------------------------
 // The kernels
@@ -306,10 +649,10 @@ struct Vjp {
 // kernel padded R up to its block with constants 0 and y0 1e-3
 // (pallas_blackbox.py:256-260); the mask leaves no padded row.
 //
-// Backward (_make_bwd_kernel): the reverse sweep over the stored trajectory,
-// as dr_common.cuh's bwd_kernel (each step's stages recomputed from
-// traj[i], then pulled back in reverse; dc and dy0 per row in registers),
-// with the weight cotangent reduced per block as described above.
+// Backward (_make_bwd_kernel): the reverse sweep over the stored trajectory
+// by the block described above (each step's stages evaluated from traj[i]
+// into their slots, then pulled back in reverse; dc, dy0 per row in
+// registers), with the weight cotangent reduced per block.
 // --------------------------------------------------------------------------
 template <int METHOD>
 __global__ void __launch_bounds__(FWD_THREADS)
@@ -347,40 +690,43 @@ fwd_kernel(const float* __restrict__ wflat, const float* __restrict__ consts,
 }
 
 template <int METHOD>
-__global__ void __launch_bounds__(BWD_ROWS)
+__global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
 bwd_kernel(const float* __restrict__ wflat, const float* __restrict__ consts,
            const float* __restrict__ times, const float* __restrict__ traj,
            const float* __restrict__ g, float* __restrict__ dw_out,
            float* __restrict__ dc_out, float* __restrict__ dy0_out, int R, int T) {
-  __shared__ float W[N_W];
-  __shared__ float dWs[N_W];
-  __shared__ unsigned short pairs[N_W];
-  __shared__ float tile[N_F * LD];
-  const int tid = threadIdx.x;
-  for (int e = tid; e < N_W; e += BWD_ROWS) {
-    W[e] = wflat[e];
-    dWs[e] = 0.0f;
-    pairs[e] = entry_features(e);
+  extern __shared__ __align__(16) float smem[];
+  BwdThread th;
+  th.Ws = smem;
+  th.dWs = smem + N_WS;
+  th.pairs = reinterpret_cast<const unsigned*>(smem + N_WS + N_W);
+  th.tile = smem + N_WS + 2 * N_W;
+  th.tid = threadIdx.x;
+  th.row = th.tid % BWD_ROWS;
+  th.q = th.tid / BWD_ROWS;
+  for (int e = th.tid; e < N_WS; e += BWD_THREADS) smem[e] = staged_weight(wflat, e);
+  for (int e = th.tid; e < N_W; e += BWD_THREADS) {
+    th.dWs[e] = 0.0f;
+    reinterpret_cast<unsigned*>(smem + N_WS + N_W)[e] = entry_features(e);
   }
 
-  const int r0 = blockIdx.x * BWD_ROWS + tid;
-  const bool live = r0 < R;
-  const int r = live ? r0 : R - 1;
+  const int r0 = blockIdx.x * BWD_ROWS + th.row;
+  th.live = r0 < R;
+  const int r = th.live ? r0 : R - 1;
   const size_t stride = (size_t)R;
   const size_t tstride = (size_t)S * stride;
 
-  float c[NC], dc[NC];
 #pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    c[j] = consts[j * stride + r];
-    dc[j] = 0.0f;
-    tile[(F_C + j) * LD + tid] = c[j];
+  for (int j = 0; j < NC; ++j) th.c[j] = consts[j * stride + r];
+#pragma unroll
+  for (int m = 0; m < SUMS; ++m) th.dc[m] = 0.0f;
+  if (th.q == 0) {
+    float* cc = th.common();
+#pragma unroll
+    for (int j = 0; j < NC; ++j) cc[(F_C + j) * LD] = th.c[j];
+    cc[F_ONE * LD] = 1.0f;
   }
-  tile[F_ONE * LD + tid] = 1.0f;
   __syncthreads();
-
-  const Rhs rhs{c, W};
-  const Vjp vjp{c, dc, W, tile, dWs, pairs, live};
 
   float a[S];
   const float* gT = g + (size_t)(T - 1) * tstride + r;
@@ -395,21 +741,26 @@ bwd_kernel(const float* __restrict__ wflat, const float* __restrict__ consts,
     float y[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) y[s] = yi[s * stride];
-    step_vjp<METHOD, S>(rhs, vjp, t1, t2, y, a);
+    step_vjp<METHOD>(th, t1, t2, y, a);
 #pragma unroll
     for (int s = 0; s < S; ++s) a[s] += gi[s * stride];
     t2 = t1;
   }
 
-  if (live) {
+  if (th.live) {
 #pragma unroll
-    for (int j = 0; j < NC; ++j) dc_out[j * stride + r] = dc[j];
+    for (int m = 0; m < SUMS; ++m) {
+      const int x = th.q + BWD_SLICES * m;
+      if (x >= NS && x < NX) dc_out[(x - NS) * stride + r] = th.dc[m];
+    }
 #pragma unroll
-    for (int s = 0; s < S; ++s) dy0_out[s * stride + r] = a[s];
+    for (int s = 0; s < S; ++s)
+      if (s % BWD_SLICES == th.q) dy0_out[s * stride + r] = a[s];
   }
   // each thread writes the entries it reduced (the last pullback ended on a
   // barrier, so every entry is final)
-  for (int e = tid; e < N_W; e += BWD_ROWS) dw_out[(size_t)blockIdx.x * N_W + e] = dWs[e];
+  for (int e = th.tid; e < N_W; e += BWD_THREADS)
+    dw_out[(size_t)blockIdx.x * N_W + e] = th.dWs[e];
 }
 
 }  // namespace bb

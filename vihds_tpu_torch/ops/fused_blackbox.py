@@ -23,9 +23,11 @@ This is a module of its own, not a kind of ``fused_ode.KINDS``: the
 mechanistic kinds carry per-row constants only, this one shares its weights.
 """
 
+import ctypes
+
 import torch
 
-from vihds_tpu_torch.ops import fused_ode
+from vihds_tpu_torch.ops import build, fused_ode
 
 #: precision states after the ODE states
 N_PREC = fused_ode.N_PREC
@@ -69,9 +71,10 @@ def leaf_shapes(n_states, n_const, n_hidden, n_hidden_prec):
 KERNEL_LEAF_SHAPES = leaf_shapes(KERNEL_N_STATES, KERNEL_N_CONST, 25, 20)
 #: floats of the packed weight operand (1,760 at the kernels' widths)
 KERNEL_N_W = sum(torch.Size(s).numel() for s in KERNEL_LEAF_SHAPES)
-#: threads (sample rows) per block of the backward kernel: it returns the
-#: weight cotangent as one partial sum per block
-BWD_THREADS = 32
+#: sample rows per block of the backward kernel (csrc/blackbox_common.cuh's
+#: BWD_ROWS; each row is worked on by 8 threads): it returns the weight
+#: cotangent as one partial sum per block
+BWD_ROWS = 32
 
 
 def supported(ode_model):
@@ -241,7 +244,7 @@ def blackbox_bwd(wflat, packed, times, traj, g, shapes, n_states, method):
     """Launch csrc/blackbox_bwd.cu on the current stream: the reverse sweep
     for the trajectory cotangent ``g``.  Returns (dW [1760], packed as
     ``wflat``; dc [21, R]; dy0 [10, R]).  The kernel writes one partial sum
-    of dW per block of ``BWD_THREADS`` rows, each reduced in a fixed order;
+    of dW per block of ``BWD_ROWS`` sample rows, each reduced in a fixed order;
     their sum here is the last step, so two runs give the same dW bit for
     bit.  CUDA tensors only; ``_plain_bwd`` is its plain version."""
     R, T, S = packed.shape[1], times.shape[0], n_states + N_PREC
@@ -250,7 +253,7 @@ def blackbox_bwd(wflat, packed, times, traj, g, shapes, n_states, method):
                 ("times", times, (T,)), ("trajectory", traj, (T, S, R)),
                 ("cotangent", g, (T, S, R))]
     fused_ode._check_operands("blackbox_bwd", packed.device, operands)
-    n_blocks = -(-R // BWD_THREADS)
+    n_blocks = -(-R // BWD_ROWS)
     partials = torch.empty((n_blocks, KERNEL_N_W), dtype=torch.float32, device=packed.device)
     dc = torch.empty_like(packed)
     dy0 = torch.empty((S, R), dtype=torch.float32, device=packed.device)
@@ -258,6 +261,18 @@ def blackbox_bwd(wflat, packed, times, traj, g, shapes, n_states, method):
                       partials, dc, dy0)
     COUNTERS["blackbox_bwd"].launches += 1
     return partials.sum(dim=0), dc, dy0
+
+
+def bwd_block(method):
+    """The backward kernel's block for ``method`` on the current card:
+    (threads, dynamic shared memory in bytes, blocks one SM holds at once),
+    from csrc/blackbox_bwd.cu and the CUDA occupancy calculator."""
+    fn = build.load("blackbox_bwd").blackbox_bwd_block
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(ctypes.c_int(fused_ode.METHODS.index(method)), *[ctypes.byref(x) for x in out])
+    if err != 0:
+        raise RuntimeError("blackbox_bwd block query failed with cudaError %d" % err)
+    return tuple(x.value for x in out)
 
 
 class _BlackboxIntegrate(torch.autograd.Function):

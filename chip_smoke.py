@@ -22,9 +22,11 @@ Phases, each printing lines of its own:
    same weight cotangent bit for bit; then the black-box kernels
    (``blackbox_fwd``, ``blackbox_bwd``; operands from ``dr_blackbox_icml``),
    the forward against its plain version at the serving chunk and at the
-   training shape, the backward per weight leaf, constant and state row
-   against float64 run on the plain float32 sweep's relu masks, and two
-   backward runs bit-equal in dW;
+   training shape, two forward runs bit-equal, the forward's block per
+   method (threads, shared memory, blocks resident per SM, waves at both
+   shapes), the backward per weight leaf, constant and state row against
+   float64 run on the plain float32 sweep's relu masks, two backward runs
+   bit-equal in dW, and the backward's block;
 4. serving ``dr_constant_icml`` at full width: three ``predict`` requests at
    K=1000 with ``eval_solver: pallas_midpoint``, one with a counterfactual,
    with the kernel's launch count; 4b, the kernel route held against the
@@ -705,10 +707,12 @@ def phase_blackbox_kernels(device, seed):
 
     NS = fb.KERNEL_N_STATES
     fwd_rows, train_fwd_rows = {}, {}
+    fwd_R = []
     for K, rows, seed_k in ((K_SERVE, fwd_rows, seed), (K_TRAIN, train_fwd_rows, seed + 1)):
         params, consts, y0, wflat, packed, y0_cols, times, shapes = blackbox_inputs(device, K,
                                                                                     seed_k)
         B, R, T = y0.shape[0], packed.shape[1], times.shape[0]
+        fwd_R.append(R)
         print("phase 3 (blackbox): blackbox_fwd vs plain PyTorch at B=%d K=%d (R=%d) T=%d; "
               "%s each rtol %g atol %g"
               % (B, K, R, T, "/".join(g for g, _, _ in BB_GROUPS), KERNEL_RTOL, KERNEL_ATOL))
@@ -723,17 +727,32 @@ def phase_blackbox_kernels(device, seed):
                     fail("blackbox_fwd %s: the plain version is not finite on these inputs"
                          % method)
                 rel, ok = bb_states_ok(got, ref)
+                same = bool(torch.equal(
+                    fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method),
+                    fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method)))
                 r = rows[method] = dict(max_abs_err=float((got - ref).abs().max()),
-                                        max_rel=rel,
+                                        max_rel=rel, bit_equal_repeat=same,
                                         **bb_fwd_row(wflat, packed, y0_cols, times, shapes,
                                                      method))
-                print("  %-9s max_rel_err %s (max_abs_err %.3e on |ref| up to %.3e)  kernel "
-                      "%.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
+                print("  %-9s max_rel_err %s (max_abs_err %.3e on |ref| up to %.3e) | repeat run "
+                      "bit-equal: %s  kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, %d "
+                      "flop)  %s"
                       % (method, " / ".join(_fmt(x) for x in rel), r["max_abs_err"],
-                         float(ref.abs().max()), r["ms"], r["plain_ms"], r["bound_ms"],
+                         float(ref.abs().max()), same, r["ms"], r["plain_ms"], r["bound_ms"],
                          r["bound_by"], r["bytes"], r["flops"], "ok" if ok else "MISMATCH"))
                 if not ok:
                     fail("blackbox_fwd %s disagrees with its plain version" % method)
+                if not same:
+                    fail("blackbox_fwd %s: two runs gave different trajectories" % method)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for method in fused_ode.METHODS:
+        threads, smem, per_sm = fb.fwd_block(method)
+        print("  %-9s blackbox_fwd block: %d rows x %d threads, %d B of shared memory, %d blocks "
+              "(%d warps) resident per SM; %s"
+              % (method, fb.FWD_ROWS, threads, smem, per_sm, per_sm * threads // 32, "; ".join(
+                  "at R=%d %d blocks on %d SMs: %.2f waves"
+                  % (R_, -(-R_ // fb.FWD_ROWS), sms, -(-R_ // fb.FWD_ROWS) / max(per_sm * sms, 1))
+                  for R_ in sorted(fwd_R))))
 
     # the backward at the training shape (the operands of the last pass)
     leaves = ["/".join(x) for x in fb.WEIGHT_LEAVES]
@@ -810,7 +829,6 @@ def phase_blackbox_kernels(device, seed):
                 fail("blackbox_bwd %s disagrees with its plain version" % method)
             if not same:
                 fail("blackbox_bwd %s: two runs gave different weight cotangents" % method)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     n_blocks = -(-R // fb.BWD_ROWS)
     for method in fused_ode.METHODS:
         threads, smem, per_sm = fb.bwd_block(method)

@@ -302,6 +302,45 @@ def test_bwd_partials_follow_the_kernel_block():
     assert "dw_out[(size_t)blockIdx.x * N_W + e]" in common
 
 
+def _header_value(consts, name):
+    """The integer value of blackbox_common.cuh's ``constexpr int name``,
+    its expression evaluated over the header's other constants."""
+    expr = re.sub(r"\b[A-Z_][A-Z0-9_]*\b", lambda m: "(%d)" % _header_value(consts, m.group(0)),
+                  consts[name])
+    return eval(expr.replace("/", "//"), {"__builtins__": {}})
+
+
+@pytest.mark.parametrize("part", ["grid", "rows", "constants"])
+def test_fwd_block_follows_the_header(part):
+    """blackbox_fwd runs the backward's block (FWD_ROWS = BWD_ROWS rows x 8
+    warps): the entry point sizes its grid and block from the header's
+    forward constants, the kernel offsets its rows by them, and the
+    wrapper's FWD_ROWS is the header's."""
+    common = open(os.path.join(CSRC, "blackbox_common.cuh")).read()
+    headers = open(os.path.join(CSRC, "dr_common.cuh")).read() + common
+    consts = {m.group(1): m.group(2) for m in
+              re.finditer(r"^constexpr int (\w+) = ([^;]+);", headers, re.M)}
+    kernel = common[common.index("fwd_kernel(const float*"):common.index("bwd_kernel(")]
+    if part == "grid":
+        launch = open(os.path.join(CSRC, "blackbox_fwd.cu")).read()
+        assert "const dim3 grid((unsigned)((R + bb::FWD_ROWS - 1) / bb::FWD_ROWS));" in launch
+        assert launch.count("<<<grid, bb::FWD_THREADS, 0, s>>>") == 3
+        assert "__launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)\nfwd_kernel(" in common
+    elif part == "rows":
+        assert "const int r0 = blockIdx.x * FWD_ROWS + th.row;" in kernel
+        assert "th.row = threadIdx.x % FWD_ROWS;" in kernel
+        assert "th.q = threadIdx.x / FWD_ROWS;" in kernel
+        assert "const int r = live ? r0 : R - 1;" in kernel
+        assert kernel.count("if (live") == 2  # y0 and each step: stored by live rows only
+    else:
+        assert consts["FWD_ROWS"] == "BWD_ROWS"
+        assert _header_value(consts, "FWD_ROWS") == fb.FWD_ROWS == fb.BWD_ROWS == 32
+        assert _header_value(consts, "FWD_THREADS") == fb.FWD_ROWS * 8
+        assert _header_value(consts, "FWD_MIN_BLOCKS") == 3  # at most 80 registers a thread
+        # the forward's staged weights and slot fit the 48 KB of static shared memory
+        assert 4 * (_header_value(consts, "N_WF") + _header_value(consts, "LD") * 76) == 18496
+
+
 # ------------------------------------------------------------- NeuralStates
 def test_neural_states_match_jax():
     """``__call__`` on the JAX net's converted params, and the port's own

@@ -405,22 +405,30 @@ def _bb_operands(device, K=5, seed=0):
 
 
 @pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
-def test_blackbox_fwd_kernel_matches_plain(cuda, method):
+@pytest.mark.parametrize("R", [180, 20, 256])
+def test_blackbox_fwd_kernel_matches_plain(cuda, R, method):
     """Each state group (observed, latent, precisions) to the species'
-    tolerance, as chip_smoke.py phase 3."""
+    tolerance, as chip_smoke.py phase 3, and the same trajectory bit for bit
+    from run to run.  At R = 180 (B = 36 x K = 5: five full 32-row blocks and
+    a ragged one), below one block (20 x 1) and at eight full blocks (32 x
+    8)."""
     import chip_smoke
     from vihds_tpu_torch.ops import fused_blackbox as fb
 
-    params, consts, y0, wflat, packed, y0_cols, times, shapes = _bb_operands(cuda)
+    K = -(-R // 36)
+    params, consts, y0, _, _, _, times, _ = _bb_operands(cuda, K=K)
+    consts, y0 = consts[:R // K], y0[:R // K]
     before = fb.blackbox_simulate.launches
     got = fb.blackbox_simulate(params, consts, y0, times, fb.KERNEL_N_STATES, method)
     torch.cuda.synchronize()
     assert fb.blackbox_simulate.launches == before + 1
     ref = fb.blackbox_simulate_plain(params, consts, y0, times, fb.KERNEL_N_STATES, method)
-    assert got.shape == ref.shape == (times.shape[0],) + tuple(y0.shape)
+    assert got.shape == ref.shape == (times.shape[0], R // K, K, fb.KERNEL_N_STATES + fb.N_PREC)
     assert torch.isfinite(ref).all()
     rel, ok = chip_smoke.bb_states_ok(got, ref)
     assert ok, rel
+    again = fb.blackbox_simulate(params, consts, y0, times, fb.KERNEL_N_STATES, method)
+    assert torch.equal(got, again)
 
 
 def _assert_blackbox_cotangents_close(got, ref, shapes):

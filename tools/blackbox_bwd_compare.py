@@ -1,20 +1,28 @@
-"""Hold the black-box backward kernel against other builds of it on the card.
+"""Hold a black-box kernel, the backward or the forward, against other builds
+of it on the card.
 
-Builds, besides this tree's ``csrc/blackbox_bwd.cu`` (through
-``vihds_tpu_torch.ops.build``), a reference source tree given with ``--ref``
+Builds, besides this tree's ``csrc/blackbox_bwd.cu`` (``--direction bwd``,
+the default) or ``csrc/blackbox_fwd.cu`` (``--direction fwd``), both through
+``vihds_tpu_torch.ops.build``, a reference source tree given with ``--ref``
 (for example an earlier commit's ``vihds_tpu_torch/csrc``, unpacked with
 ``git archive``); for each ``--rows N`` this tree's source with its block's
-``BWD_ROWS`` set to N; with ``--no-dw`` this tree's source without the
-pullbacks' reduction of the weight cotangent (what that costs); with
-``--variant NAME=DIR`` any other source tree.  At the training shape of
-``dr_blackbox_icml`` (B=36, K=200: R=7,200, T=86; chip_smoke.py phase 3's
-operands) it runs every build on the same operands for each method, says
-whether dW, dc and dy0 equal this tree's bit for bit (the largest
-difference where not), and times each build with CUDA events (median of 20
-launches) in turns: reference, this tree, the others, then the same in
-reverse.  Prints the ptxas lines of the builds it makes, then one JSON line.
+``BWD_ROWS`` (which the forward's ``FWD_ROWS`` follows) set to N; with
+``--no-dw`` this tree's backward without the pullbacks' reduction of the
+weight cotangent (what that costs); with ``--rowwise`` the forward's variant
+``tools/blackbox_fwd_rowwise.cu`` (one thread per row, 32-row blocks, no
+barriers); with ``--variant NAME=DIR`` any other source tree.  The backward
+runs at the training shape of ``dr_blackbox_icml`` (B=36, K=200: R=7,200,
+T=86), the forward there and at the serving chunk (K=1000: R=36,000), on
+chip_smoke.py phase 3's operands.  For each shape and method it runs every
+build on the same operands, says whether its outputs (dW, dc and dy0; the
+trajectory) equal this tree's bit for bit (the largest difference, and for
+the trajectory the most ulps, where not), and times each build with CUDA
+events (median of 20 launches) in turns: reference, this tree, the others,
+then the same in reverse.  Prints the ptxas lines of the builds, then one
+JSON line.
 
     python3 tools/blackbox_bwd_compare.py --ref build/parent/vihds_tpu_torch/csrc --rows 16 --no-dw
+    python3 tools/blackbox_bwd_compare.py --direction fwd --ref build/parent/vihds_tpu_torch/csrc --rowwise
 
 Needs an NVIDIA GPU and nvcc.
 """
@@ -32,22 +40,28 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 OUT = os.path.join(HERE, "build", "compare")
+ROWWISE = os.path.join(HERE, "tools", "blackbox_fwd_rowwise.cu")
 
 
-def build_library(name, csrc):
-    """nvcc ``csrc/blackbox_bwd.cu`` with the port's flags into
+def ptxas_lines(log):
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
+
+
+def build_library(name, source, include=None):
+    """nvcc ``source`` with the port's flags (and ``-I include``) into
     build/compare/lib<name>.so; returns (path, ptxas lines)."""
     from vihds_tpu_torch.ops import build
 
     os.makedirs(OUT, exist_ok=True)
     path = os.path.join(OUT, "lib%s.so" % name)
-    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", path, os.path.join(csrc, "blackbox_bwd.cu")]
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *(["-I", include] if include else []), "-o",
+           path, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError("nvcc %s failed:\n%s" % (name, log))
-    return path, [ln.strip() for ln in log.splitlines()
-                  if "registers" in ln or "spill" in ln or "entry function" in ln]
+    return path, ptxas_lines(log)
 
 
 def edited_copy(name, pattern, repl):
@@ -67,24 +81,73 @@ def edited_copy(name, pattern, repl):
     return dst
 
 
-def launcher(path):
-    fn = ctypes.CDLL(path).blackbox_bwd_launch
+def launcher(path, direction):
+    fn = getattr(ctypes.CDLL(path), "blackbox_%s_launch" % direction)
     p = ctypes.c_void_p
-    fn.argtypes = [p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+    fn.argtypes = [p] * {"fwd": 5, "bwd": 8}[direction] + [ctypes.c_int] * 3 + [p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def max_ulps(a, b):
+    """The most units in the last place between two float32 tensors of the
+    same signs."""
+    import torch
+
+    d = (a.contiguous().view(torch.int32).long() - b.contiguous().view(torch.int32).long()).abs()
+    return int(d.max())
+
+
+def compare(names, run, this, ref_outs, keys, ulps):
+    """Each build's outputs against this tree's, then every build timed in
+    turns (the reference first, then this tree, the others; then in reverse)."""
+    import torch
+
+    import chip_smoke
+
+    readings = {}
+    for name in names:
+        got = run(name)
+        torch.cuda.synchronize()
+        readings[name] = {
+            "bit_equal": {k: bool(torch.equal(a, b)) for k, a, b in zip(keys, got, ref_outs)},
+            "max_abs_diff": {k: float((a - b).abs().max())
+                             for k, a, b in zip(keys, got, ref_outs)},
+        }
+        if ulps:
+            readings[name]["max_ulps"] = {k: max_ulps(a, b) for k, a, b in zip(keys, got, ref_outs)}
+    order = (["reference"] if "reference" in names else []) + ["this"] + [
+        n for n in names if n != "reference"]
+    order = order + order[::-1]
+    ms = {n: [] for n in order}
+    for n in order:
+        ms[n].append(chip_smoke.cuda_ms(this if n == "this" else (lambda n=n: run(n)), 20))
+    readings["this"] = {}
+    for n in ms:
+        readings[n]["ms"] = ms[n]
+    line = "  ".join("%s %s ms%s" % (n, "/".join("%.4f" % t for t in ms[n]),
+                                      "" if n == "this" else " bit-equal %s" % readings[n]["bit_equal"])
+                     for n in ms)
+    return readings, line
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ref", help="a csrc directory holding blackbox_bwd.cu and its headers")
+    ap.add_argument("--direction", choices=("bwd", "fwd"), default="bwd",
+                    help="the kernel to compare: the backward (default) or the forward")
+    ap.add_argument("--ref", help="a csrc directory holding blackbox_<direction>.cu and its headers")
     ap.add_argument("--rows", type=int, action="append", default=[],
                     help="also build this tree's kernel with this many rows a block")
     ap.add_argument("--no-dw", action="store_true",
-                    help="also build this tree's kernel without the weights' reduction (timing only)")
+                    help="also build this tree's backward without the weights' reduction (timing only)")
+    ap.add_argument("--rowwise", action="store_true",
+                    help="also build the forward's one-thread-per-row variant")
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
                     help="also build the csrc directory DIR (32 rows a block) as NAME")
     args = ap.parse_args(argv)
+    d = args.direction
+    if args.no_dw and d != "bwd" or args.rowwise and d != "fwd":
+        ap.error("--no-dw takes the backward, --rowwise the forward")
 
     import torch
 
@@ -96,81 +159,78 @@ def main(argv=None):
         return 2
     card = chip_smoke.phase_card()
     device = torch.device("cuda")
-    builds = {}  # name -> (launch function, rows a block)
-    ptxas = {}
+    src = "blackbox_%s.cu" % d
+    sources = []  # (name, source file, include dir, rows a block)
     if args.ref:
-        path, ptxas["reference"] = build_library("blackbox_bwd_reference", args.ref)
-        builds["reference"] = (launcher(path), 32)
-    sources = [("rows%d" % rows, edited_copy("rows%d" % rows, r"^constexpr int BWD_ROWS = \d+;",
-                                             "constexpr int BWD_ROWS = %d;" % rows), rows)
-               for rows in args.rows]
+        sources.append(("reference", os.path.join(args.ref, src), None, 32))
+    sources += [("rows%d" % rows, os.path.join(edited_copy(
+        "rows%d" % rows, r"^constexpr int BWD_ROWS = \d+;", "constexpr int BWD_ROWS = %d;" % rows),
+        src), None, rows) for rows in args.rows]
     if args.no_dw:
-        sources.append(("no_dw", edited_copy(
+        sources.append(("no_dw", os.path.join(edited_copy(
             "no_dw", r"for \(int it = tid / 32; it < N_DW_ITEMS;",
-            "for (int it = tid / 32; it < 0;"), 32))
-    sources += [tuple(v.split("=", 1)) + (32,) for v in args.variant]
-    for name, csrc, rows in sources:
-        path, ptxas[name] = build_library("blackbox_bwd_" + name, csrc)
-        builds[name] = (launcher(path), rows)
-    for name, lines in ptxas.items():
+            "for (int it = tid / 32; it < 0;"), src), None, 32))
+    if args.rowwise:
+        sources.append(("rowwise", ROWWISE, build.CSRC, 32))
+    sources += [(v.split("=", 1)[0], os.path.join(v.split("=", 1)[1], src), None, 32)
+                for v in args.variant]
+    builds = {}  # name -> (launch function, rows a block)
+    for name, source, include, rows in sources:
+        path, lines = build_library("blackbox_%s_%s" % (d, name), source, include)
+        builds[name] = (launcher(path, d), rows)
         for ln in lines:
             print("  %s ptxas: %s" % (name, ln))
-    for ln in build.build(["blackbox_bwd"]).get("blackbox_bwd", "").splitlines():
-        if "registers" in ln or "spill" in ln or "entry function" in ln:
-            print("  this ptxas: %s" % ln.strip())
+    for ln in ptxas_lines(build.build(["blackbox_" + d]).get("blackbox_" + d, "")):
+        print("  this ptxas: %s" % ln)
 
-    seed = chip_smoke.SEED + 101  # chip_smoke.py phase 3's operands at the training shape
-    _, _, _, wflat, packed, y0_cols, times, shapes = chip_smoke.blackbox_inputs(
-        device, chip_smoke.K_TRAIN, seed + 1)
-    NS, R, T = fb.KERNEL_N_STATES, packed.shape[1], times.shape[0]
+    seed = chip_smoke.SEED + 101  # chip_smoke.py phase 3's operands
+    shapes_k = ((chip_smoke.K_TRAIN, seed + 1),) + (((chip_smoke.K_SERVE, seed),) if d == "fwd"
+                                                    else ())
+    NS = fb.KERNEL_N_STATES
     stream = torch.cuda.current_stream(device).cuda_stream
-    result = {"card": card, "R": R, "T": T, "methods": {}}
-    for mi, method in enumerate(fused_ode.METHODS):
-        traj = fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method)
-        gen = torch.Generator(device=device).manual_seed(seed + 2)
-        g = torch.randn(traj.shape, generator=gen, device=device)
-        dw, dc, dy0 = fb.blackbox_bwd(wflat, packed, times, traj, g, shapes, NS, method)
+    result = {"card": card, "direction": d, "shapes": []}
+    for K, seed_k in shapes_k:
+        _, _, _, wflat, packed, y0_cols, times, shapes = chip_smoke.blackbox_inputs(device, K,
+                                                                                    seed_k)
+        R, T = packed.shape[1], times.shape[0]
+        print("blackbox_%s at K=%d (R=%d, T=%d)" % (d, K, R, T))
+        entry = {"K": K, "R": R, "T": T, "methods": {}}
+        for mi, method in enumerate(fused_ode.METHODS):
+            traj = fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method)
+            if d == "fwd":
+                def this():
+                    return fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method)
 
-        def run(name):
-            fn, rows = builds[name]
-            parts = torch.empty((-(-R // rows), fb.KERNEL_N_W), device=device)
-            odc, ody0 = torch.empty_like(dc), torch.empty_like(dy0)
-            err = fn(*[t.data_ptr() for t in (wflat, packed, times, traj, g, parts, odc, ody0)],
-                     R, T, mi, stream)
-            if err != 0:
-                raise RuntimeError("%s launch failed with cudaError %d" % (name, err))
-            return parts.sum(dim=0), odc, ody0
+                def run(name):
+                    out = torch.empty_like(traj)
+                    err = builds[name][0](*[t.data_ptr() for t in (wflat, packed, y0_cols, times,
+                                                                   out)], R, T, mi, stream)
+                    if err != 0:
+                        raise RuntimeError("%s launch failed with cudaError %d" % (name, err))
+                    return (out,)
 
-        readings = {}
-        for name in builds:
-            got = run(name)
-            torch.cuda.synchronize()
-            readings[name] = {
-                "bit_equal": {k: bool(torch.equal(a, b))
-                              for k, a, b in zip(("dw", "dc", "dy0"), got, (dw, dc, dy0))},
-                "max_abs_diff": {k: float((a - b).abs().max())
-                                 for k, a, b in zip(("dw", "dc", "dy0"), got, (dw, dc, dy0))},
-            }
-        names = list(builds)
-        order = (["reference"] if "reference" in builds else []) + ["this"] + [
-            n for n in names if n != "reference"]
-        order = order + order[::-1]
-        ms = {n: [] for n in order}
-        for n in order:
-            if n == "this":
-                t = chip_smoke.cuda_ms(
-                    lambda: fb.blackbox_bwd(wflat, packed, times, traj, g, shapes, NS, method), 20)
+                readings, line = compare(builds, run, this, (traj,), ("traj",), True)
             else:
-                t = chip_smoke.cuda_ms(lambda n=n: run(n), 20)
-            ms[n].append(t)
-        readings["this"] = {}
-        for n in ms:
-            readings[n]["ms"] = ms[n]
-        result["methods"][method] = readings
-        print("%-9s %s" % (method, "  ".join(
-            "%s %s ms%s" % (n, "/".join("%.4f" % t for t in ms[n]),
-                            "" if n == "this" else " bit-equal %s" % readings[n]["bit_equal"])
-            for n in ms)))
+                gen = torch.Generator(device=device).manual_seed(seed + 2)
+                g = torch.randn(traj.shape, generator=gen, device=device)
+
+                def this():
+                    return fb.blackbox_bwd(wflat, packed, times, traj, g, shapes, NS, method)
+
+                def run(name):
+                    fn, rows = builds[name]
+                    parts = torch.empty((-(-R // rows), fb.KERNEL_N_W), device=device)
+                    odc, ody0 = torch.empty_like(packed), torch.empty_like(y0_cols)
+                    err = fn(*[t.data_ptr() for t in (wflat, packed, times, traj, g, parts, odc,
+                                                      ody0)], R, T, mi, stream)
+                    if err != 0:
+                        raise RuntimeError("%s launch failed with cudaError %d" % (name, err))
+                    return parts.sum(dim=0), odc, ody0
+
+                readings, line = compare(builds, run, this, this(), ("dw", "dc", "dy0"), False)
+            entry["methods"][method] = readings
+            print("%-9s %s" % (method, line))
+        result["shapes"].append(entry)
     print(json.dumps(result))
     return 0
 

@@ -1,10 +1,10 @@
 // Device code of the fused black-box ODE kernels (blackbox_fwd.cu and
 // blackbox_bwd.cu): the right-hand side of models/dr_blackbox.py, its
-// hand-derived pullback and the two kernels.  The forward steps with the
-// mechanistic kernels' one_step (dr_common.cuh); the backward has its own
-// step pullback (step_vjp below), which keeps each stage's activations from
-// its right-hand side for the stage's pullback, with the arithmetic of
-// dr_common.cuh's step_vjp.
+// hand-derived pullback and the two kernels, both run by one block of rows x
+// warps (below).  The forward steps with the mechanistic kernels' one_step
+// (dr_common.cuh); the backward has its own step pullback (step_vjp below),
+// which keeps each stage's activations from its right-hand side for the
+// stage's pullback, with the arithmetic of dr_common.cuh's step_vjp.
 //
 // The right-hand side is two small nets whose weights every sample row shares
 // (NeuralStates and NeuralPrecisions with a relu hidden layer):
@@ -59,23 +59,11 @@ constexpr int PD_B = PD_W + HP * NP;
 constexpr int N_W = PD_B + NP;  // 1,760
 static_assert(N_W == 1760, "the dr_blackbox_icml weight count");
 
-constexpr int FWD_THREADS = 128;
-
-// --------------------------------------------------------------------------
-// The two nets, and the right-hand side (fused_blackbox._bb_rhs_cols) for
-// one row in one thread, as the forward kernel runs it: W the weights
-// (shared memory, read by every thread at the same address, so each read is
-// a broadcast), c the row's constants, y its S states.  The hidden units are
-// visited one at a time and each is folded into the output sums at once, so
-// no hidden vector is held in registers.
-// --------------------------------------------------------------------------
-
 // A net of the right-hand side: its weight leaves' offsets, its hidden and
 // output widths, the first state it writes (its outputs are the derivatives
 // of y[Y0 .. Y0 + OUT - 1], which its degradation term multiplies), whether
-// its input begins with the time, and, for the backward's block below, its
-// first hidden unit U0 among both nets' NU units and its first output sum O0
-// among their NO.
+// its input begins with the time, its first hidden unit U0 among both nets'
+// NU units and its first output sum O0 among their NO.
 struct StatesNet {
   static constexpr int W_H = SH_W, B_H = SH_B, W_P = SP_W, B_P = SP_B, W_D = SD_W, B_D = SD_B;
   static constexpr int HID = H, OUT = NS, Y0 = 0, TIME = 0, U0 = 0, O0 = 0;
@@ -85,50 +73,8 @@ struct PrecNet {
   static constexpr int HID = HP, OUT = NP, Y0 = NS, TIME = 1, U0 = H, O0 = 2 * NS;
 };
 
-// The net's hidden layer and the sums of its output layer (before the
-// biases) into p, d.
-template <class N>
-__device__ __forceinline__ void net_forward(const float* W, const float* c, float t,
-                                            const float* y, float* p, float* d) {
-#pragma unroll
-  for (int j = 0; j < N::OUT; ++j) p[j] = d[j] = 0.0f;
-#pragma unroll 5
-  for (int k = 0; k < N::HID; ++k) {
-    float a = N::TIME ? W[N::W_H + k] * t : 0.0f;
-#pragma unroll
-    for (int i = 0; i < NS; ++i) a += W[N::W_H + (N::TIME + i) * N::HID + k] * y[i];
-#pragma unroll
-    for (int j = 0; j < NC; ++j) a += W[N::W_H + (N::TIME + NS + j) * N::HID + k] * c[j];
-    const float hk = fmaxf(a + W[N::B_H + k], 0.0f);
-#pragma unroll
-    for (int j = 0; j < N::OUT; ++j) {
-      p[j] += W[N::W_P + k * N::OUT + j] * hk;
-      d[j] += W[N::W_D + k * N::OUT + j] * hk;
-    }
-  }
-}
-
-struct Rhs {
-  const float* c;
-  const float* W;
-
-  template <class N>
-  __device__ __forceinline__ void net(float t, const float* y, float* f) const {
-    float p[N::OUT], d[N::OUT];
-    net_forward<N>(W, c, t, y, p, d);
-#pragma unroll
-    for (int j = 0; j < N::OUT; ++j)
-      f[N::Y0 + j] = sigmoidf(p[j] + W[N::B_P + j]) - sigmoidf(d[j] + W[N::B_D + j]) * y[N::Y0 + j];
-  }
-
-  __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
-    net<StatesNet>(t, y, f);
-    net<PrecNet>(t, y, f);
-  }
-};
-
 // --------------------------------------------------------------------------
-// The backward's block: BWD_ROWS sample rows x BWD_SLICES warps.
+// The block of both kernels: BWD_ROWS sample rows x BWD_SLICES warps.
 //
 // Lane l of warp q works on sample row l of the block and on slice q of the
 // two nets' NU = 45 hidden units (units u = q, q + 8, ...; the states net's
@@ -136,23 +82,29 @@ struct Rhs {
 // constants are held by all of its BWD_SLICES threads alike; the nets' work
 // is split among them, each float sum done by one thread in the order a
 // sweep with one thread per row takes (each dot product's terms in index
-// order, then the bias), so the results are that sweep's bit for bit:
+// order, then the bias; each output sum over the units in index order, then
+// its bias inside the sigmoid), so the results are that sweep's bit for bit:
 //   forward of a stage: each thread computes its units' pre-activations
 //     (inputs in index order, then the bias) and relus into the stage's slot;
 //     after a barrier each of the NO = 20 output sums (p and d of the states
 //     net, then of the precision net) is summed by one thread over its net's
-//     units in index order, and its sigmoid goes to the slot; after a second
-//     barrier every thread reads the 20 sigmoids and forms the right-hand
-//     side of its row.
+//     units in index order, and its sigmoid goes to the slot (the forward
+//     kernel's threads take one sum of four rows each, the backward's the
+//     sums of their own row); after a second barrier every thread reads the
+//     20 sigmoids and forms the right-hand side of its row.
 //   pullback of a stage: every thread forms the output layer's cotangents
 //     from the slot's sigmoids, and each its units' cotangents dah_k; after a
 //     barrier each of the NX = 27 input cotangent sums (dx 6, dc 21) is
 //     summed by one thread over the units in index order, the states net's
 //     then the precision net's, and the block's threads reduce the weights'
 //     share (below); after a second barrier every thread reads its row's dx.
-// A stage's slot keeps its input (t, z), its hidden units and its sigmoids
-// from its forward until its pullback, so a midpoint or modeuler step
-// evaluates the nets twice and an rk4 step four times, not 3 and 7 times.
+// In the backward a stage's slot keeps its input (t, z), its hidden units and
+// its sigmoids from its forward until its pullback, so a midpoint or modeuler
+// step evaluates the nets twice and an rk4 step four times, not 3 and 7
+// times.  The forward kernel runs only the stages' forwards, through one slot
+// (its second barrier ends every read of the slot's units, and every thread
+// reads the sigmoids before it reaches the next stage's first barrier), and
+// each thread repeats the state update of one_step for its row.
 //
 // The weight cotangent is a sum over every row and every pullback of outer
 // products, 1,760 entries per pullback and row.  Each pullback has in the
@@ -178,12 +130,18 @@ struct Rhs {
 // so one 16-byte broadcast load feeds four multiply-adds: each unit's input
 // weights contiguous (WF_H), each output sum's weights over its units
 // (WF_O), each unit's (W_p, W_d) pairs over the outputs (WB_O) and, per
-// slice, each unit's weights into the slice's input cotangent sums (WB_I).
+// slice, each unit's weights into the slice's input cotangent sums (WB_I);
+// the forward stages the first two (and their biases) only.
 // --------------------------------------------------------------------------
 constexpr int BWD_ROWS = 32;
 constexpr int BWD_SLICES = 8;
 constexpr int BWD_THREADS = BWD_ROWS * BWD_SLICES;
 constexpr int BWD_MIN_BLOCKS = 65536 / (128 * BWD_THREADS);  // at most 128 registers a thread
+// the forward's block is the backward's; with no cotangents it needs fewer
+// registers, so three blocks (24 warps) fit on an SM
+constexpr int FWD_ROWS = BWD_ROWS;
+constexpr int FWD_THREADS = BWD_THREADS;
+constexpr int FWD_MIN_BLOCKS = 65536 / (80 * FWD_THREADS);  // at most 80 registers a thread
 constexpr int LD = BWD_ROWS + 4;     // a feature's row: 16-byte aligned, banks staggered
 constexpr int NU = H + HP;           // hidden units of both nets
 constexpr int NO = 2 * (NS + NP);    // output sums: p, d of the states net, then p, d of the precisions'
@@ -201,6 +159,7 @@ constexpr int WF_OB = WF_O + NO * OUT_LD;        // [NO]: output biases
 constexpr int WB_O = WF_OB + NO;                 // [NU][WB_LD]
 constexpr int WB_I = WB_O + NU * WB_LD;          // [BWD_SLICES][NU][SUMS]
 constexpr int N_WS = WB_I + BWD_SLICES * NU * SUMS;
+constexpr int N_WF = WB_O;                       // the forward's: WF_H .. WF_OB
 static_assert(WF_HB % 4 == 0 && WF_O % 4 == 0 && WB_O % 4 == 0 && WB_I % 4 == 0 && N_WS % 4 == 0,
               "float4 loads of the staged weights");
 static_assert(BWD_ROWS % 4 == 0 && LD % 4 == 0 && (N_WS + 2 * N_W) % 4 == 0,
@@ -347,21 +306,12 @@ __device__ __forceinline__ int first_sum(int q) {
   return (q + BWD_SLICES - N::O0 % BWD_SLICES) % BWD_SLICES;
 }
 
-// One thread of the backward block: lane `row` of warp `q`.
-struct BwdThread {
+// One thread of either kernel's block: lane `row` of warp `q`, which holds
+// its row's constants; the forward of a stage.
+struct SliceThread {
   const float* Ws;         // staged weights
-  float* dWs;              // [N_W] the block's accumulator
-  const unsigned* pairs;   // [N_W] entry_features of each entry
-  float* tile;             // [N_COMMON + slots * N_SLOT][LD]
-  int tid, row, q;
-  bool live;               // r < R: stage this row's cotangents
+  int row, q;
   float c[NC];             // the row's constants
-  float dc[SUMS];          // this thread's input cotangent sums of dc, over the sweep
-
-  __device__ __forceinline__ float* common() const { return tile + row; }
-  __device__ __forceinline__ float* slot(int s) const {
-    return tile + (N_COMMON + s * N_SLOT) * LD + row;
-  }
 
   // net N's hidden units of this slice at the input in = [t; x; c] into col
   template <class N>
@@ -406,15 +356,46 @@ struct BwdThread {
     }
   }
 
-  // The forward of one stage at (t, z) into slot s; with F, the right-hand
-  // side f of the row.  Every thread of the block calls it at the same point.
-  template <bool F>
-  __device__ __forceinline__ void stage(int s, float t, const float* z, float* f) const {
-    float* col = slot(s);
-    if (q == 0) col[F_T * LD] = t;
+  // net N's output sum o of rows 4 g .. 4 g + 3 over the units in the slot
+  // whose row 0's column is base, its sigmoids into the slot: each unit's
+  // four rows one 16-byte load, each weight four multiply-adds
+  template <class N>
+  __device__ __forceinline__ void sums_by_4(float* base, int o, int g) const {
+    const float4* h = reinterpret_cast<const float4*>(base + (F_H + N::U0) * LD) + g;
+    const float* w = Ws + WF_O + o * OUT_LD;
+    float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < S; ++i)
-      if (i % BWD_SLICES == q) col[(F_Z + i) * LD] = z[i];
+    for (int k = 0; k < N::HID; k += 4) {
+      const float4 w4 = *reinterpret_cast<const float4*>(w + k);
+      const float wk[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (k + kk < N::HID) {
+          const float4 h4 = h[(k + kk) * (LD / 4)];
+          p0 += wk[kk] * h4.x;
+          p1 += wk[kk] * h4.y;
+          p2 += wk[kk] * h4.z;
+          p3 += wk[kk] * h4.w;
+        }
+    }
+    const float b = Ws[WF_OB + o];
+    float4 sg;
+    sg.x = sigmoidf(p0 + b);
+    sg.y = sigmoidf(p1 + b);
+    sg.z = sigmoidf(p2 + b);
+    sg.w = sigmoidf(p3 + b);
+    reinterpret_cast<float4*>(base + (F_SIG + o) * LD)[g] = sg;
+  }
+
+  // The forward of one stage at (t, z) through col, this row's column of a
+  // slot (its units and sigmoids); with F, the right-hand side f of the row.
+  // The output sums are taken per row (slice q the sums o = q mod
+  // BWD_SLICES of its row) or, with BY_4, four rows a thread (lane l of warp
+  // q the sum 4 q + l / 8 of the rows 4 (l % 8) .. + 3; warps 0-4 work, 5-7
+  // wait): a quarter of the loads of the units, but four sigmoids a thread.
+  // Every thread of the block calls it at the same point.
+  template <bool F, bool BY_4 = false>
+  __device__ __forceinline__ void forward(float* col, float t, const float* z, float* f) const {
     float in[N_INP];
     in[0] = t;
 #pragma unroll
@@ -424,8 +405,17 @@ struct BwdThread {
     hidden<StatesNet>(in, col);
     hidden<PrecNet>(in, col);
     __syncthreads();
-    outputs<StatesNet>(col);
-    outputs<PrecNet>(col);
+    if constexpr (BY_4) {
+      static_assert(BWD_ROWS == 32 && NO <= 4 * BWD_SLICES, "a warp takes 4 sums of 8 row quads");
+      const int o = 4 * q + row / 8;
+      if (o < 2 * NS)
+        sums_by_4<StatesNet>(col - row, o, row % 8);
+      else if (o < NO)
+        sums_by_4<PrecNet>(col - row, o, row % 8);
+    } else {
+      outputs<StatesNet>(col);
+      outputs<PrecNet>(col);
+    }
     __syncthreads();
     if constexpr (F) {
 #pragma unroll
@@ -435,6 +425,44 @@ struct BwdThread {
       for (int j = 0; j < NP; ++j)
         f[NS + j] = col[(F_SIG + 2 * NS + j) * LD] - col[(F_SIG + 2 * NS + NP + j) * LD] * z[NS + j];
     }
+  }
+};
+
+// The right-hand side of the forward kernel's block for one_step
+// (dr_common.cuh): each call one stage through the block's one slot.
+struct SliceRhs {
+  const SliceThread* th;
+  float* col;  // this row's column of the slot
+
+  __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
+    th->forward<true, true>(col, t, y, f);
+  }
+};
+
+// One thread of the backward block.
+struct BwdThread : SliceThread {
+  float* dWs;              // [N_W] the block's accumulator
+  const unsigned* pairs;   // [N_W] entry_features of each entry
+  float* tile;             // [N_COMMON + slots * N_SLOT][LD]
+  int tid;
+  bool live;               // r < R: stage this row's cotangents
+  float dc[SUMS];          // this thread's input cotangent sums of dc, over the sweep
+
+  __device__ __forceinline__ float* common() const { return tile + row; }
+  __device__ __forceinline__ float* slot(int s) const {
+    return tile + (N_COMMON + s * N_SLOT) * LD + row;
+  }
+
+  // The forward of one stage at (t, z) into slot s, which keeps (t, z) too;
+  // with F, the right-hand side f of the row.
+  template <bool F>
+  __device__ __forceinline__ void stage(int s, float t, const float* z, float* f) const {
+    float* col = slot(s);
+    if (q == 0) col[F_T * LD] = t;
+#pragma unroll
+    for (int i = 0; i < S; ++i)
+      if (i % BWD_SLICES == q) col[(F_Z + i) * LD] = z[i];
+    forward<F>(col, t, z, f);
   }
 
   // net N's output cotangents for w (all of them, in registers; the slice's
@@ -642,12 +670,14 @@ __device__ __forceinline__ void step_vjp(BwdThread& th, float t1, float t2, cons
 // --------------------------------------------------------------------------
 // The kernels
 //
-// Forward (the TPU kernel's _make_kernel): one thread per sample row, the
-// weights staged into shared memory once per block (before the edge mask, so
-// every thread reaches the barrier), the row's constants and states in
-// registers for the whole time loop, out[t, s, r] stored coalesced.  The TPU
-// kernel padded R up to its block with constants 0 and y0 1e-3
-// (pallas_blackbox.py:256-260); the mask leaves no padded row.
+// Forward (the TPU kernel's _make_kernel): the block described above steps
+// its rows with one_step, each stage's nets split over the warps through one
+// slot; the weights staged into shared memory once per block, the row's
+// constants and states in registers for the whole time loop, state s of the
+// row stored by slice s % BWD_SLICES, so out[t, s, r] is stored coalesced.
+// The TPU kernel padded R up to its block with constants 0 and y0 1e-3
+// (pallas_blackbox.py:256-260); rows past the edge (r >= R) run on row R - 1,
+// to reach every barrier, and store nothing.
 //
 // Backward (_make_bwd_kernel): the reverse sweep over the stored trajectory
 // by the block described above (each step's stages evaluated from traj[i]
@@ -655,36 +685,44 @@ __device__ __forceinline__ void step_vjp(BwdThread& th, float t1, float t2, cons
 // registers), with the weight cotangent reduced per block.
 // --------------------------------------------------------------------------
 template <int METHOD>
-__global__ void __launch_bounds__(FWD_THREADS)
+__global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)
 fwd_kernel(const float* __restrict__ wflat, const float* __restrict__ consts,
            const float* __restrict__ y0, const float* __restrict__ times,
            float* __restrict__ out, int R, int T) {
-  __shared__ float W[N_W];
-  for (int e = threadIdx.x; e < N_W; e += blockDim.x) W[e] = wflat[e];
-  __syncthreads();
+  __shared__ __align__(16) float Ws[N_WF];
+  __shared__ __align__(16) float slot[N_SLOT * LD];
+  for (int e = threadIdx.x; e < N_WF; e += FWD_THREADS) Ws[e] = staged_weight(wflat, e);
+  SliceThread th;
+  th.Ws = Ws;
+  th.row = threadIdx.x % FWD_ROWS;
+  th.q = threadIdx.x / FWD_ROWS;
 
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+  const int r0 = blockIdx.x * FWD_ROWS + th.row;
+  const bool live = r0 < R;
+  const int r = live ? r0 : R - 1;
   const size_t stride = (size_t)R;
 
-  float c[NC];
 #pragma unroll
-  for (int j = 0; j < NC; ++j) c[j] = consts[j * stride + r];
-  const Rhs rhs{c, W};
-
+  for (int j = 0; j < NC; ++j) th.c[j] = consts[j * stride + r];
   float y[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     y[s] = y0[s * stride + r];
-    out[s * stride + r] = y[s];
+    if (live && s % BWD_SLICES == th.q) out[s * stride + r] = y[s];
   }
+  __syncthreads();
+
+  const SliceRhs rhs{&th, slot + th.row};
   float t1 = __ldg(times);
   for (int i = 1; i < T; ++i) {
     const float t2 = __ldg(times + i);
     one_step<METHOD, S>(rhs, t1, t2, y);
-    float* o = out + (size_t)i * S * stride + r;
+    if (live) {
+      float* o = out + (size_t)i * S * stride + r;
 #pragma unroll
-    for (int s = 0; s < S; ++s) o[s * stride] = y[s];
+      for (int s = 0; s < S; ++s)
+        if (s % BWD_SLICES == th.q) o[s * stride] = y[s];
+    }
     t1 = t2;
   }
 }

@@ -75,6 +75,9 @@ KERNEL_N_W = sum(torch.Size(s).numel() for s in KERNEL_LEAF_SHAPES)
 #: BWD_ROWS; each row is worked on by 8 threads): it returns the weight
 #: cotangent as one partial sum per block
 BWD_ROWS = 32
+#: sample rows per block of the forward kernel (the header's FWD_ROWS, the
+#: backward's block)
+FWD_ROWS = 32
 
 
 def supported(ode_model):
@@ -263,16 +266,27 @@ def blackbox_bwd(wflat, packed, times, traj, g, shapes, n_states, method):
     return partials.sum(dim=0), dc, dy0
 
 
+def _block(kernel, method):
+    fn = getattr(build.load(kernel), kernel + "_block")
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(ctypes.c_int(fused_ode.METHODS.index(method)), *[ctypes.byref(x) for x in out])
+    if err != 0:
+        raise RuntimeError("%s block query failed with cudaError %d" % (kernel, err))
+    return tuple(x.value for x in out)
+
+
+def fwd_block(method):
+    """The forward kernel's block for ``method`` on the current card:
+    (threads, shared memory in bytes, blocks one SM holds at once), from
+    csrc/blackbox_fwd.cu and the CUDA occupancy calculator."""
+    return _block("blackbox_fwd", method)
+
+
 def bwd_block(method):
     """The backward kernel's block for ``method`` on the current card:
     (threads, dynamic shared memory in bytes, blocks one SM holds at once),
     from csrc/blackbox_bwd.cu and the CUDA occupancy calculator."""
-    fn = build.load("blackbox_bwd").blackbox_bwd_block
-    out = [ctypes.c_int() for _ in range(3)]
-    err = fn(ctypes.c_int(fused_ode.METHODS.index(method)), *[ctypes.byref(x) for x in out])
-    if err != 0:
-        raise RuntimeError("blackbox_bwd block query failed with cudaError %d" % err)
-    return tuple(x.value for x in out)
+    return _block("blackbox_bwd", method)
 
 
 class _BlackboxIntegrate(torch.autograd.Function):

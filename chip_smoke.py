@@ -19,7 +19,9 @@ Phases, each printing lines of its own:
    the plain version in float64 beside the plain version in float32, with
    its time, the plain version's time and its bound; the forward timed at
    the training shape too; two runs of a ``_prec`` backward must give the
-   same weight cotangent bit for bit; then the black-box kernels
+   same weight cotangent bit for bit, and its block per method (threads,
+   shared memory, registers, blocks resident per SM, waves); then the
+   black-box kernels
    (``blackbox_fwd``, ``blackbox_bwd``; operands from ``dr_blackbox_icml``),
    the forward against its plain version at the serving chunk and at the
    training shape, two forward runs bit-equal, the forward's block per
@@ -562,6 +564,15 @@ def phase_kind_kernels(device, kind, seed):
                      % (k.bwd, method))
             if not same:
                 fail("%s %s: two runs gave different weight cotangents" % (k.bwd, method))
+    if k.prec:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        n_blocks = -(-R // fused_ode.PREC_BWD_ROWS)
+        for method in fused_ode.METHODS:
+            threads, smem, regs, per_sm = fused_ode.prec_bwd_block(kind, method)
+            print("  %-9s %s block: %d rows x %d threads, %d B of shared memory, %d registers, "
+                  "%d blocks (%d warps) resident per SM; at R=%d %d blocks on %d SMs: %.2f waves"
+                  % (method, k.bwd, fused_ode.PREC_BWD_ROWS, threads, smem, regs, per_sm,
+                     per_sm * threads // 32, R, n_blocks, sms, n_blocks / max(per_sm * sms, 1)))
     print("  per row, normwise error / 99th percentile relative error against float64, "
           "kernel then plain float32, for %s:" % ", ".join(fused_ode.METHODS))
     for i, name in enumerate(row_names):

@@ -135,11 +135,11 @@ def test_dr_autograd_function_matches_float64_autograd(cuda):
     _assert_cotangents_close(y0_leaf.grad.reshape(-1, 8).t(), ref_y0.grad.reshape(-1, 8).t())
 
 
-def _prec_operands(device, seed=0):
+def _prec_operands(device, seed=0, B=5, K=37):
     """dr_prec operands: ``_inputs``' constants, 4 precision states started
     at e^6 ~ 400, and seeded weights of the precision nets' [8, 10] matrix in
     their xavier range."""
-    c, y0, times = _inputs(device, seed=seed)
+    c, y0, times = _inputs(device, B=B, K=K, seed=seed)
     rng = np.random.default_rng(seed + 10)
     prec0 = np.exp(6.0 + 2.0 * rng.standard_normal(tuple(y0.shape[:2]) + (4,)))
     y0 = torch.cat([y0, torch.as_tensor(prec0, dtype=torch.float32, device=device)], dim=-1)
@@ -168,11 +168,14 @@ def test_dr_prec_fwd_kernel_matches_plain(cuda, method):
 
 
 @pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
-def test_dr_prec_bwd_kernel_matches_plain(cuda, method):
+@pytest.mark.parametrize("B, K", [(5, 37), (5, 4), (8, 32)])
+def test_dr_prec_bwd_kernel_matches_plain(cuda, B, K, method):
     """dc and dy0 per constant and state row, dW per row of the weight
     matrix, each against the plain sweep in float64; and the weight
-    cotangent is the same bit for bit from run to run."""
-    _, _, wmat, packed, y0_cols, times = _prec_operands(cuda)
+    cotangent is the same bit for bit from run to run.  At R = 185 (five
+    full 32-row blocks and a ragged one), below one block (20) and at eight
+    full blocks (256)."""
+    _, _, wmat, packed, y0_cols, times = _prec_operands(cuda, B=B, K=K)
     traj = fused_ode._integrate_prec_cuda(wmat, packed, y0_cols, times, method)
     g = torch.as_tensor(
         np.random.default_rng(1).standard_normal(tuple(traj.shape)).astype(np.float32), device=cuda
@@ -184,8 +187,8 @@ def test_dr_prec_bwd_kernel_matches_plain(cuda, method):
     ref_dw, ref_dc, ref_dy0 = fused_ode._integrate_prec_plain_bwd(
         wmat.double(), packed.double(), times.double(), traj.double(), g.double(), method
     )
-    assert dw.shape == fused_ode.WMAT_SHAPE and dc.shape == (23, 5 * 37)
-    assert dy0.shape == (12, 5 * 37)
+    assert dw.shape == fused_ode.WMAT_SHAPE and dc.shape == (23, B * K)
+    assert dy0.shape == (12, B * K)
     _assert_cotangents_close(torch.cat([dc, dy0]), torch.cat([ref_dc, ref_dy0]))
     _assert_cotangents_close(dw, ref_dw)
     assert torch.equal(dw, fused_ode.dr_prec_bwd(wmat, packed, times, traj, g, method)[0])
@@ -294,13 +297,13 @@ def test_resume_on_the_card_follows_the_uninterrupted_run(cuda, tmp_path):
 NEW_KINDS = ["relay", "relay_prec", "degrader", "degrader_prec"]
 
 
-def _kind_operands(device, kind):
-    """The kind's operands from its spec's model at K=5 (chip_smoke's
+def _kind_operands(device, kind, K=5):
+    """The kind's operands from its spec's model at K samples (chip_smoke's
     ``kind_inputs``: theta from the prior, the model's seeded precision
     nets)."""
     import chip_smoke
 
-    return chip_smoke.kind_inputs(device, kind, 5, 0)
+    return chip_smoke.kind_inputs(device, kind, K, 0)
 
 
 @pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
@@ -325,26 +328,52 @@ def test_kind_fwd_kernel_matches_plain(cuda, kind, method):
 
 @pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
 @pytest.mark.parametrize("kind", NEW_KINDS)
-def test_kind_bwd_kernel_matches_plain(cuda, kind, method):
+@pytest.mark.parametrize("R", [180, 20, 256])
+def test_kind_bwd_kernel_matches_plain(cuda, R, kind, method):
     """dc and dy0 per constant and state row, dW per row of the weight
     matrix, each against the plain sweep in float64; a _prec kind's weight
-    cotangent is the same bit for bit from run to run."""
+    cotangent is the same bit for bit from run to run.  At R = 180 (K = 5:
+    five full 32-row blocks and a ragged one) and at eight full blocks (R =
+    256).  Below one block (R = 20: the first rows of the R = 180 operands,
+    launched on their own) the checks are exact: dc and dy0 equal those rows
+    of the R = 180 launch, which is held to float64 as above, and dW equals
+    that of one full block whose rows from R on have a zero cotangent (such
+    rows add exact zeros, as rows past the edge must).  With 20 samples the
+    float64 rule's 99th percentile is a row's largest error, which the plain
+    float32 sweep itself misses on the K = 1 draw of relay_prec's rk4
+    operands."""
     k = fused_ode.KINDS[kind]
-    _, _, _, wmat, packed, y0_cols, times = _kind_operands(cuda, kind)
+    n = max(R, 180)
+    _, _, _, wmat, packed, y0_cols, times = _kind_operands(cuda, kind, K=-(-n // 36))
+    packed, y0_cols = packed[:, :n].contiguous(), y0_cols[:, :n].contiguous()
     traj = fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method)
     g = torch.as_tensor(
         np.random.default_rng(1).standard_normal(tuple(traj.shape)).astype(np.float32), device=cuda
     )
+
+    def rows(x, m):  # the first m sample rows of a [..., R] operand
+        return x[..., :m].contiguous()
+
     counter = fused_ode.COUNTERS[k.bwd]
     before = counter.launches
-    dw, dc, dy0 = fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method)
+    dw, dc, dy0 = fused_ode.kind_bwd(kind, wmat, rows(packed, R), times, rows(traj, R),
+                                     rows(g, R), method)
     torch.cuda.synchronize()
     assert counter.launches == before + 1
+    assert dc.shape == (len(k.names), R) and dy0.shape == (k.n_states, R)
+    if R < n:
+        sub = dw, dc, dy0
+        dw, dc, dy0 = fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method)
+        assert torch.equal(sub[1], dc[:, :R]) and torch.equal(sub[2], dy0[:, :R])
+        if k.prec:
+            g_block = rows(g, 32)
+            g_block[..., R:] = 0.0
+            block = fused_ode.kind_bwd(kind, wmat, rows(packed, 32), times, rows(traj, 32), g_block,
+                                       method)
+            assert torch.equal(sub[0], block[0])
     ref_dw, ref_dc, ref_dy0 = fused_ode._plain_bwd(
         kind, wmat.double() if k.prec else None, packed.double(), times.double(), traj.double(),
         g.double(), method)
-    R = packed.shape[1]
-    assert dc.shape == (len(k.names), R) and dy0.shape == (k.n_states, R)
     _assert_cotangents_close(torch.cat([dc, dy0]), torch.cat([ref_dc, ref_dy0]))
     if k.prec:
         assert dw.shape == k.wmat_shape

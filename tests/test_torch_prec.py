@@ -245,8 +245,9 @@ def test_prec_kernels_refuse_cpu_tensors(setup):
 
 def test_prec_kernel_sources_match_the_wrapper():
     """Both dr_prec kernels include dr_common.cuh, whose weight-matrix shape
-    is the wrapper's, and the backward's block size is the one the wrapper
-    sizes the dW partials by."""
+    is the wrapper's; the rows a _prec backward block sweeps, and so the rows
+    each of its dW partials covers, are the ones the wrapper sizes the
+    partials by; and the three _prec backwards launch the shared template."""
     common = open(os.path.join(CSRC, "dr_common.cuh")).read()
     consts = {m.group(1): m.group(2) for m in re.finditer(r"constexpr int (\w+) = ([^;]+);", common)}
     assert consts["N_PREC"] == str(fused_ode.N_PREC)
@@ -259,7 +260,17 @@ def test_prec_kernel_sources_match_the_wrapper():
     for name in ("dr_prec_fwd.cu", "dr_prec_bwd.cu"):
         src = open(os.path.join(CSRC, name)).read()
         assert '#include "dr_common.cuh"' in src and "<Dr, true>" in src, name
-    assert consts["BWD_THREADS"] == str(fused_ode.PREC_BWD_THREADS)
+    # one partial per block of PREC_BWD_ROWS rows: the grid, the lanes and the
+    # block's sum over its rows all count PREC_BWD_ROWS
+    assert consts["PREC_BWD_ROWS"] == str(fused_ode.PREC_BWD_ROWS)
+    assert "(R + PREC_BWD_ROWS - 1) / PREC_BWD_ROWS" in common
+    assert "const int r = blockIdx.x * PREC_BWD_ROWS + lane;" in common
+    assert "for (int q = 0; q < PREC_BWD_ROWS; ++q) sum += sh.dW[e][q];" in common
+    for family, F in (("dr", "Dr"), ("relay", "Relay"), ("degrader", "Degrader")):
+        src = open(os.path.join(CSRC, family + "_prec_bwd.cu")).read()
+        assert '#include "dr_common.cuh"' in src, family
+        assert re.search(r"return bwd_launch<%s, true>\(wmat, consts, times, traj, g, dw, dc, "
+                         r"dy0, R, T, method,\s+stream\);" % F, src), family
 
 
 def test_build_hashes_the_shared_header(tmp_path, monkeypatch):

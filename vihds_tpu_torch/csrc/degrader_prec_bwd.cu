@@ -8,9 +8,11 @@
 // it walks the grid backwards, pulling the adjoint through each step's
 // pullback, and returns the cotangents of the 28 per-row constants and of y0,
 // and of the precision nets' weight matrix, summed over every row and step. The
-// kernel is dr_common.cuh's bwd_kernel over Degrader with the precision block;
-// the right-hand side's pullback is written out by hand there (degrader_rhs_vjp
-// and prec_rhs_vjp).
+// kernel is dr_common.cuh's prec_bwd_kernel over Degrader: a block of 32 rows x
+// 5 warps, a warp for each of the four precision states and one for the
+// species, meeting at each point of a step through shared tiles; the right-hand
+// side's pullback is written out by hand there (degrader_rhs_vjp, CoreWarp and
+// PrecWarp).
 //
 // Layout (the wrapper fused_ode.kind_bwd checks it):
 //   wmat   [8, 13]    the precision nets' weights: rows 0..3 production,
@@ -35,4 +37,11 @@ extern "C" int degrader_prec_bwd_launch(const float* wmat, const float* consts, 
                                         float* dy0, int R, int T, int method, void* stream) {
   return bwd_launch<Degrader, true>(wmat, consts, times, traj, g, dw, dc, dy0, R, T, method,
                                     stream);
+}
+
+// The kernel's block for method (threads, static shared memory in bytes,
+// registers a thread, blocks one SM holds at once); 0 or the cudaError_t.
+extern "C" int degrader_prec_bwd_block(int method, int* threads, int* smem_bytes, int* registers,
+                                       int* blocks_per_sm) {
+  return prec_bwd_block<Degrader>(method, threads, smem_bytes, registers, blocks_per_sm);
 }

@@ -442,47 +442,6 @@ __device__ __forceinline__ void prec_rhs(const float* W, float t, const float* y
   }
 }
 
-// Pullback of prec_rhs at (t, y) for the cotangent w[0..NS+3] of the whole
-// right-hand side (_prec_rhs_vjp_cols): adds the block's share into
-// dy[0..NS-1], writes dy[NS..NS+3], and adds the weights' share into this
-// thread's accumulators dW[e * STRIDE], e = 0 .. n_w(NS)-1 (a column of the
-// block's shared [n_w(NS)][STRIDE] array).  With p = Wp f, d = Wd f,
-// sp = sigmoid(p), sd = sigmoid(d) and w_j the cotangent of dprec_j:
-//   dprec_j = -w_j sd_j;  dp_j = w_j sp_j (1 - sp_j);  dd_j = -w_j prec_j sd_j (1 - sd_j)
-//   dW[j, :] += dp_j f,  dW[4 + j, :] += dd_j f,  df = Wp^T dp + Wd^T dd
-//   dy_s += df[2 + s] (1 - tanh^2 y_s); f[0] = 1 and f[1] = tanh t pass nothing on.
-template <int NS, int STRIDE>
-__device__ __forceinline__ void prec_rhs_vjp(const float* W, float t, const float* y,
-                                             const float* w, float* dy, float* dW) {
-  constexpr int N_FEAT = n_feat(NS);
-  float f[N_FEAT], df[N_FEAT];
-  prec_features<NS>(t, y, f);
-#pragma unroll
-  for (int k = 0; k < N_FEAT; ++k) df[k] = 0.0f;
-#pragma unroll
-  for (int j = 0; j < N_PREC; ++j) {
-    float p = 0.0f, d = 0.0f;
-#pragma unroll
-    for (int k = 0; k < N_FEAT; ++k) {
-      p += W[j * N_FEAT + k] * f[k];
-      d += W[(N_PREC + j) * N_FEAT + k] * f[k];
-    }
-    const float sp = sigmoidf(p), sd = sigmoidf(d);
-    const float wv = w[NS + j];
-    const float dp = wv * sp * (1.0f - sp);
-    const float dd = -wv * y[NS + j] * sd * (1.0f - sd);
-    dy[NS + j] = -wv * sd;
-#pragma unroll
-    for (int k = 0; k < N_FEAT; ++k) {
-      dW[(j * N_FEAT + k) * STRIDE] += dp * f[k];
-      dW[((N_PREC + j) * N_FEAT + k) * STRIDE] += dd * f[k];
-      df[k] += W[j * N_FEAT + k] * dp + W[(N_PREC + j) * N_FEAT + k] * dd;
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < NS; ++s) dy[s] += df[2 + s] * (1.0f - f[2 + s] * f[2 + s]);
-}
-
 // --------------------------------------------------------------------------
 // Fixed-grid steps over any right-hand side
 // --------------------------------------------------------------------------
@@ -528,10 +487,22 @@ __device__ __forceinline__ void one_step(const Rhs& rhs, float t1, float t2, flo
   }
 }
 
+// The point of a step at which step_vjp calls a right-hand side or its
+// pullback: point 0 is y_i, then the stages' points in the order the step
+// forms them (z for modeuler and midpoint; z2, z3, z4 for rk4).  The
+// mechanistic kinds ignore it; the _prec backward's warps use it to find the
+// point's shared tiles (prec_bwd_kernel below).
+template <int M>
+struct Stage {};
+
+template <int METHOD>
+__host__ __device__ constexpr int n_points() { return METHOD == RK4 ? 4 : 2; }
+
 // Pullback of one fixed-grid step at y = y_i (_step_vjp): a holds the
-// cotangent of y_{i+1} on entry and that of y_i on exit; vjp(t, z, w, dz)
-// writes the right-hand side's pullback dz and adds the parameters' share
-// into the accumulators it holds.  The stages are recomputed from y_i.
+// cotangent of y_{i+1} on entry and that of y_i on exit; vjp(Stage<M>, t, z,
+// w, dz) writes the right-hand side's pullback dz at point M and adds the
+// parameters' share into the accumulators it holds.  The stages are
+// recomputed from y_i.
 template <int METHOD, int S, class Rhs, class Vjp>
 __device__ __forceinline__ void step_vjp(const Rhs& rhs, const Vjp& vjp, float t1, float t2,
                                          const float* y, float* a) {
@@ -540,65 +511,65 @@ __device__ __forceinline__ void step_vjp(const Rhs& rhs, const Vjp& vjp, float t
   float f1[S], z[S], w[S], dz[S], d1[S];
   if (METHOD == MODEULER) {
     // y' = y + hh (f1 + f2), f1 = F(t1, y), f2 = F(t2, y + h f1)
-    rhs(t1, y, f1);
+    rhs(Stage<0>(), t1, y, f1);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       z[s] = y[s] + h * f1[s];
       w[s] = hh * a[s];
     }
-    vjp(t2, z, w, dz);
+    vjp(Stage<1>(), t2, z, w, dz);
 #pragma unroll
     for (int s = 0; s < S; ++s) w[s] = hh * a[s] + h * dz[s];
-    vjp(t1, y, w, d1);
+    vjp(Stage<0>(), t1, y, w, d1);
 #pragma unroll
     for (int s = 0; s < S; ++s) a[s] = a[s] + dz[s] + d1[s];
   } else if (METHOD == MIDPOINT) {
     // y' = y + h f2, f2 = F(t1 + hh, y + hh f1), f1 = F(t1, y)
-    rhs(t1, y, f1);
+    rhs(Stage<0>(), t1, y, f1);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       z[s] = y[s] + hh * f1[s];
       w[s] = h * a[s];
     }
-    vjp(t1 + hh, z, w, dz);
+    vjp(Stage<1>(), t1 + hh, z, w, dz);
 #pragma unroll
     for (int s = 0; s < S; ++s) w[s] = hh * dz[s];
-    vjp(t1, y, w, d1);
+    vjp(Stage<0>(), t1, y, w, d1);
 #pragma unroll
     for (int s = 0; s < S; ++s) a[s] = a[s] + dz[s] + d1[s];
   } else {  // RK4: y' = y + h6 (k1 + 2 k2 + 2 k3 + k4), stage k_j = F(t_j, z_j)
     const float tm = t1 + hh;
     const float h6 = h / 6.0f;
     float z2[S], z3[S], k[S], d4[S], d3[S];
-    rhs(t1, y, k);
+    rhs(Stage<0>(), t1, y, k);
 #pragma unroll
     for (int s = 0; s < S; ++s) z2[s] = y[s] + hh * k[s];
-    rhs(tm, z2, k);
+    rhs(Stage<1>(), tm, z2, k);
 #pragma unroll
     for (int s = 0; s < S; ++s) z3[s] = y[s] + hh * k[s];
-    rhs(tm, z3, k);
+    rhs(Stage<2>(), tm, z3, k);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       z[s] = y[s] + h * k[s];  // z4
       w[s] = h6 * a[s];
     }
-    vjp(t2, z, w, d4);
+    vjp(Stage<3>(), t2, z, w, d4);
 #pragma unroll
     for (int s = 0; s < S; ++s) w[s] = 2.0f * h6 * a[s] + h * d4[s];
-    vjp(tm, z3, w, d3);
+    vjp(Stage<2>(), tm, z3, w, d3);
 #pragma unroll
     for (int s = 0; s < S; ++s) w[s] = 2.0f * h6 * a[s] + hh * d3[s];
-    vjp(tm, z2, w, dz);  // d2
+    vjp(Stage<1>(), tm, z2, w, dz);  // d2
 #pragma unroll
     for (int s = 0; s < S; ++s) w[s] = h6 * a[s] + hh * dz[s];
-    vjp(t1, y, w, d1);
+    vjp(Stage<0>(), t1, y, w, d1);
 #pragma unroll
     for (int s = 0; s < S; ++s) a[s] = a[s] + d4[s] + d3[s] + dz[s] + d1[s];
   }
 }
 
-// A kind (family F, with the precision block or not) as the step templates
-// call it: the right-hand side over S = F::NS (+ N_PREC) states ...
+// A kind (family F, with the precision block or not) as the forward's step
+// calls it: the right-hand side over S = F::NS (+ N_PREC) states ...
 template <class F, bool PREC>
 struct KindRhs {
   const float* c;
@@ -609,18 +580,21 @@ struct KindRhs {
   }
 };
 
-// ... and its pullback, accumulating into the constants' cotangents dc and
-// the weights' column dW (with the block).
-template <class F, bool PREC, int STRIDE>
+// ... and a kind without the block as the backward's step pullback calls
+// it: the right-hand side and its pullback, accumulating into the constants'
+// cotangents dc.
+template <class F>
 struct KindVjp {
   const float* c;
   float* dc;
-  const float* W;
-  float* dW;
-  __device__ __forceinline__ void operator()(float t, const float* y, const float* w,
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, float* f) const {
+    F::rhs(c, t, y, f);
+  }
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, const float* w,
                                              float* dy) const {
     F::vjp(c, t, y, w, dy, dc);
-    if constexpr (PREC) prec_rhs_vjp<F::NS, STRIDE>(W, t, y, w, dy, dW);
   }
 };
 
@@ -639,28 +613,16 @@ struct KindVjp {
 // shared memory once per block before the mask (so every thread reaches the
 // barrier).
 //
-// Backward (_make_bwd_kernel): the reverse sweep over the stored trajectory,
-// one thread per sample row in 32-thread blocks (225 blocks at the training
-// shape R = 7,200, so every one of the 132 SMs holds a warp).  The constants
-// load into registers once, their cotangents start at zero and the adjoint
-// at a = g[T-1]; for i = T-2 ... 0 the thread reads y_i = traj[i, :, r],
-// recomputes the step's stages from it, pulls a back through them (adding
-// the constants' share into dc), and sets a = a_y + g[i].  Nothing but traj
-// and g is read from device memory, each read coalesced.  The TPU kernel got
-// each step's VJP by tracing jax.vjp of _one_step; here the pullbacks above
-// are written out by hand.  With the precision block the sweep also returns
-// dW, one sum over all rows and steps:
-//   * each thread accumulates its own n_w(NS) partials over the whole sweep
-//     in a column of the block's shared [n_w(NS)][32] array, not in
-//     registers, which the sweep already fills; column-per-thread keeps the
-//     32 threads of a warp on 32 banks;
-//   * the block then sums its 32 columns in a fixed order and writes one
-//     partial; the wrapper sums the partials over blocks.  No float atomics
-//     anywhere, so two runs give the same dW bit for bit, as the TPU
-//     kernel's per-cell partials summed on the host (pallas_ode.py:533);
-//   * threads past the edge (r >= R) zero their column and skip the sweep,
-//     so they add exact zeros and read no uninitialised shared memory; they
-//     stay in the block for its barriers.
+// Backward (_make_bwd_kernel): the reverse sweep over the stored trajectory.
+// The constants load into registers once, their cotangents start at zero and
+// the adjoint at a = g[T-1]; for i = T-2 ... 0 the row reads y_i = traj[i,
+// :, r], recomputes the step's stages from it, pulls a back through them
+// (adding the constants' share into dc), and sets a = a_y + g[i].  Nothing
+// but traj and g is read from device memory, each read coalesced.  The TPU
+// kernel got each step's VJP by tracing jax.vjp of _one_step; here the
+// pullbacks above are written out by hand.  Without the precision block
+// (bwd_kernel) one thread sweeps a row, in 32-thread blocks; with it
+// (prec_bwd_kernel) a row is swept by five threads, below.
 // --------------------------------------------------------------------------
 constexpr int FWD_THREADS = 128;
 constexpr int BWD_THREADS = 32;
@@ -704,72 +666,353 @@ fwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts,
   }
 }
 
-template <class F, bool PREC, int METHOD>
+template <class F, int METHOD>
 __global__ void __launch_bounds__(BWD_THREADS)
-bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts,
-           const float* __restrict__ times, const float* __restrict__ traj,
-           const float* __restrict__ g, float* __restrict__ dw_out,
+bwd_kernel(const float* __restrict__ consts, const float* __restrict__ times,
+           const float* __restrict__ traj, const float* __restrict__ g,
            float* __restrict__ dc_out, float* __restrict__ dy0_out, int R, int T) {
-  constexpr int S = F::NS + (PREC ? N_PREC : 0);
-  constexpr int NW = PREC ? n_w(F::NS) : 1;
-  __shared__ float W[NW];
-  __shared__ float dWs[PREC ? NW * BWD_THREADS : 1];  // [NW][32]: column tid is thread tid's
-  const int tid = threadIdx.x;
-  if constexpr (PREC) {
-    for (int e = tid; e < NW; e += BWD_THREADS) W[e] = wmat[e];
-#pragma unroll 4
-    for (int e = 0; e < NW; ++e) dWs[e * BWD_THREADS + tid] = 0.0f;
-    __syncthreads();
+  constexpr int S = F::NS;
+  const int r = blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (r >= R) return;
+  const size_t stride = (size_t)R;
+  const size_t tstride = (size_t)S * stride;
+
+  float c[F::NC], dc[F::NC];
+#pragma unroll
+  for (int j = 0; j < F::NC; ++j) {
+    c[j] = consts[j * stride + r];
+    dc[j] = 0.0f;
+  }
+  const KindVjp<F> vjp{c, dc};
+
+  float a[S];
+  const float* gT = g + (size_t)(T - 1) * tstride + r;
+#pragma unroll
+  for (int s = 0; s < S; ++s) a[s] = gT[s * stride];
+
+  float t2 = __ldg(times + (T - 1));
+  for (int i = T - 2; i >= 0; --i) {
+    const float t1 = __ldg(times + i);
+    const float* yi = traj + (size_t)i * tstride + r;
+    const float* gi = g + (size_t)i * tstride + r;
+    float y[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) y[s] = yi[s * stride];
+    step_vjp<METHOD, S>(vjp, vjp, t1, t2, y, a);
+#pragma unroll
+    for (int s = 0; s < S; ++s) a[s] += gi[s * stride];
+    t2 = t1;
   }
 
-  const int r = blockIdx.x * BWD_THREADS + tid;
-  if (r < R) {
-    const size_t stride = (size_t)R;
-    const size_t tstride = (size_t)S * stride;
+#pragma unroll
+  for (int j = 0; j < F::NC; ++j) dc_out[j * stride + r] = dc[j];
+#pragma unroll
+  for (int s = 0; s < S; ++s) dy0_out[s * stride + r] = a[s];
+}
 
+// --------------------------------------------------------------------------
+// The backward with the precision block (prec_bwd_kernel): a block of
+// PREC_BWD_ROWS = 32 sample rows x (N_PREC + 1) warps.  Lane l of every warp
+// works on row l of the block.  Warp N_PREC, the core warp, holds the row's
+// constants, their cotangents and the species' adjoint, and runs the family's
+// right-hand side and pullback (F::rhs, F::vjp) and the species' part of
+// step_vjp.  Warp j < N_PREC, a precision warp, holds precision state j: its
+// adjoint, its nets' rows j (production) and N_PREC + j (degradation) of W,
+// and those rows' weight cotangents, 2 n_feat(NS) partial sums kept in
+// registers for the whole sweep.  Both kinds of warp run step_vjp, over the
+// NS species and over the one state, and meet at each point of the step
+// (Stage<M>) through shared tiles and named barriers:
+//   * the core warp publishes the point's species (z[M]) and arrives at
+//     BAR_POINT + M without waiting; the precision warps wait there, compute
+//     the point's features tanh t, tanh y_s, a few each, into feat[M], meet
+//     at BAR_PREC, and each forms its p_j, d_j and their sigmoids, which it
+//     keeps for the point's pullback;
+//   * in a pullback each precision warp forms dp_j, dd_j (into dpd[M]) and
+//     its state's cotangent, meets the others at BAR_PREC, sums df[2 + s]
+//     over j for a few species s (into df[M]), arrives at BAR_SHARE + M and
+//     only then adds dp_j f and dd_j f into its registers; the core warp runs
+//     F::vjp meanwhile, waits at BAR_SHARE + M and adds each species' share
+//     df[2 + s] (1 - tanh^2 y_s).
+// The precision states feed nothing back into the species, so the precision
+// warps need from the core warp only the points, and the core warp waits
+// only for the shares.  Each tile is written at most once per step between
+// the barriers that order its readers; feat, which the core warp reads after
+// the precision warps have moved on, alternates between two copies by step
+// parity.
+//
+// Every float sum is the one-thread-per-row sweep's, in its order: p_j and
+// d_j over the features in index order, df[k] over j in order, each weight
+// cotangent entry over the row's pullbacks in the sweep's order, then over
+// the block's 32 rows in row order (the block's partial, at the end), then
+// over blocks in the wrapper.  The expressions keep that sweep's shapes and
+// each warp's step stays one basic block, so nvcc contracts products into
+// adds as it did there: midpoint's outputs equal that sweep's bit for bit;
+// in modeuler's w = hh a + h dz (species 0 and 1) and in dr's rk4 nvcc
+// fuses the other product, which moves dc and dy0 by float32 rounding.  No
+// float atomics: two runs give
+// the same dW bit for bit, as the TPU kernel's per-cell partials summed on
+// the host (pallas_ode.py:533).  Rows past the edge (r >= R) sweep row R - 1
+// and keep nothing: they write no dc or dy0 and put exact zeros into the
+// block's partial, and they reach every barrier.
+// --------------------------------------------------------------------------
+constexpr int PREC_BWD_ROWS = 32;
+constexpr int PREC_BWD_THREADS = PREC_BWD_ROWS * (N_PREC + 1);
+constexpr int PREC_WARP_THREADS = PREC_BWD_ROWS * N_PREC;  // the precision warps'
+// named barriers (0 is __syncthreads)
+constexpr int BAR_POINT = 1;  // + M: point M's species published (M < 4)
+constexpr int BAR_SHARE = 5;  // + M: pullback M's df ready
+constexpr int BAR_PREC = 9;   // the precision warps among themselves
+constexpr int BAR_DONE = 10;  // the core warp has read its last tile
+
+__device__ __forceinline__ void bar_sync(int id, int n_threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n_threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n_threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n_threads) : "memory");
+}
+
+template <int NS, int NPTS>
+struct PrecBwdTiles {
+  float W[n_w(NS)];
+  float z[NPTS][NS][PREC_BWD_ROWS];                           // point M's species
+  float feat[2][NPTS][n_feat(NS) - 1][PREC_BWD_ROWS];         // its features 1.. (parity)
+  float dpd[NPTS][2 * N_PREC][PREC_BWD_ROWS];                 // pullback M's dp_j, dd_j
+  float df[NPTS][NS][PREC_BWD_ROWS];                          // pullback M's df[2 + s]
+  float dW[n_w(NS)][PREC_BWD_ROWS + 1];                       // the rows' partials, at the end
+};
+
+// The core warp's right-hand side and pullback at point M (lane = row).
+template <class F, int NPTS>
+struct CoreWarp {
+  using Tiles = PrecBwdTiles<F::NS, NPTS>;
+  const float* c;
+  float* dc;
+  Tiles* sh;
+  int lane, par;
+
+  template <int M>
+  __device__ __forceinline__ void publish(const float* y) const {
+#pragma unroll
+    for (int s = 0; s < F::NS; ++s) sh->z[M][s][lane] = y[s];
+    bar_arrive(BAR_POINT + M, PREC_BWD_THREADS);
+  }
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, float* f) const {
+    publish<M>(y);
+    F::rhs(c, t, y, f);
+  }
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, const float* w,
+                                             float* dy) const {
+    if constexpr (M == NPTS - 1) publish<M>(y);  // the last point has no right-hand side
+    F::vjp(c, t, y, w, dy, dc);
+    bar_sync(BAR_SHARE + M, PREC_BWD_THREADS);
+#pragma unroll
+    for (int s = 0; s < F::NS; ++s) {
+      const float f = sh->feat[par][M][1 + s][lane];
+      dy[s] += sh->df[M][s][lane] * (1.0f - f * f);
+    }
+  }
+};
+
+// Precision warp j's right-hand side and pullback of its state at point M
+// (the precision rows of _prec_rhs_cols and _prec_rhs_vjp_cols): with p =
+// Wp f, d = Wd f, sp = sigmoid(p), sd = sigmoid(d) and w_j the cotangent of
+// dprec_j,
+//   dprec_j = sp_j - sd_j prec_j;  its pullback gives prec_j -w_j sd_j,
+//   dp_j = w_j sp_j (1 - sp_j), dd_j = -w_j prec_j sd_j (1 - sd_j),
+//   dW[j, :] += dp_j f, dW[4 + j, :] += dd_j f, df = Wp^T dp + Wd^T dd,
+// and species s gets df[2 + s] (1 - tanh^2 y_s) (added by the core warp);
+// f[0] = 1 and f[1] = tanh t pass nothing on.
+template <int NS, int NPTS>
+struct PrecWarp {
+  static constexpr int NF = n_feat(NS);
+  static constexpr int NQ = (NS + N_PREC - 1) / N_PREC;  // species whose df the warp sums
+  using Tiles = PrecBwdTiles<NS, NPTS>;
+  Tiles* sh;
+  int lane, j, par;
+  // in registers: rows j and N_PREC + j of W; for each of the warp's
+  // species s (below) the 2 N_PREC entries of W's column 2 + s; the rows'
+  // weight cotangents; each point's features and sigmoids
+  const float* Wp;
+  const float* Wd;
+  const float* Wdf;  // [NQ][2 N_PREC]
+  float* dWp;
+  float* dWd;
+  float* f;  // [NPTS][NF]
+  float* sp;
+  float* sd;
+
+  // the q-th species whose df[2 + s] warp j sums: j, j + 4, ... (the last
+  // warps repeat the last one)
+  static __device__ __forceinline__ int species(int j, int q) {
+    return min(j + N_PREC * q, NS - 1);
+  }
+
+  // wait for point M, compute its features 1 + j, 1 + j + 4, ... (the last
+  // warps repeat the last one), then p_j, d_j.  No branch: a step's code
+  // stays one basic block, within which nvcc contracts its products into
+  // adds as it does in the one-thread-per-row sweep.
+  template <int M>
+  __device__ __forceinline__ void point(float t) const {
+    bar_sync(BAR_POINT + M, PREC_BWD_THREADS);
+#pragma unroll
+    for (int i = 0; i < (NF - 1 + N_PREC - 1) / N_PREC; ++i) {
+      const int e = min(j + N_PREC * i, NF - 2);  // feature e + 1: tanh t, then tanh y_{e-1}
+      const float x = sh->z[M][max(e - 1, 0)][lane];
+      sh->feat[par][M][e][lane] = tanhf(e == 0 ? t : x);
+    }
+    bar_sync(BAR_PREC, PREC_WARP_THREADS);
+    float* fm = f + M * NF;
+    fm[0] = 1.0f;
+#pragma unroll
+    for (int k = 1; k < NF; ++k) fm[k] = sh->feat[par][M][k - 1][lane];
+    float p = 0.0f, d = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      p += Wp[k] * fm[k];
+      d += Wd[k] * fm[k];
+    }
+    sp[M] = sigmoidf(p);
+    sd[M] = sigmoidf(d);
+  }
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, float* f1) const {
+    point<M>(t);
+    f1[0] = sp[M] - sd[M] * y[0];
+  }
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, const float* w,
+                                             float* dy) const {
+    if constexpr (M == NPTS - 1) point<M>(t);
+    const float wv = w[0];
+    const float spm = sp[M], sdm = sd[M];
+    const float dp = wv * spm * (1.0f - spm);
+    const float dd = -wv * y[0] * sdm * (1.0f - sdm);
+    dy[0] = -wv * sdm;
+    sh->dpd[M][j][lane] = dp;
+    sh->dpd[M][N_PREC + j][lane] = dd;
+    bar_sync(BAR_PREC, PREC_WARP_THREADS);
+    float dpd[2 * N_PREC];
+#pragma unroll
+    for (int i = 0; i < 2 * N_PREC; ++i) dpd[i] = sh->dpd[M][i][lane];
+    // df[2 + s] for the warp's species, summed over the nets' rows in order
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float* Wk = Wdf + q * 2 * N_PREC;
+      float df = 0.0f;
+#pragma unroll
+      for (int i = 0; i < N_PREC; ++i) df += Wk[i] * dpd[i] + Wk[N_PREC + i] * dpd[N_PREC + i];
+      sh->df[M][species(j, q)][lane] = df;
+    }
+    bar_arrive(BAR_SHARE + M, PREC_BWD_THREADS);
+    const float* fm = f + M * NF;
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      dWp[k] += dp * fm[k];
+      dWd[k] += dd * fm[k];
+    }
+  }
+};
+
+template <class F, int METHOD>
+__global__ void __launch_bounds__(PREC_BWD_THREADS, 2)
+prec_bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts,
+                const float* __restrict__ times, const float* __restrict__ traj,
+                const float* __restrict__ g, float* __restrict__ dw_out,
+                float* __restrict__ dc_out, float* __restrict__ dy0_out, int R, int T) {
+  constexpr int NS = F::NS, S = NS + N_PREC, NF = n_feat(NS), NW = n_w(NS);
+  constexpr int NPTS = n_points<METHOD>();
+  __shared__ PrecBwdTiles<NS, NPTS> sh;
+  const int tid = threadIdx.x;
+  const int lane = tid % PREC_BWD_ROWS, warp = tid / PREC_BWD_ROWS;
+  for (int e = tid; e < NW; e += PREC_BWD_THREADS) sh.W[e] = wmat[e];
+  __syncthreads();
+
+  const int r = blockIdx.x * PREC_BWD_ROWS + lane;
+  const int rr = min(r, R - 1);  // the row this thread sweeps
+  const size_t stride = (size_t)R;
+  const size_t tstride = (size_t)S * stride;
+  const float* gT = g + (size_t)(T - 1) * tstride + rr;
+
+  if (warp == N_PREC) {
     float c[F::NC], dc[F::NC];
 #pragma unroll
-    for (int j = 0; j < F::NC; ++j) {
-      c[j] = consts[j * stride + r];
-      dc[j] = 0.0f;
+    for (int q = 0; q < F::NC; ++q) {
+      c[q] = consts[q * stride + rr];
+      dc[q] = 0.0f;
     }
-    const KindRhs<F, PREC> rhs{c, W};
-    const KindVjp<F, PREC, BWD_THREADS> vjp{c, dc, W, dWs + tid};
-
-    float a[S];
-    const float* gT = g + (size_t)(T - 1) * tstride + r;
+    float a[NS];
 #pragma unroll
-    for (int s = 0; s < S; ++s) a[s] = gT[s * stride];
+    for (int s = 0; s < NS; ++s) a[s] = gT[s * stride];
 
     float t2 = __ldg(times + (T - 1));
     for (int i = T - 2; i >= 0; --i) {
       const float t1 = __ldg(times + i);
-      const float* yi = traj + (size_t)i * tstride + r;
-      const float* gi = g + (size_t)i * tstride + r;
-      float y[S];
+      const float* yi = traj + (size_t)i * tstride + rr;
+      const float* gi = g + (size_t)i * tstride + rr;
+      float y[NS];
 #pragma unroll
-      for (int s = 0; s < S; ++s) y[s] = yi[s * stride];
-      step_vjp<METHOD, S>(rhs, vjp, t1, t2, y, a);
+      for (int s = 0; s < NS; ++s) y[s] = yi[s * stride];
+      const CoreWarp<F, NPTS> core{c, dc, &sh, lane, i & 1};
+      step_vjp<METHOD, NS>(core, core, t1, t2, y, a);
 #pragma unroll
-      for (int s = 0; s < S; ++s) a[s] += gi[s * stride];
+      for (int s = 0; s < NS; ++s) a[s] += gi[s * stride];
       t2 = t1;
     }
+    bar_arrive(BAR_DONE, PREC_BWD_THREADS);
 
+    if (r < R) {
 #pragma unroll
-    for (int j = 0; j < F::NC; ++j) dc_out[j * stride + r] = dc[j];
+      for (int q = 0; q < F::NC; ++q) dc_out[q * stride + r] = dc[q];
 #pragma unroll
-    for (int s = 0; s < S; ++s) dy0_out[s * stride + r] = a[s];
+      for (int s = 0; s < NS; ++s) dy0_out[s * stride + r] = a[s];
+    }
+  } else {
+    const int j = warp;
+    using Prec = PrecWarp<NS, NPTS>;
+    float Wp[NF], Wd[NF], Wdf[Prec::NQ * 2 * N_PREC], dWp[NF], dWd[NF];
+    float f[NPTS * NF], sp[NPTS], sd[NPTS];
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      Wp[k] = sh.W[j * NF + k];
+      Wd[k] = sh.W[(N_PREC + j) * NF + k];
+      dWp[k] = 0.0f;
+      dWd[k] = 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < Prec::NQ; ++q)
+#pragma unroll
+      for (int i = 0; i < 2 * N_PREC; ++i)
+        Wdf[q * 2 * N_PREC + i] = sh.W[i * NF + 2 + Prec::species(j, q)];
+    float a[1] = {gT[(NS + j) * stride]};
+
+    float t2 = __ldg(times + (T - 1));
+    for (int i = T - 2; i >= 0; --i) {
+      const float t1 = __ldg(times + i);
+      float y[1] = {traj[(size_t)i * tstride + (NS + j) * stride + rr]};
+      const Prec prec{&sh, lane, j, i & 1, Wp, Wd, Wdf, dWp, dWd, f, sp, sd};
+      step_vjp<METHOD, 1>(prec, prec, t1, t2, y, a);
+      a[0] += g[(size_t)i * tstride + (NS + j) * stride + rr];
+      t2 = t1;
+    }
+    if (r < R) dy0_out[(NS + j) * stride + r] = a[0];
+
+    bar_sync(BAR_DONE, PREC_BWD_THREADS);
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      sh.dW[j * NF + k][lane] = r < R ? dWp[k] : 0.0f;
+      sh.dW[(N_PREC + j) * NF + k][lane] = r < R ? dWd[k] : 0.0f;
+    }
   }
 
-  if constexpr (PREC) {
-    // the block's partial sum of dW, each entry summed over the 32 columns
-    // in thread order
-    __syncthreads();
-    for (int e = tid; e < NW; e += BWD_THREADS) {
-      float sum = 0.0f;
-      for (int i = 0; i < BWD_THREADS; ++i) sum += dWs[e * BWD_THREADS + i];
-      dw_out[(size_t)blockIdx.x * NW + e] = sum;
-    }
+  // the block's partial sum of dW, each entry summed over the 32 rows in
+  // row order
+  __syncthreads();
+  for (int e = tid; e < NW; e += PREC_BWD_THREADS) {
+    float sum = 0.0f;
+    for (int q = 0; q < PREC_BWD_ROWS; ++q) sum += sh.dW[e][q];
+    dw_out[(size_t)blockIdx.x * NW + e] = sum;
   }
 }
 
@@ -806,26 +1049,79 @@ int bwd_launch(const float* wmat, const float* consts, const float* times, const
                const float* g, float* dw, float* dc, float* dy0, int R, int T, int method,
                void* stream) {
   if (R <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 block(BWD_THREADS);
-  const dim3 grid((unsigned)((R + BWD_THREADS - 1) / BWD_THREADS));
   cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (PREC) {
+    const dim3 block(PREC_BWD_THREADS);
+    const dim3 grid((unsigned)((R + PREC_BWD_ROWS - 1) / PREC_BWD_ROWS));
+    switch (method) {
+      case MODEULER:
+        prec_bwd_kernel<F, MODEULER><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc,
+                                                            dy0, R, T);
+        break;
+      case MIDPOINT:
+        prec_bwd_kernel<F, MIDPOINT><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc,
+                                                            dy0, R, T);
+        break;
+      case RK4:
+        prec_bwd_kernel<F, RK4><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc, dy0,
+                                                       R, T);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    const dim3 block(BWD_THREADS);
+    const dim3 grid((unsigned)((R + BWD_THREADS - 1) / BWD_THREADS));
+    switch (method) {
+      case MODEULER:
+        bwd_kernel<F, MODEULER><<<grid, block, 0, s>>>(consts, times, traj, g, dc, dy0, R, T);
+        break;
+      case MIDPOINT:
+        bwd_kernel<F, MIDPOINT><<<grid, block, 0, s>>>(consts, times, traj, g, dc, dy0, R, T);
+        break;
+      case RK4:
+        bwd_kernel<F, RK4><<<grid, block, 0, s>>>(consts, times, traj, g, dc, dy0, R, T);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// The _prec backward's block for method on the current card: its threads,
+// its static shared memory in bytes, its registers a thread and how many such
+// blocks one SM holds at once.  Returns the cudaError_t of the query (0 on
+// success).
+template <class Kernel>
+int prec_bwd_block_of(Kernel kernel, int* threads, int* smem_bytes, int* registers,
+                      int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *threads = PREC_BWD_THREADS;
+  *smem_bytes = (int)attr.sharedSizeBytes;
+  *registers = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                            PREC_BWD_THREADS, 0);
+}
+
+template <class F>
+int prec_bwd_block(int method, int* threads, int* smem_bytes, int* registers,
+                   int* blocks_per_sm) {
   switch (method) {
     case MODEULER:
-      bwd_kernel<F, PREC, MODEULER><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc,
-                                                           dy0, R, T);
-      break;
+      return prec_bwd_block_of(prec_bwd_kernel<F, MODEULER>, threads, smem_bytes, registers,
+                               blocks_per_sm);
     case MIDPOINT:
-      bwd_kernel<F, PREC, MIDPOINT><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc,
-                                                           dy0, R, T);
-      break;
+      return prec_bwd_block_of(prec_bwd_kernel<F, MIDPOINT>, threads, smem_bytes, registers,
+                               blocks_per_sm);
     case RK4:
-      bwd_kernel<F, PREC, RK4><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc, dy0,
-                                                      R, T);
-      break;
+      return prec_bwd_block_of(prec_bwd_kernel<F, RK4>, threads, smem_bytes, registers,
+                               blocks_per_sm);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace

@@ -7,9 +7,10 @@
 // it walks the grid backwards, pulling the adjoint through each step's
 // pullback, and returns the cotangents of the 23 per-row constants and of y0,
 // and of the precision nets' weight matrix, summed over every row and step. The
-// kernel is dr_common.cuh's bwd_kernel over Dr with the precision block; the
-// right-hand side's pullback is written out by hand there (dr_rhs_vjp and
-// prec_rhs_vjp).
+// kernel is dr_common.cuh's prec_bwd_kernel over Dr: a block of 32 rows x 5
+// warps, a warp for each of the four precision states and one for the species,
+// meeting at each point of a step through shared tiles; the right-hand side's
+// pullback is written out by hand there (dr_rhs_vjp, CoreWarp and PrecWarp).
 //
 // Layout (the wrapper fused_ode.kind_bwd checks it):
 //   wmat   [8, 10]    the precision nets' weights: rows 0..3 production,
@@ -33,4 +34,11 @@ extern "C" int dr_prec_bwd_launch(const float* wmat, const float* consts, const 
                                   const float* traj, const float* g, float* dw, float* dc,
                                   float* dy0, int R, int T, int method, void* stream) {
   return bwd_launch<Dr, true>(wmat, consts, times, traj, g, dw, dc, dy0, R, T, method, stream);
+}
+
+// The kernel's block for method (threads, static shared memory in bytes,
+// registers a thread, blocks one SM holds at once); 0 or the cudaError_t.
+extern "C" int dr_prec_bwd_block(int method, int* threads, int* smem_bytes, int* registers,
+                                 int* blocks_per_sm) {
+  return prec_bwd_block<Dr>(method, threads, smem_bytes, registers, blocks_per_sm);
 }

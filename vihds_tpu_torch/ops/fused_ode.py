@@ -136,9 +136,10 @@ N_PREC = 4
 WMAT_SHAPE = (2 * N_PREC, 2 + N_SPECIES)
 #: fixed-grid methods of the kernels; the index is csrc/dr_common.cuh's Method enum
 METHODS = ("modeuler", "midpoint", "rk4")
-#: threads per block of the _prec backward kernels: each returns its weight
-#: cotangent as one partial sum per block
-PREC_BWD_THREADS = 32
+#: sample rows a block of the _prec backward kernels sweeps (five warps, one
+#: per precision state and one for the species): each block returns its rows'
+#: weight cotangent as one partial sum
+PREC_BWD_ROWS = 32
 
 
 class Kind(NamedTuple):
@@ -446,8 +447,9 @@ def _prec_rhs_vjp_cols(wmat, t, y, w, dc):
     last 4 rows, those of dprec, reach the block).  Returns the block's share
     of (df/dy)^T w [NS + 4, R] and adds the weights' share into ``dc["W"]``
     [8, 2 + NS, R] (per row, summed over the rows at the end of the sweep, as
-    the backward kernel sums each thread's partials).  Hand-derived, line for
-    line csrc/dr_common.cuh's ``prec_rhs_vjp``.  With p = Wp f, d = Wd f,
+    the backward kernel sums each row's partials).  Hand-derived, line for
+    line csrc/dr_common.cuh's ``PrecWarp`` pullback (one warp per precision
+    state) and the share ``CoreWarp`` adds.  With p = Wp f, d = Wd f,
     sp = sigmoid(p), sd = sigmoid(d) and w_j the cotangent of dprec_j:
 
     * dprec_j gets -w_j sd_j;
@@ -701,7 +703,7 @@ def kind_bwd(kind, wmat, packed, times, traj, g, method):
     """Launch csrc/<kind>_bwd.cu on the current stream: the reverse sweep
     for the trajectory cotangent ``g``.  Returns (dW [8, 2 + NS] or None,
     dc [NC, R], dy0 [S, R]).  A ``_prec`` kernel writes one partial sum of dW
-    per block of ``PREC_BWD_THREADS`` rows; their sum here is the last step
+    per block of ``PREC_BWD_ROWS`` rows; their sum here is the last step
     of a reduction whose order is fixed, so two runs give the same dW bit for
     bit.  CUDA tensors only; ``_plain_bwd`` is its plain version."""
     k = KINDS[kind]
@@ -715,7 +717,7 @@ def kind_bwd(kind, wmat, packed, times, traj, g, method):
     _check_operands(k.bwd, packed.device, operands)
     outs = []
     if k.prec:
-        n_blocks = -(-R // PREC_BWD_THREADS)
+        n_blocks = -(-R // PREC_BWD_ROWS)
         outs.append(torch.empty((n_blocks,) + k.wmat_shape, dtype=torch.float32,
                                 device=packed.device))
     dc = torch.empty_like(packed)
@@ -723,6 +725,20 @@ def kind_bwd(kind, wmat, packed, times, traj, g, method):
     _launch(k.bwd, R, T, method, packed.device, *[t for _, t, _ in operands], *outs, dc, dy0)
     COUNTERS[k.bwd].launches += 1
     return (outs[0].sum(dim=0) if k.prec else None), dc, dy0
+
+
+def prec_bwd_block(kind, method):
+    """A ``_prec`` backward kernel's block for ``method`` on the current
+    card: (threads, static shared memory in bytes, registers a thread, blocks
+    one SM holds at once), from csrc/<kind>_bwd.cu and the CUDA occupancy
+    calculator."""
+    name = KINDS[kind].bwd
+    fn = getattr(build.load(name), name[: -len("_bwd")] + "_bwd_block")
+    out = [ctypes.c_int() for _ in range(4)]
+    err = fn(ctypes.c_int(METHODS.index(method)), *[ctypes.byref(x) for x in out])
+    if err != 0:
+        raise RuntimeError("%s block query failed with cudaError %d" % (name, err))
+    return tuple(x.value for x in out)
 
 
 def _integrate_cuda(packed, y0_cols, times, method):

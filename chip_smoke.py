@@ -17,10 +17,14 @@ Phases, each printing lines of its own:
    backward kernel at the training shape (B=36 x K=200) with a seeded random
    cotangent, read per constant, state and row of the weight matrix against
    the plain version in float64 beside the plain version in float32, with
-   its time, the plain version's time and its bound; the forward timed at
-   the training shape too; two runs of a ``_prec`` backward must give the
-   same weight cotangent bit for bit, and its block per method (threads,
-   shared memory, registers, blocks resident per SM, waves); then the
+   its time, the plain version's time and its bound; the forward held
+   against its plain version and timed at the training shape too, and its
+   first R - 12 rows run alone (a ragged last block) must equal those rows
+   of the whole run bit for bit; two runs of a ``_prec`` forward must give
+   the same trajectory bit for bit at both shapes, and two of a ``_prec``
+   backward the same weight cotangent; then the ``_prec`` forward's and
+   backward's blocks per method (rows, threads, shared memory, registers, blocks
+   resident per SM, waves at each shape); then the
    black-box kernels
    (``blackbox_fwd``, ``blackbox_bwd``; operands from ``dr_blackbox_icml``),
    the forward against its plain version at the serving chunk and at the
@@ -386,6 +390,35 @@ def fwd_row(kind, wmat, packed, y0_cols, times, method):
                  flops_per_step(kind)[0][method] * (T - 1) * R)
 
 
+def fwd_repeats(kind, wmat, packed, y0_cols, times, method):
+    """True when two launches of ``kind``'s forward kernel give the same
+    trajectory bit for bit."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_ode
+
+    return bool(torch.equal(fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method),
+                            fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method)))
+
+
+def print_block(device, kernel, method, block, row_counts):
+    """Print a kernel's block for ``method`` (``block``: sample rows, threads,
+    static shared memory, registers, blocks resident per SM) and its waves
+    over the card's SMs at each of ``row_counts``; returns them as a dict."""
+    import torch
+
+    rows, threads, smem, regs, per_sm = block
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    waves = {R: -(-R // rows) / max(per_sm * sms, 1) for R in row_counts}
+    print("  %-9s %s block: %d rows x %d threads, %d B of shared memory, %d registers, "
+          "%d blocks (%d warps) resident per SM; %s"
+          % (method, kernel, rows, threads, smem, regs, per_sm, per_sm * threads // 32,
+             "; ".join("at R=%d %d blocks on %d SMs: %.2f waves" % (R, -(-R // rows), sms, w)
+                       for R, w in waves.items())))
+    return dict(rows=rows, threads=threads, shared_bytes=smem, registers=regs,
+                blocks_per_sm=per_sm, waves={str(R): w for R, w in waves.items()})
+
+
 def states_ok(got, ref, kind):
     """A forward trajectory [T, ..., S] of ``kind`` against the plain
     version's, each state group to its own tolerance: the species element by
@@ -448,7 +481,8 @@ def _fmt(x):
 
 def phase_kind_kernels(device, kind, seed):
     """Phase 3 for one kind: its forward kernel against the plain version
-    at the serving chunk and its backward kernel at the training shape, all
+    at the serving chunk and at the training shape, and its backward kernel
+    at the training shape, all
     three methods (see the module's docstring).  Returns (forward rows at
     the serving chunk, backward rows, forward rows at the training shape),
     each {method: readings and times}."""
@@ -482,20 +516,25 @@ def phase_kind_kernels(device, kind, seed):
             if not bool(torch.isfinite(ref).all()):
                 fail("%s %s: the plain version is not finite on these inputs" % (k.fwd, method))
             (rel_x, rel_s, rel_p), ok = states_ok(got, ref, kind)
+            same = not k.prec or fwd_repeats(kind, wmat, packed, y0_cols, times, method)
             r = fwd_rows[method] = dict(max_abs_err=float((got - ref).abs().max()),
                                         max_rel_species=rel_x, max_rel_signals=rel_s,
                                         max_rel_precisions=rel_p,
                                         **fwd_row(kind, wmat, packed, y0_cols, times, method))
             print("  %-9s max_rel_err species %s signals %s precisions %s (max_abs_err %.3e on "
-                  "|ref| up to %.3e)  kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, "
+                  "|ref| up to %.3e)%s  kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, "
                   "%d flop)  %s"
                   % (method, _fmt(rel_x), _fmt(rel_s), _fmt(rel_p), r["max_abs_err"],
                      float(ref.abs().max()),
+                     " | repeat run bit-equal: %s" % same if k.prec else "",
                      r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"], r["bytes"],
                      r["flops"], "ok" if ok else "MISMATCH"))
             if not ok:
                 fail("%s %s disagrees with its plain version" % (k.fwd, method))
+            if not same:
+                fail("%s %s: two runs gave different trajectories" % (k.fwd, method))
 
+    R_serve = R
     _, _, y0, wmat, packed, y0_cols, times = kind_inputs(device, kind, K_TRAIN, seed + 1)
     R = packed.shape[1]
     row_names = (list(k.names) + ["y0[%d]" % s for s in range(S)]
@@ -545,7 +584,18 @@ def phase_kind_kernels(device, kind, seed):
                         4 * (2 * n_w + 2 * packed.numel() + times.numel() + 2 * T * S * R
                              + S * R),
                         flops_per_step(kind)[1][method] * (T - 1) * R))
+            # the forward at this shape too: against its plain version, and
+            # on the first R - 12 rows alone (a ragged last block), which
+            # must give those rows of traj bit for bit
+            fwd_ref = fused_ode._plain_fwd(kind, wmat, packed, y0_cols, times, method)
+            (fx, fs, fp), fwd_ok = states_ok(traj.movedim(1, -1), fwd_ref.movedim(1, -1), kind)
+            del fwd_ref
+            n_edge = R - 12
+            edge = bool(torch.equal(traj[:, :, :n_edge], fused_ode.kind_fwd(
+                kind, wmat, packed[:, :n_edge].contiguous(), y0_cols[:, :n_edge].contiguous(),
+                times, method)))
             f = train_fwd_rows[method] = fwd_row(kind, wmat, packed, y0_cols, times, method)
+            same_fwd = not k.prec or fwd_repeats(kind, wmat, packed, y0_cols, times, method)
             print("  %-9s kernel: worst normwise %.3e (%s), worst p99 rel %.3e (%s); plain "
                   "float32: %.3e, %.3e | max_abs_err %.3e on |ref| up to %.3e%s  kernel %.4f ms  "
                   "plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
@@ -555,8 +605,12 @@ def phase_kind_kernels(device, kind, seed):
                      ", repeat run dW bit-equal: %s" % same if k.prec else "", r["ms"],
                      r["plain_ms"], r["bound_ms"], r["bound_by"], r["bytes"], r["flops"],
                      "ok" if ok else "MISMATCH"))
-            print("  %-9s %s at this shape: kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s)"
-                  % (method, k.fwd, f["ms"], f["plain_ms"], f["bound_ms"], f["bound_by"]))
+            print("  %-9s %s at this shape: max_rel_err species %s signals %s precisions %s, "
+                  "rows 0..%d alone bit-equal: %s%s  kernel %.4f ms  plain %.2f ms  bound %.4f ms "
+                  "(%s)  %s"
+                  % (method, k.fwd, _fmt(fx), _fmt(fs), _fmt(fp), n_edge - 1, edge,
+                     ", repeat run bit-equal: %s" % same_fwd if k.prec else "", f["ms"],
+                     f["plain_ms"], f["bound_ms"], f["bound_by"], "ok" if fwd_ok else "MISMATCH"))
             if not ok:
                 fail("%s %s disagrees with its plain version" % (k.bwd, method))
             if not plain_ok:
@@ -564,15 +618,20 @@ def phase_kind_kernels(device, kind, seed):
                      % (k.bwd, method))
             if not same:
                 fail("%s %s: two runs gave different weight cotangents" % (k.bwd, method))
+            if not same_fwd:
+                fail("%s %s: two runs gave different trajectories" % (k.fwd, method))
+            if not fwd_ok:
+                fail("%s %s disagrees with its plain version at B=%d K=%d"
+                     % (k.fwd, method, B, K_TRAIN))
+            if not edge:
+                fail("%s %s: a ragged last block changed the trajectory" % (k.fwd, method))
     if k.prec:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        n_blocks = -(-R // fused_ode.PREC_BWD_ROWS)
         for method in fused_ode.METHODS:
-            threads, smem, regs, per_sm = fused_ode.prec_bwd_block(kind, method)
-            print("  %-9s %s block: %d rows x %d threads, %d B of shared memory, %d registers, "
-                  "%d blocks (%d warps) resident per SM; at R=%d %d blocks on %d SMs: %.2f waves"
-                  % (method, k.bwd, fused_ode.PREC_BWD_ROWS, threads, smem, regs, per_sm,
-                     per_sm * threads // 32, R, n_blocks, sms, n_blocks / max(per_sm * sms, 1)))
+            fwd_rows[method]["block"] = print_block(device, k.fwd, method,
+                                                    fused_ode.prec_fwd_block(kind, method),
+                                                    (R, R_serve))
+            rows[method]["block"] = print_block(device, k.bwd, method,
+                                                fused_ode.prec_bwd_block(kind, method), (R,))
     print("  per row, normwise error / 99th percentile relative error against float64, "
           "kernel then plain float32, for %s:" % ", ".join(fused_ode.METHODS))
     for i, name in enumerate(row_names):
@@ -1392,6 +1451,7 @@ def kernel_row(kind, direction, rows, launches, **extra):
         bound_by=row["bound_by"],
         # no single PyTorch call integrates these ODEs or computes their VJPs
         library_ms=None,
+        **({"block": row["block"]} if "block" in row else {}),
         **extra,
     )
 

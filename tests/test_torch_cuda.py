@@ -307,23 +307,30 @@ def _kind_operands(device, kind, K=5):
 
 
 @pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
-@pytest.mark.parametrize("kind", NEW_KINDS)
-def test_kind_fwd_kernel_matches_plain(cuda, kind, method):
-    """Each state group to its own tolerance, as chip_smoke.py phase 3."""
+@pytest.mark.parametrize("kind", NEW_KINDS + ["dr_prec"])
+@pytest.mark.parametrize("R", [180, 20, 256])
+def test_kind_fwd_kernel_matches_plain(cuda, R, kind, method):
+    """Each state group to its own tolerance, as chip_smoke.py phase 3, at R
+    = 180 (K = 5), below one block (R = 20) and at R = 256 (whole blocks of
+    the _prec kinds' 32 rows, two of the plain kinds' 128); a _prec kind's
+    forward also gives the same trajectory bit for bit from run to run."""
     import chip_smoke
 
     k = fused_ode.KINDS[kind]
-    _, _, _, wmat, packed, y0_cols, times = _kind_operands(cuda, kind)
+    _, _, _, wmat, packed, y0_cols, times = _kind_operands(cuda, kind, K=-(-max(R, 180) // 36))
+    packed, y0_cols = packed[:, :R].contiguous(), y0_cols[:, :R].contiguous()
     counter = fused_ode.COUNTERS[k.fwd]
     before = counter.launches
     got = fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method)
     torch.cuda.synchronize()
     assert counter.launches == before + 1
     ref = fused_ode._plain_fwd(kind, wmat, packed, y0_cols, times, method)
-    assert got.shape == ref.shape == (times.shape[0], k.n_states, packed.shape[1])
+    assert got.shape == ref.shape == (times.shape[0], k.n_states, R)
     assert torch.isfinite(ref).all()
     rel, ok = chip_smoke.states_ok(got.movedim(1, -1), ref.movedim(1, -1), kind)
     assert ok, rel
+    if k.prec:
+        assert torch.equal(got, fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method))
 
 
 @pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])

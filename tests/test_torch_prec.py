@@ -273,6 +273,40 @@ def test_prec_kernel_sources_match_the_wrapper():
                          r"dy0, R, T, method,\s+stream\);" % F, src), family
 
 
+@pytest.mark.parametrize("family, F", [("dr", "Dr"), ("relay", "Relay"),
+                                       ("degrader", "Degrader")])
+def test_prec_fwd_sources_follow_the_header(family, F):
+    """Each _prec forward launches the shared template and answers the block
+    query from it; the header's rows a forward block runs (its grid and
+    lanes use them) are what the query reports for every method, and so what
+    chip_smoke.py counts waves by; the plain kind's forward still launches
+    the one-thread-per-row kernel."""
+    common = open(os.path.join(CSRC, "dr_common.cuh")).read()
+    consts = {m.group(1): m.group(2) for m in re.finditer(r"constexpr int (\w+) = ([^;]+);", common)}
+    assert consts["PREC_FWD_ROWS"] == "32"
+    assert consts["PREC_FWD_THREADS"] == "PREC_FWD_ROWS * (N_PREC + 1)"
+    assert "const dim3 grid((unsigned)((R + PREC_FWD_ROWS - 1) / PREC_FWD_ROWS));" in common
+    assert "const int r = blockIdx.x * PREC_FWD_ROWS + lane;" in common
+    for method in ("MODEULER", "MIDPOINT", "RK4"):
+        assert re.search(r"return block_of\(prec_fwd_kernel<F, %s>, PREC_FWD_ROWS, "
+                         r"PREC_FWD_THREADS, rows,\s+threads, smem_bytes, registers, "
+                         r"blocks_per_sm\);" % method, common), method
+    assert "  *rows = n_rows;\n" in common
+    smoke = open(os.path.join(os.path.dirname(CSRC), os.pardir, "chip_smoke.py")).read()
+    assert "    rows, threads, smem, regs, per_sm = block\n" in smoke
+    assert re.search(r"print_block\(device, k\.fwd, method,\s+fused_ode\.prec_fwd_block\(kind, method\),",
+                     smoke)
+    src = open(os.path.join(CSRC, family + "_prec_fwd.cu")).read()
+    assert '#include "dr_common.cuh"' in src
+    assert re.search(r"return fwd_launch<%s, true>\(wmat, consts, y0, times, out, R, T, method, "
+                     r"stream\);" % F, src)
+    assert re.search(r"return prec_fwd_block<%s>\(method, rows, threads, smem_bytes, registers, "
+                     r"blocks_per_sm\);" % F, src)
+    plain = open(os.path.join(CSRC, family + "_fwd.cu")).read()
+    assert re.search(r"return fwd_launch<%s, false>\(nullptr, consts, y0, times, out, R, T, "
+                     r"method, stream\);" % F, plain)
+
+
 def test_build_hashes_the_shared_header(tmp_path, monkeypatch):
     """An edit to a header under csrc changes every library's path, so a
     stale library is never loaded after it."""

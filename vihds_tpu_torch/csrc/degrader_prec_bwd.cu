@@ -39,9 +39,10 @@ extern "C" int degrader_prec_bwd_launch(const float* wmat, const float* consts, 
                                     stream);
 }
 
-// The kernel's block for method (threads, static shared memory in bytes,
-// registers a thread, blocks one SM holds at once); 0 or the cudaError_t.
-extern "C" int degrader_prec_bwd_block(int method, int* threads, int* smem_bytes, int* registers,
-                                       int* blocks_per_sm) {
-  return prec_bwd_block<Degrader>(method, threads, smem_bytes, registers, blocks_per_sm);
+// The kernel's block for method (sample rows, threads, static shared memory
+// in bytes, registers a thread, blocks one SM holds at once); 0 or the
+// cudaError_t.
+extern "C" int degrader_prec_bwd_block(int method, int* rows, int* threads, int* smem_bytes,
+                                       int* registers, int* blocks_per_sm) {
+  return prec_bwd_block<Degrader>(method, rows, threads, smem_bytes, registers, blocks_per_sm);
 }

@@ -408,41 +408,6 @@ struct Degrader {
 };
 
 // --------------------------------------------------------------------------
-// The learned-precision block over NS species
-// --------------------------------------------------------------------------
-
-// The precision nets' input at (t, y) (_prec_features).
-template <int NS>
-__device__ __forceinline__ void prec_features(float t, const float* y, float* f) {
-  f[0] = 1.0f;
-  f[1] = tanhf(t);
-#pragma unroll
-  for (int s = 0; s < NS; ++s) f[2 + s] = tanhf(y[s]);
-}
-
-// The learned-precision block of a *_precisions right-hand side over
-// y[0..NS+3] (the precision rows of _prec_rhs_cols):
-//   dv_j = sigmoid(W_j . f) - sigmoid(W_{4+j} . f) * y[NS + j],  j = 0..3.
-// W is the [8, 2 + NS] weight matrix, read from shared memory (every thread
-// of a warp reads the same word, which the hardware broadcasts).
-template <int NS>
-__device__ __forceinline__ void prec_rhs(const float* W, float t, const float* y, float* dv) {
-  constexpr int N_FEAT = n_feat(NS);
-  float f[N_FEAT];
-  prec_features<NS>(t, y, f);
-#pragma unroll
-  for (int j = 0; j < N_PREC; ++j) {
-    float p = 0.0f, d = 0.0f;
-#pragma unroll
-    for (int k = 0; k < N_FEAT; ++k) {
-      p += W[j * N_FEAT + k] * f[k];
-      d += W[(N_PREC + j) * N_FEAT + k] * f[k];
-    }
-    dv[j] = sigmoidf(p) - sigmoidf(d) * y[NS + j];
-  }
-}
-
-// --------------------------------------------------------------------------
 // Fixed-grid steps over any right-hand side
 // --------------------------------------------------------------------------
 
@@ -568,15 +533,13 @@ __device__ __forceinline__ void step_vjp(const Rhs& rhs, const Vjp& vjp, float t
   }
 }
 
-// A kind (family F, with the precision block or not) as the forward's step
-// calls it: the right-hand side over S = F::NS (+ N_PREC) states ...
-template <class F, bool PREC>
+// A kind without the precision block (family F) as the forward's step calls
+// it: the right-hand side over its F::NS species ...
+template <class F>
 struct KindRhs {
   const float* c;
-  const float* W;  // the precision nets' weights; unused without the block
   __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
     F::rhs(c, t, y, f);
-    if constexpr (PREC) prec_rhs<F::NS>(W, t, y, f + F::NS);
   }
 };
 
@@ -601,17 +564,16 @@ struct KindVjp {
 // --------------------------------------------------------------------------
 // The kernels
 //
-// Forward (the TPU kernel's _make_kernel): one thread per sample row.  The
-// constants and the states stay in registers for the whole time loop; the
-// time grid is read through the read-only cache; each step stores
-// out[t, s, r], so the 32 threads of a warp write 32 consecutive floats of
-// one state row and every store coalesces.  The ragged edge is masked with
-// r < R.  The TPU kernel padded R up to its block size with constants = 1
-// and y0 = 1e-3 (pallas_ode.py:551-560) only because a grid cell there
-// processes a whole block; with the mask no padded row exists.  With the
-// precision block, the weight matrix, which every row shares, is loaded into
-// shared memory once per block before the mask (so every thread reaches the
-// barrier).
+// Forward (the TPU kernel's _make_kernel): without the precision block
+// (fwd_kernel) one thread per sample row.  The constants and the states stay
+// in registers for the whole time loop; the time grid is read through the
+// read-only cache; each step stores out[t, s, r], so the 32 threads of a warp
+// write 32 consecutive floats of one state row and every store coalesces.
+// The ragged edge is masked with r < R.  The TPU kernel padded R up to its
+// block size with constants = 1 and y0 = 1e-3 (pallas_ode.py:551-560) only
+// because a grid cell there processes a whole block; with the mask no padded
+// row exists.  With the precision block (prec_fwd_kernel) a row is run by
+// five threads, below.
 //
 // Backward (_make_bwd_kernel): the reverse sweep over the stored trajectory.
 // The constants load into registers once, their cotangents start at zero and
@@ -627,18 +589,11 @@ struct KindVjp {
 constexpr int FWD_THREADS = 128;
 constexpr int BWD_THREADS = 32;
 
-template <class F, bool PREC, int METHOD>
+template <class F, int METHOD>
 __global__ void __launch_bounds__(FWD_THREADS)
-fwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts,
-           const float* __restrict__ y0, const float* __restrict__ times,
-           float* __restrict__ out, int R, int T) {
-  constexpr int S = F::NS + (PREC ? N_PREC : 0);
-  __shared__ float W[PREC ? n_w(F::NS) : 1];
-  if constexpr (PREC) {
-    for (int e = threadIdx.x; e < n_w(F::NS); e += blockDim.x) W[e] = wmat[e];
-    __syncthreads();
-  }
-
+fwd_kernel(const float* __restrict__ consts, const float* __restrict__ y0,
+           const float* __restrict__ times, float* __restrict__ out, int R, int T) {
+  constexpr int S = F::NS;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const size_t stride = (size_t)R;
@@ -646,7 +601,7 @@ fwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts,
   float c[F::NC];
 #pragma unroll
   for (int j = 0; j < F::NC; ++j) c[j] = consts[j * stride + r];
-  const KindRhs<F, PREC> rhs{c, W};
+  const KindRhs<F> rhs{c};
 
   float y[S];
 #pragma unroll
@@ -1016,6 +971,183 @@ prec_bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
   }
 }
 
+// --------------------------------------------------------------------------
+// The forward with the precision block (prec_fwd_kernel): a block of
+// PREC_FWD_ROWS = 32 sample rows x (N_PREC + 1) warps, lane l of every warp
+// on row l, as the backward's.  The precision states feed nothing back into
+// the species, so the species run ahead:
+//   * warp N_PREC, the species warp, holds the row's
+//     constants and species and runs F::rhs and the species' part of
+//     one_step, storing out[i, s, r] for s < NS: the plain kinds' thread
+//     (fwd_kernel) but for one thing.  At each point of a step (y_i, then each stage's point, in the
+//     order one_step forms them) it first writes the point's features tanh
+//     y_s into the next slot of a ring of shared tiles, z[slot], and
+//     arrives at the slot's "full" barrier without waiting;
+//   * warp j < N_PREC, a precision warp, holds precision state j and rows j
+//     (production) and N_PREC + j (degradation) of W in registers and runs
+//     one_step over its one state.  At each point it computes tanh t, waits
+//     at the slot's "full" barrier, reads the features, arrives at the
+//     slot's "free" barrier, and forms dv_j = sigmoid(Wp . f) - sigmoid(Wd
+//     . f) v_j (the precision rows of _prec_rhs_cols).
+// The species warp waits at a slot's "free" barrier only before it writes
+// the slot again, RING points later: the ring holds about two steps' points
+// (16 named barriers bound rk4's to 7).  Every slot starts free (each
+// precision warp arrives once at each "free" barrier first), and the species
+// warp drains the last arrivals at the end, so every barrier completes.
+// The species warp computes the features tanh y_s, which its chain can
+// overlap: on the H100 that beat precision warps that share them out or
+// each compute them all, and precision warps of 2 or 4 states.
+//
+// Every float operation is that of the one-thread-per-row kernel that ran
+// the block before (fwd_kernel with it), in its order: the same one_step
+// over the species and over each precision state, p and d summed from 0 over the
+// features in index order, the same stage times from the same grid loads.
+// Each warp's step stays one basic block (fixed-trip loops, clamped
+// indices, selects), within which nvcc contracts products into adds as it
+// did there: midpoint and rk4 give that kernel's trajectory bit for bit;
+// in modeuler's f1 + f2 nvcc fuses the other product of species 0, as it
+// does in the plain kinds' thread.  Rows past the edge (r >= R) run row
+// R - 1, store nothing and reach every barrier.
+// --------------------------------------------------------------------------
+constexpr int PREC_FWD_ROWS = 32;
+constexpr int PREC_FWD_THREADS = PREC_FWD_ROWS * (N_PREC + 1);
+
+// the ring's slots: two steps of points, rk4's bounded by the 15 named
+// barriers (0 is __syncthreads): a "full" and a "free" one a slot
+template <int METHOD>
+__host__ __device__ constexpr int fwd_ring() { return METHOD == RK4 ? 7 : 2 * n_points<METHOD>(); }
+
+template <int NS, int RING>
+struct PrecFwdTiles {
+  static constexpr int BAR_FULL = 1;         // + slot: the slot's features written
+  static constexpr int BAR_FREE = 1 + RING;  // + slot: the precision warps have read them
+  float W[n_w(NS)];
+  float z[RING][NS][PREC_FWD_ROWS];  // a point's features tanh y_s
+};
+
+__device__ __forceinline__ int next_slot(int slot, int ring) {
+  return slot + 1 == ring ? 0 : slot + 1;
+}
+
+// The species warp's right-hand side at the next point (lane = row).
+template <class F, int RING>
+struct SpeciesFwdWarp {
+  using Tiles = PrecFwdTiles<F::NS, RING>;
+  const float* c;
+  Tiles* sh;
+  int lane;
+  int* slot;
+  __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
+    const int q = *slot;
+    bar_sync(Tiles::BAR_FREE + q, PREC_FWD_THREADS);
+#pragma unroll
+    for (int s = 0; s < F::NS; ++s) sh->z[q][s][lane] = tanhf(y[s]);
+    bar_arrive(Tiles::BAR_FULL + q, PREC_FWD_THREADS);
+    *slot = next_slot(q, RING);
+    F::rhs(c, t, y, f);
+  }
+};
+
+// A precision warp's right-hand side of its state at the next point.
+template <int NS, int RING>
+struct PrecFwdWarp {
+  static constexpr int NF = n_feat(NS);
+  using Tiles = PrecFwdTiles<NS, RING>;
+  Tiles* sh;
+  int lane;
+  const float* Wp;  // in registers: its state's row of W (production)
+  const float* Wd;  // ... and its degradation row
+  int* slot;
+  __device__ __forceinline__ void operator()(float t, const float* y, float* dv) const {
+    const int q = *slot;
+    float f[NF];
+    f[0] = 1.0f;
+    f[1] = tanhf(t);
+    bar_sync(Tiles::BAR_FULL + q, PREC_FWD_THREADS);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) f[2 + s] = sh->z[q][s][lane];
+    bar_arrive(Tiles::BAR_FREE + q, PREC_FWD_THREADS);
+    *slot = next_slot(q, RING);
+    float p = 0.0f, d = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      p += Wp[k] * f[k];
+      d += Wd[k] * f[k];
+    }
+    dv[0] = sigmoidf(p) - sigmoidf(d) * y[0];
+  }
+};
+
+template <class F, int METHOD>
+__global__ void __launch_bounds__(PREC_FWD_THREADS, 3)
+prec_fwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts,
+                const float* __restrict__ y0, const float* __restrict__ times,
+                float* __restrict__ out, int R, int T) {
+  constexpr int NS = F::NS, S = NS + N_PREC, NF = n_feat(NS), NW = n_w(NS);
+  constexpr int RING = fwd_ring<METHOD>();
+  using Tiles = PrecFwdTiles<NS, RING>;
+  __shared__ Tiles sh;
+  const int tid = threadIdx.x;
+  const int lane = tid % PREC_FWD_ROWS, warp = tid / PREC_FWD_ROWS;
+  for (int e = tid; e < NW; e += PREC_FWD_THREADS) sh.W[e] = wmat[e];
+  __syncthreads();
+
+  const int r = blockIdx.x * PREC_FWD_ROWS + lane;
+  const int rr = min(r, R - 1);  // the row this thread runs
+  const size_t stride = (size_t)R;
+  int slot = 0;
+
+  if (warp == N_PREC) {
+    float c[F::NC];
+#pragma unroll
+    for (int q = 0; q < F::NC; ++q) c[q] = consts[q * stride + rr];
+    float y[NS];
+#pragma unroll
+    for (int s = 0; s < NS; ++s) y[s] = y0[s * stride + rr];
+    if (r < R) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) out[s * stride + r] = y[s];
+    }
+    const SpeciesFwdWarp<F, RING> species{c, &sh, lane, &slot};
+    float t1 = __ldg(times);
+    for (int i = 1; i < T; ++i) {
+      const float t2 = __ldg(times + i);
+      one_step<METHOD, NS>(species, t1, t2, y);
+      if (r < R) {
+        float* o = out + (size_t)i * S * stride + r;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) o[s * stride] = y[s];
+      }
+      t1 = t2;
+    }
+    // the precision warps' last arrival at each "free" barrier
+    for (int q = 0; q < RING; ++q) {
+      bar_sync(Tiles::BAR_FREE + slot, PREC_FWD_THREADS);
+      slot = next_slot(slot, RING);
+    }
+  } else {
+    const int j = NS + warp;  // its state
+    float Wp[NF], Wd[NF];
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      Wp[k] = sh.W[warp * NF + k];
+      Wd[k] = sh.W[(N_PREC + warp) * NF + k];
+    }
+#pragma unroll
+    for (int q = 0; q < RING; ++q) bar_arrive(Tiles::BAR_FREE + q, PREC_FWD_THREADS);
+    float v[1] = {y0[j * stride + rr]};
+    if (r < R) out[j * stride + r] = v[0];
+    const PrecFwdWarp<NS, RING> prec{&sh, lane, Wp, Wd, &slot};
+    float t1 = __ldg(times);
+    for (int i = 1; i < T; ++i) {
+      const float t2 = __ldg(times + i);
+      one_step<METHOD, 1>(prec, t1, t2, v);
+      if (r < R) out[((size_t)i * S + j) * stride + r] = v[0];
+      t1 = t2;
+    }
+  }
+}
+
 // The launchers behind the C entry points.  All pointers are device pointers
 // of contiguous float32 tensors (wmat and dw null without the precision
 // block; dw holds ceil(R / 32) partials of [8, 2 + NS]); stream is a
@@ -1025,21 +1157,39 @@ template <class F, bool PREC>
 int fwd_launch(const float* wmat, const float* consts, const float* y0, const float* times,
                float* out, int R, int T, int method, void* stream) {
   if (R <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 block(FWD_THREADS);
-  const dim3 grid((unsigned)((R + FWD_THREADS - 1) / FWD_THREADS));
   cudaStream_t s = (cudaStream_t)stream;
-  switch (method) {
-    case MODEULER:
-      fwd_kernel<F, PREC, MODEULER><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
-      break;
-    case MIDPOINT:
-      fwd_kernel<F, PREC, MIDPOINT><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
-      break;
-    case RK4:
-      fwd_kernel<F, PREC, RK4><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  if constexpr (PREC) {
+    const dim3 block(PREC_FWD_THREADS);
+    const dim3 grid((unsigned)((R + PREC_FWD_ROWS - 1) / PREC_FWD_ROWS));
+    switch (method) {
+      case MODEULER:
+        prec_fwd_kernel<F, MODEULER><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
+        break;
+      case MIDPOINT:
+        prec_fwd_kernel<F, MIDPOINT><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
+        break;
+      case RK4:
+        prec_fwd_kernel<F, RK4><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    const dim3 block(FWD_THREADS);
+    const dim3 grid((unsigned)((R + FWD_THREADS - 1) / FWD_THREADS));
+    switch (method) {
+      case MODEULER:
+        fwd_kernel<F, MODEULER><<<grid, block, 0, s>>>(consts, y0, times, out, R, T);
+        break;
+      case MIDPOINT:
+        fwd_kernel<F, MIDPOINT><<<grid, block, 0, s>>>(consts, y0, times, out, R, T);
+        break;
+      case RK4:
+        fwd_kernel<F, RK4><<<grid, block, 0, s>>>(consts, y0, times, out, R, T);
+        break;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -1089,36 +1239,54 @@ int bwd_launch(const float* wmat, const float* consts, const float* times, const
   return (int)cudaGetLastError();
 }
 
-// The _prec backward's block for method on the current card: its threads,
-// its static shared memory in bytes, its registers a thread and how many such
-// blocks one SM holds at once.  Returns the cudaError_t of the query (0 on
-// success).
+// A _prec kernel's block for method on the current card: its sample rows, its
+// threads, its static shared memory in bytes, its registers a thread and how
+// many such blocks one SM holds at once.  Returns the cudaError_t of the query
+// (0 on success).
 template <class Kernel>
-int prec_bwd_block_of(Kernel kernel, int* threads, int* smem_bytes, int* registers,
-                      int* blocks_per_sm) {
+int block_of(Kernel kernel, int n_rows, int n_threads, int* rows, int* threads, int* smem_bytes,
+             int* registers, int* blocks_per_sm) {
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
-  *threads = PREC_BWD_THREADS;
+  *rows = n_rows;
+  *threads = n_threads;
   *smem_bytes = (int)attr.sharedSizeBytes;
   *registers = attr.numRegs;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
-                                                            PREC_BWD_THREADS, 0);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, n_threads, 0);
 }
 
 template <class F>
-int prec_bwd_block(int method, int* threads, int* smem_bytes, int* registers,
+int prec_fwd_block(int method, int* rows, int* threads, int* smem_bytes, int* registers,
                    int* blocks_per_sm) {
   switch (method) {
     case MODEULER:
-      return prec_bwd_block_of(prec_bwd_kernel<F, MODEULER>, threads, smem_bytes, registers,
-                               blocks_per_sm);
+      return block_of(prec_fwd_kernel<F, MODEULER>, PREC_FWD_ROWS, PREC_FWD_THREADS, rows,
+                      threads, smem_bytes, registers, blocks_per_sm);
     case MIDPOINT:
-      return prec_bwd_block_of(prec_bwd_kernel<F, MIDPOINT>, threads, smem_bytes, registers,
-                               blocks_per_sm);
+      return block_of(prec_fwd_kernel<F, MIDPOINT>, PREC_FWD_ROWS, PREC_FWD_THREADS, rows,
+                      threads, smem_bytes, registers, blocks_per_sm);
     case RK4:
-      return prec_bwd_block_of(prec_bwd_kernel<F, RK4>, threads, smem_bytes, registers,
-                               blocks_per_sm);
+      return block_of(prec_fwd_kernel<F, RK4>, PREC_FWD_ROWS, PREC_FWD_THREADS, rows,
+                      threads, smem_bytes, registers, blocks_per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <class F>
+int prec_bwd_block(int method, int* rows, int* threads, int* smem_bytes, int* registers,
+                   int* blocks_per_sm) {
+  switch (method) {
+    case MODEULER:
+      return block_of(prec_bwd_kernel<F, MODEULER>, PREC_BWD_ROWS, PREC_BWD_THREADS, rows,
+                      threads, smem_bytes, registers, blocks_per_sm);
+    case MIDPOINT:
+      return block_of(prec_bwd_kernel<F, MIDPOINT>, PREC_BWD_ROWS, PREC_BWD_THREADS, rows,
+                      threads, smem_bytes, registers, blocks_per_sm);
+    case RK4:
+      return block_of(prec_bwd_kernel<F, RK4>, PREC_BWD_ROWS, PREC_BWD_THREADS, rows,
+                      threads, smem_bytes, registers, blocks_per_sm);
     default:
       return (int)cudaErrorInvalidValue;
   }

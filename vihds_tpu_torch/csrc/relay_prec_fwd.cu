@@ -6,8 +6,10 @@
 // "relay_prec": _make_kernel with the _with_precisions right-hand side,
 // launched by _integrate_padded_w (pallas_ode.py:473). It computes the same
 // thing: y(t0) = y0, then T-1 fixed-grid steps of modeuler / midpoint / rk4 of
-// the right-hand side, storing every state. The kernel and the right-hand side
-// are dr_common.cuh's (fwd_kernel over Relay with the precision block).
+// the right-hand side, storing every state. The kernel is dr_common.cuh's
+// prec_fwd_kernel over Relay: a block of 32 rows x 5 warps, one for the
+// species, which runs ahead, and one for each of the four precision states, fed
+// each point's features through a ring of shared tiles.
 //
 // Layout (the wrapper vihds_tpu_torch/ops/fused_ode.py packs and checks it):
 //   wmat   [8, 14]    the precision nets' weights: rows 0..3 production,
@@ -28,4 +30,12 @@ extern "C" int relay_prec_fwd_launch(const float* wmat, const float* consts, con
                                      const float* times, float* out, int R, int T, int method,
                                      void* stream) {
   return fwd_launch<Relay, true>(wmat, consts, y0, times, out, R, T, method, stream);
+}
+
+// The kernel's block for method (sample rows, threads, static shared memory
+// in bytes, registers a thread, blocks one SM holds at once); 0 or the
+// cudaError_t.
+extern "C" int relay_prec_fwd_block(int method, int* rows, int* threads, int* smem_bytes,
+                                    int* registers, int* blocks_per_sm) {
+  return prec_fwd_block<Relay>(method, rows, threads, smem_bytes, registers, blocks_per_sm);
 }

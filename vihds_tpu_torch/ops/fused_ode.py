@@ -727,18 +727,29 @@ def kind_bwd(kind, wmat, packed, times, traj, g, method):
     return (outs[0].sum(dim=0) if k.prec else None), dc, dy0
 
 
-def prec_bwd_block(kind, method):
-    """A ``_prec`` backward kernel's block for ``method`` on the current
-    card: (threads, static shared memory in bytes, registers a thread, blocks
-    one SM holds at once), from csrc/<kind>_bwd.cu and the CUDA occupancy
-    calculator."""
-    name = KINDS[kind].bwd
-    fn = getattr(build.load(name), name[: -len("_bwd")] + "_bwd_block")
-    out = [ctypes.c_int() for _ in range(4)]
+def _block(name, method):
+    """The block of kernel library ``name`` for ``method`` on the current
+    card, from its C entry ``<name>_block``: (sample rows, threads, static
+    shared memory in bytes, registers a thread, blocks one SM holds at once),
+    the last from the CUDA occupancy calculator."""
+    fn = getattr(build.load(name), name + "_block")
+    out = [ctypes.c_int() for _ in range(5)]
     err = fn(ctypes.c_int(METHODS.index(method)), *[ctypes.byref(x) for x in out])
     if err != 0:
         raise RuntimeError("%s block query failed with cudaError %d" % (name, err))
     return tuple(x.value for x in out)
+
+
+def prec_fwd_block(kind, method):
+    """A ``_prec`` forward kernel's block for ``method`` (``_block``), from
+    csrc/<kind>_fwd.cu."""
+    return _block(KINDS[kind].fwd, method)
+
+
+def prec_bwd_block(kind, method):
+    """A ``_prec`` backward kernel's block for ``method`` (``_block``), from
+    csrc/<kind>_bwd.cu."""
+    return _block(KINDS[kind].bwd, method)
 
 
 def _integrate_cuda(packed, y0_cols, times, method):

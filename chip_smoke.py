@@ -17,14 +17,19 @@ Phases, each printing lines of its own:
    backward kernel at the training shape (B=36 x K=200) with a seeded random
    cotangent, read per constant, state and row of the weight matrix against
    the plain version in float64 beside the plain version in float32, with
-   its time, the plain version's time and its bound; the forward held
+   its time, the plain version's time and its bound; the same on the
+   operands one kernel-route training step of the kind's spec hands the
+   backward (``step_operands``: its cotangent, mostly exact zeros, over
+   the method's trajectory; elements whose float64 value lies below
+   float32's normal range are read by the normwise limit only), with the
+   cotangent's zero share, the time and two runs bit-equal; the forward held
    against its plain version and timed at the training shape too, and its
    first R - 12 rows run alone (a ragged last block) must equal those rows
    of the whole run bit for bit; two runs of a ``_prec`` forward must give
    the same trajectory bit for bit at both shapes, and two of a ``_prec``
-   backward the same weight cotangent; then the ``_prec`` forward's and
-   backward's blocks per method (rows, threads, shared memory, registers, blocks
-   resident per SM, waves at each shape); then the
+   backward the same weight cotangent; then the backward's block per method
+   and the ``_prec`` forward's (rows, threads, shared memory, registers,
+   blocks resident per SM, waves at each shape); then the
    black-box kernels
    (``blackbox_fwd``, ``blackbox_bwd``; operands from ``dr_blackbox_icml``),
    the forward against its plain version at the serving chunk and at the
@@ -32,7 +37,8 @@ Phases, each printing lines of its own:
    method (threads, shared memory, blocks resident per SM, waves at both
    shapes), the backward per weight leaf, constant and state row against
    float64 run on the plain float32 sweep's relu masks, two backward runs
-   bit-equal in dW, and the backward's block;
+   bit-equal in dW, its time on a training step's operands, and the
+   backward's block;
 4. serving ``dr_constant_icml`` at full width: three ``predict`` requests at
    K=1000 with ``eval_solver: pallas_midpoint``, one with a counterfactual,
    with the kernel's launch count; 4b, the kernel route held against the
@@ -221,6 +227,13 @@ PREC_OVER_T = ("degrader_prec",)
 # and phase 3 prints its readings beside the kernel's: the limits stand well
 # above them
 BWD_NORM_TOL, BWD_P99_TOL = 1e-4, 1e-3
+# On a training step's operands (step_operands) some samples' cotangents lie
+# below float32's normal range: there float32 keeps no relative accuracy,
+# and on dr_prec's the plain float32 sweep itself misses the percentile
+# limit (phase 3 prints its reading over every element).  Those elements are read by the normwise
+# limit alone there (cotangent_readings' normal_only); the limits are the
+# same
+FLT_MIN = 2.0 ** -126
 # the black-box backward is held to the same limits, against the plain sweep
 # in float64 run on the relu masks of the plain float32 sweep (ReluMasks):
 # where a hidden unit's pre-activation lies within float32 rounding of 0 a
@@ -359,6 +372,61 @@ def kind_inputs(device, kind, K, seed):
     return consts, prec_params, y0, wmat, packed, y0_cols, times
 
 
+def captured_step(device, module, name, spec):
+    """The arguments, detached, of the one call to ``module.<name>`` (a
+    backward kernel's launch function) in one kernel-route training step of
+    ``spec``'s model at B=36 series x K=200 samples, with the seeded params
+    and draws of ``one_step``: the operands a training step hands the
+    kernel."""
+    import torch
+
+    captured = []
+    launch = getattr(module, name)
+
+    def capture(*args):
+        captured.append([x.detach() if isinstance(x, torch.Tensor) else x for x in args])
+        return launch(*args)
+
+    setattr(module, name, capture)
+    try:
+        _, _, _, step = one_step(device, TRAIN_SOLVER, range(36), K_TRAIN, SEED + 7, spec)
+        step()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, launch)
+    if len(captured) != 1:
+        fail("a training step of %s called %s %d times" % (spec, name, len(captured)))
+    return captured[0]
+
+
+_STEP_OPERANDS = {}
+
+
+def step_operands(device, kind):
+    """The operands one kernel-route training step of ``KIND_SPEC[kind]``'s
+    model hands the kind's backward kernel (``captured_step`` at
+    ``fused_ode.kind_bwd``): (wmat or None, packed [NC, R], times, y0 [S, R],
+    its trajectory cotangent g [T, S, R], most of it exactly zero).  The
+    plain relay / degrader kinds, which no shipped spec trains, take their
+    ``_prec`` kind's constants and the species rows of its y0 and g.  The
+    caller integrates the trajectory from y0 with the method it holds the
+    kernel in."""
+    from vihds_tpu_torch.ops import fused_ode
+
+    k = fused_ode.KINDS[kind]
+    source = kind if k.prec or kind == "dr" else kind + "_prec"
+    if source not in _STEP_OPERANDS:
+        got, wmat, packed, times, traj, g, _ = captured_step(device, fused_ode, "kind_bwd",
+                                                             KIND_SPEC[source])
+        if got != source:
+            fail("a training step of %s launched %s, not %s" % (KIND_SPEC[source], got, source))
+        _STEP_OPERANDS[source] = (wmat, packed, times, traj[0].contiguous(), g)
+    wmat, packed, times, y0, g = _STEP_OPERANDS[source]
+    if source != kind:
+        return None, packed, times, y0[: k.n_states].contiguous(), g[:, : k.n_states].contiguous()
+    return wmat, packed, times, y0, g
+
+
 def bound(n_bytes, n_flops):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the float32 operations over the float32 peak."""
@@ -452,25 +520,33 @@ def states_ok(got, ref, kind):
     return out, ok
 
 
-def cotangent_readings(got, ref):
+def cotangent_readings(got, ref, normal_only=False):
     """Per row of a backward output [n, R] against its float64 reference
     ``ref``: (normwise error, the largest |got - ref| over the largest
     |ref|; the 99th percentile of |got - ref| / |ref|), two float64 [n]
     tensors.  Each constant (and state) is read on its own: one sample row
     of dc spans many decades across the constants, and one constant's
-    cotangent many decades across the samples."""
-    err = (got.double() - ref).abs()
-    norm = err.amax(dim=1) / ref.abs().amax(dim=1).clamp_min(1e-300)
-    rel = (err / ref.abs().clamp_min(1e-300)).quantile(0.99, dim=1)
-    return norm, rel
-
-
-def cotangents_ok(got, ref):
-    """True when ``got`` is finite and every row is within BWD_NORM_TOL
-    (normwise) and BWD_P99_TOL (99th percentile relative) of ``ref``."""
+    cotangent many decades across the samples.  With ``normal_only`` an
+    element whose reference lies below float32's normal range (FLT_MIN),
+    where a float32 result has no relative accuracy, counts as exact in the
+    percentile and is held by the normwise reading alone."""
     import torch
 
-    norm, rel = cotangent_readings(got, ref)
+    err = (got.double() - ref).abs()
+    norm = err.amax(dim=1) / ref.abs().amax(dim=1).clamp_min(1e-300)
+    rel = err / ref.abs().clamp_min(1e-300)
+    if normal_only:
+        rel = torch.where(ref.abs() < FLT_MIN, torch.zeros_like(rel), rel)
+    return norm, rel.quantile(0.99, dim=1)
+
+
+def cotangents_ok(got, ref, normal_only=False):
+    """True when ``got`` is finite and every row is within BWD_NORM_TOL
+    (normwise) and BWD_P99_TOL (99th percentile relative) of ``ref``
+    (``cotangent_readings``)."""
+    import torch
+
+    norm, rel = cotangent_readings(got, ref, normal_only)
     return (bool(torch.isfinite(got).all()) and bool((norm <= BWD_NORM_TOL).all())
             and bool((rel <= BWD_P99_TOL).all()))
 
@@ -549,6 +625,9 @@ def phase_kind_kernels(device, kind, seed):
     def rows_of(dw, dc, dy0):
         return [torch.cat([dc, dy0])] + ([dw] if k.prec else [])
 
+    s_wmat, s_packed, s_times, s_y0, s_g = step_operands(device, kind)
+    zero_share = float((s_g == 0).double().mean())
+    subnormal_share = float(((s_g != 0) & (s_g.abs() < FLT_MIN)).double().mean())
     rows, train_fwd_rows, readings = {}, {}, {}
     with torch.no_grad():
         for method in fused_ode.METHODS:
@@ -625,13 +704,62 @@ def phase_kind_kernels(device, kind, seed):
                      % (k.fwd, method, B, K_TRAIN))
             if not edge:
                 fail("%s %s: a ragged last block changed the trajectory" % (k.fwd, method))
-    if k.prec:
-        for method in fused_ode.METHODS:
+
+            # a training step's own operands (step_operands): its cotangent
+            # over this method's trajectory, held to the same limits
+            s_traj = fused_ode.kind_fwd(kind, s_wmat, s_packed, s_y0, s_times, method)
+            got = rows_of(*fused_ode.kind_bwd(kind, s_wmat, s_packed, s_times, s_traj, s_g,
+                                              method))
+            again = rows_of(*fused_ode.kind_bwd(kind, s_wmat, s_packed, s_times, s_traj, s_g,
+                                                method))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            plain = rows_of(*fused_ode._plain_bwd(kind, s_wmat, s_packed, s_times, s_traj, s_g,
+                                                  method))
+            ref = rows_of(*fused_ode._plain_bwd(
+                kind, s_wmat.double() if k.prec else None, s_packed.double(), s_times.double(),
+                s_traj.double(), s_g.double(), method))
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(x).all()) for x in ref):
+                fail("%s %s: the plain version is not finite on a training step's operands"
+                     % (k.bwd, method))
+            k_norm, k_rel = (torch.cat(x) for x in zip(*(cotangent_readings(a, b, True)
+                                                          for a, b in zip(got, ref))))
+            p_norm, p_rel = (torch.cat(x) for x in zip(*(cotangent_readings(a, b, True)
+                                                          for a, b in zip(plain, ref))))
+            ok = all(cotangents_ok(a, b, True) for a, b in zip(got, ref))
+            plain_ok = all(cotangents_ok(a, b, True) for a, b in zip(plain, ref))
+            plain_all_p99 = max(float(cotangent_readings(a, b)[1].max())
+                                for a, b in zip(plain, ref))
+            r.update(step_zero_share=zero_share, step_subnormal_share=subnormal_share,
+                     step_max_abs_err=float((got[0].double() - ref[0]).abs().max()),
+                     step_worst_norm=float(k_norm.max()), step_worst_p99=float(k_rel.max()),
+                     step_ms=cuda_ms(lambda: fused_ode.kind_bwd(
+                         kind, s_wmat, s_packed, s_times, s_traj, s_g, method), 20))
+            print("  %-9s a training step's cotangent (%.4f of it exactly zero, %.4f subnormal), "
+                  "elements below float32's normal range read normwise only: kernel: worst "
+                  "normwise %.3e (%s), worst p99 rel %.3e (%s); plain float32: %.3e, %.3e (p99 "
+                  "over every element %.3e) | repeat run bit-equal: %s  kernel %.4f ms (%.4f ms "
+                  "on the random one)  %s"
+                  % (method, zero_share, subnormal_share, r["step_worst_norm"],
+                     row_names[int(k_norm.argmax())],
+                     r["step_worst_p99"], row_names[int(k_rel.argmax())], float(p_norm.max()),
+                     float(p_rel.max()), plain_all_p99, same, r["step_ms"], r["ms"],
+                     "ok" if ok else "MISMATCH"))
+            if not ok:
+                fail("%s %s disagrees with its plain version on a training step's operands"
+                     % (k.bwd, method))
+            if not plain_ok:
+                fail("%s %s: the plain version in float32 is outside the tolerance itself on a "
+                     "training step's operands" % (k.bwd, method))
+            if not same:
+                fail("%s %s: two runs on a training step's operands differ" % (k.bwd, method))
+    for method in fused_ode.METHODS:
+        if k.prec:
             fwd_rows[method]["block"] = print_block(device, k.fwd, method,
                                                     fused_ode.prec_fwd_block(kind, method),
                                                     (R, R_serve))
-            rows[method]["block"] = print_block(device, k.bwd, method,
-                                                fused_ode.prec_bwd_block(kind, method), (R,))
+        rows[method]["block"] = print_block(device, k.bwd, method,
+                                            fused_ode.bwd_block(kind, method), (R,))
     print("  per row, normwise error / 99th percentile relative error against float64, "
           "kernel then plain float32, for %s:" % ", ".join(fused_ode.METHODS))
     for i, name in enumerate(row_names):
@@ -837,6 +965,8 @@ def phase_blackbox_kernels(device, seed):
     names = row_names + leaves
     rows, table = {}, {}
     wv = fb._split(wflat, shapes)
+    s_wflat, s_packed, s_times, s_traj, s_g, _, _, _ = captured_step(device, fb, "blackbox_bwd",
+                                                                     SPEC_BB)
     with torch.no_grad():
         for method in fused_ode.METHODS:
             traj = fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method)
@@ -899,6 +1029,13 @@ def phase_blackbox_kernels(device, seed):
                 fail("blackbox_bwd %s disagrees with its plain version" % method)
             if not same:
                 fail("blackbox_bwd %s: two runs gave different weight cotangents" % method)
+    # midpoint on a training step's own operands (captured_step), timed
+    r = rows["midpoint"]
+    r["step_zero_share"] = float((s_g == 0).double().mean())
+    r["step_ms"] = cuda_ms(lambda: fb.blackbox_bwd(s_wflat, s_packed, s_times, s_traj, s_g, shapes,
+                                                   NS, "midpoint"), 20)
+    print("  midpoint  on a training step's operands (its cotangent %.4f exactly zero): kernel "
+          "%.4f ms (%.4f ms on the random one)" % (r["step_zero_share"], r["step_ms"], r["ms"]))
     n_blocks = -(-R // fb.BWD_ROWS)
     for method in fused_ode.METHODS:
         threads, smem, per_sm = fb.bwd_block(method)
@@ -1526,7 +1663,9 @@ def main():
             train_shape={k: train_fwd_rows["midpoint"][k]
                          for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             **extra))
-        kernels.append(kernel_row(kind, "bwd", bwd_rows, launches[kind + "_bwd"]))
+        kernels.append(kernel_row(
+            kind, "bwd", bwd_rows, launches[kind + "_bwd"],
+            **{key: bwd_rows["midpoint"][key] for key in ("step_ms", "step_zero_share")}))
     print("phase 14: total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

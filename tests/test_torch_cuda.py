@@ -390,6 +390,77 @@ def test_kind_bwd_kernel_matches_plain(cuda, R, kind, method):
         assert dw is None
 
 
+def _mostly_zero(g, seed=3):
+    """A training step's kind of trajectory cotangent: whole sample rows
+    exactly zero (about four in five, and row 0 always), and in the others
+    zero outside the observed species 0..3.  Returns (g, the zero rows'
+    mask)."""
+    R = g.shape[-1]
+    zero = np.random.default_rng(seed).random(R) < 0.8
+    zero[0] = True
+    g = g.clone()
+    g[:, 4:] = 0.0
+    g[..., torch.as_tensor(zero, device=g.device)] = 0.0
+    return g, torch.as_tensor(zero, device=g.device)
+
+
+@pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
+@pytest.mark.parametrize("kind", ["dr"] + NEW_KINDS + ["dr_prec"])
+@pytest.mark.parametrize("R", [180, 20, 256])
+def test_bwd_kernel_on_a_mostly_zero_cotangent(cuda, R, kind, method):
+    """Each backward kernel on a cotangent that is mostly exact zeros, as a
+    training step's is (the kernels divide a zero numerator by skipping the
+    division, dr_common.cuh's div0): dc, dy0 and dW held to the plain sweep
+    in float64 as on a dense cotangent (at R = 20, below one block, exactly:
+    those rows of the R = 180 launch, and for dW a 32-row block whose last
+    rows carry a zero cotangent, as test_kind_bwd_kernel_matches_plain
+    holds them); on the zero rows dc and dy0 equal the plain float32
+    sweep's bit for bit, signed zeros included; two runs give the same
+    outputs bit for bit."""
+    k = fused_ode.KINDS[kind]
+    n = max(R, 180)
+    _, _, _, wmat, packed, y0_cols, times = _kind_operands(cuda, kind, K=-(-n // 36))
+    packed, y0_cols = packed[:, :n].contiguous(), y0_cols[:, :n].contiguous()
+    traj = fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method)
+    g, zero = _mostly_zero(torch.as_tensor(
+        np.random.default_rng(1).standard_normal(tuple(traj.shape)).astype(np.float32),
+        device=cuda))
+
+    def rows(x, m):  # the first m sample rows of a [..., R] operand
+        return x[..., :m].contiguous()
+
+    counter = fused_ode.COUNTERS[k.bwd]
+    before = counter.launches
+    got = fused_ode.kind_bwd(kind, wmat, rows(packed, R), times, rows(traj, R), rows(g, R), method)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    again = fused_ode.kind_bwd(kind, wmat, rows(packed, R), times, rows(traj, R), rows(g, R),
+                               method)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    dw, dc, dy0 = got
+    plain = fused_ode._plain_bwd(kind, wmat, rows(packed, R), times, rows(traj, R), rows(g, R),
+                                 method)
+    for a, b in ((dc, plain[1]), (dy0, plain[2])):
+        a, b = a[:, zero[:R]], b[:, zero[:R]]
+        assert torch.equal(a, b) and torch.equal(torch.signbit(a), torch.signbit(b))
+    if R < n:
+        dw, dc, dy0 = fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method)
+        assert torch.equal(got[1], dc[:, :R]) and torch.equal(got[2], dy0[:, :R])
+        if k.prec:
+            g_block = rows(g, 32)
+            g_block[..., R:] = 0.0
+            block = fused_ode.kind_bwd(kind, wmat, rows(packed, 32), times, rows(traj, 32),
+                                       g_block, method)
+            assert torch.equal(got[0], block[0])
+    ref_dw, ref_dc, ref_dy0 = fused_ode._plain_bwd(
+        kind, wmat.double() if k.prec else None, packed.double(), times.double(), traj.double(),
+        g.double(), method)
+    _assert_cotangents_close(torch.cat([dc, dy0]), torch.cat([ref_dc, ref_dy0]))
+    if k.prec:
+        _assert_cotangents_close(dw, ref_dw)
+
+
 @pytest.mark.parametrize("kind", NEW_KINDS)
 def test_kind_autograd_function_matches_float64_autograd(cuda, kind):
     """The kind's wrapper on the card (forward and backward kernels,

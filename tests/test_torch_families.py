@@ -578,6 +578,29 @@ def test_kernel_sources_instantiate_their_kind(kind):
         assert re.search(r'extern "C" int %s_%s_launch\(' % (kind, d), src)
 
 
+@pytest.mark.parametrize("family, F", [("dr", "Dr"), ("relay", "Relay"),
+                                       ("degrader", "Degrader")])
+def test_plain_bwd_sources_follow_the_header(family, F):
+    """Each plain kind's backward answers the block query from the shared
+    template, whose rows a block sweeps (32 rows x 2 warps, lane = row) set
+    its grid and lanes; chip_smoke.py prints every backward's block through
+    ``fused_ode.bwd_block``."""
+    common = open(os.path.join(CSRC, "dr_common.cuh")).read()
+    consts = {m.group(1): m.group(2) for m in re.finditer(r"constexpr int (\w+) = ([^;]+);", common)}
+    assert consts["BWD_ROWS"] == "32"
+    assert consts["BWD_THREADS"] == "BWD_ROWS * 2"
+    assert "const dim3 grid((unsigned)((R + BWD_ROWS - 1) / BWD_ROWS));" in common
+    kernel = common[common.index("bwd_kernel(const float*"):]
+    assert "const int r = blockIdx.x * BWD_ROWS + lane;" in kernel
+    assert "return block_of(bwd_kernel<F, METHOD>, BWD_ROWS, BWD_THREADS, rows, threads," in common
+    src = open(os.path.join(CSRC, family + "_bwd.cu")).read()
+    assert re.search(r"return bwd_block<%s, false>\(method, rows, threads, smem_bytes, "
+                     r"registers, blocks_per_sm\);" % F, src)
+    smoke = open(os.path.join(os.path.dirname(CSRC), os.pardir, "chip_smoke.py")).read()
+    assert re.search(r"print_block\(device, k\.bwd, method,\s+fused_ode\.bwd_block\(kind, method\)",
+                     smoke)
+
+
 def test_build_lists_every_kernel():
     """Every fused kind's two kernels and the black-box ODE's two."""
     from vihds_tpu_torch.ops import fused_blackbox

@@ -99,13 +99,28 @@ def test_plain_bwd_matches_autograd(setup, method):
     torch.testing.assert_close(dy0, ref_dy0, rtol=1e-9, atol=1e-9)
 
 
-@pytest.mark.parametrize("method", METHODS)
-def test_plain_bwd_matches_pallas_bwd_kernel(setup, method):
+# each method on the dense cotangent, then on a mostly zero one, as a training
+# step's is: 8 of the 12 sample rows exactly zero, the others zero outside the
+# observed species 0..3
+COTANGENTS = [pytest.param(m, False, id=m) for m in METHODS] + [
+    pytest.param(m, True, id=m + "-mostly-zero") for m in METHODS]
+ZERO_ROWS = np.array([[True, False, True, True], [True, True, False, True],
+                      [False, True, True, False]])
+
+
+@pytest.mark.parametrize("method, mostly_zero", COTANGENTS)
+def test_plain_bwd_matches_pallas_bwd_kernel(setup, method, mostly_zero):
     """jax.grad through the Pallas kernel (interpret mode: its custom VJP is
     ``_make_bwd_kernel``) against the port's differentiable wrapper on CPU
-    tensors, whose backward is ``_integrate_plain_bwd``; float32 both."""
+    tensors, whose backward is ``_integrate_plain_bwd``; float32 both.  On a
+    mostly zero cotangent the rows whose cotangent is zero get exact zeros
+    from both."""
     times = jnp.asarray(setup["times"])
-    w = jnp.asarray(setup["w"])
+    w_np = setup["w"].copy()
+    if mostly_zero:
+        w_np[..., 4:] = 0.0
+        w_np[:, ZERO_ROWS] = 0.0
+    w = jnp.asarray(w_np)
 
     def j_loss(c, y0):
         sol = pallas_ode.dr_constant_simulate(c, y0, times, method=method, block_rows=8,
@@ -119,14 +134,19 @@ def test_plain_bwd_matches_pallas_bwd_kernel(setup, method):
     ty0 = torch.as_tensor(setup["y0"]).requires_grad_(True)
     fwd0, bwd0 = fused_ode.dr_constant_simulate.launches, fused_ode.dr_bwd.launches
     sol = fused_ode.dr_constant_simulate(tc, ty0, torch.as_tensor(setup["times"]), method)
-    (sol * torch.as_tensor(setup["w"])).sum().backward()
+    (sol * torch.as_tensor(w_np)).sum().backward()
     # CPU tensors: the plain versions, no kernel launch
     assert (fused_ode.dr_constant_simulate.launches, fused_ode.dr_bwd.launches) == (fwd0, bwd0)
     np.testing.assert_allclose(ty0.grad.numpy(), np.asarray(j_dy0), rtol=1e-3, atol=1e-5)
+    grads = [(ty0.grad.numpy(), np.asarray(j_dy0))]
     for k in fused_ode.DR_CONST_NAMES:
         got, ref = tc[k].grad.numpy(), np.asarray(j_dc[k])
         assert np.isfinite(ref).all(), k
         np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-5, err_msg=k)
+        grads.append((got, ref))
+    if mostly_zero:
+        for got, ref in grads:
+            assert (got[ZERO_ROWS] == 0).all() and (ref[ZERO_ROWS] == 0).all()
 
 
 def test_times_get_no_cotangent(setup):

@@ -1,28 +1,37 @@
-"""Hold the fused ODE backward kernels, the ``_prec`` kinds' above all,
-against other builds of them on the card.
+"""Hold the fused ODE backward kernels, of the plain kinds and of the
+``_prec`` kinds, against other builds of them on the card.
 
 Builds, besides this tree's ``csrc/<kind>_bwd.cu`` (through
 ``vihds_tpu_torch.ops.build``), a reference source tree given with ``--ref``
 (for example an earlier commit's ``vihds_tpu_torch/csrc``, unpacked with
-``git archive``); with ``--no-dw`` this tree's kernel without the precision
-warps' accumulation of the weight cotangent (what that costs: it computes
-everything else); with ``--no-prec`` this tree's kernel with the precision
-warps' arithmetic removed (no features, dot products, sigmoids, df or dW;
-the tiles, barriers and the species warp's work stay: what the block's
-protocol and the species' chain cost alone; timing only).  For
-each kind (``--kind``, repeatable; by default ``dr_prec``, ``relay_prec``
-and ``degrader_prec``; a plain kind such as ``dr`` is compared the same way,
-without dW) and method it runs every build on chip_smoke.py phase 3's
-operands at the training shape (B=36 x K=200, T of the kind's spec), says
+``git archive``); with ``--no-dw`` this tree's ``_prec`` kernel without the
+precision warps' accumulation of the weight cotangent (what that costs: it
+computes everything else); with ``--no-prec`` this tree's ``_prec`` kernel
+with the precision warps' arithmetic removed (no features, dot products,
+sigmoids, df or dW; the tiles, barriers and the species warp's work stay:
+what the block's protocol and the species' chain cost alone; timing only).
+For each kind (``--kind``, repeatable; by default ``dr_prec``,
+``relay_prec`` and ``degrader_prec``; a plain kind such as ``dr`` is
+compared the same way, without dW), cotangent and method it runs every
+build at the training shape (B=36 x K=200, T of the kind's spec), says
 whether dW (the sum of the per-block partials, as the wrapper takes it), dc
 and dy0 equal this tree's bit for bit (the largest difference where not),
 and times each build with CUDA events (median of 20 launches, each through
 its C entry point and the sum over the partials) in turns: reference, this
-tree, the edited builds, then the same in reverse.  Prints the ptxas lines of the
-builds, then one JSON line.
+tree, the edited builds, then the same in reverse.  The cotangent
+(``--cotangent``, repeatable; ``random`` by default) is chip_smoke.py phase
+3's seeded random one on its operands (``random``), or the one a
+kernel-route training step of the kind's spec hands the kernel, mostly exact
+zeros, on that step's constants and initial states (``step``,
+``chip_smoke.step_operands``; the plain relay / degrader kinds take the
+species rows of their ``_prec`` spec's); the trajectory is integrated from
+those for each method.  Prints the ptxas lines of the builds, then one JSON
+line.
 
     git archive <commit> vihds_tpu_torch/csrc | tar -x -C build/parent
     python3 tools/prec_bwd_compare.py --ref build/parent/vihds_tpu_torch/csrc --no-dw --no-prec
+    python3 tools/prec_bwd_compare.py --ref build/parent/vihds_tpu_torch/csrc --kind dr \
+        --cotangent random --cotangent step
 
 Needs an NVIDIA GPU and nvcc.
 """
@@ -115,6 +124,8 @@ def main(argv=None):
     ap.add_argument("--no-prec", action="store_true",
                     help="also build this tree's _prec kernels without the precision warps' "
                          "arithmetic (timing only)")
+    ap.add_argument("--cotangent", action="append", choices=("random", "step"), default=[],
+                    help="the cotangent to run the builds on (default: random)")
     args = ap.parse_args(argv)
 
     import torch
@@ -160,57 +171,76 @@ def main(argv=None):
 
         # chip_smoke.py phase 3's operands: the kind's seed, as main() gives it
         seed = chip_smoke.SEED + 10 * list(fused_ode.KINDS).index(kind) + 1
-        _, _, _, wmat, packed, y0_cols, times = chip_smoke.kind_inputs(device, kind,
-                                                                       chip_smoke.K_TRAIN, seed + 1)
-        R, T, S = packed.shape[1], times.shape[0], k.n_states
-        print("%s at B=36 x K=%d (R=%d), T=%d; CUDA-event medians of 20 launches, in turns"
-              % (k.bwd, chip_smoke.K_TRAIN, R, T))
-        entry = result["kinds"][kind] = {"R": R, "T": T, "methods": {}}
-        for mi, method in enumerate(fused_ode.METHODS):
-            with torch.no_grad():
-                traj = fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method)
-                gen = torch.Generator(device=device).manual_seed(seed + 2)
-                g = torch.randn(traj.shape, generator=gen, device=device)
+        result["kinds"][kind] = {}
+        for cotangent in args.cotangent or ["random"]:
+            if cotangent == "random":
+                _, _, _, wmat, packed, y0_cols, times = chip_smoke.kind_inputs(
+                    device, kind, chip_smoke.K_TRAIN, seed + 1)
+                g_step = None
+            else:
+                wmat, packed, times, y0_cols, g_step = chip_smoke.step_operands(device, kind)
+            R, T, S = packed.shape[1], times.shape[0], k.n_states
+            entry = result["kinds"][kind][cotangent] = {"R": R, "T": T, "methods": {}}
+            if g_step is not None:
+                entry["zero_share"] = float((g_step == 0).double().mean())
+                entry["subnormal_share"] = float(
+                    ((g_step != 0) & (g_step.abs() < chip_smoke.FLT_MIN)).double().mean())
+            print("%s at B=36 x K=%d (R=%d), T=%d, %s cotangent%s; CUDA-event medians of 20 "
+                  "launches, in turns"
+                  % (k.bwd, chip_smoke.K_TRAIN, R, T, cotangent,
+                     " (%.4f of it exactly zero, %.4f subnormal)"
+                     % (entry["zero_share"], entry["subnormal_share"]) if g_step is not None
+                     else ""))
+            for mi, method in enumerate(fused_ode.METHODS):
+                with torch.no_grad():
+                    traj = fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method)
+                    if g_step is None:
+                        gen = torch.Generator(device=device).manual_seed(seed + 2)
+                        g = torch.randn(traj.shape, generator=gen, device=device)
+                    else:
+                        g = g_step
 
-            def run(name):
-                parts = (torch.empty((-(-R // fused_ode.PREC_BWD_ROWS),) + k.wmat_shape,
-                                     device=device) if k.prec else None)
-                dc, dy0 = torch.empty_like(packed), torch.empty((S, R), device=device)
-                ptrs = ([wmat.data_ptr()] if k.prec else []) + [
-                    t.data_ptr() for t in (packed, times, traj, g)] + (
-                    [parts.data_ptr()] if k.prec else []) + [dc.data_ptr(), dy0.data_ptr()]
-                err = builds[name](*ptrs, R, T, mi, stream)
-                if err != 0:
-                    raise RuntimeError("%s %s launch failed with cudaError %d" % (k.bwd, name, err))
-                return ({"dW": parts.sum(dim=0)} if k.prec else {}) | {"dc": dc, "dy0": dy0}
+                def run(name):
+                    parts = (torch.empty((-(-R // fused_ode.PREC_BWD_ROWS),) + k.wmat_shape,
+                                         device=device) if k.prec else None)
+                    dc, dy0 = torch.empty_like(packed), torch.empty((S, R), device=device)
+                    ptrs = ([wmat.data_ptr()] if k.prec else []) + [
+                        t.data_ptr() for t in (packed, times, traj, g)] + (
+                        [parts.data_ptr()] if k.prec else []) + [dc.data_ptr(), dy0.data_ptr()]
+                    err = builds[name](*ptrs, R, T, mi, stream)
+                    if err != 0:
+                        raise RuntimeError("%s %s launch failed with cudaError %d"
+                                           % (k.bwd, name, err))
+                    return ({"dW": parts.sum(dim=0)} if k.prec else {}) | {"dc": dc, "dy0": dy0}
 
-            ref = run("this")
-            readings = {"this": {}}
-            for name in builds:
-                if name == "this":
-                    continue
-                got = run(name)
+                ref = run("this")
+                readings = {"this": {}}
+                for name in builds:
+                    if name == "this":
+                        continue
+                    got = run(name)
+                    torch.cuda.synchronize()
+                    readings[name] = {
+                        "bit_equal": {o: bool(torch.equal(got[o], ref[o])) for o in ref},
+                        "max_abs_diff": {o: float((got[o] - ref[o]).abs().max()) for o in ref},
+                    }
+                again = run("this")
                 torch.cuda.synchronize()
-                readings[name] = {
-                    "bit_equal": {o: bool(torch.equal(got[o], ref[o])) for o in ref},
-                    "max_abs_diff": {o: float((got[o] - ref[o]).abs().max()) for o in ref},
-                }
-            again = run("this")
-            torch.cuda.synchronize()
-            readings["this"]["repeat_bit_equal"] = all(torch.equal(again[o], ref[o]) for o in ref)
-            order = (["reference"] if "reference" in builds else []) + ["this"] + [
-                n for n in builds if n not in ("reference", "this")]
-            for n in order + order[::-1]:
-                readings[n].setdefault("ms", []).append(
-                    chip_smoke.cuda_ms(lambda n=n: run(n), 20))
-            entry["methods"][method] = readings
-            print("  %-9s %s" % (method, "  ".join(
-                "%s %s ms%s" % (n, "/".join("%.4f" % t for t in readings[n]["ms"]),
-                                " bit-equal %s, largest difference %s" % (
-                                    readings[n]["bit_equal"], readings[n]["max_abs_diff"])
-                                if n != "this" else
-                                " (repeat bit-equal %s)" % readings[n]["repeat_bit_equal"])
-                for n in order)))
+                readings["this"]["repeat_bit_equal"] = all(torch.equal(again[o], ref[o])
+                                                           for o in ref)
+                order = (["reference"] if "reference" in builds else []) + ["this"] + [
+                    n for n in builds if n not in ("reference", "this")]
+                for n in order + order[::-1]:
+                    readings[n].setdefault("ms", []).append(
+                        chip_smoke.cuda_ms(lambda n=n: run(n), 20))
+                entry["methods"][method] = readings
+                print("  %-9s %s" % (method, "  ".join(
+                    "%s %s ms%s" % (n, "/".join("%.4f" % t for t in readings[n]["ms"]),
+                                    " bit-equal %s, largest difference %s" % (
+                                        readings[n]["bit_equal"], readings[n]["max_abs_diff"])
+                                    if n != "this" else
+                                    " (repeat bit-equal %s)" % readings[n]["repeat_bit_equal"])
+                    for n in order)))
     print(json.dumps(result))
     return 0
 

@@ -6,8 +6,14 @@
 // (pallas_ode.py:443). Given the stored forward trajectory and its cotangent g
 // it walks the grid backwards, pulling the adjoint through each step's
 // pullback, and returns the cotangents of the 28 per-row constants and of y0.
-// The kernel is dr_common.cuh's bwd_kernel over Degrader; the right-hand side's
-// pullback is written out by hand there (degrader_rhs_vjp).
+// The kernel is
+// dr_common.cuh's bwd_kernel over Degrader: a block of 32 rows x 2 warps (lane =
+// row).  A stage warp runs ahead, forming each step's points and the terms
+// that do not depend on the adjoint (the sigmoid, the divisions and sums of
+// the right-hand side) into a ring of shared tiles; the pullback warp
+// carries the adjoint and the constants' cotangents through each step's
+// pullback over them.  The right-hand side's pullback is written out by hand
+// there (degrader_rhs_vjp).
 //
 // Layout (the wrapper fused_ode.kind_bwd checks it):
 //   consts [28, R]    per-row constants in DEGRADER_CONST_NAMES order
@@ -29,4 +35,12 @@ extern "C" int degrader_bwd_launch(const float* consts, const float* times, cons
                                    void* stream) {
   return bwd_launch<Degrader, false>(nullptr, consts, times, traj, g, nullptr, dc, dy0, R, T,
                                      method, stream);
+}
+
+// The kernel's block for method (sample rows, threads, static shared memory
+// in bytes, registers a thread, blocks one SM holds at once); 0 or the
+// cudaError_t.
+extern "C" int degrader_bwd_block(int method, int* rows, int* threads, int* smem_bytes,
+                                  int* registers, int* blocks_per_sm) {
+  return bwd_block<Degrader, false>(method, rows, threads, smem_bytes, registers, blocks_per_sm);
 }

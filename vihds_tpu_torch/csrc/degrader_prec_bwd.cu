@@ -44,5 +44,5 @@ extern "C" int degrader_prec_bwd_launch(const float* wmat, const float* consts, 
 // cudaError_t.
 extern "C" int degrader_prec_bwd_block(int method, int* rows, int* threads, int* smem_bytes,
                                        int* registers, int* blocks_per_sm) {
-  return prec_bwd_block<Degrader>(method, rows, threads, smem_bytes, registers, blocks_per_sm);
+  return bwd_block<Degrader, true>(method, rows, threads, smem_bytes, registers, blocks_per_sm);
 }

@@ -22,7 +22,9 @@
 // Numerics: precise expf / tanhf and IEEE division (the kernels are built
 // without --use_fast_math); the sigmoid is 1/(1+expf(-x)).  The expression
 // order follows the plain versions; the compiler may contract a*b+c into
-// FMAs, which the comparisons with the plain versions allow for.
+// FMAs, which the comparisons with the plain versions allow for.  A
+// pullback divides a cotangent through div0, which skips the division's slow
+// path on a zero numerator and gives the IEEE quotient all the same.
 
 #pragma once
 
@@ -140,6 +142,20 @@ enum Method { MODEULER = 0, MIDPOINT = 1, RK4 = 2 };
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+// x / d for a denominator d > 0 and finite: the IEEE quotient, signed zero
+// included.  An IEEE division takes a slow path on a zero numerator, and
+// most of a training step's trajectory cotangent is exactly zero (samples
+// whose IWAE weight underflows, species that are not observed), so a zero x
+// is divided as a one and its own zero returned.  The empty asm hides the
+// substitute from the compiler, which would otherwise divide x itself and
+// select afterwards.
+__device__ __forceinline__ float div0(float x, float d) {
+  float n = x == 0.0f ? 1.0f : x;
+  asm("" : "+f"(n));
+  const float q = n / d;
+  return x == 0.0f ? x : q;
+}
+
 // --------------------------------------------------------------------------
 // The 8-species core (OD, RFP, YFP, CFP, F530, F480, LuxR, LasR), over the
 // row indices L:: of a family's constants.
@@ -162,21 +178,56 @@ struct CoreTerms {
   float sig, gr, omx, gamma, luxR2, lasR2, boundLuxR, boundLasR, denom76, denom81, P76, P81;
 };
 
+// The terms that are products of a state or constant and sig or omx, as
+// core_terms forms them
 template <class L>
-__device__ __forceinline__ CoreTerms core_terms(const float* c, float t, const float* y) {
+__device__ __forceinline__ CoreTerms core_products(const float* c, const float* y, float sig,
+                                                   float omx) {
   CoreTerms k;
-  k.sig = sigmoidf(4.0f * (t - c[L::tlag]));
+  k.sig = sig;
   k.gr = c[L::r] * k.sig;
-  k.omx = 1.0f - y[0] / c[L::K];
+  k.omx = omx;
   k.gamma = k.gr * k.omx;
   k.luxR2 = y[6] * y[6];
   k.lasR2 = y[7] * y[7];
   k.boundLuxR = k.luxR2 * c[L::fracLuxR];
   k.boundLasR = k.lasR2 * c[L::fracLasR];
+  return k;
+}
+
+template <class L>
+__device__ __forceinline__ CoreTerms core_terms(const float* c, float t, const float* y) {
+  CoreTerms k = core_products<L>(c, y, sigmoidf(4.0f * (t - c[L::tlag])), 1.0f - y[0] / c[L::K]);
   k.denom76 = 1.0f + c[L::KGR_76] * k.boundLuxR + c[L::KGS_76] * k.boundLasR;
   k.denom81 = 1.0f + c[L::KGR_81] * k.boundLuxR + c[L::KGS_81] * k.boundLasR;
   k.P76 = (c[L::e76] + c[L::KGR_76] * k.boundLuxR + c[L::KGS_76] * k.boundLasR) / k.denom76;
   k.P81 = (c[L::e81] + c[L::KGR_81] * k.boundLuxR + c[L::KGS_81] * k.boundLasR) / k.denom81;
+  return k;
+}
+
+// The core's terms at a point as a pullback takes them: the six that end in
+// a division or a sum, tp[0..5] (core_publish); the products are formed
+// again from them (core_terms_at), as core_terms forms them, so that a
+// pullback given tp compiles to the arithmetic it has given core_terms.
+constexpr int N_CORE_TERMS = 6;
+
+__device__ __forceinline__ void core_publish(const CoreTerms& k, float* tp) {
+  tp[0] = k.sig;
+  tp[1] = k.omx;
+  tp[2] = k.denom76;
+  tp[3] = k.denom81;
+  tp[4] = k.P76;
+  tp[5] = k.P81;
+}
+
+template <class L>
+__device__ __forceinline__ CoreTerms core_terms_at(const float* c, const float* y,
+                                                   const float* tp) {
+  CoreTerms k = core_products<L>(c, y, tp[0], tp[1]);
+  k.denom76 = tp[2];
+  k.denom81 = tp[3];
+  k.P76 = tp[4];
+  k.P81 = tp[5];
   return k;
 }
 
@@ -236,10 +287,10 @@ __device__ __forceinline__ void core_terms_vjp(const float* c, const CoreTerms& 
                                                const float* w, float dgamma, float dP76,
                                                float dP81, float* dy, float* dc) {
   // P = (e + A) / (1 + A)
-  const float dA76 = dP76 * (1.0f - c[L::e76]) / (k.denom76 * k.denom76);
-  const float dA81 = dP81 * (1.0f - c[L::e81]) / (k.denom81 * k.denom81);
-  dc[L::e76] += dP76 / k.denom76;
-  dc[L::e81] += dP81 / k.denom81;
+  const float dA76 = div0(dP76 * (1.0f - c[L::e76]), k.denom76 * k.denom76);
+  const float dA81 = div0(dP81 * (1.0f - c[L::e81]), k.denom81 * k.denom81);
+  dc[L::e76] += div0(dP76, k.denom76);
+  dc[L::e81] += div0(dP81, k.denom81);
   dc[L::KGR_76] += dA76 * k.boundLuxR;
   dc[L::KGS_76] += dA76 * k.boundLasR;
   dc[L::KGR_81] += dA81 * k.boundLuxR;
@@ -250,11 +301,11 @@ __device__ __forceinline__ void core_terms_vjp(const float* c, const CoreTerms& 
   dc[L::fracLasR] += dbS * k.lasR2;
   // gamma = gr (1 - x/K), gr = r sig
   const float dgr = dgamma * k.omx;
-  dc[L::K] += dgamma * k.gr * y[0] / (c[L::K] * c[L::K]);
+  dc[L::K] += div0(dgamma * k.gr * y[0], c[L::K] * c[L::K]);
   dc[L::r] += dgr * k.sig;
   dc[L::tlag] -= 4.0f * dgr * c[L::r] * k.sig * (1.0f - k.sig);
   const float gamma = k.gamma;
-  dy[0] = w[0] * gamma - dgamma * k.gr / c[L::K];
+  dy[0] = w[0] * gamma - div0(dgamma * k.gr, c[L::K]);
   dy[1] = -w[1] * (gamma + c[L::drfp]);
   dy[2] = -w[2] * (gamma + c[L::dyfp]);
   dy[3] = -w[3] * (gamma + c[L::dcfp]);
@@ -266,8 +317,10 @@ __device__ __forceinline__ void core_terms_vjp(const float* c, const CoreTerms& 
 
 // --------------------------------------------------------------------------
 // The three families' right-hand sides and pullbacks.  For the cotangent w
-// of a right-hand side's output, its pullback writes dy = (df/dy)^T w and
-// adds (df/dc)^T w into dc.
+// of a right-hand side's output at a point y, its pullback writes dy =
+// (df/dy)^T w and adds (df/dc)^T w into dc.  A pullback takes the terms of
+// the point that do not depend on w as the array tp that the family's
+// terms() fills at (t, y): the core's (core_publish), then the family's own.
 // --------------------------------------------------------------------------
 
 // dr_constant, y[0..7] (_dr_rhs_cols): the core alone.
@@ -276,9 +329,9 @@ __device__ __forceinline__ void dr_rhs(const float* c, float t, const float* y, 
 }
 
 // (_dr_rhs_vjp_cols)
-__device__ __forceinline__ void dr_rhs_vjp(const float* c, float t, const float* y,
+__device__ __forceinline__ void dr_rhs_vjp(const float* c, const float* tp, const float* y,
                                            const float* w, float* dy, float* dc) {
-  const CoreTerms k = core_terms<DrCore>(c, t, y);
+  const CoreTerms k = core_terms_at<DrCore>(c, y, tp);
   float dgamma, dP76, dP81;
   core_rows_vjp<DrCore>(c, k, y, w, dc, dgamma, dP76, dP81);
   core_terms_vjp<DrCore>(c, k, y, w, dgamma, dP76, dP81, dy, dc);
@@ -298,14 +351,21 @@ __device__ __forceinline__ void relay_rhs(const float* c, float t, const float* 
   f[11] = (c[RL_KC12] * rc * x * lasI) / (1.0f + lasI / c[RL_Klas]);
 }
 
+// the relay pullback's terms: the core's, then D6 and D12 (below)
+__device__ __forceinline__ void relay_terms(const float* c, float t, const float* y, float* tp) {
+  core_publish(core_terms<RelayCore>(c, t, y), tp);
+  tp[N_CORE_TERMS] = 1.0f + y[8] / c[RL_Klux];
+  tp[N_CORE_TERMS + 1] = 1.0f + y[9] / c[RL_Klas];
+}
+
 // (_relay_rhs_vjp_cols)  The extra rows feed the core's gamma, P76 and P81,
 // so their shares join the core rows' before the core's terms are pulled
 // back.  With C6' = n6 / D6, n6 = KC6 rc x luxI, D6 = 1 + luxI / Klux:
 //   dn6 = w10 / D6, dD6 = -dn6 n6 / D6; D6 passes dD6 / Klux to luxI and
 //   -dD6 luxI / Klux^2 to Klux (C12' likewise with KC12, lasI, Klas).
-__device__ __forceinline__ void relay_rhs_vjp(const float* c, float t, const float* y,
+__device__ __forceinline__ void relay_rhs_vjp(const float* c, const float* tp, const float* y,
                                               const float* w, float* dy, float* dc) {
-  const CoreTerms k = core_terms<RelayCore>(c, t, y);
+  const CoreTerms k = core_terms_at<RelayCore>(c, y, tp);
   float dgamma, dP76, dP81;
   core_rows_vjp<RelayCore>(c, k, y, w, dc, dgamma, dP76, dP81);
   const float x = y[0], luxI = y[8], lasI = y[9], rc = c[RL_rc];
@@ -317,21 +377,21 @@ __device__ __forceinline__ void relay_rhs_vjp(const float* c, float t, const flo
   dc[RL_dluxI] -= w[8] * luxI;
   dc[RL_dlasI] -= w[9] * lasI;
   // C6' = n6 / D6, C12' = n12 / D12
-  const float D6 = 1.0f + luxI / c[RL_Klux];
-  const float D12 = 1.0f + lasI / c[RL_Klas];
-  const float dn6 = w[10] / D6;
-  const float dn12 = w[11] / D12;
-  const float dD6 = -dn6 * (c[RL_KC6] * rc * x * luxI) / D6;
-  const float dD12 = -dn12 * (c[RL_KC12] * rc * x * lasI) / D12;
+  const float D6 = tp[N_CORE_TERMS];
+  const float D12 = tp[N_CORE_TERMS + 1];
+  const float dn6 = div0(w[10], D6);
+  const float dn12 = div0(w[11], D12);
+  const float dD6 = div0(-dn6 * (c[RL_KC6] * rc * x * luxI), D6);
+  const float dD12 = div0(-dn12 * (c[RL_KC12] * rc * x * lasI), D12);
   dc[RL_KC6] += dn6 * rc * x * luxI;
   dc[RL_KC12] += dn12 * rc * x * lasI;
   dc[RL_rc] += dn6 * c[RL_KC6] * x * luxI + dn12 * c[RL_KC12] * x * lasI;
-  dc[RL_Klux] -= dD6 * luxI / (c[RL_Klux] * c[RL_Klux]);
-  dc[RL_Klas] -= dD12 * lasI / (c[RL_Klas] * c[RL_Klas]);
+  dc[RL_Klux] -= div0(dD6 * luxI, c[RL_Klux] * c[RL_Klux]);
+  dc[RL_Klas] -= div0(dD12 * lasI, c[RL_Klas] * c[RL_Klas]);
   core_terms_vjp<RelayCore>(c, k, y, w, dgamma, dP76, dP81, dy, dc);
   dy[0] += dn6 * c[RL_KC6] * rc * luxI + dn12 * c[RL_KC12] * rc * lasI;
-  dy[8] = -w[8] * (k.gamma + c[RL_dluxI]) + dn6 * c[RL_KC6] * rc * x + dD6 / c[RL_Klux];
-  dy[9] = -w[9] * (k.gamma + c[RL_dlasI]) + dn12 * c[RL_KC12] * rc * x + dD12 / c[RL_Klas];
+  dy[8] = -w[8] * (k.gamma + c[RL_dluxI]) + dn6 * c[RL_KC6] * rc * x + div0(dD6, c[RL_Klux]);
+  dy[9] = -w[9] * (k.gamma + c[RL_dlasI]) + dn12 * c[RL_KC12] * rc * x + div0(dD12, c[RL_Klas]);
   dy[10] = 0.0f;
   dy[11] = 0.0f;
 }
@@ -351,9 +411,9 @@ __device__ __forceinline__ void degrader_rhs(const float* c, float t, const floa
 
 // (_degrader_rhs_vjp_cols)  aiiA' feeds gamma; C6' and C12' read x, aiiA
 // and the host-side rC6 / rC12.
-__device__ __forceinline__ void degrader_rhs_vjp(const float* c, float t, const float* y,
+__device__ __forceinline__ void degrader_rhs_vjp(const float* c, const float* tp, const float* y,
                                                  const float* w, float* dy, float* dc) {
-  const CoreTerms k = core_terms<DegraderCore>(c, t, y);
+  const CoreTerms k = core_terms_at<DegraderCore>(c, y, tp);
   float dgamma, dP76, dP81;
   core_rows_vjp<DegraderCore>(c, k, y, w, dc, dgamma, dP76, dP81);
   const float x = y[0], aiiA = y[8], rc = c[DG_rc];
@@ -373,37 +433,53 @@ __device__ __forceinline__ void degrader_rhs_vjp(const float* c, float t, const 
 }
 
 // The families as the kernels take them: constant count NC, species count
-// NS, right-hand side and pullback.
+// NS, the pullback's term count NT; right-hand side, the pullback's terms at
+// a point and the pullback.
 struct Dr {
   enum : int { NC = N_CONST, NS = 8 };
+  static constexpr int NT = N_CORE_TERMS;
   static __device__ __forceinline__ void rhs(const float* c, float t, const float* y, float* f) {
     dr_rhs(c, t, y, f);
   }
-  static __device__ __forceinline__ void vjp(const float* c, float t, const float* y,
+  static __device__ __forceinline__ void terms(const float* c, float t, const float* y,
+                                               float* tp) {
+    core_publish(core_terms<DrCore>(c, t, y), tp);
+  }
+  static __device__ __forceinline__ void vjp(const float* c, const float* tp, const float* y,
                                              const float* w, float* dy, float* dc) {
-    dr_rhs_vjp(c, t, y, w, dy, dc);
+    dr_rhs_vjp(c, tp, y, w, dy, dc);
   }
 };
 
 struct Relay {
   enum : int { NC = N_RELAY_CONST, NS = 12 };
+  static constexpr int NT = N_CORE_TERMS + 2;
   static __device__ __forceinline__ void rhs(const float* c, float t, const float* y, float* f) {
     relay_rhs(c, t, y, f);
   }
-  static __device__ __forceinline__ void vjp(const float* c, float t, const float* y,
+  static __device__ __forceinline__ void terms(const float* c, float t, const float* y,
+                                               float* tp) {
+    relay_terms(c, t, y, tp);
+  }
+  static __device__ __forceinline__ void vjp(const float* c, const float* tp, const float* y,
                                              const float* w, float* dy, float* dc) {
-    relay_rhs_vjp(c, t, y, w, dy, dc);
+    relay_rhs_vjp(c, tp, y, w, dy, dc);
   }
 };
 
 struct Degrader {
   enum : int { NC = N_DEGRADER_CONST, NS = 11 };
+  static constexpr int NT = N_CORE_TERMS;
   static __device__ __forceinline__ void rhs(const float* c, float t, const float* y, float* f) {
     degrader_rhs(c, t, y, f);
   }
-  static __device__ __forceinline__ void vjp(const float* c, float t, const float* y,
+  static __device__ __forceinline__ void terms(const float* c, float t, const float* y,
+                                               float* tp) {
+    core_publish(core_terms<DegraderCore>(c, t, y), tp);
+  }
+  static __device__ __forceinline__ void vjp(const float* c, const float* tp, const float* y,
                                              const float* w, float* dy, float* dc) {
-    degrader_rhs_vjp(c, t, y, w, dy, dc);
+    degrader_rhs_vjp(c, tp, y, w, dy, dc);
   }
 };
 
@@ -454,110 +530,119 @@ __device__ __forceinline__ void one_step(const Rhs& rhs, float t1, float t2, flo
 
 // The point of a step at which step_vjp calls a right-hand side or its
 // pullback: point 0 is y_i, then the stages' points in the order the step
-// forms them (z for modeuler and midpoint; z2, z3, z4 for rk4).  The
-// mechanistic kinds ignore it; the _prec backward's warps use it to find the
-// point's shared tiles (prec_bwd_kernel below).
+// forms them (z for modeuler and midpoint; z2, z3, z4 for rk4).  The kernels'
+// warps use it to find the point's shared tiles.
 template <int M>
 struct Stage {};
 
 template <int METHOD>
 __host__ __device__ constexpr int n_points() { return METHOD == RK4 ? 4 : 2; }
 
-// Pullback of one fixed-grid step at y = y_i (_step_vjp): a holds the
-// cotangent of y_{i+1} on entry and that of y_i on exit; vjp(Stage<M>, t, z,
-// w, dz) writes the right-hand side's pullback dz at point M and adds the
-// parameters' share into the accumulators it holds.  The stages are
-// recomputed from y_i.
-template <int METHOD, int S, class Rhs, class Vjp>
-__device__ __forceinline__ void step_vjp(const Rhs& rhs, const Vjp& vjp, float t1, float t2,
-                                         const float* y, float* a) {
+// The points of one fixed-grid step from z[0] = y_i (the forward half of
+// _step_vjp): rhs(Stage<M>, t, z[M], f) writes the right-hand side at each
+// point but the last, from which the step forms the next point.  Returns
+// the last point's time.
+template <int METHOD, int S, class Rhs>
+__device__ __forceinline__ float step_points(const Rhs& rhs, float t1, float t2, float (*z)[S]) {
   const float h = t2 - t1;
   const float hh = 0.5f * h;
-  float f1[S], z[S], w[S], dz[S], d1[S];
+  float f[S];
   if (METHOD == MODEULER) {
     // y' = y + hh (f1 + f2), f1 = F(t1, y), f2 = F(t2, y + h f1)
-    rhs(Stage<0>(), t1, y, f1);
+    rhs(Stage<0>(), t1, z[0], f);
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      z[s] = y[s] + h * f1[s];
-      w[s] = hh * a[s];
-    }
-    vjp(Stage<1>(), t2, z, w, dz);
+    for (int s = 0; s < S; ++s) z[1][s] = z[0][s] + h * f[s];
+    return t2;
+  } else if (METHOD == MIDPOINT) {
+    // y' = y + h f2, f2 = F(t1 + hh, y + hh f1), f1 = F(t1, y)
+    rhs(Stage<0>(), t1, z[0], f);
+#pragma unroll
+    for (int s = 0; s < S; ++s) z[1][s] = z[0][s] + hh * f[s];
+    return t1 + hh;
+  } else {  // RK4: y' = y + h6 (k1 + 2 k2 + 2 k3 + k4), stage k_j = F(t_j, z_j)
+    const float tm = t1 + hh;
+    rhs(Stage<0>(), t1, z[0], f);
+#pragma unroll
+    for (int s = 0; s < S; ++s) z[1][s] = z[0][s] + hh * f[s];
+    rhs(Stage<1>(), tm, z[1], f);
+#pragma unroll
+    for (int s = 0; s < S; ++s) z[2][s] = z[0][s] + hh * f[s];
+    rhs(Stage<2>(), tm, z[2], f);
+#pragma unroll
+    for (int s = 0; s < S; ++s) z[3][s] = z[0][s] + h * f[s];
+    return t2;
+  }
+}
+
+// The pullback of one fixed-grid step over its points z (the backward half
+// of _step_vjp): a holds the cotangent of y_{i+1} on entry and that of y_i
+// on exit; vjp(Stage<M>, t, z[M], w, dz) writes the right-hand side's
+// pullback dz at point M and adds the parameters' share into the
+// accumulators it holds.
+template <int METHOD, int S, class Vjp>
+__device__ __forceinline__ void step_pullback(const Vjp& vjp, float t1, float t2,
+                                              const float (*z)[S], float* a) {
+  const float h = t2 - t1;
+  const float hh = 0.5f * h;
+  float w[S], dz[S], d1[S];
+  if (METHOD == MODEULER) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) w[s] = hh * a[s];
+    vjp(Stage<1>(), t2, z[1], w, dz);
 #pragma unroll
     for (int s = 0; s < S; ++s) w[s] = hh * a[s] + h * dz[s];
-    vjp(Stage<0>(), t1, y, w, d1);
+    vjp(Stage<0>(), t1, z[0], w, d1);
 #pragma unroll
     for (int s = 0; s < S; ++s) a[s] = a[s] + dz[s] + d1[s];
   } else if (METHOD == MIDPOINT) {
-    // y' = y + h f2, f2 = F(t1 + hh, y + hh f1), f1 = F(t1, y)
-    rhs(Stage<0>(), t1, y, f1);
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      z[s] = y[s] + hh * f1[s];
-      w[s] = h * a[s];
-    }
-    vjp(Stage<1>(), t1 + hh, z, w, dz);
+    for (int s = 0; s < S; ++s) w[s] = h * a[s];
+    vjp(Stage<1>(), t1 + hh, z[1], w, dz);
 #pragma unroll
     for (int s = 0; s < S; ++s) w[s] = hh * dz[s];
-    vjp(Stage<0>(), t1, y, w, d1);
+    vjp(Stage<0>(), t1, z[0], w, d1);
 #pragma unroll
     for (int s = 0; s < S; ++s) a[s] = a[s] + dz[s] + d1[s];
-  } else {  // RK4: y' = y + h6 (k1 + 2 k2 + 2 k3 + k4), stage k_j = F(t_j, z_j)
+  } else {  // RK4
     const float tm = t1 + hh;
     const float h6 = h / 6.0f;
-    float z2[S], z3[S], k[S], d4[S], d3[S];
-    rhs(Stage<0>(), t1, y, k);
+    float d4[S], d3[S];
 #pragma unroll
-    for (int s = 0; s < S; ++s) z2[s] = y[s] + hh * k[s];
-    rhs(Stage<1>(), tm, z2, k);
-#pragma unroll
-    for (int s = 0; s < S; ++s) z3[s] = y[s] + hh * k[s];
-    rhs(Stage<2>(), tm, z3, k);
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      z[s] = y[s] + h * k[s];  // z4
-      w[s] = h6 * a[s];
-    }
-    vjp(Stage<3>(), t2, z, w, d4);
+    for (int s = 0; s < S; ++s) w[s] = h6 * a[s];
+    vjp(Stage<3>(), t2, z[3], w, d4);
 #pragma unroll
     for (int s = 0; s < S; ++s) w[s] = 2.0f * h6 * a[s] + h * d4[s];
-    vjp(Stage<2>(), tm, z3, w, d3);
+    vjp(Stage<2>(), tm, z[2], w, d3);
 #pragma unroll
     for (int s = 0; s < S; ++s) w[s] = 2.0f * h6 * a[s] + hh * d3[s];
-    vjp(Stage<1>(), tm, z2, w, dz);  // d2
+    vjp(Stage<1>(), tm, z[1], w, dz);  // d2
 #pragma unroll
     for (int s = 0; s < S; ++s) w[s] = h6 * a[s] + hh * dz[s];
-    vjp(Stage<0>(), t1, y, w, d1);
+    vjp(Stage<0>(), t1, z[0], w, d1);
 #pragma unroll
     for (int s = 0; s < S; ++s) a[s] = a[s] + d4[s] + d3[s] + dz[s] + d1[s];
   }
 }
 
+// Pullback of one fixed-grid step at y = y_i (_step_vjp): its points from
+// y_i, then their pullback; rhs and vjp as above.
+template <int METHOD, int S, class Rhs, class Vjp>
+__device__ __forceinline__ void step_vjp(const Rhs& rhs, const Vjp& vjp, float t1, float t2,
+                                         const float* y, float* a) {
+  float z[n_points<METHOD>()][S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) z[0][s] = y[s];
+  step_points<METHOD, S>(rhs, t1, t2, z);
+  step_pullback<METHOD, S>(vjp, t1, t2, z, a);
+}
+
 // A kind without the precision block (family F) as the forward's step calls
-// it: the right-hand side over its F::NS species ...
+// it: the right-hand side over its F::NS species.
 template <class F>
 struct KindRhs {
   const float* c;
   __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
     F::rhs(c, t, y, f);
-  }
-};
-
-// ... and a kind without the block as the backward's step pullback calls
-// it: the right-hand side and its pullback, accumulating into the constants'
-// cotangents dc.
-template <class F>
-struct KindVjp {
-  const float* c;
-  float* dc;
-  template <int M>
-  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, float* f) const {
-    F::rhs(c, t, y, f);
-  }
-  template <int M>
-  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, const float* w,
-                                             float* dy) const {
-    F::vjp(c, t, y, w, dy, dc);
   }
 };
 
@@ -582,12 +667,11 @@ struct KindVjp {
 // (adding the constants' share into dc), and sets a = a_y + g[i].  Nothing
 // but traj and g is read from device memory, each read coalesced.  The TPU
 // kernel got each step's VJP by tracing jax.vjp of _one_step; here the
-// pullbacks above are written out by hand.  Without the precision block
-// (bwd_kernel) one thread sweeps a row, in 32-thread blocks; with it
-// (prec_bwd_kernel) a row is swept by five threads, below.
+// pullbacks above are written out by hand.  A row is swept by several
+// threads: without the precision block (bwd_kernel) by two, with it
+// (prec_bwd_kernel) by five, below.
 // --------------------------------------------------------------------------
 constexpr int FWD_THREADS = 128;
-constexpr int BWD_THREADS = 32;
 
 template <class F, int METHOD>
 __global__ void __launch_bounds__(FWD_THREADS)
@@ -621,48 +705,199 @@ fwd_kernel(const float* __restrict__ consts, const float* __restrict__ y0,
   }
 }
 
+// named barriers (0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id, int n_threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n_threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n_threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n_threads) : "memory");
+}
+
+__device__ __forceinline__ int next_slot(int slot, int ring) {
+  return slot + 1 == ring ? 0 : slot + 1;
+}
+
+// --------------------------------------------------------------------------
+// The backward without the precision block (bwd_kernel): a block of
+// BWD_ROWS = 32 sample rows x 2 warps, lane l of both warps on row l.  A
+// step's work splits by whether it depends on the adjoint a:
+//   * warp 0, the stage warp, runs ahead: it reads y_i and g_i (the next
+//     step's are loaded while it works on this one), forms the step's points
+//     (step_points) and the family's terms at each point that the pullback
+//     takes (F::terms: the core's sigmoid, divisions and sums, relay's D6 and
+//     D12), and writes them with g_i into the next slot of a ring of shared
+//     tiles (4 slots, rk4 2);
+//   * warp 1, the pullback warp, holds the row's constants, their cotangents
+//     dc and the adjoint, and runs the step's pullback (step_pullback, the
+//     family's F::vjp at each point) over the slot's points and terms, then
+//     adds g_i.
+// Each slot has a "full" and a "free" named barrier: the stage warp arrives
+// at "full" without waiting once it has written the slot, where the pullback
+// warp waits; the pullback warp arrives at "free" once it has read the slot,
+// where the stage warp waits before it writes the slot again, a ring later.
+// Every slot starts free (the pullback warp arrives once at each "free"
+// barrier first), and the stage warp drains the last arrivals at the end, so
+// every barrier completes.
+//
+// Each value is formed by the expression, from the operands and in the order
+// of the one-thread-per-row sweep this kernel replaced: the points and terms
+// in F::terms and step_points, the pullback in step_pullback and F::vjp.
+// The terms published are the ones that end in a division or a sum; a
+// product is formed again where it is used (core_terms_at), and the
+// pullback warp's step is one basic block, so nvcc contracts the pullback's
+// products into adds as it did in that sweep: dc and dy0 equal that sweep's
+// bit for bit in modeuler and midpoint, and in rk4 for relay and degrader;
+// in dr's rk4 the outputs that read dgamma (dc of r, K, tlag; dy0 of x)
+// move by float32 rounding, nvcc contracting dgamma's sum otherwise.  Rows
+// past the edge (r >= R) sweep row R - 1, store nothing and reach every
+// barrier.
+// --------------------------------------------------------------------------
+constexpr int BWD_ROWS = 32;
+constexpr int BWD_THREADS = BWD_ROWS * 2;  // the stage warp and the pullback warp
+
+template <class F, int METHOD>
+struct BwdTiles {
+  // the ring's slots (relay's rk4 stays under 48 KB of static shared memory)
+  static constexpr int S = F::NS, NPTS = n_points<METHOD>(), RING = METHOD == RK4 ? 2 : 4;
+  // named barriers: a "full" and a "free" one a slot
+  static constexpr int FULL = 1, FREE = FULL + RING;
+  float z[RING][NPTS][S][BWD_ROWS];       // step i's points: y_i, then the stages'
+  float tp[RING][NPTS][F::NT][BWD_ROWS];  // the family's terms at each point
+  float g[RING][S][BWD_ROWS];             // g_i
+};
+
+// The stage warp's right-hand side at point M (lane = row): the point and
+// its terms into slot q.
+template <class F, int METHOD>
+struct StageWarp {
+  BwdTiles<F, METHOD>* sh;
+  const float* c;
+  int lane, q;
+  template <int M>
+  __device__ __forceinline__ void publish(Stage<M>, float t, const float* z) const {
+    float tp[F::NT];
+    F::terms(c, t, z, tp);
+#pragma unroll
+    for (int s = 0; s < F::NS; ++s) sh->z[q][M][s][lane] = z[s];
+#pragma unroll
+    for (int j = 0; j < F::NT; ++j) sh->tp[q][M][j][lane] = tp[j];
+  }
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* z, float* f) const {
+    publish(Stage<M>(), t, z);
+    F::rhs(c, t, z, f);
+  }
+};
+
+// The pullback warp's pullback at point M, over the terms in slot q.
+template <class F, int METHOD>
+struct PullbackWarp {
+  BwdTiles<F, METHOD>* sh;
+  const float* c;
+  float* dc;
+  int lane, q;
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float, const float* z, const float* w,
+                                             float* dy) const {
+    float tp[F::NT];
+#pragma unroll
+    for (int j = 0; j < F::NT; ++j) tp[j] = sh->tp[q][M][j][lane];
+    F::vjp(c, tp, z, w, dy, dc);
+  }
+};
+
 template <class F, int METHOD>
 __global__ void __launch_bounds__(BWD_THREADS)
 bwd_kernel(const float* __restrict__ consts, const float* __restrict__ times,
            const float* __restrict__ traj, const float* __restrict__ g,
            float* __restrict__ dc_out, float* __restrict__ dy0_out, int R, int T) {
-  constexpr int S = F::NS;
-  const int r = blockIdx.x * BWD_THREADS + threadIdx.x;
-  if (r >= R) return;
+  using Tiles = BwdTiles<F, METHOD>;
+  constexpr int S = F::NS, NPTS = Tiles::NPTS, RING = Tiles::RING;
+  __shared__ Tiles sh;
+  const int lane = threadIdx.x % BWD_ROWS, warp = threadIdx.x / BWD_ROWS;
+  const int r = blockIdx.x * BWD_ROWS + lane;
+  const int rr = min(r, R - 1);  // the row this thread sweeps
   const size_t stride = (size_t)R;
   const size_t tstride = (size_t)S * stride;
 
-  float c[F::NC], dc[F::NC];
+  float c[F::NC];
 #pragma unroll
-  for (int j = 0; j < F::NC; ++j) {
-    c[j] = consts[j * stride + r];
-    dc[j] = 0.0f;
-  }
-  const KindVjp<F> vjp{c, dc};
-
-  float a[S];
-  const float* gT = g + (size_t)(T - 1) * tstride + r;
-#pragma unroll
-  for (int s = 0; s < S; ++s) a[s] = gT[s * stride];
-
+  for (int j = 0; j < F::NC; ++j) c[j] = consts[j * stride + rr];
+  int q = 0;
   float t2 = __ldg(times + (T - 1));
-  for (int i = T - 2; i >= 0; --i) {
-    const float t1 = __ldg(times + i);
-    const float* yi = traj + (size_t)i * tstride + r;
-    const float* gi = g + (size_t)i * tstride + r;
-    float y[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) y[s] = yi[s * stride];
-    step_vjp<METHOD, S>(vjp, vjp, t1, t2, y, a);
-#pragma unroll
-    for (int s = 0; s < S; ++s) a[s] += gi[s * stride];
-    t2 = t1;
-  }
 
+  if (warp == 0) {  // the stage warp
+    float y[S], gi[S];
+    const size_t first = (size_t)max(T - 2, 0) * tstride + rr;
 #pragma unroll
-  for (int j = 0; j < F::NC; ++j) dc_out[j * stride + r] = dc[j];
+    for (int s = 0; s < S; ++s) {
+      y[s] = traj[first + s * stride];
+      gi[s] = g[first + s * stride];
+    }
+    for (int i = T - 2; i >= 0; --i) {
+      const float t1 = __ldg(times + i);
+      const size_t next = (size_t)max(i - 1, 0) * tstride + rr;
+      float yn[S], gn[S];
 #pragma unroll
-  for (int s = 0; s < S; ++s) dy0_out[s * stride + r] = a[s];
+      for (int s = 0; s < S; ++s) {
+        yn[s] = traj[next + s * stride];
+        gn[s] = g[next + s * stride];
+      }
+      bar_sync(Tiles::FREE + q, BWD_THREADS);
+      float z[NPTS][S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) z[0][s] = y[s];
+      const StageWarp<F, METHOD> stage{&sh, c, lane, q};
+      const float t_last = step_points<METHOD, S>(stage, t1, t2, z);
+      stage.publish(Stage<NPTS - 1>(), t_last, z[NPTS - 1]);
+#pragma unroll
+      for (int s = 0; s < S; ++s) sh.g[q][s][lane] = gi[s];
+      bar_arrive(Tiles::FULL + q, BWD_THREADS);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        y[s] = yn[s];
+        gi[s] = gn[s];
+      }
+      q = next_slot(q, RING);
+      t2 = t1;
+    }
+    // the pullback warp's last arrival at each "free" barrier
+    for (int n = 0; n < RING; ++n) {
+      bar_sync(Tiles::FREE + q, BWD_THREADS);
+      q = next_slot(q, RING);
+    }
+  } else {  // the pullback warp
+    float dc[F::NC], a[S];
+#pragma unroll
+    for (int j = 0; j < F::NC; ++j) dc[j] = 0.0f;
+    const float* gT = g + (size_t)(T - 1) * tstride + rr;
+#pragma unroll
+    for (int s = 0; s < S; ++s) a[s] = gT[s * stride];
+#pragma unroll
+    for (int n = 0; n < RING; ++n) bar_arrive(Tiles::FREE + n, BWD_THREADS);
+    for (int i = T - 2; i >= 0; --i) {
+      const float t1 = __ldg(times + i);
+      bar_sync(Tiles::FULL + q, BWD_THREADS);
+      float z[NPTS][S];
+#pragma unroll
+      for (int m = 0; m < NPTS; ++m)
+#pragma unroll
+        for (int s = 0; s < S; ++s) z[m][s] = sh.z[q][m][s][lane];
+      const PullbackWarp<F, METHOD> pullback{&sh, c, dc, lane, q};
+      step_pullback<METHOD, S>(pullback, t1, t2, z, a);
+#pragma unroll
+      for (int s = 0; s < S; ++s) a[s] += sh.g[q][s][lane];
+      bar_arrive(Tiles::FREE + q, BWD_THREADS);
+      q = next_slot(q, RING);
+      t2 = t1;
+    }
+    if (r < R) {
+#pragma unroll
+      for (int j = 0; j < F::NC; ++j) dc_out[j * stride + r] = dc[j];
+#pragma unroll
+      for (int s = 0; s < S; ++s) dy0_out[s * stride + r] = a[s];
+    }
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -713,18 +948,11 @@ bwd_kernel(const float* __restrict__ consts, const float* __restrict__ times,
 constexpr int PREC_BWD_ROWS = 32;
 constexpr int PREC_BWD_THREADS = PREC_BWD_ROWS * (N_PREC + 1);
 constexpr int PREC_WARP_THREADS = PREC_BWD_ROWS * N_PREC;  // the precision warps'
-// named barriers (0 is __syncthreads)
+// named barriers
 constexpr int BAR_POINT = 1;  // + M: point M's species published (M < 4)
 constexpr int BAR_SHARE = 5;  // + M: pullback M's df ready
 constexpr int BAR_PREC = 9;   // the precision warps among themselves
 constexpr int BAR_DONE = 10;  // the core warp has read its last tile
-
-__device__ __forceinline__ void bar_sync(int id, int n_threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n_threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n_threads) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n_threads) : "memory");
-}
 
 template <int NS, int NPTS>
 struct PrecBwdTiles {
@@ -760,7 +988,9 @@ struct CoreWarp {
   __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, const float* w,
                                              float* dy) const {
     if constexpr (M == NPTS - 1) publish<M>(y);  // the last point has no right-hand side
-    F::vjp(c, t, y, w, dy, dc);
+    float tp[F::NT];
+    F::terms(c, t, y, tp);
+    F::vjp(c, tp, y, w, dy, dc);
     bar_sync(BAR_SHARE + M, PREC_BWD_THREADS);
 #pragma unroll
     for (int s = 0; s < F::NS; ++s) {
@@ -1025,10 +1255,6 @@ struct PrecFwdTiles {
   float z[RING][NS][PREC_FWD_ROWS];  // a point's features tanh y_s
 };
 
-__device__ __forceinline__ int next_slot(int slot, int ring) {
-  return slot + 1 == ring ? 0 : slot + 1;
-}
-
 // The species warp's right-hand side at the next point (lane = row).
 template <class F, int RING>
 struct SpeciesFwdWarp {
@@ -1221,7 +1447,7 @@ int bwd_launch(const float* wmat, const float* consts, const float* times, const
     }
   } else {
     const dim3 block(BWD_THREADS);
-    const dim3 grid((unsigned)((R + BWD_THREADS - 1) / BWD_THREADS));
+    const dim3 grid((unsigned)((R + BWD_ROWS - 1) / BWD_ROWS));
     switch (method) {
       case MODEULER:
         bwd_kernel<F, MODEULER><<<grid, block, 0, s>>>(consts, times, traj, g, dc, dy0, R, T);
@@ -1239,7 +1465,7 @@ int bwd_launch(const float* wmat, const float* consts, const float* times, const
   return (int)cudaGetLastError();
 }
 
-// A _prec kernel's block for method on the current card: its sample rows, its
+// A kernel's block for method on the current card: its sample rows, its
 // threads, its static shared memory in bytes, its registers a thread and how
 // many such blocks one SM holds at once.  Returns the cudaError_t of the query
 // (0 on success).
@@ -1274,19 +1500,28 @@ int prec_fwd_block(int method, int* rows, int* threads, int* smem_bytes, int* re
   }
 }
 
-template <class F>
-int prec_bwd_block(int method, int* rows, int* threads, int* smem_bytes, int* registers,
-                   int* blocks_per_sm) {
+template <class F, bool PREC, int METHOD>
+int bwd_block_of(int* rows, int* threads, int* smem_bytes, int* registers, int* blocks_per_sm) {
+  if constexpr (PREC) {
+    return block_of(prec_bwd_kernel<F, METHOD>, PREC_BWD_ROWS, PREC_BWD_THREADS, rows, threads,
+                    smem_bytes, registers, blocks_per_sm);
+  } else {
+    return block_of(bwd_kernel<F, METHOD>, BWD_ROWS, BWD_THREADS, rows, threads, smem_bytes,
+                    registers, blocks_per_sm);
+  }
+}
+
+// A backward kernel's block (block_of), with the precision block or without
+template <class F, bool PREC>
+int bwd_block(int method, int* rows, int* threads, int* smem_bytes, int* registers,
+              int* blocks_per_sm) {
   switch (method) {
     case MODEULER:
-      return block_of(prec_bwd_kernel<F, MODEULER>, PREC_BWD_ROWS, PREC_BWD_THREADS, rows,
-                      threads, smem_bytes, registers, blocks_per_sm);
+      return bwd_block_of<F, PREC, MODEULER>(rows, threads, smem_bytes, registers, blocks_per_sm);
     case MIDPOINT:
-      return block_of(prec_bwd_kernel<F, MIDPOINT>, PREC_BWD_ROWS, PREC_BWD_THREADS, rows,
-                      threads, smem_bytes, registers, blocks_per_sm);
+      return bwd_block_of<F, PREC, MIDPOINT>(rows, threads, smem_bytes, registers, blocks_per_sm);
     case RK4:
-      return block_of(prec_bwd_kernel<F, RK4>, PREC_BWD_ROWS, PREC_BWD_THREADS, rows,
-                      threads, smem_bytes, registers, blocks_per_sm);
+      return bwd_block_of<F, PREC, RK4>(rows, threads, smem_bytes, registers, blocks_per_sm);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -41,5 +41,5 @@ extern "C" int dr_prec_bwd_launch(const float* wmat, const float* consts, const 
 // cudaError_t.
 extern "C" int dr_prec_bwd_block(int method, int* rows, int* threads, int* smem_bytes,
                                  int* registers, int* blocks_per_sm) {
-  return prec_bwd_block<Dr>(method, rows, threads, smem_bytes, registers, blocks_per_sm);
+  return bwd_block<Dr, true>(method, rows, threads, smem_bytes, registers, blocks_per_sm);
 }

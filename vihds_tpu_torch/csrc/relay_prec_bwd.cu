@@ -42,5 +42,5 @@ extern "C" int relay_prec_bwd_launch(const float* wmat, const float* consts, con
 // cudaError_t.
 extern "C" int relay_prec_bwd_block(int method, int* rows, int* threads, int* smem_bytes,
                                     int* registers, int* blocks_per_sm) {
-  return prec_bwd_block<Relay>(method, rows, threads, smem_bytes, registers, blocks_per_sm);
+  return bwd_block<Relay, true>(method, rows, threads, smem_bytes, registers, blocks_per_sm);
 }

@@ -11,11 +11,12 @@ Six kinds, each ported forward and backward as a hand-written CUDA kernel
 * ``"relay"`` (relay_constant, 12 states) and ``"relay_prec"`` (16);
 * ``"degrader"`` (degrader_constant, 11 states) and ``"degrader_prec"`` (15).
 
-All run one thread per sample row with the whole time loop in registers and
-share their device code in ``csrc/dr_common.cuh``: the three families share
-the dr species' 8-row core, and the ``_prec`` kinds the precision block, whose
-backward also returns the cotangent of the precision nets' weight matrix,
-summed over all rows.  ``KINDS`` lists the kinds.
+They keep the whole time loop of a sample row in registers, the plain kinds'
+forwards one thread per row, the other kernels a row over several warps of a
+32-row block, and share their device code in ``csrc/dr_common.cuh``: the
+three families share the dr species' 8-row core, and the ``_prec`` kinds the
+precision block, whose backward also returns the cotangent of the precision
+nets' weight matrix, summed over all rows.  ``KINDS`` lists the kinds.
 
 ``<family>_simulate`` (``dr_constant_simulate``, ...,
 ``degrader_constant_precisions_simulate``) are the differentiable wrappers:
@@ -746,8 +747,8 @@ def prec_fwd_block(kind, method):
     return _block(KINDS[kind].fwd, method)
 
 
-def prec_bwd_block(kind, method):
-    """A ``_prec`` backward kernel's block for ``method`` (``_block``), from
+def bwd_block(kind, method):
+    """A backward kernel's block for ``method`` (``_block``), from
     csrc/<kind>_bwd.cu."""
     return _block(KINDS[kind].bwd, method)
 

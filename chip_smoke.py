@@ -25,11 +25,11 @@ Phases, each printing lines of its own:
    cotangent's zero share, the time and two runs bit-equal; the forward held
    against its plain version and timed at the training shape too, and its
    first R - 12 rows run alone (a ragged last block) must equal those rows
-   of the whole run bit for bit; two runs of a ``_prec`` forward must give
-   the same trajectory bit for bit at both shapes, and two of a ``_prec``
-   backward the same weight cotangent; then the backward's block per method
-   and the ``_prec`` forward's (rows, threads, shared memory, registers,
-   blocks resident per SM, waves at each shape); then the
+   of the whole run bit for bit; two runs of a forward must give the same
+   trajectory bit for bit at both shapes, and two of a ``_prec`` backward
+   the same weight cotangent; then the backward's block per method and the
+   forward's (rows, threads, shared memory, registers, blocks resident per
+   SM, waves at each shape); then the
    black-box kernels
    (``blackbox_fwd``, ``blackbox_bwd``; operands from ``dr_blackbox_icml``),
    the forward against its plain version at the serving chunk and at the
@@ -592,7 +592,7 @@ def phase_kind_kernels(device, kind, seed):
             if not bool(torch.isfinite(ref).all()):
                 fail("%s %s: the plain version is not finite on these inputs" % (k.fwd, method))
             (rel_x, rel_s, rel_p), ok = states_ok(got, ref, kind)
-            same = not k.prec or fwd_repeats(kind, wmat, packed, y0_cols, times, method)
+            same = fwd_repeats(kind, wmat, packed, y0_cols, times, method)
             r = fwd_rows[method] = dict(max_abs_err=float((got - ref).abs().max()),
                                         max_rel_species=rel_x, max_rel_signals=rel_s,
                                         max_rel_precisions=rel_p,
@@ -602,7 +602,7 @@ def phase_kind_kernels(device, kind, seed):
                   "%d flop)  %s"
                   % (method, _fmt(rel_x), _fmt(rel_s), _fmt(rel_p), r["max_abs_err"],
                      float(ref.abs().max()),
-                     " | repeat run bit-equal: %s" % same if k.prec else "",
+                     " | repeat run bit-equal: %s" % same,
                      r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"], r["bytes"],
                      r["flops"], "ok" if ok else "MISMATCH"))
             if not ok:
@@ -674,7 +674,7 @@ def phase_kind_kernels(device, kind, seed):
                 kind, wmat, packed[:, :n_edge].contiguous(), y0_cols[:, :n_edge].contiguous(),
                 times, method)))
             f = train_fwd_rows[method] = fwd_row(kind, wmat, packed, y0_cols, times, method)
-            same_fwd = not k.prec or fwd_repeats(kind, wmat, packed, y0_cols, times, method)
+            same_fwd = fwd_repeats(kind, wmat, packed, y0_cols, times, method)
             print("  %-9s kernel: worst normwise %.3e (%s), worst p99 rel %.3e (%s); plain "
                   "float32: %.3e, %.3e | max_abs_err %.3e on |ref| up to %.3e%s  kernel %.4f ms  "
                   "plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
@@ -688,7 +688,7 @@ def phase_kind_kernels(device, kind, seed):
                   "rows 0..%d alone bit-equal: %s%s  kernel %.4f ms  plain %.2f ms  bound %.4f ms "
                   "(%s)  %s"
                   % (method, k.fwd, _fmt(fx), _fmt(fs), _fmt(fp), n_edge - 1, edge,
-                     ", repeat run bit-equal: %s" % same_fwd if k.prec else "", f["ms"],
+                     ", repeat run bit-equal: %s" % same_fwd, f["ms"],
                      f["plain_ms"], f["bound_ms"], f["bound_by"], "ok" if fwd_ok else "MISMATCH"))
             if not ok:
                 fail("%s %s disagrees with its plain version" % (k.bwd, method))
@@ -754,10 +754,8 @@ def phase_kind_kernels(device, kind, seed):
             if not same:
                 fail("%s %s: two runs on a training step's operands differ" % (k.bwd, method))
     for method in fused_ode.METHODS:
-        if k.prec:
-            fwd_rows[method]["block"] = print_block(device, k.fwd, method,
-                                                    fused_ode.prec_fwd_block(kind, method),
-                                                    (R, R_serve))
+        fwd_rows[method]["block"] = print_block(device, k.fwd, method,
+                                                fused_ode.fwd_block(kind, method), (R, R_serve))
         rows[method]["block"] = print_block(device, k.bwd, method,
                                             fused_ode.bwd_block(kind, method), (R,))
     print("  per row, normwise error / 99th percentile relative error against float64, "

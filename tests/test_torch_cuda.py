@@ -307,13 +307,14 @@ def _kind_operands(device, kind, K=5):
 
 
 @pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])
-@pytest.mark.parametrize("kind", NEW_KINDS + ["dr_prec"])
+@pytest.mark.parametrize("kind", ["dr"] + NEW_KINDS + ["dr_prec"])
 @pytest.mark.parametrize("R", [180, 20, 256])
 def test_kind_fwd_kernel_matches_plain(cuda, R, kind, method):
     """Each state group to its own tolerance, as chip_smoke.py phase 3, at R
-    = 180 (K = 5), below one block (R = 20) and at R = 256 (whole blocks of
-    the _prec kinds' 32 rows, two of the plain kinds' 128); a _prec kind's
-    forward also gives the same trajectory bit for bit from run to run."""
+    = 180 (K = 5; a ragged last 32-row block), below one block (R = 20) and
+    at R = 256 (whole 32-row blocks, the plain and the _prec kinds' alike);
+    every kind's forward also gives the same trajectory bit for bit from run
+    to run."""
     import chip_smoke
 
     k = fused_ode.KINDS[kind]
@@ -329,8 +330,7 @@ def test_kind_fwd_kernel_matches_plain(cuda, R, kind, method):
     assert torch.isfinite(ref).all()
     rel, ok = chip_smoke.states_ok(got.movedim(1, -1), ref.movedim(1, -1), kind)
     assert ok, rel
-    if k.prec:
-        assert torch.equal(got, fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method))
+    assert torch.equal(got, fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method))
 
 
 @pytest.mark.parametrize("method", ["midpoint", "modeuler", "rk4"])

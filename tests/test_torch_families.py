@@ -601,6 +601,45 @@ def test_plain_bwd_sources_follow_the_header(family, F):
                      smoke)
 
 
+@pytest.mark.parametrize("family, F", [("dr", "Dr"), ("relay", "Relay"),
+                                       ("degrader", "Degrader")])
+def test_plain_fwd_sources_follow_the_header(family, F):
+    """Each plain kind's forward answers the block query from the shared
+    template: a block of 32 rows (the header's FWD_ROWS, which set its grid
+    and lanes) x 2 + the family's reporter warps, whose species split holds
+    each of the family's species in exactly one warp; the query reports
+    these rows and threads for every method, and chip_smoke.py prints every
+    forward's block through ``fused_ode.fwd_block``."""
+    common = open(os.path.join(CSRC, "dr_common.cuh")).read()
+    consts = {m.group(1): m.group(2)
+              for m in re.finditer(r"constexpr int (\w+) = ([^;]+);", common)}
+    assert consts["FWD_ROWS"] == "32"
+    assert consts["WARPS"] == "2 + REP_WARPS"
+    assert consts["THREADS"] == "FWD_ROWS * WARPS"
+    assert "const dim3 grid((unsigned)((R + FWD_ROWS - 1) / FWD_ROWS));" in common
+    kernel = common[common.index("fwd_kernel(const float*"):]
+    assert "const int r = blockIdx.x * FWD_ROWS + lane;" in kernel
+    for method in ("MODEULER", "MIDPOINT", "RK4"):
+        assert ("return block_of(fwd_kernel<F, %s>, FWD_ROWS, FwdSplit<F>::THREADS, rows, threads,"
+                % method) in common, method
+    # the family's split: the growth warp x, the regulator warp LuxR and
+    # LasR, one or two reporter warps the rest
+    body = re.search(r"struct %s \{(.*?)\n\};" % F, common, re.S).group(1)
+    rep_warps = int(re.search(r"FWD_REPORTER_WARPS = (\d+);", body).group(1))
+    ns = int(re.search(r"NS = (\d+)", body).group(1))
+    assert ns == fused_ode.KINDS[family].n_species and rep_warps in (1, 2)
+    assert "reporter(int i) { return i < 5 ? 1 + i : 3 + i; }" in common
+    reporters = [1 + i if i < 5 else 3 + i for i in range(ns - 3)]
+    assert sorted([0, 6, 7] + reporters) == list(range(ns))
+    src = open(os.path.join(CSRC, family + "_fwd.cu")).read()
+    assert re.search(r"return fwd_block<%s>\(method, rows, threads, smem_bytes, registers, "
+                     r"blocks_per_sm\);" % F, src)
+    assert re.search(r'extern "C" int %s_fwd_block\(' % family, src)
+    smoke = open(os.path.join(os.path.dirname(CSRC), os.pardir, "chip_smoke.py")).read()
+    assert re.search(r"\n        fwd_rows\[method\]\[\"block\"\] = print_block\("
+                     r"device, k\.fwd, method,\s+fused_ode\.fwd_block\(kind, method\)", smoke)
+
+
 def test_build_lists_every_kernel():
     """Every fused kind's two kernels and the black-box ODE's two."""
     from vihds_tpu_torch.ops import fused_blackbox

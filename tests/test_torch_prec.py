@@ -279,8 +279,8 @@ def test_prec_fwd_sources_follow_the_header(family, F):
     """Each _prec forward launches the shared template and answers the block
     query from it; the header's rows a forward block runs (its grid and
     lanes use them) are what the query reports for every method, and so what
-    chip_smoke.py counts waves by; the plain kind's forward still launches
-    the one-thread-per-row kernel."""
+    chip_smoke.py counts waves by; the plain kind's forward launches the
+    template without the precision block."""
     common = open(os.path.join(CSRC, "dr_common.cuh")).read()
     consts = {m.group(1): m.group(2) for m in re.finditer(r"constexpr int (\w+) = ([^;]+);", common)}
     assert consts["PREC_FWD_ROWS"] == "32"
@@ -294,7 +294,7 @@ def test_prec_fwd_sources_follow_the_header(family, F):
     assert "  *rows = n_rows;\n" in common
     smoke = open(os.path.join(os.path.dirname(CSRC), os.pardir, "chip_smoke.py")).read()
     assert "    rows, threads, smem, regs, per_sm = block\n" in smoke
-    assert re.search(r"print_block\(device, k\.fwd, method,\s+fused_ode\.prec_fwd_block\(kind, method\),",
+    assert re.search(r"print_block\(device, k\.fwd, method,\s+fused_ode\.fwd_block\(kind, method\),",
                      smoke)
     src = open(os.path.join(CSRC, family + "_prec_fwd.cu")).read()
     assert '#include "dr_common.cuh"' in src

@@ -13,13 +13,16 @@ weight cotangent (what that costs); with ``--rowwise`` the forward's variant
 barriers); with ``--variant NAME=DIR`` any other source tree.  The backward
 runs at the training shape of ``dr_blackbox_icml`` (B=36, K=200: R=7,200,
 T=86), the forward there and at the serving chunk (K=1000: R=36,000), on
-chip_smoke.py phase 3's operands.  For each shape and method it runs every
-build on the same operands, says whether its outputs (dW, dc and dy0; the
-trajectory) equal this tree's bit for bit (the largest difference, and for
-the trajectory the most ulps, where not), and times each build with CUDA
-events (median of 20 launches) in turns: reference, this tree, the others,
-then the same in reverse.  Prints the ptxas lines of the builds, then one
-JSON line.
+chip_smoke.py phase 3's operands.  This tree's source is built a second
+time as the others are, and every build is run and timed through its bare C
+entry point.  For each shape and method it runs every build on the same
+operands, says whether its outputs (dW, dc and dy0; the trajectory) equal
+those of this tree's wrapper (``fused_blackbox``) bit for bit (the largest
+difference, and for the trajectory the most ulps, where not), and times
+each build with CUDA events (median of 20 launches) in turns: reference,
+this tree, the others, then the same in reverse.  Prints the ptxas lines of
+the builds and whether each build's SASS equals this tree's (where the
+toolkit has cuobjdump), then one JSON line.
 
     python3 tools/blackbox_bwd_compare.py --ref build/parent/vihds_tpu_torch/csrc --rows 16 --no-dw
     python3 tools/blackbox_bwd_compare.py --direction fwd --ref build/parent/vihds_tpu_torch/csrc --rowwise
@@ -89,6 +92,27 @@ def launcher(path, direction):
     return fn
 
 
+def sass(path):
+    """The instructions of the kernels in a library as cuobjdump prints them,
+    without addresses, encodings and names (a sorted list, a tuple a
+    kernel), or None where the toolkit has no cuobjdump."""
+    from vihds_tpu_torch.ops import build
+
+    exe = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    dump = subprocess.run([exe, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    kernels = []
+    for ln in dump.splitlines():
+        if "Function :" in ln:
+            kernels.append([])
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s*(.*?)\s*;", ln)
+        if m and kernels:
+            kernels[-1].append(m.group(1))
+    return sorted(tuple(k) for k in kernels)
+
+
 def max_ulps(a, b):
     """The most units in the last place between two float32 tensors of the
     same signs."""
@@ -98,7 +122,7 @@ def max_ulps(a, b):
     return int(d.max())
 
 
-def compare(names, run, this, ref_outs, keys, ulps):
+def compare(names, run, ref_outs, keys, ulps):
     """Each build's outputs against this tree's, then every build timed in
     turns (the reference first, then this tree, the others; then in reverse)."""
     import torch
@@ -117,16 +141,15 @@ def compare(names, run, this, ref_outs, keys, ulps):
         if ulps:
             readings[name]["max_ulps"] = {k: max_ulps(a, b) for k, a, b in zip(keys, got, ref_outs)}
     order = (["reference"] if "reference" in names else []) + ["this"] + [
-        n for n in names if n != "reference"]
+        n for n in names if n not in ("reference", "this")]
     order = order + order[::-1]
     ms = {n: [] for n in order}
     for n in order:
-        ms[n].append(chip_smoke.cuda_ms(this if n == "this" else (lambda n=n: run(n)), 20))
-    readings["this"] = {}
+        ms[n].append(chip_smoke.cuda_ms(lambda n=n: run(n), 20))
     for n in ms:
         readings[n]["ms"] = ms[n]
-    line = "  ".join("%s %s ms%s" % (n, "/".join("%.4f" % t for t in ms[n]),
-                                      "" if n == "this" else " bit-equal %s" % readings[n]["bit_equal"])
+    line = "  ".join("%s %s ms bit-equal %s" % (n, "/".join("%.4f" % t for t in ms[n]),
+                                                 readings[n]["bit_equal"])
                      for n in ms)
     return readings, line
 
@@ -174,14 +197,20 @@ def main(argv=None):
         sources.append(("rowwise", ROWWISE, build.CSRC, 32))
     sources += [(v.split("=", 1)[0], os.path.join(v.split("=", 1)[1], src), None, 32)
                 for v in args.variant]
-    builds = {}  # name -> (launch function, rows a block)
+    # this tree's source too, built as the others are: every build is timed
+    # through the same bare launch (the wrapper's checks and allocations
+    # would add to one call's time)
+    sources.append(("this", os.path.join(build.CSRC, src), None, fb.BWD_ROWS))
+    builds, kernels = {}, {}  # name -> (launch function, rows a block); name -> sass()
     for name, source, include, rows in sources:
         path, lines = build_library("blackbox_%s_%s" % (d, name), source, include)
         builds[name] = (launcher(path, d), rows)
+        kernels[name] = sass(path)
         for ln in lines:
             print("  %s ptxas: %s" % (name, ln))
-    for ln in ptxas_lines(build.build(["blackbox_" + d]).get("blackbox_" + d, "")):
-        print("  this ptxas: %s" % ln)
+    for name in builds:
+        if name != "this" and kernels[name] is not None:
+            print("  %s SASS equal to this tree's: %s" % (name, kernels[name] == kernels["this"]))
 
     seed = chip_smoke.SEED + 101  # chip_smoke.py phase 3's operands
     shapes_k = ((chip_smoke.K_TRAIN, seed + 1),) + (((chip_smoke.K_SERVE, seed),) if d == "fwd"
@@ -198,9 +227,6 @@ def main(argv=None):
         for mi, method in enumerate(fused_ode.METHODS):
             traj = fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method)
             if d == "fwd":
-                def this():
-                    return fb.blackbox_fwd(wflat, packed, y0_cols, times, shapes, NS, method)
-
                 def run(name):
                     out = torch.empty_like(traj)
                     err = builds[name][0](*[t.data_ptr() for t in (wflat, packed, y0_cols, times,
@@ -209,13 +235,10 @@ def main(argv=None):
                         raise RuntimeError("%s launch failed with cudaError %d" % (name, err))
                     return (out,)
 
-                readings, line = compare(builds, run, this, (traj,), ("traj",), True)
+                readings, line = compare(builds, run, (traj,), ("traj",), True)
             else:
                 gen = torch.Generator(device=device).manual_seed(seed + 2)
                 g = torch.randn(traj.shape, generator=gen, device=device)
-
-                def this():
-                    return fb.blackbox_bwd(wflat, packed, times, traj, g, shapes, NS, method)
 
                 def run(name):
                     fn, rows = builds[name]
@@ -227,7 +250,8 @@ def main(argv=None):
                         raise RuntimeError("%s launch failed with cudaError %d" % (name, err))
                     return parts.sum(dim=0), odc, ody0
 
-                readings, line = compare(builds, run, this, this(), ("dw", "dc", "dy0"), False)
+                readings, line = compare(builds, run, fb.blackbox_bwd(
+                    wflat, packed, times, traj, g, shapes, NS, method), ("dw", "dc", "dy0"), False)
             entry["methods"][method] = readings
             print("%-9s %s" % (method, line))
         result["shapes"].append(entry)

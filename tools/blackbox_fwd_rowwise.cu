@@ -115,7 +115,8 @@ struct RowRhs {
   const float* W;
   const float* c;
 
-  __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, float* f) const {
     net<StatesNet, S_H, S_HB, S_O, S_OB, HS>(W, c, t, y, f);
     net<PrecNet, P_H, P_HB, P_O, P_OB, HP>(W, c, t, y, f);
   }

@@ -2,25 +2,31 @@
 against a reference build of them on the card.
 
 Builds, besides this tree's ``csrc/<kind>_fwd.cu`` (through
-``vihds_tpu_torch.ops.build``), a reference source tree given with ``--ref``
-(for example an earlier commit's ``vihds_tpu_torch/csrc``, unpacked with
-``git archive``).  For each kind (``--kind``, repeatable; by default all
-six) and method it runs both builds on chip_smoke.py phase 3's operands at
+``vihds_tpu_torch.ops.build``), each reference source tree given with
+``--ref [NAME=]DIR`` (repeatable; for example an earlier commit's
+``vihds_tpu_torch/csrc``, unpacked with ``git archive``, or an edited copy
+of it).  For each kind (``--kind``, repeatable; by default all six) and
+method it runs every build on chip_smoke.py phase 3's operands at
 the training shape (B=36 x K=200) and at the serving chunk (B=36 x K=1000),
 T of the kind's spec, says for each state group (species, precisions)
-whether the reference's trajectory equals this tree's bit for bit (the
+whether each reference's trajectory equals this tree's bit for bit (the
 largest difference where not) and each build's largest relative error per
 group against the plain version in float64 (as chip_smoke.states_ok reads
-it), and times each build with CUDA events (median of 20 launches through
-its C entry point) in turns: reference, this tree, the floor, then the same
-in reverse.  The floor of a ``_prec`` kind is this tree's plain kind
-(``dr`` for ``dr_prec``) on the same constants and species: the species
-chain alone, which the ``_prec`` kernel's species warp runs; its trajectory
-should equal the ``_prec`` kind's species bit for bit, which is reported
-too.  Prints the ptxas lines of the builds, then one JSON line.
+it), and times each build with CUDA events in turns: the references, this
+tree, the floor, then the same in reverse.  Each turn reads one call (``ms``,
+median of 20 calls through its C entry point, the host's launch path
+included) and the device's time a call (``device_ms``, 20 launches back to
+back), which the host's path does not hide where a kernel is short.  The
+floor of a ``_prec`` kind is this tree's plain kind (``dr`` for
+``dr_prec``) on the same constants and species: the species chain alone,
+which the ``_prec`` kernel's species warp runs; its trajectory should equal
+the ``_prec`` kind's species bit for bit, which is reported too.  Prints the ptxas lines of the builds and this tree's block per
+method, then one JSON line.
 
     git archive <commit> vihds_tpu_torch/csrc | tar -x -C build/parent
     python3 tools/prec_fwd_compare.py --ref build/parent/vihds_tpu_torch/csrc
+    python3 tools/prec_fwd_compare.py --kind dr --kind relay --kind degrader \
+        --ref parent=build/parent/vihds_tpu_torch/csrc --ref rows32=build/rows32
 
 Needs an NVIDIA GPU and nvcc.
 """
@@ -51,6 +57,26 @@ def launcher(path, kind):
     return fn
 
 
+def device_ms(call, reps=20, warmup=3):
+    """Milliseconds a call of ``call()`` keeps the device busy: CUDA events
+    around ``reps`` calls enqueued back to back after ``warmup`` calls, their
+    elapsed time over ``reps`` (``chip_smoke.cuda_ms`` times one call, the
+    host's launch path included)."""
+    import torch
+
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        call()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def groups(kind):
     """The state groups of ``kind``'s trajectory: [(name, slice)]."""
     from vihds_tpu_torch.ops import fused_ode
@@ -62,7 +88,9 @@ def groups(kind):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ref", help="a csrc directory holding <kind>_fwd.cu and its headers")
+    ap.add_argument("--ref", action="append", default=[],
+                    help="[NAME=]DIR: a csrc directory holding <kind>_fwd.cu and its headers, "
+                         "named NAME (default: reference; repeatable)")
     ap.add_argument("--kind", action="append", default=[],
                     help="a fused kind to compare (default: all six)")
     args = ap.parse_args(argv)
@@ -76,14 +104,17 @@ def main(argv=None):
     for kind in kinds:
         if kind not in fused_ode.KINDS:
             ap.error("no fused kind %r (kinds: %s)" % (kind, ", ".join(fused_ode.KINDS)))
+    refs = dict(ref.split("=", 1) if "=" in ref else ("reference", ref) for ref in args.ref)
+    if len(refs) < len(args.ref) or {"this", "floor"} & set(refs):
+        ap.error("each --ref needs a name of its own, neither 'this' nor 'floor'")
     if not torch.cuda.is_available():
         print("prec_fwd_compare: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     card = chip_smoke.phase_card()
     device = torch.device("cuda")
     stream = torch.cuda.current_stream(device).cuda_stream
-    jobs = [(kind, "reference", os.path.join(args.ref, fused_ode.KINDS[kind].fwd + ".cu"))
-            for kind in kinds if args.ref]
+    jobs = [(kind, name, os.path.join(ref, fused_ode.KINDS[kind].fwd + ".cu"))
+            for kind in kinds for name, ref in refs.items()]
     floors = {kind: kind[: -len("_prec")] for kind in kinds if fused_ode.KINDS[kind].prec}
     with concurrent.futures.ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
         # every build at once: nvcc runs in its own process
@@ -100,6 +131,11 @@ def main(argv=None):
         builds = {"this": fused_ode._launcher(k.fwd, 5 if k.prec else 4)}
         for ln in ptxas_lines(this_logs.get(k.fwd, "")):
             print("  %s this ptxas: %s" % (k.fwd, ln))
+        entry = result["kinds"][kind] = {"block": {}}
+        for method in fused_ode.METHODS:
+            entry["block"][method] = chip_smoke.print_block(
+                device, k.fwd + " this", method, fused_ode.fwd_block(kind, method),
+                (36 * chip_smoke.K_TRAIN, 36 * chip_smoke.K_SERVE))
         for (kind_, name), (path, lines) in built.items():
             if kind_ == kind:
                 builds[name] = launcher(path, kind)
@@ -108,18 +144,19 @@ def main(argv=None):
         floor = floors.get(kind)
         if floor:
             builds["floor"] = fused_ode._launcher(fused_ode.KINDS[floor].fwd, 4)
-        entry = result["kinds"][kind] = {}
         # chip_smoke.py phase 3's operands: the kind's seed, as main() gives it
         seed = chip_smoke.SEED + 10 * list(fused_ode.KINDS).index(kind) + 1
         for K, seed_k in ((chip_smoke.K_TRAIN, seed + 1), (chip_smoke.K_SERVE, seed)):
             _, _, _, wmat, packed, y0_cols, times = chip_smoke.kind_inputs(device, kind, K, seed_k)
             R, T, S = packed.shape[1], times.shape[0], k.n_states
-            print("%s at B=36 x K=%d (R=%d), T=%d; CUDA-event medians of 20 launches, in turns"
-                  % (k.fwd, K, R, T))
+            print("%s at B=36 x K=%d (R=%d), T=%d; CUDA-event medians of 20 calls and the "
+                  "device's time a call, in turns" % (k.fwd, K, R, T))
             shape = entry["K=%d" % K] = {"R": R, "T": T, "methods": {}}
             species0 = y0_cols[: k.n_species].contiguous()
 
-            def run(name, method):
+            def launch(name, method):
+                """A launch of build ``name`` with its operands and output
+                bound: (call, output)."""
                 mi = fused_ode.METHODS.index(method)
                 if name == "floor":
                     out = torch.empty((T, k.n_species, R), device=device)
@@ -127,9 +164,18 @@ def main(argv=None):
                 else:
                     out = torch.empty((T, S, R), device=device)
                     ptrs = ([wmat] if k.prec else []) + [packed, y0_cols, times, out]
-                err = builds[name](*[t.data_ptr() for t in ptrs], R, T, mi, stream)
-                if err != 0:
-                    raise RuntimeError("%s %s launch failed with cudaError %d" % (k.fwd, name, err))
+                fn, args = builds[name], [t.data_ptr() for t in ptrs] + [R, T, mi, stream]
+
+                def call():
+                    err = fn(*args)
+                    if err != 0:
+                        raise RuntimeError("%s %s launch failed with cudaError %d"
+                                           % (k.fwd, name, err))
+                return call, out
+
+            def run(name, method):
+                call, out = launch(name, method)
+                call()
                 return out
 
             for method in fused_ode.METHODS:
@@ -163,11 +209,12 @@ def main(argv=None):
                 again = run("this", method)
                 torch.cuda.synchronize()
                 readings["this"]["repeat_bit_equal"] = bool(torch.equal(again, ref))
-                order = (["reference"] if "reference" in builds else []) + ["this"] + [
-                    n for n in builds if n not in ("reference", "this")]
+                order = list(refs) + ["this"] + (["floor"] if floor else [])
                 for n in order + order[::-1]:
                     readings[n].setdefault("ms", []).append(
                         chip_smoke.cuda_ms(lambda n=n: run(n, method), 20))
+                    readings[n].setdefault("device_ms", []).append(
+                        device_ms(launch(n, method)[0]))
                 shape["methods"][method] = readings
 
                 def note(n):
@@ -182,7 +229,9 @@ def main(argv=None):
                     return " bit-equal %s, largest difference %s%s" % (
                         r["bit_equal"], r["max_abs_diff"], err)
                 print("  %-9s %s" % (method, "  ".join(
-                    "%s %s ms%s" % (n, "/".join("%.4f" % t for t in readings[n]["ms"]), note(n))
+                    "%s %s ms (device %s)%s" % (
+                        n, "/".join("%.4f" % t for t in readings[n]["ms"]),
+                        "/".join("%.4f" % t for t in readings[n]["device_ms"]), note(n))
                     for n in order)))
     print(json.dumps(result))
     return 0

@@ -434,7 +434,8 @@ struct SliceRhs {
   const SliceThread* th;
   float* col;  // this row's column of the slot
 
-  __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, float* f) const {
     th->forward<true, true>(col, t, y, f);
   }
 };

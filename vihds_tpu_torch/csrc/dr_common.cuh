@@ -323,10 +323,7 @@ __device__ __forceinline__ void core_terms_vjp(const float* c, const CoreTerms& 
 // terms() fills at (t, y): the core's (core_publish), then the family's own.
 // --------------------------------------------------------------------------
 
-// dr_constant, y[0..7] (_dr_rhs_cols): the core alone.
-__device__ __forceinline__ void dr_rhs(const float* c, float t, const float* y, float* f) {
-  core_rhs<DrCore>(c, core_terms<DrCore>(c, t, y), y, f);
-}
+// dr_constant, y[0..7] (_dr_rhs_cols): the core alone, core_rhs.
 
 // (_dr_rhs_vjp_cols)
 __device__ __forceinline__ void dr_rhs_vjp(const float* c, const float* tp, const float* y,
@@ -341,8 +338,9 @@ __device__ __forceinline__ void dr_rhs_vjp(const float* c, const float* tp, cons
 // (y[8]) and LasI (y[9]) driven by P81 / P76, and the secreted C6 (y[10])
 // and C12 (y[11]), which no row reads (fracLuxR / fracLasR stay at the
 // initial treatments).
-__device__ __forceinline__ void relay_rhs(const float* c, float t, const float* y, float* f) {
-  const CoreTerms k = core_terms<RelayCore>(c, t, y);
+// Its rows over the core's terms k at y.
+__device__ __forceinline__ void relay_rows(const float* c, const CoreTerms& k, const float* y,
+                                           float* f) {
   core_rhs<RelayCore>(c, k, y, f);
   const float x = y[0], luxI = y[8], lasI = y[9], rc = c[RL_rc];
   f[8] = rc * k.P81 - (k.gamma + c[RL_dluxI]) * luxI;
@@ -400,8 +398,9 @@ __device__ __forceinline__ void relay_rhs_vjp(const float* c, const float* tp, c
 // AiiA (y[8]) driven by the arabinose input PBAD, and C6 (y[9]) and C12
 // (y[10]), which no row reads.  aiiA' is copied as the reference writes it:
 // daiiA is not multiplied by aiiA.
-__device__ __forceinline__ void degrader_rhs(const float* c, float t, const float* y, float* f) {
-  const CoreTerms k = core_terms<DegraderCore>(c, t, y);
+// Its rows over the core's terms k at y.
+__device__ __forceinline__ void degrader_rows(const float* c, const CoreTerms& k, const float* y,
+                                              float* f) {
   core_rhs<DegraderCore>(c, k, y, f);
   const float x = y[0], aiiA = y[8];
   f[8] = c[DG_rc] * c[DG_aI] * c[DG_PBAD] - (c[DG_daiiA] + k.gamma * aiiA);
@@ -433,13 +432,20 @@ __device__ __forceinline__ void degrader_rhs_vjp(const float* c, const float* tp
 }
 
 // The families as the kernels take them: constant count NC, species count
-// NS, the pullback's term count NT; right-hand side, the pullback's terms at
-// a point and the pullback.
+// NS, the pullback's term count NT, the core's constant layout; right-hand
+// side (its rows over the core's terms at the point), those rows, the
+// pullback's terms at a point and the pullback.
 struct Dr {
   enum : int { NC = N_CONST, NS = 8 };
   static constexpr int NT = N_CORE_TERMS;
+  using Core = DrCore;
+  static constexpr int FWD_REPORTER_WARPS = 1;  // the forward's (fwd_kernel)
   static __device__ __forceinline__ void rhs(const float* c, float t, const float* y, float* f) {
-    dr_rhs(c, t, y, f);
+    rows(c, core_terms<DrCore>(c, t, y), y, f);
+  }
+  static __device__ __forceinline__ void rows(const float* c, const CoreTerms& k, const float* y,
+                                              float* f) {
+    core_rhs<DrCore>(c, k, y, f);
   }
   static __device__ __forceinline__ void terms(const float* c, float t, const float* y,
                                                float* tp) {
@@ -454,8 +460,16 @@ struct Dr {
 struct Relay {
   enum : int { NC = N_RELAY_CONST, NS = 12 };
   static constexpr int NT = N_CORE_TERMS + 2;
+  using Core = RelayCore;
+  // the forward's reporter warps (fwd_kernel): relay's own four reporters
+  // divide twice a point, so they take a warp of their own
+  static constexpr int FWD_REPORTER_WARPS = 2;
   static __device__ __forceinline__ void rhs(const float* c, float t, const float* y, float* f) {
-    relay_rhs(c, t, y, f);
+    rows(c, core_terms<RelayCore>(c, t, y), y, f);
+  }
+  static __device__ __forceinline__ void rows(const float* c, const CoreTerms& k, const float* y,
+                                              float* f) {
+    relay_rows(c, k, y, f);
   }
   static __device__ __forceinline__ void terms(const float* c, float t, const float* y,
                                                float* tp) {
@@ -470,8 +484,14 @@ struct Relay {
 struct Degrader {
   enum : int { NC = N_DEGRADER_CONST, NS = 11 };
   static constexpr int NT = N_CORE_TERMS;
+  using Core = DegraderCore;
+  static constexpr int FWD_REPORTER_WARPS = 1;  // the forward's (fwd_kernel)
   static __device__ __forceinline__ void rhs(const float* c, float t, const float* y, float* f) {
-    degrader_rhs(c, t, y, f);
+    rows(c, core_terms<DegraderCore>(c, t, y), y, f);
+  }
+  static __device__ __forceinline__ void rows(const float* c, const CoreTerms& k, const float* y,
+                                              float* f) {
+    degrader_rows(c, k, y, f);
   }
   static __device__ __forceinline__ void terms(const float* c, float t, const float* y,
                                                float* tp) {
@@ -487,56 +507,56 @@ struct Degrader {
 // Fixed-grid steps over any right-hand side
 // --------------------------------------------------------------------------
 
-// One fixed-grid update of the S states y in place under rhs(t, y, f)
-// (_one_step).
-template <int METHOD, int S, class Rhs>
-__device__ __forceinline__ void one_step(const Rhs& rhs, float t1, float t2, float* y) {
-  const float h = t2 - t1;
-  float f1[S], f2[S], tmp[S];
-  if (METHOD == MODEULER) {
-    rhs(t1, y, f1);
-#pragma unroll
-    for (int s = 0; s < S; ++s) tmp[s] = y[s] + h * f1[s];
-    rhs(t2, tmp, f2);
-    const float hh = 0.5f * h;
-#pragma unroll
-    for (int s = 0; s < S; ++s) y[s] = y[s] + hh * (f1[s] + f2[s]);
-  } else if (METHOD == MIDPOINT) {
-    rhs(t1, y, f1);
-    const float hh = 0.5f * h;
-#pragma unroll
-    for (int s = 0; s < S; ++s) tmp[s] = y[s] + hh * f1[s];
-    rhs(t1 + hh, tmp, f2);
-#pragma unroll
-    for (int s = 0; s < S; ++s) y[s] = y[s] + h * f2[s];
-  } else {  // RK4
-    float k3[S], k4[S];
-    const float hh = 0.5f * h;
-    rhs(t1, y, f1);
-#pragma unroll
-    for (int s = 0; s < S; ++s) tmp[s] = y[s] + hh * f1[s];
-    rhs(t1 + hh, tmp, f2);
-#pragma unroll
-    for (int s = 0; s < S; ++s) tmp[s] = y[s] + hh * f2[s];
-    rhs(t1 + hh, tmp, k3);
-#pragma unroll
-    for (int s = 0; s < S; ++s) tmp[s] = y[s] + h * k3[s];
-    rhs(t2, tmp, k4);
-    const float h6 = h / 6.0f;
-#pragma unroll
-    for (int s = 0; s < S; ++s) y[s] = y[s] + h6 * (f1[s] + 2.0f * f2[s] + 2.0f * k3[s] + k4[s]);
-  }
-}
-
-// The point of a step at which step_vjp calls a right-hand side or its
-// pullback: point 0 is y_i, then the stages' points in the order the step
-// forms them (z for modeuler and midpoint; z2, z3, z4 for rk4).  The kernels'
-// warps use it to find the point's shared tiles.
+// The point of a step at which one_step or step_vjp calls a right-hand side
+// or its pullback: point 0 is y_i, then the stages' points in the order the
+// step forms them (z for modeuler and midpoint; z2, z3, z4 for rk4).  The
+// kernels' warps use it to find the point's shared tiles.
 template <int M>
 struct Stage {};
 
 template <int METHOD>
 __host__ __device__ constexpr int n_points() { return METHOD == RK4 ? 4 : 2; }
+
+// One fixed-grid update of the S states y in place under rhs(Stage<M>, t,
+// y, f) at each point M (_one_step).
+template <int METHOD, int S, class Rhs>
+__device__ __forceinline__ void one_step(const Rhs& rhs, float t1, float t2, float* y) {
+  const float h = t2 - t1;
+  float f1[S], f2[S], tmp[S];
+  if constexpr (METHOD == MODEULER) {
+    rhs(Stage<0>(), t1, y, f1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) tmp[s] = y[s] + h * f1[s];
+    rhs(Stage<1>(), t2, tmp, f2);
+    const float hh = 0.5f * h;
+#pragma unroll
+    for (int s = 0; s < S; ++s) y[s] = y[s] + hh * (f1[s] + f2[s]);
+  } else if constexpr (METHOD == MIDPOINT) {
+    rhs(Stage<0>(), t1, y, f1);
+    const float hh = 0.5f * h;
+#pragma unroll
+    for (int s = 0; s < S; ++s) tmp[s] = y[s] + hh * f1[s];
+    rhs(Stage<1>(), t1 + hh, tmp, f2);
+#pragma unroll
+    for (int s = 0; s < S; ++s) y[s] = y[s] + h * f2[s];
+  } else {  // RK4
+    float k3[S], k4[S];
+    const float hh = 0.5f * h;
+    rhs(Stage<0>(), t1, y, f1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) tmp[s] = y[s] + hh * f1[s];
+    rhs(Stage<1>(), t1 + hh, tmp, f2);
+#pragma unroll
+    for (int s = 0; s < S; ++s) tmp[s] = y[s] + hh * f2[s];
+    rhs(Stage<2>(), t1 + hh, tmp, k3);
+#pragma unroll
+    for (int s = 0; s < S; ++s) tmp[s] = y[s] + h * k3[s];
+    rhs(Stage<3>(), t2, tmp, k4);
+    const float h6 = h / 6.0f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) y[s] = y[s] + h6 * (f1[s] + 2.0f * f2[s] + 2.0f * k3[s] + k4[s]);
+  }
+}
 
 // The points of one fixed-grid step from z[0] = y_i (the forward half of
 // _step_vjp): rhs(Stage<M>, t, z[M], f) writes the right-hand side at each
@@ -636,29 +656,21 @@ __device__ __forceinline__ void step_vjp(const Rhs& rhs, const Vjp& vjp, float t
   step_pullback<METHOD, S>(vjp, t1, t2, z, a);
 }
 
-// A kind without the precision block (family F) as the forward's step calls
-// it: the right-hand side over its F::NS species.
-template <class F>
-struct KindRhs {
-  const float* c;
-  __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
-    F::rhs(c, t, y, f);
-  }
-};
-
 // --------------------------------------------------------------------------
 // The kernels
 //
-// Forward (the TPU kernel's _make_kernel): without the precision block
-// (fwd_kernel) one thread per sample row.  The constants and the states stay
-// in registers for the whole time loop; the time grid is read through the
-// read-only cache; each step stores out[t, s, r], so the 32 threads of a warp
-// write 32 consecutive floats of one state row and every store coalesces.
-// The ragged edge is masked with r < R.  The TPU kernel padded R up to its
-// block size with constants = 1 and y0 = 1e-3 (pallas_ode.py:551-560) only
-// because a grid cell there processes a whole block; with the mask no padded
-// row exists.  With the precision block (prec_fwd_kernel) a row is run by
-// five threads, below.
+// Forward (the TPU kernel's _make_kernel): a row's time loop runs in
+// registers, its constants and states loaded once; the time grid is read
+// through the read-only cache; each step stores out[t, s, r], so the 32
+// lanes of a warp, on 32 consecutive rows, write 32 consecutive floats of
+// one state row and every store coalesces.  A block runs 32 rows over
+// several warps, lane l of every warp on row l: without the precision block
+// (fwd_kernel) the row's species split over three warps, with it
+// (prec_fwd_kernel) a warp runs the species and a warp each precision
+// state, below.  The TPU kernel padded R up to its block size with
+// constants = 1 and y0 = 1e-3 (pallas_ode.py:551-560) only because a grid
+// cell there processes a whole block; here rows past the edge run row R - 1
+// and store nothing, so no padded row exists.
 //
 // Backward (_make_bwd_kernel): the reverse sweep over the stored trajectory.
 // The constants load into registers once, their cotangents start at zero and
@@ -671,39 +683,6 @@ struct KindRhs {
 // threads: without the precision block (bwd_kernel) by two, with it
 // (prec_bwd_kernel) by five, below.
 // --------------------------------------------------------------------------
-constexpr int FWD_THREADS = 128;
-
-template <class F, int METHOD>
-__global__ void __launch_bounds__(FWD_THREADS)
-fwd_kernel(const float* __restrict__ consts, const float* __restrict__ y0,
-           const float* __restrict__ times, float* __restrict__ out, int R, int T) {
-  constexpr int S = F::NS;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const size_t stride = (size_t)R;
-
-  float c[F::NC];
-#pragma unroll
-  for (int j = 0; j < F::NC; ++j) c[j] = consts[j * stride + r];
-  const KindRhs<F> rhs{c};
-
-  float y[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    y[s] = y0[s * stride + r];
-    out[s * stride + r] = y[s];
-  }
-
-  float t1 = __ldg(times);
-  for (int i = 1; i < T; ++i) {
-    const float t2 = __ldg(times + i);
-    one_step<METHOD, S>(rhs, t1, t2, y);
-    float* o = out + (size_t)i * S * stride + r;
-#pragma unroll
-    for (int s = 0; s < S; ++s) o[s * stride] = y[s];
-    t1 = t2;
-  }
-}
 
 // named barriers (0 is __syncthreads)
 __device__ __forceinline__ void bar_sync(int id, int n_threads) {
@@ -715,6 +694,313 @@ __device__ __forceinline__ void bar_arrive(int id, int n_threads) {
 
 __device__ __forceinline__ int next_slot(int slot, int ring) {
   return slot + 1 == ring ? 0 : slot + 1;
+}
+
+// --------------------------------------------------------------------------
+// The forward without the precision block (fwd_kernel): a block of
+// FWD_ROWS = 32 sample rows x 3 warps (relay 4), lane l of every warp on row
+// l.  A row's species depend on each other one way, never back:
+//   * x = y[0] alone sets gamma = r sig(t) (1 - x/K), and x' = gamma x;
+//   * LuxR and LasR (y[6], y[7]) read gamma and set P76 and P81;
+//   * every other species (RFP .. F480, y[1..5]; relay's LuxI, LasI, C6 and
+//     C12; degrader's AiiA, C6 and C12) reads only gamma, P76, P81 and x.
+// So the species split over warps that run ahead of each other:
+//   * warp 0, the growth warp, holds x and forms each point's gamma (whose
+//     sigmoid depends on the time alone, off x's chain);
+//   * warp 1, the regulator warp, holds LuxR and LasR and forms each point's
+//     P76 and P81 from them; its own two rows read the point's gamma;
+//   * the reporter warps hold the other species and read gamma, x, P76 and
+//     P81 (one warp; relay's own four, which divide twice a point, a second).
+// Each warp runs one_step over its own species, with a right-hand side that
+// forms its terms and rows by the family's own functions (core_terms,
+// F::rows) over the point, the terms it does not own taken from a ring of
+// shared slots; what it does not need is dead code.  A slot holds the terms
+// of every point (y_i, then each stage's point, in the order one_step forms
+// them) of two steps.
+//
+// Each slot has three mbarriers in shared memory (arrive, and a wait on the
+// phase's parity): "gamma" (the growth warp has written the slot's gammas),
+// "full" (the growth and regulator warps have written it all) and "free"
+// (the regulator and reporter warps have read it).  At a slot's first point
+// the growth and regulator warps wait for "free" before they write it, the
+// regulator warp for "gamma", the reporter warps for "full"; each arrives
+// after the slot's last point.  Every slot starts free (the regulator and
+// reporter warps arrive once at each "free" first); slot n of the steps
+// takes ring slot n mod FWD_RING on lap n / FWD_RING, whose parity the waits
+// name.  On the H100 (NVIDIA H100 80GB HBM3, 700 W; tools/prec_fwd_compare.py)
+// this beat, in order: named barriers (bar.sync holds every warp that syncs
+// at one in step with the others, and a block whose barrier ids are
+// computed takes all 16, so an SM held 4 blocks); a wait every point or
+// every step rather than every two steps (the ring's own instructions
+// outweighed what the split saved once the card was full); two or four rows
+// a lane; and degrader's own species in the growth warp.
+//
+// Every float operation is that of the one-thread-per-row kernel this one
+// replaced, in its order: each species' update the same one_step
+// expression, each row the family's, each term core_terms'; gamma crosses
+// the ring as the rounded product that kernel formed.  The stores stream
+// (st.global.cs): the trajectory is written once here.  A lane past the edge
+// (r >= R) runs row R - 1, stores its bits to row R - 1 again and reaches
+// every wait.
+// --------------------------------------------------------------------------
+constexpr int FWD_ROWS = 32;
+constexpr int FWD_RING = 4;  // slots of two steps
+// blocks an SM must hold: nine hold a serving chunk's 1,125 blocks (36
+// series x 1,000 samples) in one wave on 132 SMs
+constexpr int FWD_MIN_BLOCKS = 9;
+
+// mbarriers in shared memory
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+// wait until the phase of parity par has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int par) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}" ::"r"(smem_addr(bar)),
+      "r"(par)
+      : "memory");
+}
+
+// A family's species over the forward's warps: warp 0 x = y[0], warp 1
+// LuxR and LasR = y[6], y[7], then FWD_REPORTER_WARPS reporter warps over
+// the reporters, species 1..5 and then 8..NS-1.
+template <class F>
+struct FwdSplit {
+  static constexpr int N_REP = F::NS - 3;
+  static constexpr int REP_WARPS = F::FWD_REPORTER_WARPS;
+  static constexpr int WARPS = 2 + REP_WARPS;
+  static constexpr int THREADS = FWD_ROWS * WARPS;
+  static __host__ __device__ constexpr int reporter(int i) { return i < 5 ? 1 + i : 3 + i; }
+  // reporter warp w runs reporters first(w) .. first(w + 1) - 1: the core's,
+  // then the family's own
+  static __host__ __device__ constexpr int first(int w) {
+    return w == 0 ? 0 : w == REP_WARPS ? N_REP : 5;
+  }
+};
+
+template <int METHOD>
+struct FwdTiles {
+  static constexpr int NPTS = n_points<METHOD>(), SLOT = 2 * NPTS;  // a slot's points
+  unsigned long long gamma_full[FWD_RING];  // the growth warp's 32 lanes arrive
+  unsigned long long full[FWD_RING];        // the growth and regulator warps'
+  unsigned long long free[FWD_RING];        // the regulator and reporter warps'
+  float gamma[FWD_RING][SLOT][FWD_ROWS];
+  float x[FWD_RING][SLOT][FWD_ROWS];
+  float P76[FWD_RING][SLOT][FWD_ROWS];
+  float P81[FWD_RING][SLOT][FWD_ROWS];
+};
+
+// What every warp's right-hand side holds: the row's constants, the tiles,
+// its lane, and the slot q of its step, H the step's place in the slot, and
+// the parity par of the slot's lap.  Point M of the step is point H NPTS + M
+// of the slot; a warp waits at the slot's first point and arrives at its
+// last.
+template <int METHOD, int H>
+struct FwdWarpBase {
+  using Tiles = FwdTiles<METHOD>;
+  static constexpr int FIRST = H * Tiles::NPTS, LAST = Tiles::SLOT - 1;
+  const float* c;
+  Tiles* sh;
+  int lane, q, par;
+};
+
+// The growth warp's right-hand side of x at point M (lane = row).
+template <class F, int METHOD, int H>
+struct GrowthFwdWarp : FwdWarpBase<METHOD, H> {
+  using Base = FwdWarpBase<METHOD, H>;
+  static constexpr int S = 1;
+  static __host__ __device__ constexpr int species(int) { return 0; }
+  __device__ __forceinline__ void arrive() const {
+    mbar_arrive(&this->sh->gamma_full[this->q]);
+    mbar_arrive(&this->sh->full[this->q]);
+  }
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, float* f) const {
+    const auto& w = *this;
+    constexpr int P = Base::FIRST + M;
+    float z[F::NS] = {};
+    z[0] = y[0];
+    const CoreTerms k = core_terms<typename F::Core>(w.c, t, z);
+    if constexpr (P == 0) mbar_wait(&w.sh->free[w.q], w.par);
+    w.sh->gamma[w.q][P][w.lane] = k.gamma;
+    w.sh->x[w.q][P][w.lane] = y[0];
+    if constexpr (P == Base::LAST) arrive();
+    float fz[F::NS];
+    F::rows(w.c, k, z, fz);
+    f[0] = fz[0];
+  }
+};
+
+// The regulator warp's right-hand side of LuxR and LasR at point M.
+template <class F, int METHOD, int H>
+struct RegulatorFwdWarp : FwdWarpBase<METHOD, H> {
+  using Base = FwdWarpBase<METHOD, H>;
+  static constexpr int S = 2;
+  static __host__ __device__ constexpr int species(int i) { return 6 + i; }
+  __device__ __forceinline__ void arrive() const {
+    mbar_arrive(&this->sh->full[this->q]);
+    mbar_arrive(&this->sh->free[this->q]);
+  }
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, float* f) const {
+    const auto& w = *this;
+    constexpr int P = Base::FIRST + M;
+    float z[F::NS] = {};
+    z[6] = y[0];
+    z[7] = y[1];
+    CoreTerms k = core_terms<typename F::Core>(w.c, t, z);
+    if constexpr (P == 0) mbar_wait(&w.sh->free[w.q], w.par);
+    w.sh->P76[w.q][P][w.lane] = k.P76;
+    w.sh->P81[w.q][P][w.lane] = k.P81;
+    if constexpr (P == Base::LAST) mbar_arrive(&w.sh->full[w.q]);
+    if constexpr (P == 0) mbar_wait(&w.sh->gamma_full[w.q], w.par);
+    k.gamma = w.sh->gamma[w.q][P][w.lane];
+    if constexpr (P == Base::LAST) mbar_arrive(&w.sh->free[w.q]);
+    float fz[F::NS];
+    F::rows(w.c, k, z, fz);
+    f[0] = fz[6];
+    f[1] = fz[7];
+  }
+};
+
+// Reporter warp W's right-hand side of its reporters at point M.
+template <class F, int METHOD, int W, int H>
+struct ReporterFwdWarp : FwdWarpBase<METHOD, H> {
+  using Base = FwdWarpBase<METHOD, H>;
+  using Split = FwdSplit<F>;
+  static constexpr int LO = Split::first(W), S = Split::first(W + 1) - LO;
+  static __host__ __device__ constexpr int species(int i) { return Split::reporter(LO + i); }
+  __device__ __forceinline__ void arrive() const { mbar_arrive(&this->sh->free[this->q]); }
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float, const float* y, float* f) const {
+    const auto& w = *this;
+    constexpr int P = Base::FIRST + M;
+    if constexpr (P == 0) mbar_wait(&w.sh->full[w.q], w.par);
+    CoreTerms k = {};
+    k.gamma = w.sh->gamma[w.q][P][w.lane];
+    k.P76 = w.sh->P76[w.q][P][w.lane];
+    k.P81 = w.sh->P81[w.q][P][w.lane];
+    float z[F::NS] = {};
+    z[0] = w.sh->x[w.q][P][w.lane];
+    if constexpr (P == Base::LAST) arrive();
+#pragma unroll
+    for (int i = 0; i < S; ++i) z[species(i)] = y[i];
+    float fz[F::NS];
+    F::rows(w.c, k, z, fz);
+#pragma unroll
+    for (int i = 0; i < S; ++i) f[i] = fz[species(i)];
+  }
+};
+
+// The warps' right-hand sides as fwd_warp takes them: At<H> for the H-th
+// step of a slot.
+template <class F, int METHOD>
+struct GrowthWarps {
+  template <int H>
+  using At = GrowthFwdWarp<F, METHOD, H>;
+};
+template <class F, int METHOD>
+struct RegulatorWarps {
+  template <int H>
+  using At = RegulatorFwdWarp<F, METHOD, H>;
+};
+template <class F, int METHOD, int W>
+struct ReporterWarps {
+  template <int H>
+  using At = ReporterFwdWarp<F, METHOD, W, H>;
+};
+
+// One warp's share of a row's forward (Warps: the species it holds and its
+// right-hand sides): the row's constants and its species' initial states,
+// then T - 1 steps of one_step over them, each stored, two steps a slot.
+// A slot whose second step lies past the grid's end takes its arrivals from
+// the first step's warp.  A lane past the edge (r >= R) runs row R - 1 and
+// stores it there too: the same bits as that row's own lane, so no store
+// needs a branch.
+template <class F, int METHOD, class Warps>
+__device__ __forceinline__ void fwd_warp(FwdTiles<METHOD>* sh, const float* __restrict__ consts,
+                                         const float* __restrict__ y0,
+                                         const float* __restrict__ times,
+                                         float* __restrict__ out, int lane, int r, int R, int T) {
+  using W0 = typename Warps::template At<0>;
+  using W1 = typename Warps::template At<1>;
+  constexpr int S = W0::S;
+  const int rr = min(r, R - 1);  // the row this thread runs
+  const size_t stride = (size_t)R;
+  float c[F::NC];
+#pragma unroll
+  for (int j = 0; j < F::NC; ++j) c[j] = consts[j * stride + rr];
+  float y[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) y[s] = y0[W0::species(s) * stride + rr];
+  // step i's states, streamed (written once, read by other kernels)
+  auto store = [&](int i) {
+    float* o = out + (size_t)i * F::NS * stride + rr;
+#pragma unroll
+    for (int s = 0; s < S; ++s) __stcs(o + W0::species(s) * stride, y[s]);
+  };
+  store(0);
+  float t1 = __ldg(times);
+  for (int i = 1; i < T; i += 2) {
+    const int n = (i - 1) / 2;  // the slot's number
+    const int q = n % FWD_RING, par = n / FWD_RING % 2;
+    float t2 = __ldg(times + i);
+    one_step<METHOD, S>(W0{{c, sh, lane, q, par}}, t1, t2, y);
+    store(i);
+    t1 = t2;
+    if (i + 1 < T) {
+      t2 = __ldg(times + i + 1);
+      one_step<METHOD, S>(W1{{c, sh, lane, q, par}}, t1, t2, y);
+      store(i + 1);
+      t1 = t2;
+    } else {
+      W1{{c, sh, lane, q, par}}.arrive();
+    }
+  }
+}
+
+template <class F, int METHOD>
+__global__ void __launch_bounds__(FwdSplit<F>::THREADS, FWD_MIN_BLOCKS)
+fwd_kernel(const float* __restrict__ consts, const float* __restrict__ y0,
+           const float* __restrict__ times, float* __restrict__ out, int R, int T) {
+  using Split = FwdSplit<F>;
+  __shared__ FwdTiles<METHOD> sh;
+  const int lane = threadIdx.x % FWD_ROWS, warp = threadIdx.x / FWD_ROWS;
+  const int r = blockIdx.x * FWD_ROWS + lane;
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < FWD_RING; ++q) {
+      mbar_init(&sh.gamma_full[q], FWD_ROWS);
+      mbar_init(&sh.full[q], 2 * FWD_ROWS);
+      mbar_init(&sh.free[q], FWD_ROWS * (1 + Split::REP_WARPS));
+    }
+  }
+  __syncthreads();
+  if (warp > 0) {  // every slot starts free
+    for (int q = 0; q < FWD_RING; ++q) mbar_arrive(&sh.free[q]);
+  }
+  if (warp == 0) {
+    fwd_warp<F, METHOD, GrowthWarps<F, METHOD>>(&sh, consts, y0, times, out, lane, r, R, T);
+  } else if (warp == 1) {
+    fwd_warp<F, METHOD, RegulatorWarps<F, METHOD>>(&sh, consts, y0, times, out, lane, r, R, T);
+  } else if (warp == 2) {
+    fwd_warp<F, METHOD, ReporterWarps<F, METHOD, 0>>(&sh, consts, y0, times, out, lane, r, R, T);
+  } else {
+    if constexpr (Split::REP_WARPS == 2)
+      fwd_warp<F, METHOD, ReporterWarps<F, METHOD, 1>>(&sh, consts, y0, times, out, lane, r, R,
+                                                       T);
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -1208,9 +1494,10 @@ prec_bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
 // the species, so the species run ahead:
 //   * warp N_PREC, the species warp, holds the row's
 //     constants and species and runs F::rhs and the species' part of
-//     one_step, storing out[i, s, r] for s < NS: the plain kinds' thread
-//     (fwd_kernel) but for one thing.  At each point of a step (y_i, then each stage's point, in the
-//     order one_step forms them) it first writes the point's features tanh
+//     one_step, storing out[i, s, r] for s < NS: a one-thread-per-row
+//     forward of the species but for one thing.  At each point of a step
+//     (y_i, then each stage's point, in the order one_step forms them) it
+//     first writes the point's features tanh
 //     y_s into the next slot of a ring of shared tiles, z[slot], and
 //     arrives at the slot's "full" barrier without waiting;
 //   * warp j < N_PREC, a precision warp, holds precision state j and rows j
@@ -1236,7 +1523,7 @@ prec_bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
 // indices, selects), within which nvcc contracts products into adds as it
 // did there: midpoint and rk4 give that kernel's trajectory bit for bit;
 // in modeuler's f1 + f2 nvcc fuses the other product of species 0, as it
-// does in the plain kinds' thread.  Rows past the edge (r >= R) run row
+// does in a one-thread-per-row forward of the plain kinds.  Rows past the edge (r >= R) run row
 // R - 1, store nothing and reach every barrier.
 // --------------------------------------------------------------------------
 constexpr int PREC_FWD_ROWS = 32;
@@ -1263,7 +1550,8 @@ struct SpeciesFwdWarp {
   Tiles* sh;
   int lane;
   int* slot;
-  __device__ __forceinline__ void operator()(float t, const float* y, float* f) const {
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, float* f) const {
     const int q = *slot;
     bar_sync(Tiles::BAR_FREE + q, PREC_FWD_THREADS);
 #pragma unroll
@@ -1284,7 +1572,8 @@ struct PrecFwdWarp {
   const float* Wp;  // in registers: its state's row of W (production)
   const float* Wd;  // ... and its degradation row
   int* slot;
-  __device__ __forceinline__ void operator()(float t, const float* y, float* dv) const {
+  template <int M>
+  __device__ __forceinline__ void operator()(Stage<M>, float t, const float* y, float* dv) const {
     const int q = *slot;
     float f[NF];
     f[0] = 1.0f;
@@ -1401,8 +1690,8 @@ int fwd_launch(const float* wmat, const float* consts, const float* y0, const fl
         return (int)cudaErrorInvalidValue;
     }
   } else {
-    const dim3 block(FWD_THREADS);
-    const dim3 grid((unsigned)((R + FWD_THREADS - 1) / FWD_THREADS));
+    const dim3 block(FwdSplit<F>::THREADS);
+    const dim3 grid((unsigned)((R + FWD_ROWS - 1) / FWD_ROWS));
     switch (method) {
       case MODEULER:
         fwd_kernel<F, MODEULER><<<grid, block, 0, s>>>(consts, y0, times, out, R, T);
@@ -1480,6 +1769,24 @@ int block_of(Kernel kernel, int n_rows, int n_threads, int* rows, int* threads, 
   *smem_bytes = (int)attr.sharedSizeBytes;
   *registers = attr.numRegs;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, n_threads, 0);
+}
+
+template <class F>
+int fwd_block(int method, int* rows, int* threads, int* smem_bytes, int* registers,
+              int* blocks_per_sm) {
+  switch (method) {
+    case MODEULER:
+      return block_of(fwd_kernel<F, MODEULER>, FWD_ROWS, FwdSplit<F>::THREADS, rows, threads,
+                      smem_bytes, registers, blocks_per_sm);
+    case MIDPOINT:
+      return block_of(fwd_kernel<F, MIDPOINT>, FWD_ROWS, FwdSplit<F>::THREADS, rows, threads,
+                      smem_bytes, registers, blocks_per_sm);
+    case RK4:
+      return block_of(fwd_kernel<F, RK4>, FWD_ROWS, FwdSplit<F>::THREADS, rows, threads,
+                      smem_bytes, registers, blocks_per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <class F>

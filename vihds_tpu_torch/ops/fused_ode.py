@@ -11,12 +11,13 @@ Six kinds, each ported forward and backward as a hand-written CUDA kernel
 * ``"relay"`` (relay_constant, 12 states) and ``"relay_prec"`` (16);
 * ``"degrader"`` (degrader_constant, 11 states) and ``"degrader_prec"`` (15).
 
-They keep the whole time loop of a sample row in registers, the plain kinds'
-forwards one thread per row, the other kernels a row over several warps of a
-32-row block, and share their device code in ``csrc/dr_common.cuh``: the
-three families share the dr species' 8-row core, and the ``_prec`` kinds the
-precision block, whose backward also returns the cotangent of the precision
-nets' weight matrix, summed over all rows.  ``KINDS`` lists the kinds.
+They keep the whole time loop of a sample row in registers, a row over
+several warps of a 32-row block (the plain kinds' forwards split its species
+over three warps in the order they depend on each other), and share their
+device code in ``csrc/dr_common.cuh``: the three families share the dr
+species' 8-row core, and the ``_prec`` kinds the precision block, whose
+backward also returns the cotangent of the precision nets' weight matrix,
+summed over all rows.  ``KINDS`` lists the kinds.
 
 ``<family>_simulate`` (``dr_constant_simulate``, ...,
 ``degrader_constant_precisions_simulate``) are the differentiable wrappers:
@@ -741,8 +742,8 @@ def _block(name, method):
     return tuple(x.value for x in out)
 
 
-def prec_fwd_block(kind, method):
-    """A ``_prec`` forward kernel's block for ``method`` (``_block``), from
+def fwd_block(kind, method):
+    """A forward kernel's block for ``method`` (``_block``), from
     csrc/<kind>_fwd.cu."""
     return _block(KINDS[kind].fwd, method)
 

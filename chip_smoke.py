@@ -70,7 +70,30 @@ Phases, each printing lines of its own:
    12b and 12c as 4b and 4c;
 13. training ``dr_blackbox_icml`` as phase 7 (both nets' weights must
    move), 13b and 13c;
-14. the total time and the ``kernels`` JSON line, then the last line
+14. training ``dr_constant_icml_unmerged`` (``merge: false``: each of its six
+   files on its own grid, five of 100 points and one of 86; the encoder reads
+   every series on the 86-point grid) through ``run_on_split`` with ``solver:
+   pallas_midpoint``, 2 epochs of 8 steps (the files in turn, B=36 x K=200),
+   evaluation after each at K=200 / 1000, file by file, and a checkpoint after
+   each: the step walls, the kernels' launch counts (the backward once per
+   step), the xval artifacts; 14b as 5b on the first file's 100-point grid;
+   14c the ``dr`` kernels on the operands of one training step on that grid
+   (T=100) against their plain versions, timed;
+15. serving from phase 14's checkpoint through ``predict.main --checkpoint``
+   (one request at K=1000, ``eval_solver: pallas_midpoint``): the npz's
+   arrays finite, its checkpoint epoch, the restored params bit-equal to the
+   trained ones, and ``predict`` on them in memory bit-equal in its
+   predictions, with the kernel's launches;
+16. the models no fused kind covers (``auto_constant(_precisions)``,
+   ``debug``, ``prpr_constant(_precisions)``,
+   ``inducer_constant_precisions``, ``dr_growthrate_xval``), each trained
+   for one epoch at its own solver and widths with a checkpoint and served
+   one ``predict.main --checkpoint`` request at K=1000 on its own CSV, with
+   the step and request walls; 16b ``dr_growthrate`` under ``solver:
+   pallas_midpoint``: no kernel launched in a training step, and its
+   trajectory bit-equal to the generic midpoint solver's;
+17. the total time and the ``kernels`` JSON line (the ``dr`` rows with the
+   launches of phases 14-15 and the times of 14c), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
@@ -83,6 +106,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -92,6 +116,13 @@ SPEC_PREC_V2 = os.path.join(HERE, "specs", "dr_constant_precisions_v2.yaml")
 SPEC_RELAY = os.path.join(HERE, "specs", "relay_constant_precisions.yaml")
 SPEC_DEGRADER = os.path.join(HERE, "specs", "degrader_constant_precisions.yaml")
 SPEC_BB = os.path.join(HERE, "specs", "dr_blackbox_icml.yaml")
+SPEC_UNMERGED = os.path.join(HERE, "specs", "dr_constant_icml_unmerged.yaml")
+#: the specs of the models that no fused kind covers, each served from its
+#: own CSV (the first of ``data: files`` with rows of its devices)
+ZOO_SPECS = ["auto_constant.yaml", "auto_constant_precisions.yaml", "debug.yaml",
+             "prpr_constant.yaml", "prpr_constant_precisions.yaml",
+             "inducer_constant_precisions.yaml", "dr_growthrate_xval.yaml"]
+SPEC_GROWTH = os.path.join(HERE, "specs", "dr_growthrate_xval.yaml")
 REQUESTS = ["proc141021.csv", "proc141023.csv", "proc141028.csv"]
 COUNTERFACTUAL = "C6=25000;C12=0"
 RELAY_REQUESTS = ["proc_Relays_RemovedOutlier.csv"]
@@ -1310,31 +1341,36 @@ TRAIN_FLAGS = ["--experiment", "chip_smoke", "--epochs", "4", "--test_epoch", "2
 TRAIN_SOLVER = "pallas_midpoint"
 
 
-def training_settings(solver=TRAIN_SOLVER, spec=SPEC):
-    """run_xval's args and settings for ``spec`` (dr_constant_icml unless
-    named), with ``solver`` set as phase 4 sets ``eval_solver``."""
+def training_settings(solver=TRAIN_SOLVER, spec=SPEC, flags=TRAIN_FLAGS):
+    """run_xval's args (``flags``) and settings for ``spec``
+    (dr_constant_icml unless named), with ``solver`` set as phase 4 sets
+    ``eval_solver`` (None: the spec's own)."""
     from vihds_tpu_torch import run_xval
     from vihds_tpu_torch.config import Config
 
-    args = run_xval.create_parser(True).parse_args([spec] + TRAIN_FLAGS)
+    args = run_xval.create_parser(True).parse_args([spec] + flags)
     settings = Config(args)
-    settings.params.solver = solver
+    if solver is not None:
+        settings.params.solver = solver
     return args, settings
 
 
-def train(device, spec, phase, fwd, bwd):
-    """Train ``spec``'s model through run_on_split (4 epochs, eval every 2,
-    K=200 / K=1000), write the xval artifacts as run_xval.main does, and
-    count the launches of the kernels ``fwd`` and ``bwd`` from 0."""
+def train(device, spec, phase, fwd, bwd, flags=TRAIN_FLAGS, results_dir=None):
+    """Train ``spec``'s model through run_on_split (``flags``: 4 epochs, eval
+    every 2, K=200 / K=1000), write the xval artifacts as run_xval.main does,
+    and count the launches of the kernels ``fwd`` and ``bwd`` from 0.  The
+    results go to a temporary directory, or under ``results_dir``, which
+    the caller removes."""
+    import contextlib
     import statistics
-    import tempfile
 
     from vihds_tpu_torch import run_xval
     from vihds_tpu_torch.config import Trainer
 
-    args, settings = training_settings(spec=spec)
+    args, settings = training_settings(spec=spec, flags=flags)
     name = os.path.basename(spec)[: -len(".yaml")]
-    with tempfile.TemporaryDirectory() as results_dir:
+    with (contextlib.nullcontext(results_dir) if results_dir
+          else tempfile.TemporaryDirectory()) as results_dir:
         os.environ["INFERENCE_RESULTS_DIR"] = results_dir
         settings.trainer = Trainer(args, add_timestamp=True)
         print("phase %s: training %s, split 1 of 4, solver %s, B=%d, K=%d, epochs %d, eval every "
@@ -1364,9 +1400,11 @@ def train(device, spec, phase, fwd, bwd):
     steps = len(training.step_ms)
     spe = training.steps_per_epoch
     step_ms = statistics.median(training.step_ms[spe:])
-    print("  %d train / %d valid series, T=%d; %d optimizer steps (%d per epoch) in %.2f s wall; "
+    grids = sorted({len(host.times) for _, host, _ in training.train_groups}
+                   if training.multi else [len(data.train.dataset.times)])
+    print("  %d train / %d valid series, T=%s; %d optimizer steps (%d per epoch) in %.2f s wall; "
           "median step %.2f ms after the first epoch (first epoch's steps: %s ms)"
-          % (data.n_train, data.n_test, len(data.train.dataset.times), steps, spe, wall, step_ms,
+          % (data.n_train, data.n_test, "/".join(map(str, grids)), steps, spe, wall, step_ms,
              ", ".join("%.1f" % t for t in training.step_ms[:spe])))
     print("  best-val cache %s and %d xval_* files written" % (os.path.basename(cache), n_xval))
     print("  %s launches %d, %s launches %d (optimizer steps %d)"
@@ -1407,7 +1445,8 @@ def one_step(device, solver, rows, K, seed, spec=SPEC):
     """(Training, params, optimizer, step closure) for one training step of
     ``spec``'s model (dr_constant_icml unless named) under ``solver`` on the
     train split's ``rows`` at K draws, with seeded params and draws ``u``,
-    set up as run_on_split sets it up."""
+    set up as run_on_split sets it up.  On ``merge: false`` data the rows
+    are those of the first file's group (its native 100-point grid)."""
     import numpy as np
     import torch
 
@@ -1417,7 +1456,7 @@ def one_step(device, solver, rows, K, seed, spec=SPEC):
     args, settings = training_settings(solver, spec)
     data, training = run_xval.make_training(args, settings, device=device)
     params, opt, _ = training.init_state(device)
-    host = data.train.batch()
+    host = training.train_groups[0][1] if training.multi else data.train.batch()
     batch = batch_tensors(host, np.asarray(rows), torch.as_tensor(
         host.times, dtype=torch.float32, device=device), device)
     u = torch.randn((len(rows), K, training.program.n_theta), device=device,
@@ -1515,8 +1554,6 @@ def phase_call_run_xval(device, spec=SPEC, phase="5d"):
     fold's best-validation cache, the merged ``xval_*`` set and the completed
     marker, with each series held out by exactly one fold.  Counts the dr
     kernels' launches over the path from 0."""
-    import tempfile
-
     import numpy as np
 
     from vihds_tpu_torch import call_run_xval
@@ -1557,6 +1594,238 @@ def phase_call_run_xval(device, spec=SPEC, phase="5d"):
     if min(launches.values()) == 0:
         fail("call_run_xval did not launch the dr kernels: %s" % launches)
     return launches
+
+UNMERGED_FLAGS = ["--experiment", "chip_smoke_unmerged", "--epochs", "2", "--test_epoch", "1",
+                  "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed",
+                  str(SEED), "--checkpoint_epoch", "1"]
+
+
+def phase_unmerged_training(device, results_dir):
+    """Phase 14: ``dr_constant_icml_unmerged`` (``merge: false``: each file on
+    its own grid, five of 100 points and one of 86) trained as phase 5 for 2
+    epochs of 8 steps (one file after another, each on its own batches),
+    evaluated after each, with a checkpoint after each under
+    ``results_dir``.  Returns (launches, the Training that ran)."""
+    import numpy as np
+
+    launches, _, training = train(device, SPEC_UNMERGED, "14", "dr_fwd", "dr_bwd",
+                                  flags=UNMERGED_FLAGS, results_dir=results_dir)
+    groups = [(len(host.times), host.observations.shape[0]) for _, host, _ in
+              training.train_groups]
+    print("  train groups by file (T, series): %s; step walls %s ms"
+          % (groups, ", ".join("%.1f" % t for t in training.step_ms)))
+    if training.steps_per_epoch != 8 or sorted({t for t, _ in groups}) != [86, 100]:
+        fail("phase 14: %d steps an epoch over groups %s" % (training.steps_per_epoch, groups))
+    cache = os.path.join(training.cache_dir, "iw_predict_mu.npy")
+    mu = np.load(cache)
+    if mu.shape != (training.dataset_pair.n_test, 4, 86) or not np.isfinite(mu).all():
+        fail("phase 14: best-validation iw_predict_mu %s" % (mu.shape,))
+    return launches, training
+
+
+def phase_unmerged_kernels(device):
+    """Phase 14c: the ``dr`` kernels on the operands one kernel-route training
+    step of ``dr_constant_icml_unmerged`` hands them on its first file's
+    100-point grid (B=36 x K=200, midpoint): the forward against its plain
+    version, the backward on the step's cotangent against the plain version
+    in float64, each timed beside its plain version and its bound."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_ode
+
+    kind, wmat, packed, times, traj, g, method = captured_step(device, fused_ode, "kind_bwd",
+                                                               SPEC_UNMERGED)
+    T, S, R = traj.shape
+    if kind != "dr" or T != 100 or method != "midpoint":
+        fail("phase 14c: a step launched %s %s at T=%d" % (kind, method, T))
+    y0 = traj[0].contiguous()
+    with torch.no_grad():
+        got = fused_ode.kind_fwd(kind, wmat, packed, y0, times, method)
+        ref = fused_ode._plain_fwd(kind, wmat, packed, y0, times, method)
+        (rel, _, _), fwd_ok = states_ok(got.movedim(1, -1), ref.movedim(1, -1), kind)
+        f = fwd_row(kind, wmat, packed, y0, times, method)
+        f["max_abs_err"] = float((got - ref).abs().max())
+        dw, dc, dy0 = fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method)
+        _, rc, ry0 = fused_ode._plain_bwd(kind, None, packed.double(), times.double(),
+                                          traj.double(), g.double(), method)
+        got_b, ref_b = torch.cat([dc, dy0]), torch.cat([rc, ry0])
+        norm, p99 = cotangent_readings(got_b, ref_b, True)
+        bwd_ok = cotangents_ok(got_b, ref_b, True)
+        b = timed(lambda: fused_ode.kind_bwd(kind, wmat, packed, times, traj, g, method),
+                  lambda: fused_ode._plain_bwd(kind, wmat, packed, times, traj, g, method),
+                  4 * (2 * packed.numel() + times.numel() + 2 * T * S * R + S * R),
+                  flops_per_step(kind)[1][method] * (T - 1) * R)
+        b["max_abs_err"] = float((got_b.double() - ref_b).abs().max())
+    print("phase 14c: dr kernels on a training step of dr_constant_icml_unmerged at B=36 K=%d "
+          "(R=%d) T=%d, midpoint: dr_fwd max_rel_err %.3e, max_abs_err %.3e  kernel %.4f ms  "
+          "plain %.2f ms  bound %.4f ms (%s)  %s; dr_bwd on the step's cotangent (%.4f of it "
+          "exactly zero) worst normwise %.3e, worst p99 rel %.3e, max_abs_err %.3e  kernel %.4f "
+          "ms  plain %.2f ms  bound %.4f ms (%s)  %s"
+          % (K_TRAIN, R, T, rel, f["max_abs_err"], f["ms"], f["plain_ms"], f["bound_ms"],
+             f["bound_by"], "ok" if fwd_ok else "MISMATCH", float((g == 0).double().mean()),
+             float(norm.max()), float(p99.max()), b["max_abs_err"], b["ms"], b["plain_ms"],
+             b["bound_ms"], b["bound_by"], "ok" if bwd_ok else "MISMATCH"))
+    if not (fwd_ok and bwd_ok):
+        fail("phase 14c: a dr kernel disagrees with its plain version at T=%d" % T)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    return {"fwd": {k: f[k] for k in keys}, "bwd": {k: b[k] for k in keys}, "T": T}
+
+
+def write_spec(src, directory, **params):
+    """A copy of the spec ``src`` under ``directory`` with ``params`` set in
+    its ``params:`` section (the order of its sites kept); returns its path."""
+    import yaml
+
+    with open(src) as f:
+        config = yaml.safe_load(f)
+    config["params"].update(params)
+    path = os.path.join(directory, os.path.basename(src))
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
+    return path
+
+
+def phase_serve_checkpoint(device, training, results_dir):
+    """Phase 15: ``predict.main --checkpoint`` on the checkpoints phase 14
+    wrote, one request at K=1000 with ``eval_solver: pallas_midpoint`` (the
+    spec written with it under ``results_dir``).  The npz must hold finite
+    arrays and the newest checkpoint's epoch, the restored params must equal
+    the trained ones bit for bit, and ``predict`` on those params in memory,
+    from the same generator seed, must give the npz's iw_predict_mu bit for
+    bit.  Returns the dr_fwd launches of the request."""
+    import numpy as np
+    import torch
+
+    from vihds_tpu_torch import predict as P
+    from vihds_tpu_torch.training import param_leaves
+
+    spec = write_spec(SPEC_UNMERGED, results_dir, eval_solver=TRAIN_SOLVER)
+    out_path = os.path.join(results_dir, "predictions.npz")
+    request = ["--data", REQUESTS[0], "--test_samples", str(K_SERVE), "--seed", str(SEED)]
+    print("phase 15: serving dr_constant_icml_unmerged from its checkpoint through "
+          "predict.main, K=%d, eval_solver=%s" % (K_SERVE, TRAIN_SOLVER))
+    _counter("dr_fwd").launches = 0
+    t0 = time.perf_counter()
+    out = P.main([spec, "--checkpoint", training.ckpt_dir, "--output", out_path] + request,
+                 device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counter("dr_fwd").launches
+    z = np.load(out_path, allow_pickle=True)
+    bad = [k for k in z.files if z[k].dtype.kind == "f" and not np.isfinite(z[k]).all()]
+    epoch, restored = P.restore_params(training.ckpt_dir)
+    same_params = all(torch.equal(a.cpu(), b.detach().cpu()) for a, b in
+                      zip(param_leaves(restored), param_leaves(training.final_params)))
+    memory = P.predict(P.create_parser().parse_args([spec] + request), params=restored,
+                       device=device)
+    same_mu = bool(np.array_equal(memory.merged.iw_predict_mu, z["iw_predict_mu"]))
+    B = check_request(out, training.program.n_theta, training.model.ode_model.n_species)
+    print("  request %s: %d series on the %d-point encoder grid, wall %.3f s, elbo %.3f, "
+          "checkpoint epoch %d; dr_fwd launches %d; restored params bit-equal to the trained: "
+          "%s; in-memory predict on them bit-equal in iw_predict_mu: %s"
+          % (REQUESTS[0], B, z["times"].shape[0], wall, float(z["elbo"]),
+             int(z["checkpoint_epoch"]), launches, same_params, same_mu))
+    if bad or int(z["checkpoint_epoch"]) != epoch or epoch != 2:
+        fail("phase 15: npz non-finite %s or epoch %s (checkpoint %s)"
+             % (bad, z["checkpoint_epoch"], epoch))
+    if launches == 0 or not same_params or not same_mu:
+        fail("phase 15: launches %d, params equal %s, predictions equal %s"
+             % (launches, same_params, same_mu))
+    return launches
+
+
+def phase_zoo(device, results_dir):
+    """Phase 16: each of ``ZOO_SPECS`` (models no fused kind covers) trained
+    for one epoch through run_on_split at its own solver and widths (B =
+    min(n_batch, n_train), K=200; evaluation at K=200 / 1000) with a
+    checkpoint, then served one ``predict.main --checkpoint`` request at
+    K=1000 on its own CSV.  Returns {spec: (median step ms, request s)}."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from vihds_tpu_torch import predict as P
+    from vihds_tpu_torch import run_xval
+    from vihds_tpu_torch.config import Trainer
+    from vihds_tpu_torch.data import procdata
+
+    print("phase 16: the model zoo on the generic solver: 1 epoch at K=%d, then one "
+          "predict.main --checkpoint request at K=%d" % (K_TRAIN, K_SERVE))
+    walls = {}
+    os.environ["INFERENCE_RESULTS_DIR"] = results_dir
+    for name in ZOO_SPECS:
+        stem = name[: -len(".yaml")]
+        spec = os.path.join(HERE, "specs", name)
+        args, settings = training_settings(None, spec, [
+            "--experiment", "zoo_" + stem, "--epochs", "1", "--test_epoch", "1",
+            "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed", str(SEED),
+            "--checkpoint_epoch", "1"])
+        settings.trainer = Trainer(args, add_timestamp=True)
+        t0 = time.perf_counter()
+        data, results, training = run_xval.run_on_split(args, settings, device=device)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        log = training.log_data
+        elbos = log.training_elbo_list + log.validation_elbo_list
+        if results is None or not elbos or not all(math.isfinite(e) for e in elbos):
+            fail("phase 16: %s trained to ELBOs %s" % (stem, elbos))
+        # the first of the spec's files with rows of its devices
+        csv = next(f for f in settings.data.files if procdata.load(f, settings.data) is not None)
+        t0 = time.perf_counter()
+        out = P.main([spec, "--checkpoint", training.ckpt_dir, "--data", csv, "--test_samples",
+                      str(K_SERVE), "--seed", str(SEED), "--output",
+                      os.path.join(results_dir, stem + ".npz")], device=device)
+        torch.cuda.synchronize()
+        request = time.perf_counter() - t0
+        B = check_request(out, training.program.n_theta, iw_state_count(training.model.ode_model))
+        if out.epoch != 1:
+            fail("phase 16: %s served checkpoint epoch %d" % (stem, out.epoch))
+        step_ms = statistics.median(training.step_ms)
+        walls[stem] = (step_ms, request)
+        print("  %-32s %-27s solver %-8s B=%-2d T=%-3d %d step(s): median %.1f ms; train wall "
+              "%.2f s; elbo train %.2f valid %.2f | request %s: %d series, wall %.3f s, elbo "
+              "%.3f, mu finite %s"
+              % (stem, settings.model, settings.params.solver, training.n_batch,
+                 len(data.train.dataset.times), len(training.step_ms), step_ms, train_wall,
+                 log.training_elbo_list[-1], log.validation_elbo_list[-1], csv, B, request,
+                 out.merged.elbo, bool(np.isfinite(out.merged.iw_predict_mu).all())))
+    del os.environ["INFERENCE_RESULTS_DIR"]
+    return walls
+
+
+def phase_growthrate_route(device):
+    """Phase 16b: ``dr_growthrate`` under ``solver: pallas_midpoint`` at full
+    width (B=36, K=200): its right-hand side has the growth-coupled capacity
+    ``es`` that no fused kind computes, so a training step (forward and
+    backward) must launch no kernel at all, and its trajectory must equal
+    the generic midpoint solver's bit for bit."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_blackbox, fused_ode
+
+    counters = {**fused_ode.COUNTERS, **fused_blackbox.COUNTERS}
+    training, params, _, step = one_step(device, TRAIN_SOLVER, range(36), K_TRAIN, SEED + 8,
+                                         SPEC_GROWTH)
+    for c in counters.values():
+        c.launches = 0
+    loss = float(step().detach())
+    ode = training.model.ode_model
+    host = training.dataset_pair.train.batch()
+    with torch.no_grad():
+        th, inputs, dev_1hot, times = _prior_theta(device, training.program, training.model,
+                                                   params, host, slice(0, 36), K_TRAIN, SEED + 9)
+        routed = ode.simulate(params["dec"], th, times, inputs, dev_1hot, K_TRAIN)
+        ode.solver = "midpoint"
+        generic = ode.simulate(params["dec"], th, times, inputs, dev_1hot, K_TRAIN)
+    torch.cuda.synchronize()
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    same = bool(torch.equal(routed, generic))
+    print("phase 16b: dr_growthrate under %s, B=36 K=%d: training step loss %.3f, kernel "
+          "launches %s; trajectory %s bit-equal to the generic midpoint solver's: %s"
+          % (TRAIN_SOLVER, K_TRAIN, loss, launched or "none", tuple(routed.shape), same))
+    if launched or not same or not math.isfinite(loss):
+        fail("phase 16b: dr_growthrate launched %s, trajectories equal %s" % (launched, same))
 
 
 def kernel_row(kind, direction, rows, launches, **extra):
@@ -1650,21 +1919,35 @@ def main():
     phase_route_check_training(device, SPEC_BB, "13b")
     phase_profile_training(device, SPEC_BB, "13c")
 
+    with tempfile.TemporaryDirectory() as results_dir:
+        unmerged, um_training = phase_unmerged_training(device, results_dir)
+        phase_route_check_training(device, SPEC_UNMERGED, "14b")
+        t100 = phase_unmerged_kernels(device)
+        unmerged["dr_fwd_serving"] = phase_serve_checkpoint(device, um_training, results_dir)
+        phase_zoo(device, results_dir)
+    phase_growthrate_route(device)
+
     kernels = []
     for kind, (fwd_rows, bwd_rows, train_fwd_rows) in measured.items():
         # the launches: the training path's (for the plain relay / degrader
         # kinds, phase 8d's / 10d's path); the serving path's beside them
         launches = training[kind]
         extra = {"launches_serving": serving[kind]} if kind in serving else {}
+        # the dr kernels on phases 14-15's merge: false path, timed at T=100
+        um = kind == "dr"
         kernels.append(kernel_row(
             kind, "fwd", fwd_rows, launches[kind + "_fwd"],
             train_shape={k: train_fwd_rows["midpoint"][k]
                          for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            **extra))
+            **extra, **({"launches_unmerged": {"training": unmerged["dr_fwd"],
+                                               "serving": unmerged["dr_fwd_serving"]},
+                         "unmerged_t100": t100["fwd"]} if um else {})))
         kernels.append(kernel_row(
             kind, "bwd", bwd_rows, launches[kind + "_bwd"],
-            **{key: bwd_rows["midpoint"][key] for key in ("step_ms", "step_zero_share")}))
-    print("phase 14: total %.1f s" % (time.perf_counter() - t_start))
+            **{key: bwd_rows["midpoint"][key] for key in ("step_ms", "step_zero_share")},
+            **({"launches_unmerged": {"training": unmerged["dr_bwd"]},
+                "unmerged_t100": t100["bwd"]} if um else {})))
+    print("phase 17: total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -2,6 +2,7 @@
 CSVs must give the same arrays, folds, sites and priors (exactly: both
 packages run the same numpy code on the same files)."""
 
+import glob
 import os
 from types import SimpleNamespace
 
@@ -19,9 +20,9 @@ from vihds_tpu_torch.data.datasets import build_datasets as t_build
 from vihds_tpu_torch.predict import load_new_data as t_load_new_data
 from vihds_tpu_torch.prob import ParamProgram as TProgram, parse_parameters as t_parse
 
-SPECS = ["dr_constant_one.yaml", "dr_constant_icml.yaml", "relay_constant_precisions.yaml",
-         "degrader_constant_precisions.yaml"]
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+SPECS = sorted(os.path.basename(p)
+               for p in glob.glob(os.path.join(os.path.dirname(DATA), "specs", "*.yaml")))
 
 
 def both(spec_name, split=1):
@@ -35,10 +36,17 @@ def both(spec_name, split=1):
 def test_dataset_arrays_match(spec_name):
     (_, jset, jdata), (_, tset, tdata) = both(spec_name)
     jd, td = jdata.train.dataset, tdata.train.dataset
-    for name in ("devices", "dev_1hot", "inputs", "times", "observations"):
-        a, b = getattr(jd, name), getattr(td, name)
-        assert a.dtype == b.dtype, name
-        np.testing.assert_array_equal(a, b, err_msg=name)
+    # merge: false keeps one dataset per file; its report view spans them all
+    assert hasattr(jd, "files") == hasattr(td, "files") == (not jset.data.merge)
+    views = [(jd, td)]
+    if not jset.data.merge:
+        views = list(zip(jd.files, td.files)) + [(jd.select(np.arange(len(jd))),
+                                                   td.select(np.arange(len(td))))]
+    for a_set, b_set in views:
+        for name in ("devices", "dev_1hot", "inputs", "times", "observations"):
+            a, b = getattr(a_set, name), getattr(b_set, name)
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
     np.testing.assert_array_equal(np.asarray(jd.scales), np.asarray(td.scales))
     assert jset.data.device_depth == tset.data.device_depth
     for k, v in jset.data.relevance_vectors.items():

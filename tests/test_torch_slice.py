@@ -194,12 +194,15 @@ def test_evaluate_chunks_like_one_batch():
 
 def test_unknown_model_lists_available():
     tset, tdata, tprog, _ = _port("dr_constant_one.yaml")
-    tset.model = "auto_constant"
-    with pytest.raises(ValueError, match="available: degrader_constant, "
-                                         "degrader_constant_precisions, dr_blackbox, "
-                                         "dr_constant, "
+    tset.model = "no_such_model"
+    with pytest.raises(ValueError, match="'no_such_model'; available: auto_constant, "
+                                         "auto_constant_precisions, debug_constant, "
+                                         "degrader_constant, degrader_constant_precisions, "
+                                         "dr_blackbox, dr_constant, "
                                          "dr_constant_precisions, dr_constant_precisions_v2, "
-                                         "dr_constant_v2, relay_constant, "
+                                         "dr_constant_v2, dr_growthrate, inducer_constant, "
+                                         "inducer_constant_precisions, prpr_constant, "
+                                         "prpr_constant_precisions, relay_constant, "
                                          "relay_constant_precisions$"):
         TVAE(tset, tdata, tprog)
 

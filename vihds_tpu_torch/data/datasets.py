@@ -1,8 +1,11 @@
-"""Array dataset pipeline: preprocessing, multi-file merge, k-fold splits.
+"""Array dataset pipeline: preprocessing, multi-file merge or per-file
+native grids (``merge: false``), k-fold splits.
 
 Host-side numpy, as in ``vihds_tpu.data.datasets``; batches become torch
 tensors on the chosen device only where the evaluation consumes them.
 """
+
+import copy
 
 import numpy as np
 
@@ -121,6 +124,97 @@ class TimeSeriesDataset:
         )
 
 
+class MultiTimeSeriesDataset:
+    """Non-merged multi-file dataset (``data: merge: false``): every CSV keeps
+    its native time grid.
+
+    * each signal is scaled by its maximum over all files, the scale a
+      merged load would compute;
+    * the encoder reads every series snapped onto the shortest grid by
+      nearest time (``enc_idx``), so it sees one input shape;
+    * the ODE and the likelihood run on each file's native grid;
+    * training and evaluation group the rows by file (``group_by_file``,
+      ``file_batch``), and the report view (``select``, the xval arrays) is
+      snapped onto the shortest grid, so it stays rectangular.
+    """
+
+    def __init__(self, data_settings, params):
+        self.data_settings = data_settings
+        self.params = params
+
+    def init_multiple(self):
+        parsed = [procdata.load(f, self.data_settings) for f in self.data_settings.files]
+        parsed = [p for p in parsed if p is not None]
+        if not parsed:
+            raise ValueError("No data found for devices %s" % list(self.data_settings.devices))
+        n_signals = parsed[0][3].shape[1]
+        if self.data_settings.normalize is None:
+            scales = [
+                float(max(np.max(obs[:, i, :]) for _, _, _, obs in parsed))
+                for i in range(n_signals)
+            ]
+        else:
+            scales = self.data_settings.normalize
+        shared = copy.copy(self.data_settings)
+        shared.normalize = scales
+
+        self.files = []
+        for devices, inputs, times, observations in parsed:
+            ds = TimeSeriesDataset(shared, self.params)
+            ds._preprocess(devices, inputs, times, observations)
+            self.files.append(ds)
+        self.scales = scales
+        self.n_species = self.files[0].n_species
+
+        # the encoder's and the report's grid: the shortest native grid
+        enc_file = int(np.argmin([f.n_times for f in self.files]))
+        self.times = self.files[enc_file].times
+        self.n_times = len(self.times)
+        self.enc_idx = [
+            np.array([find_nearest(f.times, t) for t in self.times]) for f in self.files
+        ]
+
+        counts = [len(f) for f in self.files]
+        self.file_of = np.concatenate([np.full(c, i, int) for i, c in enumerate(counts)])
+        self.local_of = np.concatenate([np.arange(c) for c in counts])
+        self.devices = np.concatenate([f.devices for f in self.files])
+
+    def __len__(self):
+        return len(self.file_of)
+
+    def group_by_file(self, global_ids):
+        """[(file index, local row ids, positions within ``global_ids``)] for
+        the files that ``global_ids`` touches, in file order."""
+        global_ids = np.asarray(global_ids)
+        groups = []
+        for i in range(len(self.files)):
+            positions = np.flatnonzero(self.file_of[global_ids] == i)
+            if len(positions):
+                groups.append((i, self.local_of[global_ids[positions]], positions))
+        return groups
+
+    def file_batch(self, file_idx, local_ids):
+        """Native-grid host batch of one file, plus the encoder's snapped
+        view ``enc_observations``."""
+        batch = self.files[file_idx].select(np.asarray(local_ids))
+        batch["enc_observations"] = batch.observations[:, :, self.enc_idx[file_idx]]
+        return batch
+
+    def select(self, idx):
+        """Report view: the rows ``idx`` on the shortest grid."""
+        idx = np.asarray(idx)
+        obs = np.empty((len(idx), self.n_species, self.n_times), np.float32)
+        for i, local_ids, positions in self.group_by_file(idx):
+            obs[positions] = self.files[i].observations[local_ids][:, :, self.enc_idx[i]]
+        return AttrDict(
+            devices=self.devices[idx],
+            dev_1hot=np.concatenate([f.dev_1hot for f in self.files])[idx],
+            inputs=np.concatenate([f.inputs for f in self.files])[idx],
+            observations=obs,
+            times=self.times,
+        )
+
+
 class Subset:
     """A view of a dataset restricted to ``indices``."""
 
@@ -148,18 +242,19 @@ class TimeSeriesDatasetPair:
 
 
 def build_datasets(args, config):
-    """Load + merge CSVs, then make the k-fold train/val split for
+    """Load the CSVs (merged onto one grid, or per file on its own under
+    ``merge: false``), then make the k-fold train/val split for
     ``args.split`` of ``args.folds`` (or hold out ``args.heldout``).
 
     Uses the numpy global RNG seeded from ``args.seed`` exactly as the JAX
     package does, so both packages make the same folds."""
     data_settings = config.data
-    if not data_settings.merge:
-        raise NotImplementedError(
-            "merge: false datasets are not ported yet (ROADMAP queue 1, \"Host layer: merge: false\")"
-        )
-    dataset = TimeSeriesDataset(data_settings, config.params)
-    dataset.init_multiple_merge()
+    if data_settings.merge:
+        dataset = TimeSeriesDataset(data_settings, config.params)
+        dataset.init_multiple_merge()
+    else:
+        dataset = MultiTimeSeriesDataset(data_settings, config.params)
+        dataset.init_multiple()
 
     np.random.seed(args.seed if args.seed is not None else 0)
     heldout = getattr(args, "heldout", None)

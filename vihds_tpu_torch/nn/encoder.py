@@ -111,8 +111,12 @@ class Encoder:
         return torch.tanh(layers.linear_apply(p["lin"], x))
 
     def __call__(self, p, data):
-        """data: batch AttrDict of tensors -> q {mu, prec, logprec} [B, n_theta]."""
-        obs = data.observations
+        """data: batch AttrDict of tensors -> q {mu, prec, logprec} [B, n_theta].
+
+        A batch of ``merge: false`` data carries ``enc_observations``, its
+        series snapped onto the shortest grid the trunk was built for, while
+        ``observations`` stays on the file's native grid for the likelihood."""
+        obs = data["enc_observations"] if "enc_observations" in data else data.observations
         B = obs.shape[0]
         encoded = self.trunk(p, obs)
 

@@ -1,21 +1,32 @@
-"""Amortised posterior serving: predictions on unseen plate-reader data.
+"""Amortised posterior serving: predictions on unseen plate-reader data from
+a trained checkpoint.
 
-The serving path of ``vihds_tpu.predict`` in PyTorch: parse new CSVs with the
-spec's device/treatment vocabulary, snap them onto the training time grid,
-re-apply the training normalisation, and evaluate q(theta | x_new) -> K theta
-draws -> the ODE decoder (the fused ``dr`` CUDA kernel under
+The serving path of ``vihds_tpu.predict`` in PyTorch: restore the params of a
+checkpoint that ``run_xval --checkpoint_epoch N`` wrote, parse new CSVs with
+the spec's device/treatment vocabulary, snap them onto the training time
+grid, re-apply the training normalisation, and evaluate q(theta | x_new) ->
+K theta draws -> the ODE decoder (the fused CUDA kernels under
 ``eval_solver: pallas_<method>``) -> IWAE-weighted posterior-predictive
 moments, with no retraining.  ``--treatments`` re-simulates the inferred
 posterior under counterfactual inputs.
 
-Restoring a checkpoint is not ported yet (ROADMAP queue 1, "predict.py rest"), so
-``predict`` takes the trained params from its caller::
+CLI (on the CUDA device)::
+
+  python -m vihds_tpu_torch.predict <spec.yaml> --checkpoint DIR --data NEW.csv \
+      [--data MORE.csv ...] [--test_samples K] [--output out.npz] [--save_theta] \
+      [--treatments "C6=25000;C12=0"]
+
+Library (``params`` in memory instead of a checkpoint, or neither and
+``--checkpoint`` in ``args``)::
 
   from vihds_tpu_torch.predict import create_parser, predict, save_predictions
   args = create_parser().parse_args(["specs/dr_constant_icml.yaml",
                                      "--data", "data/proc141021.csv"])
   out = predict(args, params=params)            # device="cuda" by default
   save_predictions("predictions.npz", out, args, Config(args))
+
+Reading the JAX package's orbax checkpoints is not part of the port: hand
+JAX params to ``convert.params_from_jax`` and ``predict(params=...)``.
 """
 
 import argparse
@@ -25,10 +36,12 @@ import os
 import numpy as np
 import torch
 
+from vihds_tpu_torch import checkpoint as ckpt
 from vihds_tpu_torch.config import Config
 from vihds_tpu_torch.data import procdata
 from vihds_tpu_torch.data.datasets import TimeSeriesDataset, build_datasets, find_nearest
 from vihds_tpu_torch.prob import ParamProgram, parse_parameters
+from vihds_tpu_torch.run_xval import not_ported
 from vihds_tpu_torch.training import Training, _importance_weighted_outputs, batch_tensors
 from vihds_tpu_torch.utils import resolve_device
 from vihds_tpu_torch.utils.attrdict import AttrDict
@@ -36,9 +49,14 @@ from vihds_tpu_torch.vae import VAE, params_to
 
 
 def create_parser():
-    """The serving flags of ``vihds_tpu.predict`` that this slice reads."""
+    """The serving flags of ``vihds_tpu.predict``."""
     parser = argparse.ArgumentParser(description="VI-HDS serving (PyTorch)")
     parser.add_argument("yaml", type=str, help="Name of yaml spec file")
+    parser.add_argument(
+        "--checkpoint", type=str, default=None,
+        help="Checkpoints directory of a trained run (run_xval --checkpoint_epoch N); "
+        "required by the CLI",
+    )
     parser.add_argument("--seed", type=int, default=None, help="Random seed (default: 0)")
     parser.add_argument("--folds", type=int, default=4, help="Cross-validation folds")
     parser.add_argument("--split", type=int, default=1, help="Split in 1:folds")
@@ -52,9 +70,14 @@ def create_parser():
         help="CSV of new plate-reader time series (repeatable)",
     )
     parser.add_argument(
+        "--output", type=str, default="predictions.npz",
+        help="Output .npz path (default: ./predictions.npz)",
+    )
+    parser.add_argument(
         "--save_theta", action="store_true", default=False,
         help="Also store the per-sample theta draws [n_theta, B, K]",
     )
+    parser.add_argument("--figures", action="store_true", default=False, help="Not ported yet")
     parser.add_argument(
         "--treatments", type=str, action="append", default=None,
         help='Counterfactual treatment override, e.g. "C6=25000;C12=0" (repeatable)',
@@ -114,22 +137,39 @@ def load_new_data(csv_files, settings, train_dataset):
     return ds.select(np.arange(len(ds)))
 
 
+def restore_params(directory):
+    """(epoch, params) of the newest checkpoint under ``directory``, on the
+    host.  Stops with a one-line error where ``directory`` is not a
+    directory or holds no checkpoint; creates nothing."""
+    if directory is None or not os.path.isdir(directory):
+        raise SystemExit("No checkpoint found under %s (not a directory)" % directory)
+    epoch, state = ckpt.restore(directory)
+    if state is None:
+        raise SystemExit("No checkpoint found under %s" % directory)
+    return epoch, state["params"]
+
+
 def predict(args, settings=None, params=None, device="cuda", generator=None):
     """Predict on the ``args.data`` CSVs with the trained ``params`` (a param
-    dict as ``VAE.init_params`` or ``convert.params_from_jax`` make it).
+    dict as ``VAE.init_params`` or ``convert.params_from_jax`` make it) or,
+    where ``params`` is None, with those of the newest checkpoint under
+    ``args.checkpoint``.
 
     ``generator`` draws the K theta samples; by default a generator on
     ``device`` seeded from the spec seed.  Returns AttrDict(merged=<eval
-    arrays>, results=<Results>, host=<input batch>, epoch=-1 (no
-    checkpoint), scales, counterfactuals)."""
+    arrays>, results=<Results>, host=<input batch>, epoch=<the checkpoint's
+    epoch, or -1 for params handed in>, scales, counterfactuals)."""
     device = resolve_device(device)
+    epoch = -1
     if params is None:
-        raise ValueError(
-            "predict needs the trained params from its caller: checkpoint restore "
-            "is not ported yet (ROADMAP queue 1, \"predict.py rest\")"
-        )
+        epoch, params = restore_params(args.checkpoint)
     if settings is None:
         settings = Config(args)
+    settings.trainer = None
+    if not getattr(args, "heldout", None):
+        args.heldout = None
+    if not hasattr(args, "split"):
+        args.split = 1
 
     data = build_datasets(args, settings)
     full_dataset = data.train.dataset
@@ -141,6 +181,10 @@ def predict(args, settings=None, params=None, device="cuda", generator=None):
         generator = torch.Generator(device=device).manual_seed(settings.seed)
 
     host = load_new_data(args.data, settings, full_dataset)
+    if training.multi:
+        # a model trained on merge: false data encodes enc_observations; new
+        # data already lies on the encoder's (shortest) grid
+        host["enc_observations"] = host.observations
     treatments = getattr(args, "treatments", None) or []
     merged, results = training.evaluate(
         params, host, args.test_samples, generator, device,
@@ -154,7 +198,7 @@ def predict(args, settings=None, params=None, device="cuda", generator=None):
         merged=merged,
         results=results,
         host=host,
-        epoch=-1,
+        epoch=epoch,
         scales=[float(s) for s in full_dataset.scales],
         counterfactuals=counterfactuals,
     )
@@ -223,5 +267,24 @@ def save_predictions(path, out, args, settings):
         for name in ("iw_predict_mu", "iw_predict_std", "iw_states", "iw_variance"):
             payload["cf%d_%s" % (i, name)] = cf[name]
     np.savez(path, **payload)
-    print("Wrote %s (%d series, K=%d, log-evidence %.2f)"
-          % (path, host.observations.shape[0], args.test_samples, merged.elbo))
+    print("Wrote %s (%d series, K=%d, checkpoint epoch %d, log-evidence %.2f)"
+          % (path, host.observations.shape[0], args.test_samples, out.epoch, merged.elbo))
+
+
+def main(argv=None, device="cuda"):
+    """``python -m vihds_tpu_torch.predict``: restore ``--checkpoint``, predict
+    on the ``--data`` CSVs and write ``--output``; returns the prediction."""
+    parser = create_parser()
+    args = parser.parse_args(argv)
+    if args.figures:
+        raise not_ported("--figures", "TensorBoard scalars and figures")
+    if args.checkpoint is None:
+        parser.error("the following arguments are required: --checkpoint")
+    settings = Config(args)
+    out = predict(args, settings, device=device)
+    save_predictions(args.output, out, args, settings)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -109,12 +109,18 @@ def create_parser(with_split: bool):
     return parser
 
 
+def not_ported(flag, item):
+    """The one-line error of a flag whose feature waits for the ROADMAP item
+    titled ``item``."""
+    return SystemExit('%s is not ported to vihds_tpu_torch yet (ROADMAP queue 1, "%s")'
+                      % (flag, item))
+
+
 def check_ported(args):
     """Stop with a one-line error on a flag whose feature is not ported."""
     for flag, (is_set, item) in NOT_PORTED.items():
         if is_set(args):
-            raise SystemExit('%s is not ported to vihds_tpu_torch yet (ROADMAP queue 1, "%s")'
-                             % (flag, item))
+            raise not_ported(flag, item)
 
 
 def make_training(args, settings, split=None, device="cuda"):

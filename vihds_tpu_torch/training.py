@@ -12,6 +12,9 @@ up to the next evaluation ends, when one read checks them for NaN.  Under
 forward and ``dr_bwd`` in the backward, or ``dr_prec_fwd`` / ``dr_prec_bwd``
 for the precisions models); under a plain fixed-grid solver it
 takes the online log-likelihood route (``VAE.forward_logprob``).
+On ``merge: false`` data every file keeps its own grid: an epoch steps
+through the files in turn, each on its own batches, and the evaluation runs
+file by file and snaps its time-indexed outputs onto the shortest grid.
 TensorBoard summaries and figures are not ported yet (ROADMAP queue 1,
 "TensorBoard scalars and figures").
 """
@@ -131,14 +134,27 @@ def make_results(model, program, merged):
     return res
 
 
+#: the model-facing arrays of a host batch (``enc_observations`` only on
+#: ``merge: false`` data)
+TRAIN_DATA_KEYS = ("observations", "inputs", "dev_1hot", "enc_observations")
+
+#: the time-indexed outputs that the evaluation of ``merge: false`` data
+#: snaps onto the shortest grid
+IW_KEYS = ("iw_predict_mu", "iw_predict_std", "iw_states", "iw_variance")
+
+
+def device_data(host, device):
+    """A host batch's model-facing arrays as float32 tensors on ``device``."""
+    return {k: torch.as_tensor(host[k], dtype=torch.float32, device=device)
+            for k in TRAIN_DATA_KEYS if k in host}
+
+
 def batch_tensors(host, rows, times, device):
     """Rows ``rows`` of a host batch as float32 tensors on ``device``."""
-    return AttrDict(
-        observations=torch.as_tensor(host.observations[rows], dtype=torch.float32, device=device),
-        inputs=torch.as_tensor(host.inputs[rows], dtype=torch.float32, device=device),
-        dev_1hot=torch.as_tensor(host.dev_1hot[rows], dtype=torch.float32, device=device),
-        times=times,
-    )
+    batch = AttrDict((k, torch.as_tensor(host[k][rows], dtype=torch.float32, device=device))
+                     for k in TRAIN_DATA_KEYS if k in host)
+    batch["times"] = times
+    return batch
 
 
 def epoch_perm(seed, e, n_train):
@@ -164,6 +180,33 @@ def build_epoch_stacks(seed, epoch, end_epoch, n_batch, n_batches, n_train):
         idx=perms.reshape(n_ep * n_batches, n_batch).astype(np.int32),
         mask=masks.reshape(n_ep * n_batches, n_batch),
     )
+
+
+def file_epoch_stacks(seed, e, sizes, n_batch):
+    """Per-file shuffled, padded batch-index grids of absolute epoch ``e`` on
+    ``merge: false`` data: one {idx: [n_batches_f, n_batch] int32, mask} for
+    each file of ``sizes[f]`` train rows.  The permutations are drawn in file
+    order from one stream of (seed, e), so a resumed run replays the same
+    batches (the JAX package's ``_run_multi_epochs``, bit for bit)."""
+    rng = np.random.RandomState((seed * 1_000_003 + e) % (2 ** 32))
+    stacks = []
+    for n_f in sizes:
+        nb = max(1, math.ceil(n_f / n_batch))
+        perm = rng.permutation(n_f)
+        pad = nb * n_batch - n_f
+        mask = np.ones(nb * n_batch, np.float32)
+        if pad:
+            mask[n_f:] = 0.0
+            perm = np.concatenate([perm, np.zeros(pad, int)])
+        stacks.append(dict(idx=perm.reshape(nb, n_batch).astype(np.int32),
+                           mask=mask.reshape(nb, n_batch)))
+    return stacks
+
+
+def stacks_to(host_stacks, device):
+    """Host index grids {idx, mask} as tensors on ``device``."""
+    return {"idx": torch.as_tensor(host_stacks["idx"], dtype=torch.int64, device=device),
+            "mask": torch.as_tensor(host_stacks["mask"], device=device)}
 
 
 def param_leaves(params):
@@ -256,9 +299,6 @@ class TrainingLogData:
         self.max_val_elbo = -float("inf")
 
 
-TRAIN_DATA_KEYS = ("observations", "inputs", "dev_1hot")
-
-
 def elapsed_ms(marks):
     """Milliseconds between consecutive marks of ``Training.train_epochs``
     (CUDA events, read after the device has caught up, or host clocks)."""
@@ -285,7 +325,21 @@ class Training:
         self.device = device
         self.dataset_pair = data
         self.n_batch = min(settings.params.n_batch, data.n_train)
-        self.steps_per_epoch = max(1, math.ceil(data.n_train / self.n_batch))
+        # merge: false data: per-file work units on each file's native grid
+        ds = data.train.dataset
+        self.multi = hasattr(ds, "files")
+        if self.multi:
+            self.enc_idx = ds.enc_idx
+            self.train_groups = [(i, ds.file_batch(i, local), pos)
+                                 for i, local, pos in ds.group_by_file(data.train.indices)]
+            self.valid_groups = [(i, ds.file_batch(i, local), pos)
+                                 for i, local, pos in ds.group_by_file(data.test.indices)]
+            self.steps_per_epoch = sum(
+                max(1, math.ceil(host.observations.shape[0] / self.n_batch))
+                for _, host, _ in self.train_groups
+            )
+        else:
+            self.steps_per_epoch = max(1, math.ceil(data.n_train / self.n_batch))
         held_out = getattr(args, "heldout", None) or "%d_of_%d" % (
             getattr(args, "split", 1), getattr(args, "folds", 4)
         )
@@ -308,6 +362,11 @@ class Training:
         Runs in chunks of ``n_batch`` rows; the last chunk is padded with row
         0 and the padding dropped afterwards (IWAE is exact under chunking).
         Returns (merged numpy arrays, Results)."""
+        merged = self._evaluate_arrays(params, host, n_samples, generator, device, with_theta)
+        return merged, make_results(self.model, self.program, merged)
+
+    def _evaluate_arrays(self, params, host, n_samples, generator, device, with_theta):
+        """``evaluate``'s merged numpy arrays."""
         device = resolve_device(device)
         n = host.observations.shape[0]
         chunk = self.n_batch
@@ -327,7 +386,43 @@ class Training:
         if with_theta:
             merged["theta"] = np.transpose(merged.pop("theta_bkn"), (2, 0, 1))  # [n_theta, B, K]
         merged["elbo"] = float(np.mean(merged["per_item_elbo"]))
-        return merged, make_results(self.model, self.program, merged)
+        return merged
+
+    def evaluate_groups(self, params, groups, n_samples, generator, device="cuda",
+                        with_theta=True):
+        """Evaluate a ``merge: false`` split file by file (``groups`` as
+        ``train_groups``), each on its native grid, drawing from
+        ``generator`` in file order; the time-indexed outputs are snapped
+        onto the shortest grid and every array is put back in the split's
+        row order (the JAX package's ``_eval_multi``).  Returns the merged
+        numpy arrays."""
+        n_total = sum(len(pos) for _, _, pos in groups)
+        merged = AttrDict()
+        for file_i, host, pos in groups:
+            part = self._evaluate_arrays(params, host, n_samples, generator, device, with_theta)
+            part.pop("elbo")
+            snap = self.enc_idx[file_i]
+            for name in IW_KEYS:
+                part[name] = part[name][:, :, snap]
+            for name, v in part.items():
+                if name == "theta":  # [n_theta, B, K]
+                    if name not in merged:
+                        merged[name] = np.zeros((v.shape[0], n_total) + v.shape[2:], v.dtype)
+                    merged[name][:, pos] = v
+                else:
+                    if name not in merged:
+                        merged[name] = np.zeros((n_total,) + v.shape[1:], v.dtype)
+                    merged[name][pos] = v
+        merged["elbo"] = float(np.mean(merged["per_item_elbo"]))
+        return merged
+
+    def _evaluate_split(self, params, which, n_samples, generator, device, with_theta):
+        """Merged arrays of the ``"train"`` or ``"valid"`` split."""
+        if self.multi:
+            groups = self.train_groups if which == "train" else self.valid_groups
+            return self.evaluate_groups(params, groups, n_samples, generator, device, with_theta)
+        host = self.train_data if which == "train" else self.valid_data
+        return self._evaluate_arrays(params, host, n_samples, generator, device, with_theta)
 
     # ------------------------------------------------------------- training
     def train_epochs(self, params, opt, generator, stacks, data, times):
@@ -376,8 +471,8 @@ class Training:
         log_data.n_test += 1
         seed = self.settings.seed or 0
         gen = torch.Generator(device=device).manual_seed((seed * 1_000_003 + epoch) % (2 ** 62))
-        train_merged, _ = self.evaluate(
-            params, self.train_data, args.train_samples, gen, device, with_theta=False
+        train_merged = self._evaluate_split(
+            params, "train", args.train_samples, gen, device, with_theta=False
         )
         print(
             " | train (iwae-elbo = %0.4f, time = %0.2f, total = %0.2f)"
@@ -385,12 +480,12 @@ class Training:
             end="",
             flush=True,
         )
-        valid_merged, valid_output = self.evaluate(
-            params, self.valid_data, args.test_samples, gen, device, with_theta=True
+        valid_merged = self._evaluate_split(
+            params, "valid", args.test_samples, gen, device, with_theta=True
         )
         if valid_merged.elbo > log_data.max_val_elbo:
             log_data.max_val_elbo = valid_merged.elbo
-            valid_output.dump(self.cache_dir)
+            make_results(self.model, self.program, valid_merged).dump(self.cache_dir)
             self.empty_cache = False
         log_data.training_elbo_list.append(train_merged.elbo)
         log_data.validation_elbo_list.append(valid_merged.elbo)
@@ -440,12 +535,18 @@ class Training:
         n_train = self.dataset_pair.n_train
         self.train_data = self.dataset_pair.train.batch()
         self.valid_data = self.dataset_pair.test.batch()
-        times = torch.as_tensor(self.train_data.times, dtype=torch.float32, device=device)
-        # the train split lives on the device for the whole run
-        train_dev = {
-            k: torch.as_tensor(self.train_data[k], dtype=torch.float32, device=device)
-            for k in TRAIN_DATA_KEYS
-        }
+        # the train split (on merge: false data, each file's part of it, with
+        # its own grid) lives on the device for the whole run
+        if self.multi:
+            sizes = [host.observations.shape[0] for _, host, _ in self.train_groups]
+            file_data = [
+                (device_data(host, device),
+                 torch.as_tensor(host.times, dtype=torch.float32, device=device))
+                for _, host, _ in self.train_groups
+            ]
+        else:
+            times = torch.as_tensor(self.train_data.times, dtype=torch.float32, device=device)
+            train_dev = device_data(self.train_data, device)
         n_batches = math.ceil(n_train / self.n_batch)
 
         log_data = TrainingLogData()
@@ -469,16 +570,25 @@ class Training:
         while epoch < args.epochs + 1:
             t0 = time.time()
             end_epoch = next_boundary(epoch)
-            host_stacks = build_epoch_stacks(
-                seed, epoch, end_epoch, self.n_batch, n_batches, n_train
-            )
-            stacks = {
-                "idx": torch.as_tensor(host_stacks["idx"], dtype=torch.int64, device=device),
-                "mask": torch.as_tensor(host_stacks["mask"], device=device),
-            }
-            elbos, marks = self.train_epochs(params, opt, generator, stacks, train_dev, times)
+            if self.multi:
+                # one pass over the files an epoch, each on its own grid
+                runs = []
+                for e in range(epoch, end_epoch + 1):
+                    for host_stacks, (data_f, times_f) in zip(
+                            file_epoch_stacks(seed, e, sizes, self.n_batch), file_data):
+                        runs.append(self.train_epochs(params, opt, generator,
+                                                      stacks_to(host_stacks, device), data_f,
+                                                      times_f))
+            else:
+                host_stacks = build_epoch_stacks(
+                    seed, epoch, end_epoch, self.n_batch, n_batches, n_train
+                )
+                runs = [self.train_epochs(params, opt, generator, stacks_to(host_stacks, device),
+                                          train_dev, times)]
+            elbos = torch.cat([r[0] for r in runs])
             finite = bool(torch.isfinite(elbos).all())  # the chunk's one read
-            self.step_ms += elapsed_ms(marks)
+            for _, marks in runs:
+                self.step_ms += elapsed_ms(marks)
             log_data.total_train_time += time.time() - t0
             if not finite:
                 print("Cannot proceed with ELBO = nan. Exiting.")

@@ -5,7 +5,8 @@
 
 Phases, each printing lines of its own:
 
-1. the card's name and power limit (``nvidia-smi``);
+1. the card's name and power limit (``nvidia-smi``), and whether the figures'
+   packages (matplotlib, seaborn, tensorboard) import;
 2. the build of every CUDA kernel under ``vihds_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together), its time and ptxas report;
 3. for each of the six fused kinds (``dr``, ``dr_prec``, ``relay``,
@@ -92,15 +93,36 @@ Phases, each printing lines of its own:
    the step and request walls; 16b ``dr_growthrate`` under ``solver:
    pallas_midpoint``: no kernel launched in a training step, and its
    trajectory bit-equal to the generic midpoint solver's;
-17. the total time and the ``kernels`` JSON line (the ``dr`` rows with the
-   launches of phases 14-15 and the times of 14c), then the last line
-   ``{"ok": true, "device": {...}}``.
+17. training ``dr_constant_icml`` with ``--dreg`` (one forward and two
+   backward pulls a step) through ``run_on_split`` under ``solver:
+   pallas_midpoint``, 2 epochs of 7 steps at B=36 x K=200, evaluated as
+   phase 5: the step walls beside phase 5's, the kernels' launch counts (the
+   backward once per pull that reaches the ODE: ``dreg_pulls``) and the
+   profile of one DReG step; 17b, one DReG step through the kernels held
+   against the plain fold route on a small input for ``dr_constant_icml``,
+   the three ``_precisions`` specs and ``dr_blackbox_icml``, with the
+   backward's launches per step; 17c, ``dr_bwd``, ``dr_prec_bwd`` and
+   ``blackbox_bwd`` on the operands each pull of one DReG step hands them,
+   against the float64 plain sweep, with the cotangent's zero and subnormal
+   shares and the time of each pull;
+18. ``run_on_split`` with ``--profile_dir``: one Chrome trace, of epoch 2,
+   whose kernel events name the fused forward and backward; 18b,
+   ``run_xval.main`` with ``--plot_epoch 2`` and, where the figures'
+   packages import, ``--figures`` (the event files and the xval figures);
+   where one does not, the run says so once and still writes its ``xval_*``
+   set, and ``--figures`` stops before training, naming the package;
+19. the total time and the ``kernels`` JSON line (the ``dr`` rows with the
+   launches of phases 14-15 and the times of 14c; the ``dr``, ``dr_prec``
+   and ``blackbox`` backward rows with the DReG pulls' launches, times and
+   subnormal shares of 17b-17c), then the last line ``{"ok": true,
+   "device": {...}}``.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, where CUDA is not available or the package is missing.
 It imports nothing of JAX and nothing of ``vihds_tpu``.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -321,6 +343,12 @@ def phase_card():
     ).stdout.strip().splitlines()[0]
     print("phase 1: card name, power limit (nvidia-smi):")
     print(line)
+    from vihds_tpu_torch.utils import FIGURE_PACKAGES, missing_packages
+
+    missing = missing_packages(FIGURE_PACKAGES)
+    print("phase 1: the figures' packages: %s"
+          % ", ".join("%s %s" % (name, "missing" if name in missing else "imports")
+                      for name in FIGURE_PACKAGES))
     return line
 
 
@@ -858,20 +886,21 @@ def bb_fwd_row(wflat, packed, y0_cols, times, shapes, method):
         bb_step_flops(S)[0][method] * (T - 1) * R)
 
 
-def bb_cotangent_readings(dw, dc, dy0, ref, shapes):
+def bb_cotangent_readings(dw, dc, dy0, ref, shapes, normal_only=False):
     """A black-box backward's outputs (dW packed [1760], dc [21, R], dy0
     [10, R]) against the plain sweep's in float64 ``ref`` = (the 12 leaves,
     dc, dy0): the ``cotangent_readings`` of each constant's and state's row
     over the samples, then of each weight leaf over its entries, and whether
-    every reading is within BWD_NORM_TOL / BWD_P99_TOL."""
+    every reading is within BWD_NORM_TOL / BWD_P99_TOL (``normal_only`` as
+    in ``cotangent_readings``)."""
     import torch
 
     from vihds_tpu_torch.ops import fused_blackbox as fb
 
     rw, rc, ry = ref
-    norm, rel = cotangent_readings(torch.cat([dc, dy0]), torch.cat([rc, ry]))
+    norm, rel = cotangent_readings(torch.cat([dc, dy0]), torch.cat([rc, ry]), normal_only)
     for a, b in zip(fb._split(dw, shapes), rw):
-        n, p = cotangent_readings(a.reshape(1, -1), b.reshape(1, -1))
+        n, p = cotangent_readings(a.reshape(1, -1), b.reshape(1, -1), normal_only)
         norm, rel = torch.cat([norm, n]), torch.cat([rel, p])
     finite = all(bool(torch.isfinite(x).all()) for x in (dw, dc, dy0))
     return norm, rel, (finite and bool((norm <= BWD_NORM_TOL).all())
@@ -1409,8 +1438,10 @@ def train(device, spec, phase, fwd, bwd, flags=TRAIN_FLAGS, results_dir=None):
     print("  best-val cache %s and %d xval_* files written" % (os.path.basename(cache), n_xval))
     print("  %s launches %d, %s launches %d (optimizer steps %d)"
           % (fwd, launches[fwd], bwd, launches[bwd], steps))
-    if steps != args.epochs * spe or launches[bwd] != steps:
-        fail("%s launched %d times for %d optimizer steps" % (bwd, launches[bwd], steps))
+    pulls = dreg_pulls(training.final_params) if args.dreg else 1
+    if steps != args.epochs * spe or launches[bwd] != pulls * steps:
+        fail("%s launched %d times for %d optimizer steps of %d backward pull(s)"
+             % (bwd, launches[bwd], steps, pulls))
     if launches[fwd] <= steps:
         fail("%s launched %d times: the evaluations did not take the kernel"
              % (fwd, launches[fwd]))
@@ -1441,17 +1472,20 @@ def train_nets(device, spec, phase, kind, nets=("precisions",)):
     return launches, step_ms, training
 
 
-def one_step(device, solver, rows, K, seed, spec=SPEC):
+def one_step(device, solver, rows, K, seed, spec=SPEC, dreg=False):
     """(Training, params, optimizer, step closure) for one training step of
     ``spec``'s model (dr_constant_icml unless named) under ``solver`` on the
     train split's ``rows`` at K draws, with seeded params and draws ``u``,
-    set up as run_on_split sets it up.  On ``merge: false`` data the rows
-    are those of the first file's group (its native 100-point grid)."""
+    set up as run_on_split sets it up; with ``dreg`` the step takes the DReG
+    gradient (``training.dreg_value_and_grad``), as ``--dreg`` does.  On
+    ``merge: false`` data the rows are those of the first file's group (its
+    native 100-point grid)."""
     import numpy as np
     import torch
 
     from vihds_tpu_torch import run_xval
-    from vihds_tpu_torch.training import batch_tensors, loss_fn
+    from vihds_tpu_torch.training import (batch_tensors, dreg_value_and_grad, loss_fn,
+                                          param_leaves)
 
     args, settings = training_settings(solver, spec)
     data, training = run_xval.make_training(args, settings, device=device)
@@ -1465,6 +1499,13 @@ def one_step(device, solver, rows, K, seed, spec=SPEC):
 
     def step():
         opt.zero_grad()
+        if dreg:
+            loss, grads = dreg_value_and_grad(training.model, training.program, params, batch,
+                                              mask, u)
+            for part, part_grads in grads.items():
+                for leaf, g in zip(param_leaves(params[part]), part_grads):
+                    leaf.grad = g
+            return loss
         loss = loss_fn(training.model, training.program, params, batch, mask, u)
         loss.backward()
         return loss
@@ -1505,14 +1546,16 @@ def phase_route_check_training(device, spec=SPEC, phase="5b"):
     return wk, wf
 
 
-def phase_profile_training(device, spec=SPEC, phase="5c"):
-    """torch.profiler over one full-size training step (B=36, K=200) after
-    a warm-up step: device busy share of the step's wall and where the
-    model's two fused kernels stand among the kernels."""
+def phase_profile_training(device, spec=SPEC, phase="5c", dreg=False):
+    """torch.profiler over one full-size training step (B=36, K=200; with
+    ``dreg`` a DReG step) after a warm-up step: device busy share of the
+    step's wall and where the model's two fused kernels stand among the
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    training, _, _, step = one_step(device, TRAIN_SOLVER, range(36), K_TRAIN, SEED + 6, spec)
+    training, _, _, step = one_step(device, TRAIN_SOLVER, range(36), K_TRAIN, SEED + 6, spec,
+                                    dreg)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -1529,10 +1572,11 @@ def phase_profile_training(device, spec=SPEC, phase="5c"):
     if total_us == 0:
         print("phase %s: profiler saw no device time (device busy share: not measured)" % phase)
         return None
-    print("phase %s: one training step of %s (B=36, K=%d, %s): %d kernel launches, device busy "
-          "%.3f ms of %.3f ms unprofiled step wall (busy share %.4f; profiled wall %.3f ms); "
+    print("phase %s: one %straining step of %s (B=36, K=%d, %s): %d kernel launches, device "
+          "busy %.3f ms of %.3f ms unprofiled step wall (busy share %.4f; profiled wall %.3f ms); "
           "top kernels by device time:"
-          % (phase, os.path.basename(spec)[: -len(".yaml")], K_TRAIN, TRAIN_SOLVER,
+          % (phase, "DReG " if dreg else "", os.path.basename(spec)[: -len(".yaml")], K_TRAIN,
+             TRAIN_SOLVER,
              sum(e.count for e in events), total_us / 1e3, wall * 1e3, total_us / 1e6 / wall,
              prof_wall * 1e3))
     for i, e in enumerate(events):
@@ -1828,6 +1872,318 @@ def phase_growthrate_route(device):
         fail("phase 16b: dr_growthrate launched %s, trajectories equal %s" % (launched, same))
 
 
+def dreg_pulls(params):
+    """The pulls of a DReG step that run a fused backward: the encoder's
+    always, and the decoder's where the decoder has leaves (the device
+    conditioners of a device-conditioned spec, precision or black-box nets),
+    since each of them reaches the ODE."""
+    from vihds_tpu_torch.training import param_leaves
+
+    return 1 + bool(param_leaves(params["dec"]))
+
+
+DREG_FLAGS = ["--experiment", "chip_smoke_dreg", "--epochs", "2", "--test_epoch", "2",
+              "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed",
+              str(SEED), "--dreg"]
+
+
+def phase_dreg_training(device, std_step_ms):
+    """Phase 17: ``dr_constant_icml`` trained through run_on_split with
+    ``--dreg`` under ``solver: pallas_midpoint`` (2 epochs of 7 steps, B=36 x
+    K=200, evaluated at the end as phase 5): the step walls beside phase 5's
+    (``std_step_ms``), the kernels' launches (``dr_bwd`` once per pull a
+    step, ``dr_fwd`` once a step and once per evaluation chunk) and the
+    profile of one DReG step."""
+    launches, step_ms, training = train(device, SPEC, "17", "dr_fwd", "dr_bwd",
+                                        flags=DREG_FLAGS)
+    pulls = dreg_pulls(training.final_params)
+    print("  DReG: %d backward pulls a step (the decoder's leaves: %s); median step %.2f ms, "
+          "phase 5's standard step %.2f ms (%.2fx)"
+          % (pulls, ", ".join(sorted(training.final_params["dec"])), step_ms, std_step_ms,
+             step_ms / std_step_ms))
+    prof = phase_profile_training(device, SPEC, "17", dreg=True)
+    return dict(launches=launches, step_ms=step_ms, pulls=pulls,
+                busy=prof and prof["busy_ms"], wall=prof and prof["wall_ms"])
+
+
+#: the specs of phase 17b and the backward kernel each one's kernel route runs
+DREG_ROUTE_SPECS = ((SPEC, "dr_bwd"), (SPEC_PREC, "dr_prec_bwd"),
+                    (SPEC_RELAY, "relay_prec_bwd"), (SPEC_DEGRADER, "degrader_prec_bwd"),
+                    (SPEC_BB, "blackbox_bwd"))
+
+
+def phase_dreg_route_check(device):
+    """Phase 17b: one DReG step on 4 series x 50 samples, with the same
+    params and u, through the kernels (pallas_midpoint) and through the
+    plain fold route (midpoint), for each spec of ``DREG_ROUTE_SPECS``,
+    held to phase 5b's tolerances; the kernel route launches its backward
+    once per pull.  Returns {backward kernel: launches in one DReG step}."""
+    import torch
+
+    from vihds_tpu_torch.training import param_leaves
+
+    per_step = {}
+    for spec, bwd in DREG_ROUTE_SPECS:
+        out = {}
+        for solver in (TRAIN_SOLVER, "midpoint"):
+            _, params, _, step = one_step(device, solver, range(4), 50, SEED + 5, spec, dreg=True)
+            _counter(bwd).launches = 0
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = _counter(bwd).launches
+            grads = [leaf.grad.detach().clone() for leaf in param_leaves(params)]
+            out[solver] = (float(loss), grads, wall, launched, dreg_pulls(params))
+        (lk, gk, wk, nk, pulls), (lf, gf, wf, nf, _) = out[TRAIN_SOLVER], out["midpoint"]
+        rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(gk, gf))
+        per_step[bwd] = nk
+        print("phase 17b: one DReG step of %s, 4 series x 50 samples: loss %s %.4f vs midpoint "
+              "fold route %.4f (diff %.3e nats, tol %g); gradients max leaf relative norm diff "
+              "%.3e (tol %g); %s launches %d (pulls reaching the ODE: %d; fold route %d); step "
+              "wall %.4f s (kernels) vs %.4f s (fold route)"
+              % (os.path.basename(spec)[: -len(".yaml")], TRAIN_SOLVER, lk, lf, abs(lk - lf),
+                 LOSS_ATOL, rel, GRAD_RTOL, bwd, nk, pulls, nf, wk, wf))
+        if not (abs(lk - lf) <= LOSS_ATOL and rel <= GRAD_RTOL):
+            fail("the kernel route's DReG step of %s disagrees with the fold route" % spec)
+        if nk != pulls or nf != 0:
+            fail("a DReG step of %s launched %s %d times for %d pulls (fold route %d)"
+                 % (spec, bwd, nk, pulls, nf))
+    return per_step
+
+
+def captured_pulls(device, module, name, spec):
+    """The arguments, detached, of every call to ``module.<name>`` (a
+    backward kernel's launch function) in one kernel-route DReG step of
+    ``spec``'s model at B=36 x K=200 (``one_step``'s seeded params and
+    draws), in the order of the pulls: the decoder's (the standard
+    cotangent w-tilde) first, the encoder's (w-tilde^2) last."""
+    import torch
+
+    calls = []
+    launch = getattr(module, name)
+
+    def capture(*args):
+        calls.append([x.detach() if isinstance(x, torch.Tensor) else x for x in args])
+        return launch(*args)
+
+    setattr(module, name, capture)
+    try:
+        _, params, _, step = one_step(device, TRAIN_SOLVER, range(36), K_TRAIN, SEED + 7, spec,
+                                      dreg=True)
+        step()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, launch)
+    if len(calls) != dreg_pulls(params):
+        fail("a DReG step of %s called %s %d times for %d pulls"
+             % (spec, name, len(calls), dreg_pulls(params)))
+    return calls
+
+
+def phase_dreg_operands(device):
+    """Phase 17c: ``dr_bwd``, ``dr_prec_bwd`` and ``blackbox_bwd`` on the
+    operands each pull of one DReG step hands them (``captured_pulls``),
+    held against the float64 plain sweep at phase 3's limits (elements
+    below float32's normal range read normwise only; the black-box sweep on
+    the float32 sweep's relu masks), with the cotangent's zero and
+    subnormal shares and the kernel's time (median of 20).  Returns {kind:
+    {"standard": readings, "dreg": readings}}."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_blackbox as fb, fused_ode
+
+    print("phase 17c: the backward kernels on the operands of one DReG step's pulls (B=36, K=%d, "
+          "midpoint), against the plain sweep in float64 within %g normwise and %g at the 99th "
+          "percentile of relative error (elements below float32's normal range read normwise "
+          "only)" % (K_TRAIN, BWD_NORM_TOL, BWD_P99_TOL))
+    out = {}
+    for kind, spec in (("dr", SPEC), ("dr_prec", SPEC_PREC), ("blackbox", SPEC_BB)):
+        bb = kind == "blackbox"
+        calls = (captured_pulls(device, fb, "blackbox_bwd", spec) if bb
+                 else captured_pulls(device, fused_ode, "kind_bwd", spec))
+        out[kind] = {}
+        for label, call in zip(("standard", "dreg")[-len(calls):], calls):
+            if bb:
+                wflat, packed, times, traj, g, shapes, n_states, method = call
+
+                def run():
+                    return fb.blackbox_bwd(wflat, packed, times, traj, g, shapes, n_states,
+                                           method)
+
+                dw, dc, dy0 = run()
+                _, ref, _, _ = bb_references(fb._split(wflat, shapes), packed, times, traj, g,
+                                             n_states, method)
+                norm, rel, ok = bb_cotangent_readings(dw, dc, dy0, ref, shapes, True)
+            else:
+                got_kind, wmat, packed, times, traj, g, method = call
+                k = fused_ode.KINDS[got_kind]
+
+                def run():
+                    return fused_ode.kind_bwd(got_kind, wmat, packed, times, traj, g, method)
+
+                dw, dc, dy0 = run()
+                ref_w, ref_c, ref_y = fused_ode._plain_bwd(
+                    got_kind, wmat.double() if k.prec else None, packed.double(),
+                    times.double(), traj.double(), g.double(), method)
+                got, ref = [torch.cat([dc, dy0])], [torch.cat([ref_c, ref_y])]
+                if k.prec:
+                    got.append(dw)
+                    ref.append(ref_w)
+                norm, rel = (torch.cat(x) for x in zip(*(cotangent_readings(a, b, True)
+                                                         for a, b in zip(got, ref))))
+                ok = all(cotangents_ok(a, b, True) for a, b in zip(got, ref))
+            torch.cuda.synchronize()
+            r = out[kind][label] = dict(
+                zero_share=float((g == 0).double().mean()),
+                subnormal_share=float(((g != 0) & (g.abs() < FLT_MIN)).double().mean()),
+                worst_norm=float(norm.max()), worst_p99=float(rel.max()),
+                ms=cuda_ms(run, 20))
+            print("  %-16s %s pull (cotangent %s): %.4f exactly zero, %.4f subnormal; worst "
+                  "normwise %.3e, worst p99 rel %.3e; kernel %.4f ms  %s"
+                  % ("blackbox_bwd" if bb else fused_ode.KINDS[call[0]].bwd, label,
+                     "w-tilde^2" if label == "dreg" else "w-tilde", r["zero_share"],
+                     r["subnormal_share"], r["worst_norm"], r["worst_p99"], r["ms"],
+                     "ok" if ok else "MISMATCH"))
+            if not ok:
+                fail("%s disagrees with its plain version on the %s pull's operands of a DReG "
+                     "step" % (kind, label))
+    return out
+
+
+PROFILE_FLAGS = ["--experiment", "chip_smoke_profile", "--epochs", "2", "--test_epoch", "1",
+                 "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed",
+                 str(SEED), "--plot_epoch", "0"]
+
+
+def phase_profile_dir(device):
+    """Phase 18: ``dr_constant_icml`` through run_on_split with
+    ``--profile_dir`` (2 epochs, ``solver: pallas_midpoint``): exactly one
+    trace, of epoch 2 (the first chunk after the start epoch), written as a
+    Chrome trace, whose kernel events (``device_events``) name the fused
+    forward and backward."""
+    import json as json_
+
+    from vihds_tpu_torch import profiling, run_xval
+    from vihds_tpu_torch.config import Trainer
+
+    with tempfile.TemporaryDirectory() as results_dir:
+        profile_dir = os.path.join(results_dir, "profile")
+        args, settings = training_settings(flags=PROFILE_FLAGS + ["--profile_dir", profile_dir])
+        os.environ["INFERENCE_RESULTS_DIR"] = results_dir
+        settings.trainer = Trainer(args, add_timestamp=True)
+        profs = []
+        trace = profiling.trace
+
+        @contextlib.contextmanager
+        def kept(directory, name="trace"):
+            with trace(directory, name) as prof:
+                yield prof
+            if prof is not None:
+                profs.append(prof)
+
+        profiling.trace = kept
+        try:
+            t0 = time.perf_counter()
+            run_xval.run_on_split(args, settings, device=device)
+            wall = time.perf_counter() - t0
+        finally:
+            profiling.trace = trace
+            del os.environ["INFERENCE_RESULTS_DIR"]
+        names = sorted(os.listdir(profile_dir))
+        size = sum(os.path.getsize(os.path.join(profile_dir, n)) for n in names)
+        with open(os.path.join(profile_dir, names[0])) as f:
+            kernel_names = {e.get("name", "") for e in json_.load(f)["traceEvents"]
+                            if e.get("cat") == "kernel"}
+    if names != ["epochs_2-2.json"] or len(profs) != 1:
+        fail("phase 18: --profile_dir wrote %s (%d traces)" % (names, len(profs)))
+    events, total_us = device_events(profs[0])
+    fused = [e.key for e in events if "fwd_kernel" in e.key or "bwd_kernel" in e.key]
+    in_file = [n for n in kernel_names if "fwd_kernel" in n or "bwd_kernel" in n]
+    print("phase 18: run_on_split with --profile_dir, 2 epochs of 7 steps in %.1f s: %s (%d "
+          "bytes), %d kernel launches, device busy %.3f ms in the traced epoch; the fused "
+          "kernels in it: %s; in the Chrome trace's kernel events: %d of them"
+          % (wall, names, size, sum(e.count for e in events), total_us / 1e3,
+             "; ".join("%s (%d calls)" % (e.key[:60], e.count) for e in events
+                       if e.key in fused), len(in_file)))
+    if not (any("fwd_kernel" in k for k in fused) and any("bwd_kernel" in k for k in fused)
+            and in_file):
+        fail("phase 18: the trace does not name the fused forward and backward: %s" % fused)
+    return dict(bytes=size, busy_ms=total_us / 1e3)
+
+
+FIGURE_FLAGS = ["--experiment", "chip_smoke_figures", "--epochs", "2", "--test_epoch", "1",
+                "--plot_epoch", "2", "--train_samples", str(K_TRAIN), "--test_samples",
+                str(K_SERVE), "--seed", str(SEED)]
+
+
+def phase_figures(device):
+    """Phase 18b: ``run_xval.main`` on ``dr_constant_icml`` (its spec with
+    ``solver: pallas_midpoint``) for 2 epochs with ``--plot_epoch 2``.  Where
+    matplotlib, seaborn and tensorboard import, ``--figures``: the split's
+    event files with their scalars and figures, and the xval figures.  Where
+    one does not, the run says once which and still writes its ``xval_*``
+    set, and ``--figures`` stops before any training, naming the package."""
+    import contextlib as contextlib_
+    import io
+
+    from vihds_tpu_torch import run_xval, utils
+
+    missing = utils.missing_packages(utils.FIGURE_PACKAGES)
+    with tempfile.TemporaryDirectory() as results_dir:
+        spec = write_spec(SPEC, results_dir, solver=TRAIN_SOLVER)
+        os.environ["INFERENCE_RESULTS_DIR"] = os.path.join(results_dir, "results")
+        # each of the lines is said once a process: let this run say it again
+        utils._NOTED.clear()
+        argv = [spec] + FIGURE_FLAGS + ([] if missing else ["--figures"])
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib_.redirect_stdout(buf):
+                run_xval.main(argv, device=device)
+        finally:
+            del os.environ["INFERENCE_RESULTS_DIR"]
+        wall = time.perf_counter() - t0
+        (run_dir,) = os.listdir(os.path.join(results_dir, "results"))
+        run_dir = os.path.join(results_dir, "results", run_dir)
+        names = sorted(os.listdir(run_dir))
+        xval = [n for n in names if n.startswith("xval_") and n.endswith((".npy", ".txt"))]
+        figures = [n for n in names if n.endswith((".png", ".pdf"))]
+        events = {d: sorted(os.listdir(os.path.join(run_dir, d)))
+                  for d in ("train_1_of_4", "valid_1_of_4", "xval") if d in names}
+        stopped = None
+        if missing:
+            os.environ["INFERENCE_RESULTS_DIR"] = os.path.join(results_dir, "figures")
+            try:
+                run_xval.main(argv + ["--figures"], device=device)
+            except SystemExit as e:
+                stopped = str(e)
+            finally:
+                del os.environ["INFERENCE_RESULTS_DIR"]
+            trained = os.path.exists(os.path.join(results_dir, "figures"))
+    said = [line for line in buf.getvalue().splitlines() if line.endswith("is not installed")]
+    print("phase 18b: run_xval.main, 2 epochs, --plot_epoch 2%s, in %.1f s: the figures' "
+          "packages missing: %s; %d xval_* files, %d figure files, event files %s; said: %s"
+          % ("" if missing else " --figures", wall, missing or "none", len(xval), len(figures),
+             events, said))
+    if len(xval) != 16:
+        fail("phase 18b: the run wrote %d xval_* files" % len(xval))
+    if missing:
+        want = "--figures needs the %s package, which is not installed" % missing[0]
+        print("phase 18b: --figures without %s: %r; a results directory made: %s"
+              % (missing[0], stopped, trained))
+        tensorboard = "tensorboard" not in missing
+        if (stopped != want or trained or not said
+                or bool(events.get("train_1_of_4")) != tensorboard):
+            fail("phase 18b: without %s the run said %s, --figures %r (results made: %s)"
+                 % (missing, said, stopped, trained))
+    elif not (figures and events.get("xval") and events.get("train_1_of_4")
+              and events.get("valid_1_of_4")):
+        fail("phase 18b: --figures wrote %s" % names)
+    return dict(missing=missing, figures=len(figures))
+
+
+
 def kernel_row(kind, direction, rows, launches, **extra):
     """One entry of the ``kernels`` line: the midpoint readings of phase 3
     (the forward's at the serving chunk), the launches on the main path."""
@@ -1887,7 +2243,7 @@ def main():
     serving["dr"], walls, served = serve(device, SPEC, REQUESTS, "4", "dr_fwd")
     phase_route_check(device, served)
     phase_profile(device, walls[1])
-    training["dr"] = train(device, SPEC, "5", "dr_fwd", "dr_bwd")[0]
+    training["dr"], step_ms_5, _ = train(device, SPEC, "5", "dr_fwd", "dr_bwd")
     phase_route_check_training(device)
     phase_profile_training(device)
     phase_call_run_xval(device)
@@ -1927,6 +2283,12 @@ def main():
         phase_zoo(device, results_dir)
     phase_growthrate_route(device)
 
+    dreg = phase_dreg_training(device, step_ms_5)
+    dreg["per_step"] = phase_dreg_route_check(device)
+    dreg_ops = phase_dreg_operands(device)
+    phase_profile_dir(device)
+    phase_figures(device)
+
     kernels = []
     for kind, (fwd_rows, bwd_rows, train_fwd_rows) in measured.items():
         # the launches: the training path's (for the plain relay / degrader
@@ -1942,12 +2304,26 @@ def main():
             **extra, **({"launches_unmerged": {"training": unmerged["dr_fwd"],
                                                "serving": unmerged["dr_fwd_serving"]},
                          "unmerged_t100": t100["fwd"]} if um else {})))
+        # the DReG step's pulls (phases 17-17c): launches in one step (and in
+        # phase 17's training for dr), the time and cotangent of the DReG pull
+        # beside the standard pull's on the same step
+        extra = {}
+        if kind in dreg_ops:
+            ops = dreg_ops[kind]
+            extra = dict(launches_dreg=dreg["per_step"][kind + "_bwd"],
+                         dreg_ms=ops["dreg"]["ms"],
+                         dreg_subnormal_share=ops["dreg"]["subnormal_share"],
+                         dreg_zero_share=ops["dreg"]["zero_share"],
+                         dreg_standard_pull_ms=ops["standard"]["ms"],
+                         dreg_standard_pull_subnormal_share=ops["standard"]["subnormal_share"])
+            if kind == "dr":
+                extra["launches_dreg_training"] = dreg["launches"]["dr_bwd"]
         kernels.append(kernel_row(
             kind, "bwd", bwd_rows, launches[kind + "_bwd"],
             **{key: bwd_rows["midpoint"][key] for key in ("step_ms", "step_zero_share")},
             **({"launches_unmerged": {"training": unmerged["dr_bwd"]},
-                "unmerged_t100": t100["bwd"]} if um else {})))
-    print("phase 17: total %.1f s" % (time.perf_counter() - t_start))
+                "unmerged_t100": t100["bwd"]} if um else {}), **extra))
+    print("phase 19: total %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

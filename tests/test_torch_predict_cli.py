@@ -3,8 +3,9 @@
 ``predict.main --checkpoint``; the npz against an in-memory ``predict`` on
 the restored params (bit for bit: the same computation from the same
 generator seed), the checkpoint's epoch in it, and the one-line errors for a
-missing or empty checkpoint directory and for ``--figures``.  Also a
-checkpoint of a ``merge: false`` model served on the encoder's grid."""
+missing or empty checkpoint directory.  Also a checkpoint of a ``merge:
+false`` model served on the encoder's grid.  ``--figures`` is driven in
+tests/test_torch_figures.py."""
 
 import os
 
@@ -79,14 +80,6 @@ def test_no_checkpoint_stops_and_creates_nothing(kind, tmp_path):
                device="cpu")
     assert sorted(p for p in tmp_path.rglob("*")) == before
     assert not out_path.exists()
-
-
-def test_figures_stop_with_their_roadmap_item(tmp_path):
-    with pytest.raises(SystemExit, match='--figures is not ported .*ROADMAP queue 1, '
-                                         '"TensorBoard scalars and figures"'):
-        P.main([SPEC, "--checkpoint", str(tmp_path), "--data", CSV, "--figures",
-                "--output", str(tmp_path / "out.npz")], device="cpu")
-    assert os.listdir(tmp_path) == []
 
 
 def test_cli_needs_a_checkpoint():

@@ -122,11 +122,10 @@ def test_resumed_run_ends_where_the_uninterrupted_run_ends(tmp_results):
 
 @pytest.mark.parametrize(
     "flags,item",
-    [(["--dreg"], "DReG"), (["--mesh", "auto"], "parallel/ + parallel/multihost.py"),
+    [(["--mesh", "auto"], "parallel/ + parallel/multihost.py"),
      (["--mesh_data", "2"], "parallel/ + parallel/multihost.py"),
      (["--distributed", "auto"], "parallel/ + parallel/multihost.py"),
-     (["--vmap_folds"], "xfold.py"), (["--profile_dir", "p"], "profiling.py"),
-     (["--figures"], "TensorBoard scalars and figures")],
+     (["--vmap_folds"], "xfold.py")],
     ids=lambda v: v if isinstance(v, str) else v[0],
 )
 def test_unported_flags_stop_with_their_roadmap_item(flags, item, tmp_results):

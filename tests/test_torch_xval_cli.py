@@ -26,11 +26,15 @@ XVAL_NAMES = sorted(
 )
 
 
-def test_two_folds_write_the_merged_artifact_set(tmp_results, capsys):
+def test_two_folds_write_the_merged_artifact_set(tmp_results, capsys, monkeypatch):
     """``main`` trains folds 1 and 2 in turn (one epoch each, 4 samples) and
     writes each fold's best-validation cache, the 16 ``xval_*`` files of the
     JAX package (which ``XvalMerge.save`` names in both packages) and the
-    completed marker; the merge holds both folds' held-out series."""
+    completed marker; the merge holds both folds' held-out series.  It hands
+    the merge to the figures once (recorded here; the figures themselves are
+    held in tests/test_torch_figures.py)."""
+    drawn = []
+    monkeypatch.setattr(call_run_xval, "write_figures", drawn.append)
     merge = call_run_xval.main(
         [SPEC, "--experiment", "xv", "--epochs", "1", "--test_epoch", "1", "--folds", "2",
          "--train_samples", "4", "--test_samples", "4", "--seed", "0"], device="cpu")
@@ -44,6 +48,7 @@ def test_two_folds_write_the_merged_artifact_set(tmp_results, capsys):
     assert open(os.path.join(run_dir, "completed.txt")).read() == "xv"
     assert len(merge.elbo) == 2 and np.isfinite(merge.elbo).all()
     assert len(merge.chunk_sizes) == 2
+    assert drawn == [merge]
     ids = np.load(os.path.join(run_dir, "xval_ids.npy"), allow_pickle=True)
     assert len(ids) == len(set(ids.tolist())) == merge.iw_predict_mu.shape[0]
 
@@ -70,9 +75,9 @@ def _fold_results(split, data_pair, n_theta=7, K=3):
 def test_merged_artifacts_equal_the_jax_packages(tmp_results, monkeypatch, folds):
     """Both packages' ``call_run_xval.execute`` with ``run_on_split`` replaced by the same
     seeded fold results (on each package's own folds of the spec) write the
-    same ``xval_*`` files with the same contents.  The JAX package's figures
-    and TensorBoard writer, which the port does not have yet, are switched
-    off for the comparison."""
+    same ``xval_*`` files with the same contents.  Both packages' figures and
+    TensorBoard writer are switched off for the comparison (the figures are
+    held in tests/test_torch_figures.py)."""
     argv = [SPEC, "--experiment", "eq", "--epochs", "2", "--folds", str(folds), "--seed", "0"]
     dirs = {}
 
@@ -93,6 +98,7 @@ def test_merged_artifacts_equal_the_jax_packages(tmp_results, monkeypatch, folds
     settings.trainer = Trainer(args, log_dir=dirs["port"])
     os.makedirs(dirs["port"])
     monkeypatch.setattr(call_run_xval, "run_on_split", fake(build_datasets, True))
+    monkeypatch.setattr(call_run_xval, "write_figures", lambda merge: None)
     call_run_xval.execute(args, settings, device="cpu")
 
     jargs = j_call_run_xval.create_parser(False).parse_args(argv)

@@ -7,22 +7,23 @@ The port's ``python -m vihds_tpu.call_run_xval``, with the same flags::
 
 It runs ``run_xval.run_on_split`` on folds 1 .. ``--folds``, adds each fold's
 best-validation results to one ``XvalMerge`` and writes the merged
-``xval_*`` set and ``completed.txt`` under
+``xval_*`` set, the xval figures (png, pdf and the ``xval/`` event files,
+as the JAX package always does) and ``completed.txt`` under
 ``$INFERENCE_RESULTS_DIR/<experiment>_<time>/``, beside each fold's
-``.vihds_cache_<fold>_of_<folds>``.  It trains on the CUDA device unless
-``main`` is given ``device="cpu"``.
+``.vihds_cache_<fold>_of_<folds>`` and TensorBoard event files.  Where
+matplotlib, seaborn or tensorboard is not installed, the figures are left
+out (said once) and the rest is written.  It trains on the CUDA device
+unless ``main`` is given ``device="cpu"``.
 
-Not ported yet, each waiting for its ROADMAP item: the figures and the
-TensorBoard writer of the merge (``make_writer`` / ``make_images``,
-"TensorBoard scalars and figures"), all folds as one batched program
-(``--vmap_folds``, "xfold.py") and the multi-process launch
+Not ported yet, each waiting for its ROADMAP item: all folds as one batched
+program (``--vmap_folds``, "xfold.py") and the multi-process launch
 ("parallel/ + parallel/multihost.py").  Their flags stop the run with a
 one-line error, as in ``run_xval``.
 """
 
 from vihds_tpu_torch.config import Config, Trainer
-from vihds_tpu_torch.run_xval import check_ported, create_parser, run_on_split
-from vihds_tpu_torch.utils import resolve_device
+from vihds_tpu_torch.run_xval import check_ported, create_parser, run_on_split, write_figures
+from vihds_tpu_torch.utils import FIGURE_PACKAGES, missing_packages, note_once, resolve_device
 from vihds_tpu_torch.xval import XvalMerge
 
 
@@ -44,6 +45,11 @@ def execute(args, settings, device="cuda"):
         return None
     xval_merge.finalize()
     xval_merge.save()
+    missing = missing_packages(FIGURE_PACKAGES)
+    if missing:
+        note_once("Figures off: the %s package is not installed" % missing[0])
+    else:
+        write_figures(xval_merge)
     xval_merge.mark_completed(args.experiment)
     print("Completed")
     return xval_merge

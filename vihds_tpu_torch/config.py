@@ -114,14 +114,16 @@ class Config:
     """Settings = YAML spec (+ defaults) + CLI args.
 
     ``args`` needs ``yaml`` and ``seed``.  Training's flags, where ``args``
-    has them, act as in the JAX package: ``test_epoch`` is clamped to
-    ``epochs``, and ``--precision_hidden_layers``, ``--q_global_init`` and
+    has them, act as in the JAX package: ``test_epoch`` and ``plot_epoch``
+    are clamped to ``epochs``, and ``--precision_hidden_layers``, ``--q_global_init`` and
     ``--grad_clip_norm`` override their ``params:`` entries."""
 
     def __init__(self, args):
         epochs = getattr(args, "epochs", None)
-        if epochs is not None and getattr(args, "test_epoch", 0) > epochs:
-            args.test_epoch = epochs
+        if epochs is not None:
+            for flag in ("test_epoch", "plot_epoch"):
+                if getattr(args, flag, 0) > epochs:
+                    setattr(args, flag, epochs)
         if args.seed is not None:
             np.random.seed(args.seed)
         if not os.path.exists(args.yaml):

@@ -14,7 +14,11 @@ CLI (on the CUDA device)::
 
   python -m vihds_tpu_torch.predict <spec.yaml> --checkpoint DIR --data NEW.csv \
       [--data MORE.csv ...] [--test_samples K] [--output out.npz] [--save_theta] \
-      [--treatments "C6=25000;C12=0"]
+      [--treatments "C6=25000;C12=0"] [--figures]
+
+``--figures`` also writes the prediction-summary figure beside the npz
+(``out.png``, ``out.pdf``); it needs matplotlib and seaborn, and stops
+before any work, naming the package, where one is not installed.
 
 Library (``params`` in memory instead of a checkpoint, or neither and
 ``--checkpoint`` in ``args``)::
@@ -41,7 +45,7 @@ from vihds_tpu_torch.config import Config
 from vihds_tpu_torch.data import procdata
 from vihds_tpu_torch.data.datasets import TimeSeriesDataset, build_datasets, find_nearest
 from vihds_tpu_torch.prob import ParamProgram, parse_parameters
-from vihds_tpu_torch.run_xval import not_ported
+from vihds_tpu_torch.run_xval import check_figures
 from vihds_tpu_torch.training import Training, _importance_weighted_outputs, batch_tensors
 from vihds_tpu_torch.utils import resolve_device
 from vihds_tpu_torch.utils.attrdict import AttrDict
@@ -77,7 +81,10 @@ def create_parser():
         "--save_theta", action="store_true", default=False,
         help="Also store the per-sample theta draws [n_theta, B, K]",
     )
-    parser.add_argument("--figures", action="store_true", default=False, help="Not ported yet")
+    parser.add_argument(
+        "--figures", action="store_true", default=False,
+        help="Render a prediction-summary figure next to the output npz",
+    )
     parser.add_argument(
         "--treatments", type=str, action="append", default=None,
         help='Counterfactual treatment override, e.g. "C6=25000;C12=0" (repeatable)',
@@ -271,18 +278,45 @@ def save_predictions(path, out, args, settings):
           % (path, host.observations.shape[0], args.test_samples, out.epoch, merged.elbo))
 
 
+def make_figure(path_base, out, settings):
+    """The prediction-summary figure of ``out`` as ``<path_base>.png`` and
+    ``.pdf``."""
+    import matplotlib.pyplot as plt
+
+    from vihds_tpu_torch import plotting
+
+    merged, host = out.merged, out.host
+    fig = plotting.plot_prediction_summary(
+        list(settings.data.devices),
+        out.results.species_names,
+        host.times,
+        host.observations,
+        merged.iw_predict_mu,
+        merged.iw_predict_std,
+        host.devices,
+        "-",
+    )
+    fig.savefig(path_base + ".png", bbox_inches="tight")
+    fig.savefig(path_base + ".pdf", bbox_inches="tight")
+    plt.close(fig)
+    print("Wrote %s.png/.pdf" % path_base)
+
+
 def main(argv=None, device="cuda"):
     """``python -m vihds_tpu_torch.predict``: restore ``--checkpoint``, predict
-    on the ``--data`` CSVs and write ``--output``; returns the prediction."""
+    on the ``--data`` CSVs and write ``--output`` (and, with ``--figures``,
+    its figure); returns the prediction."""
     parser = create_parser()
     args = parser.parse_args(argv)
-    if args.figures:
-        raise not_ported("--figures", "TensorBoard scalars and figures")
     if args.checkpoint is None:
         parser.error("the following arguments are required: --checkpoint")
+    if args.figures:
+        check_figures(packages=("matplotlib", "seaborn"))
     settings = Config(args)
     out = predict(args, settings, device=device)
     save_predictions(args.output, out, args, settings)
+    if args.figures:
+        make_figure(os.path.splitext(args.output)[0], out, settings)
     return out
 
 

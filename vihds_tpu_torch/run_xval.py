@@ -7,10 +7,18 @@ The port's ``python -m vihds_tpu.run_xval``, with the same flags::
 
 It writes the same artifacts under ``$INFERENCE_RESULTS_DIR/<experiment>_<time>/``:
 the spec, the per-fold best-validation cache ``.vihds_cache_<split>``, the
-``xval_*`` set and ``completed.txt``; with ``--checkpoint_epoch N`` also
-``checkpoints_<split>/``.  It trains on the CUDA device unless ``main`` or
-``run_on_split`` is given ``device="cpu"``.  Flags whose feature the port does
-not have yet stop the run with a one-line error that names its ROADMAP item.
+``xval_*`` set and ``completed.txt``, the TensorBoard event files of the
+split (``train_<split>/``, ``valid_<split>/``: scalars at every evaluation,
+figures every ``--plot_epoch``); with ``--checkpoint_epoch N`` also
+``checkpoints_<split>/``, with ``--figures`` the xval figures as png and pdf
+and the ``xval/`` event files, with ``--profile_dir DIR`` one
+``torch.profiler`` trace in DIR.  ``--dreg`` trains with the DReG gradient.
+It trains on the CUDA device unless ``main`` or ``run_on_split`` is given
+``device="cpu"``.  Where tensorboard or matplotlib is not installed, the
+event files or figures are left out (said once) and the rest is written;
+``--figures`` then stops before any training, naming the package.  Flags
+whose feature the port does not have yet stop the run with a one-line error
+that names its ROADMAP item.
 """
 
 import argparse
@@ -19,20 +27,17 @@ from vihds_tpu_torch.config import Config, Trainer
 from vihds_tpu_torch.data.datasets import build_datasets
 from vihds_tpu_torch.prob import ParamProgram, parse_parameters
 from vihds_tpu_torch.training import Training
-from vihds_tpu_torch.utils import resolve_device
+from vihds_tpu_torch.utils import FIGURE_PACKAGES, missing_packages, resolve_device
 from vihds_tpu_torch.vae import VAE
 from vihds_tpu_torch.xval import XvalMerge
 
 #: flag -> (is it set?, the title of the ROADMAP item that ports it)
 NOT_PORTED = {
-    "--dreg": (lambda a: a.dreg, "DReG"),
     "--mesh": (lambda a: a.mesh != "off", "parallel/ + parallel/multihost.py"),
     "--mesh_data": (lambda a: a.mesh_data is not None, "parallel/ + parallel/multihost.py"),
     "--mesh_sample": (lambda a: a.mesh_sample is not None, "parallel/ + parallel/multihost.py"),
     "--distributed": (lambda a: a.distributed is not None, "parallel/ + parallel/multihost.py"),
     "--vmap_folds": (lambda a: a.vmap_folds, "xfold.py"),
-    "--profile_dir": (lambda a: a.profile_dir is not None, "profiling.py"),
-    "--figures": (lambda a: getattr(a, "figures", False), "TensorBoard scalars and figures"),
 }
 
 
@@ -85,7 +90,11 @@ def create_parser(with_split: bool):
         "--resume_from", type=str, default=None,
         help="Path to a checkpoints directory to resume training from",
     )
-    parser.add_argument("--profile_dir", type=str, default=None, help="Not ported yet")
+    parser.add_argument(
+        "--profile_dir", type=str, default=None,
+        help="Write a torch.profiler trace of the first epoch chunk after the start epoch "
+        "into this directory",
+    )
     parser.add_argument("--distributed", type=str, default=None, help="Not ported yet")
     parser.add_argument("--mesh", type=str, default="off", choices=["off", "auto"],
                         help="Not ported yet")
@@ -98,7 +107,7 @@ def create_parser(with_split: bool):
             "--split", type=int, default=1, help="Specify split in 1:folds for cross-validation"
         )
         group.add_argument(
-            "--figures", action="store_true", default=False, help="Not ported yet"
+            "--figures", action="store_true", default=False, help="Create figures (default: False)"
         )
     parser.add_argument("--folds", type=int, default=4, help="Cross-validation folds")
     parser.add_argument("--vmap_folds", action="store_true", default=False, help="Not ported yet")
@@ -121,6 +130,21 @@ def check_ported(args):
     for flag, (is_set, item) in NOT_PORTED.items():
         if is_set(args):
             raise not_ported(flag, item)
+
+
+def check_figures(packages=FIGURE_PACKAGES):
+    """Stop, before any work, with a one-line error where one of the
+    ``packages`` that ``--figures`` needs cannot be imported."""
+    missing = missing_packages(packages)
+    if missing:
+        raise SystemExit("--figures needs the %s package, which is not installed" % missing[0])
+
+
+def write_figures(xval_merge):
+    """The xval figures as png / pdf and into the ``xval`` writer."""
+    xval_merge.make_writer()
+    xval_merge.make_images()
+    xval_merge.close_writer()
 
 
 def make_training(args, settings, split=None, device="cuda"):
@@ -164,11 +188,15 @@ def save_xval(args, settings, data_pair, val_results):
 def main(argv=None, device="cuda"):
     args = create_parser(True).parse_args(argv)
     check_ported(args)
+    if args.figures:
+        check_figures()
     device = resolve_device(device)
     settings = Config(args)
     settings.trainer = Trainer(args, add_timestamp=True)
     data_pair, val_results, _ = run_on_split(args, settings, device=device)
-    save_xval(args, settings, data_pair, val_results)
+    xval_merge = save_xval(args, settings, data_pair, val_results)
+    if xval_merge is not None and args.figures:
+        write_figures(xval_merge)
 
 
 if __name__ == "__main__":

@@ -15,8 +15,15 @@ takes the online log-likelihood route (``VAE.forward_logprob``).
 On ``merge: false`` data every file keeps its own grid: an epoch steps
 through the files in turn, each on its own batches, and the evaluation runs
 file by file and snaps its time-indexed outputs onto the shortest grid.
-TensorBoard summaries and figures are not ported yet (ROADMAP queue 1,
-"TensorBoard scalars and figures").
+With ``--dreg`` a step takes the doubly-reparameterised gradient
+(``dreg_value_and_grad``): one forward and two pulls through the same
+graph, through the fused kernels' backward twice where both reach them.
+Each evaluation writes TensorBoard scalars (``update_summaries``) to the
+writers ``train_<split>`` / ``valid_<split>`` and, every ``plot_epoch``,
+figures (``plotting_hooks``), rendered inline; where tensorboard or
+matplotlib is not installed they are left out, said once.  With
+``--profile_dir`` the first chunk of epochs after the start epoch is traced
+(``profiling.trace``).
 """
 
 import math
@@ -27,9 +34,10 @@ import numpy as np
 import torch
 
 from vihds_tpu_torch import checkpoint as ckpt
+from vihds_tpu_torch import plotting_hooks, profiling
 from vihds_tpu_torch.ops.logprob import log_prob_observations
 from vihds_tpu_torch.results import Results
-from vihds_tpu_torch.utils import resolve_device
+from vihds_tpu_torch.utils import resolve_device, summary_writer, variable_summaries
 from vihds_tpu_torch.utils.attrdict import AttrDict
 
 
@@ -287,6 +295,115 @@ def loss_fn(model, program, params, batch, mask, u):
     return -iwae_elbo(terms, mask)
 
 
+def dreg_value_and_grad(model, program, params, batch, mask, u):
+    """The doubly-reparameterised gradient estimator (DReG, Tucker et al.
+    2019) of the IWAE bound for one batch at the draws ``u``: the
+    counterpart of ``vihds_tpu.training.dreg_value_and_grad``.
+
+    One forward through the route ``loss_fn`` takes gives two log-weights:
+    ``log_w_std`` (log q differentiable) and ``log_w_dreg`` (log q with q's
+    parameters detached; theta stays differentiable, so only the
+    reparameterised sample path carries gradient).  Then two pulls through
+    the same graph, each restricted to its leaves:
+
+      * the decoder's leaves take the standard IWAE gradient: cotangent
+        w-tilde * coeff on ``log_w_std`` (skipped where the decoder has no
+        leaves);
+      * the encoder's leaves take the DReG gradient: cotangent
+        w-tilde^2 * coeff on ``log_w_dreg``.
+
+    Both pulls run a fused kernel's backward where they reach it, on the
+    one saved context.  Returns (-ELBO, {"enc": [...], "dec": [...]}), the
+    gradients of -ELBO in the order of ``param_leaves`` of each part."""
+    if model.ode_model.supports_fold():
+        out = model.forward_logprob(params, batch, u)
+        log_p_by_species = out.log_p_by_species
+    else:
+        out = model.forward(params, batch, u)
+        log_p_by_species = log_prob_observations(
+            out.x_predict, batch.observations, out.precisions, model.use_laplace
+        )
+    log_lik = log_p_by_species.sum(dim=2)
+    log_p = program.log_prob(prior_as_q(program, out.theta.device), out.theta)
+    log_q = program.log_prob(out.q, out.theta)
+    q_sg = AttrDict((k, v.detach()) for k, v in out.q.items())
+    log_q_sg = program.log_prob(q_sg, out.theta)
+    log_w_std = log_lik + log_p - log_q
+    log_w_dreg = log_lik + log_p - log_q_sg
+
+    B, n_iwae = log_w_std.shape
+    log_w = log_w_std.detach()
+    lse = torch.logsumexp(log_w, dim=1, keepdim=True)
+    elbo = masked_mean(lse[:, 0] - math.log(n_iwae), mask)
+    w_tilde = torch.exp(log_w - lse)  # [B, K]
+    if mask is None:
+        coeff = torch.full((B, 1), 1.0 / B, device=log_w.device)
+    else:
+        coeff = (mask / mask.sum())[:, None]
+    grads = {}
+    pulls = (("dec", log_w_std, w_tilde * coeff), ("enc", log_w_dreg, w_tilde ** 2 * coeff))
+    for i, (part, target, cotangent) in enumerate(pulls):
+        leaves = param_leaves(params[part])
+        if not leaves:
+            grads[part] = []
+            continue
+        got = torch.autograd.grad(target, leaves, grad_outputs=cotangent,
+                                  retain_graph=i == 0, allow_unused=True)
+        # d(-elbo)/dparams; a leaf the pull does not reach has a zero gradient
+        grads[part] = [-g if g is not None else torch.zeros_like(leaf)
+                       for g, leaf in zip(got, leaves)]
+    return -elbo.detach(), grads
+
+
+def _np_logsumexp(x, axis):
+    m = np.max(x, axis=axis, keepdims=True)
+    return (m + np.log(np.sum(np.exp(x - m), axis=axis, keepdims=True))).squeeze(axis)
+
+
+def update_summaries(writer, epoch, merged, program, settings):
+    """The TensorBoard scalars of one evaluated split (``merged``, the
+    numpy arrays of ``Training.evaluate`` with the full ``log_w`` terms):
+    q's moments per site, the unnormalised and normalised importance
+    weights of one series, and the ELBO and its parts (the JAX package's
+    ``update_summaries``, tag for tag)."""
+    if writer is None:
+        return
+    plot_histograms = settings.params.plot_histograms
+    prog = program
+    n_var = len(prog.sites.local) + len(prog.sites.global_cond)
+    for i, site in enumerate(prog.sites.ordered):
+        if bool(prog.is_constant[i]):
+            continue
+        if i < n_var:
+            variable_summaries(writer, epoch, merged.q_mu[:, i], site.name + ".mu", plot_histograms)
+            variable_summaries(
+                writer, epoch, merged.q_prec[:, i], site.name + ".prec", plot_histograms
+            )
+        else:
+            writer.add_scalar("%s/mu" % site.name, float(merged.q_mu[:, i].mean()), epoch)
+            writer.add_scalar("%s/prec" % site.name, float(merged.q_prec[:, i].mean()), epoch)
+    log_w = merged.log_w
+    K = log_w.shape[1]
+    ts = min(1, log_w.shape[0] - 1)
+    logw_row = log_w[ts, :]
+    lse_p_obs = _np_logsumexp(merged.log_p_obs, 1)
+    lse_p = _np_logsumexp(merged.log_p, 1)
+    lse_q = _np_logsumexp(merged.log_q, 1)
+    sp = np.stack(
+        [_np_logsumexp(merged.log_p_by_species[:, :, i], 1)
+         for i in range(merged.log_p_by_species.shape[2])], axis=-1,
+    )
+    normed_row = np.exp(logw_row - (merged.per_item_elbo[ts] + math.log(K)))
+    variable_summaries(writer, epoch, logw_row, "IWS_unn_log", plot_histograms)
+    variable_summaries(writer, epoch, normed_row, "IWS_normed", plot_histograms)
+    writer.add_scalar("ELBO/elbo", merged.elbo, epoch)
+    writer.add_scalar("ELBO/log_p", float(lse_p_obs.mean()), epoch)
+    for i, name in enumerate(settings.data.signals):
+        writer.add_scalar("ELBO/log_p_" + name, float(sp[:, i].mean()), epoch)
+    writer.add_scalar("ELBO/log_prior", float(lse_p.mean()), epoch)
+    writer.add_scalar("ELBO/loq_q", float(lse_q.mean()), epoch)
+
+
 class TrainingLogData:
     """Counters collected for logging during training."""
 
@@ -312,8 +429,9 @@ class Training:
     evaluates host batches for serving.
 
     ``args`` carries the training flags of ``run_xval`` (``epochs``,
-    ``test_epoch``, ``train_samples``, ``test_samples``, ``split``/``heldout``,
-    ``folds``, ``checkpoint_epoch``, ``resume_from``); serving needs none.
+    ``test_epoch``, ``plot_epoch``, ``train_samples``, ``test_samples``,
+    ``split``/``heldout``, ``folds``, ``checkpoint_epoch``, ``resume_from``,
+    ``dreg``, ``profile_dir``); serving needs none.
     ``run`` trains on ``device`` ("cuda" unless the caller asks for the
     CPU)."""
 
@@ -348,9 +466,13 @@ class Training:
             # one best-validation cache per experiment and fold
             self.cache_dir = os.path.join(trainer.tb_log_dir, ".vihds_cache_%s" % held_out)
             self.ckpt_dir = os.path.join(trainer.tb_log_dir, "checkpoints_%s" % held_out)
+            # the TensorBoard writers' directories
+            self.train_path = os.path.join(trainer.tb_log_dir, "train_%s" % held_out)
+            self.valid_path = os.path.join(trainer.tb_log_dir, "valid_%s" % held_out)
         else:
             self.cache_dir = ".vihds_cache"
             self.ckpt_dir = None
+            self.train_path = self.valid_path = None
         self.empty_cache = True
         #: milliseconds of each optimizer step of the last ``run``
         self.step_ms = []
@@ -432,6 +554,7 @@ class Training:
         [n_steps] on the device, unread, and a time mark after each step
         (``elapsed_ms`` reads them once the device has caught up)."""
         K = self.args.train_samples
+        dreg = getattr(self.args, "dreg", False)
         n_steps = stacks["idx"].shape[0]
         cuda = times.device.type == "cuda"
         marks = [self._mark(cuda)]
@@ -441,9 +564,16 @@ class Training:
             batch = AttrDict((k, v.index_select(0, idx)) for k, v in data.items())
             batch["times"] = times
             u = self.model.sample_u(generator, idx.shape[0], K, times.device)
-            loss = loss_fn(self.model, self.program, params, batch, stacks["mask"][s], u)
             opt.zero_grad()
-            loss.backward()
+            if dreg:
+                loss, grads = dreg_value_and_grad(self.model, self.program, params, batch,
+                                                  stacks["mask"][s], u)
+                for part, part_grads in grads.items():
+                    for leaf, g in zip(param_leaves(params[part]), part_grads):
+                        leaf.grad = g
+            else:
+                loss = loss_fn(self.model, self.program, params, batch, stacks["mask"][s], u)
+                loss.backward()
             opt.step()
             elbos.append(-loss.detach())
             marks.append(self._mark(cuda))
@@ -459,21 +589,29 @@ class Training:
         return time.perf_counter()
 
 
-    def _eval_boundary(self, params, epoch, log_data, device):
+    def _eval_boundary(self, params, epoch, log_data, device, writers=(None, None)):
         """The big-K evaluation at a ``test_epoch`` boundary: the full train
         split at K=``train_samples`` and the validation split at
         K=``test_samples``; a new best validation ELBO is dumped to the
-        cache.  Prints the JAX package's ``epoch N | train (...) | val (...)``
-        line."""
+        cache.  Each split's scalars go to its writer of ``writers`` (train,
+        valid), and at a ``plot_epoch`` its figures.  Prints the JAX
+        package's ``epoch N | train (...) | val (...)`` line."""
         args = self.args
+        train_writer, valid_writer = writers
         t0 = time.time()
         print("epoch %4d" % epoch, end="", flush=True)
         log_data.n_test += 1
+        plot_epoch = getattr(args, "plot_epoch", 0) or 0
+        plot = plot_epoch > 0 and epoch % plot_epoch == 0
+        # the weighted-theta figure reads the train split's theta draws
+        want_theta_plot = bool(getattr(self.settings.params, "theta_columns", None)) and plot
+        dynamic = self.model.ode_model.precisions.dynamic
         seed = self.settings.seed or 0
         gen = torch.Generator(device=device).manual_seed((seed * 1_000_003 + epoch) % (2 ** 62))
         train_merged = self._evaluate_split(
-            params, "train", args.train_samples, gen, device, with_theta=False
+            params, "train", args.train_samples, gen, device, with_theta=want_theta_plot
         )
+        update_summaries(train_writer, epoch, train_merged, self.program, self.settings)
         print(
             " | train (iwae-elbo = %0.4f, time = %0.2f, total = %0.2f)"
             % (train_merged.elbo, log_data.total_train_time / epoch, log_data.total_train_time),
@@ -483,6 +621,7 @@ class Training:
         valid_merged = self._evaluate_split(
             params, "valid", args.test_samples, gen, device, with_theta=True
         )
+        update_summaries(valid_writer, epoch, valid_merged, self.program, self.settings)
         if valid_merged.elbo > log_data.max_val_elbo:
             log_data.max_val_elbo = valid_merged.elbo
             make_results(self.model, self.program, valid_merged).dump(self.cache_dir)
@@ -495,6 +634,19 @@ class Training:
             % (valid_merged.elbo, log_data.total_test_time / log_data.n_test,
                log_data.total_test_time)
         )
+        if plot:
+            # rendered after the epoch's line, so what the hooks say stands
+            # on lines of its own; their time counts as test time
+            t0 = time.time()
+            for writer, dataset, merged in ((train_writer, self.train_data, train_merged),
+                                            (valid_writer, self.valid_data, valid_merged)):
+                if writer is not None:
+                    plotting_hooks.eval_plots(self, writer, epoch, dataset,
+                                              make_results(self.model, self.program, merged),
+                                              dynamic=dynamic)
+            if want_theta_plot:
+                plotting_hooks.weighted_theta_plot(self, valid_writer, epoch, train_merged)
+            log_data.total_test_time += time.time() - t0
 
     def init_state(self, device):
         """Fresh params (from a CPU generator seeded with the spec seed), the
@@ -510,9 +662,22 @@ class Training:
     def run(self):
         """Train for ``args.epochs`` epochs, evaluating every
         ``args.test_epoch``; returns the best-validation ``Results`` (with
-        ``elbo_list``), or None when no evaluation finished."""
-        args = self.args
+        ``elbo_list``), or None when no evaluation finished.  The writers
+        ``train_<split>`` / ``valid_<split>`` are open for the run."""
         device = resolve_device(self.device)
+        writers = (None, None)
+        if self.train_path is not None:
+            writers = (summary_writer(self.train_path), summary_writer(self.valid_path))
+        try:
+            return self._run(device, writers)
+        finally:
+            for writer in writers:
+                if writer is not None:
+                    writer.close()
+
+    def _run(self, device, writers):
+        """``run`` with its writers open."""
+        args = self.args
         seed = self.settings.seed or 0
         params, opt, generator = self.init_state(device)
 
@@ -566,25 +731,33 @@ class Training:
                 cands.append(((e - 1) // ckpt_every + 1) * ckpt_every)
             return min(cands)
 
+        profile_dir = getattr(args, "profile_dir", None)
+        traced = False
         epoch = start_epoch
         while epoch < args.epochs + 1:
             t0 = time.time()
             end_epoch = next_boundary(epoch)
-            if self.multi:
-                # one pass over the files an epoch, each on its own grid
-                runs = []
-                for e in range(epoch, end_epoch + 1):
-                    for host_stacks, (data_f, times_f) in zip(
-                            file_epoch_stacks(seed, e, sizes, self.n_batch), file_data):
-                        runs.append(self.train_epochs(params, opt, generator,
-                                                      stacks_to(host_stacks, device), data_f,
-                                                      times_f))
-            else:
-                host_stacks = build_epoch_stacks(
-                    seed, epoch, end_epoch, self.n_batch, n_batches, n_train
-                )
-                runs = [self.train_epochs(params, opt, generator, stacks_to(host_stacks, device),
-                                          train_dev, times)]
+            # one trace: the first chunk after the start epoch (the first
+            # chunk carries the kernels' first launches)
+            do_trace = bool(profile_dir) and not traced and epoch > start_epoch
+            with profiling.trace(profile_dir if do_trace else None,
+                                 "epochs_%d-%d" % (epoch, end_epoch)):
+                if self.multi:
+                    # one pass over the files an epoch, each on its own grid
+                    runs = []
+                    for e in range(epoch, end_epoch + 1):
+                        for host_stacks, (data_f, times_f) in zip(
+                                file_epoch_stacks(seed, e, sizes, self.n_batch), file_data):
+                            runs.append(self.train_epochs(params, opt, generator,
+                                                          stacks_to(host_stacks, device), data_f,
+                                                          times_f))
+                else:
+                    host_stacks = build_epoch_stacks(
+                        seed, epoch, end_epoch, self.n_batch, n_batches, n_train
+                    )
+                    runs = [self.train_epochs(params, opt, generator,
+                                              stacks_to(host_stacks, device), train_dev, times)]
+            traced = traced or do_trace
             elbos = torch.cat([r[0] for r in runs])
             finite = bool(torch.isfinite(elbos).all())  # the chunk's one read
             for _, marks in runs:
@@ -595,7 +768,7 @@ class Training:
                 break
             epoch = end_epoch
             if epoch % args.test_epoch == 0:
-                self._eval_boundary(params, epoch, log_data, device)
+                self._eval_boundary(params, epoch, log_data, device, writers)
             if ckpt_every and self.ckpt_dir and epoch % ckpt_every == 0:
                 ckpt.save(self.ckpt_dir, epoch, {
                     "params": params,

@@ -1,5 +1,9 @@
-"""Small shared utilities: attr-dicts, spec lookups and device selection."""
+"""Small shared utilities: attr-dicts, spec lookups, device selection and
+the optional TensorBoard / figure outputs."""
 
+import importlib
+
+import numpy as np
 import torch
 
 from vihds_tpu_torch.utils.attrdict import AttrDict, attrdictify  # noqa: F401
@@ -34,3 +38,58 @@ def resolve_device(device="cuda"):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
     return dev
+
+
+#: the lines ``note_once`` has printed in this process
+_NOTED = set()
+
+
+def note_once(line):
+    """Print ``line`` the first time it comes in this process."""
+    if line not in _NOTED:
+        _NOTED.add(line)
+        print(line, flush=True)
+
+
+def missing_packages(names):
+    """The packages of ``names`` that cannot be imported, in order."""
+    missing = []
+    for name in names:
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            missing.append(name)
+    return missing
+
+
+#: what the figures need: matplotlib and seaborn render them, tensorboard
+#: carries them into the event files
+FIGURE_PACKAGES = ("matplotlib", "seaborn", "tensorboard")
+
+
+def summary_writer(path):
+    """A ``torch.utils.tensorboard.SummaryWriter`` writing under ``path``,
+    or None where the tensorboard package cannot be imported (said once per
+    process).  The summaries are an optional output: a run without them
+    writes its ``xval_*`` set, cache and checkpoints all the same."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        note_once("TensorBoard summaries off: the tensorboard package is not installed")
+        return None
+    return SummaryWriter(path)
+
+
+def variable_summaries(writer, epoch, var, name, plot_histograms=False):
+    """TensorBoard mean / stddev / max / min scalars (and, with
+    ``plot_histograms``, a histogram) of the numpy array ``var``."""
+    if writer is None:
+        return
+    var = np.asarray(var)
+    mean = var.mean()
+    writer.add_scalar(name + "/mean", mean, epoch)
+    writer.add_scalar(name + "/stddev", float(np.sqrt(((var - mean) ** 2).mean())), epoch)
+    writer.add_scalar(name + "/max", var.max(), epoch)
+    writer.add_scalar(name + "/min", var.min(), epoch)
+    if plot_histograms:
+        writer.add_histogram(name + "/histogram", var, epoch)

@@ -1,15 +1,19 @@
-"""Cross-validation merge: accumulate per-fold results and save the xval
-artifact set.
+"""Cross-validation merge: accumulate per-fold results, save the xval
+artifact set and render its figures.
 
 The same ``xval_*.npy`` / ``.txt`` names and contents as ``vihds_tpu.xval``
 (they are the data contract between folds, the figures and the inference
-graph).  The figures (``make_images``) are not ported yet (ROADMAP queue 1,
-"TensorBoard scalars and figures").
+graph), and the same figures: ``make_images`` writes the six families as
+png and pdf beside the artifacts and into the ``xval`` TensorBoard writer
+(``make_writer``).  The figures need matplotlib, seaborn and tensorboard
+(``utils.FIGURE_PACKAGES``), imported only when they are drawn.
 """
 
 import os
 
 import numpy as np
+
+from vihds_tpu_torch.utils import summary_writer
 
 
 def fold_object_array(items):
@@ -42,6 +46,7 @@ class XvalMerge:
         self.ids = None
         self.species_names = None
         self.times = None
+        self.xval_writer = None
         self.settings = settings.data
         self.trainer = settings.trainer
 
@@ -157,3 +162,97 @@ class XvalMerge:
         """Write the resume marker ``completed.txt``."""
         with open(os.path.join(self.trainer.tb_log_dir, "completed.txt"), "w") as f:
             f.write(node_name)
+
+    def make_writer(self, location=None):
+        """Open the ``xval`` TensorBoard writer under ``location`` (the
+        results directory unless given); None where tensorboard is not
+        installed."""
+        if location is None:
+            location = self.trainer.tb_log_dir
+        self.xval_writer = summary_writer(os.path.join(location, "xval"))
+
+    def close_writer(self):
+        if self.xval_writer is not None:
+            self.xval_writer.close()
+
+    def save_figs(self, f, tag):
+        """Write figure ``f`` as ``<tag>.png`` and ``<tag>.pdf`` in the
+        results directory."""
+        f.savefig(os.path.join(self.trainer.tb_log_dir, "%s.png" % tag), bbox_inches="tight")
+        f.savefig(os.path.join(self.trainer.tb_log_dir, "%s.pdf" % tag), bbox_inches="tight")
+
+    def make_images(self):
+        """Render the six xval figure families (the prediction summary, the
+        treatments where conditions are separate, the species, the global
+        and variable parameters, and per device its summary and its
+        individual fits): each as png and pdf, and into the ``xval``
+        writer."""
+        import matplotlib.pyplot as plt
+
+        from vihds_tpu_torch import plotting
+
+        device_ids = list(range(len(self.settings.devices)))
+
+        def emit(f, name, tag):
+            self.save_figs(f, name)
+            if self.xval_writer is not None:
+                self.xval_writer.add_figure(tag, f, self.epoch)
+            plt.close(f)
+
+        print("Making summary figure")
+        f_summary = plotting.plot_prediction_summary(
+            self.settings.devices,
+            self.species_names,
+            self.times,
+            self.X_obs,
+            self.iw_predict_mu,
+            self.iw_predict_std,
+            self.devices,
+            "-",
+        )
+        emit(f_summary, "xval_fit", "Summary")
+
+        if self.settings.separate_conditions is True:
+            print("Making treatment figure")
+            emit(plotting.xval_treatments(self, device_ids), "xval_treatments", "Treatment")
+
+        print("Making species figure")
+        f_species = plotting.species_summary(
+            self.species_names,
+            self.treatments,
+            self.devices,
+            self.times,
+            self.iw_states,
+            device_ids,
+            self.settings,
+        )
+        emit(f_species, "xval_species", "Species")
+
+        print("Making global parameters figure")
+        f_gparas = plotting.xval_global_parameters(self)
+        if f_gparas is not None:
+            emit(f_gparas, "xval_global_parameters", "Parameters/Globals")
+
+        print("Making variable parameters figure")
+        f_vparas = plotting.xval_variable_parameters(self)
+        if f_vparas is not None:
+            emit(f_vparas, "xval_variable_parameters", "Parameters/Variable")
+
+        print("Making summary device figures")
+        for u in device_ids:
+            device = self.settings.devices[u]
+            f_summary_i = plotting.xval_fit_summary(
+                self, u, separatedInputs=self.settings.separate_conditions
+            )
+            emit(f_summary_i, "xval_summary_%s" % device, "Device_Summary/" + device)
+
+        print("Making individual device figures")
+        for u in device_ids:
+            device = self.settings.devices[u]
+            if self.settings.separate_conditions is True:
+                f_indiv_i = plotting.xval_individual_2treatments(self, u)
+            else:
+                f_indiv_i = plotting.xval_individual(self, u)
+            emit(f_indiv_i, "xval_individual_%s" % device, "Device_Individual/" + device)
+        if self.xval_writer is not None:
+            self.xval_writer.flush()

@@ -111,7 +111,28 @@ Phases, each printing lines of its own:
    packages import, ``--figures`` (the event files and the xval figures);
    where one does not, the run says so once and still writes its ``xval_*``
    set, and ``--figures`` stops before training, naming the package;
-19. the total time and the ``kernels`` JSON line (the ``dr`` rows with the
+19. path (a): ``dr_constant_icml`` under ``solver: dopri5`` (the adaptive
+   forward, ``ops/dopri.py``, and the continuous adjoint's backward,
+   ``ops/adjoint.py``; no kernel) through ``run_on_split``, one epoch of 7
+   steps at B=36 x K=200 evaluated at K=200 / 1000, with its step times;
+   the steps one forward takes per interval on a training step's operands,
+   accepted and rejected, and whether an interval hit its cap (the model's
+   own right-hand side under a counting wrapper); one ``predict`` request at
+   K=1000 on the trained params; and one epoch with ``--dreg``; 19b, one
+   training step on 4 series x 50 samples: the dopri5 adjoint's gradient
+   against the fold route's rk4 gradient, and ``adjoint_solver: true``
+   midpoint against the fold route's midpoint, each leaf within 5e-2 of its
+   largest entry;
+20. path (c): ``run_inference_graph`` on the demo graph (auto -> prpr -> dr,
+   the ``*_constant_precisions`` models at the graph's own samples) with
+   epochs cut to 2 and 2 folds a node, its ``dr`` node under ``solver:
+   pallas_midpoint`` (the ``dr_prec`` kernels' launches counted): each
+   downstream ``propagatedParams.txt`` held against mu and sigma recomputed
+   from its upstream's ``xval_q_*`` files, then a second run that skips all
+   three nodes; 20b, ``--jobs 2`` on two same-stage ``dr_constant_icml``
+   nodes (kernel route, 1 epoch, 2 folds) in spawn workers on the one card;
+21. the total time, one line with the readings of phases 19-20b, and the
+   ``kernels`` JSON line (the ``dr`` rows with the
    launches of phases 14-15 and the times of 14c; the ``dr``, ``dr_prec``
    and ``blackbox`` backward rows with the DReG pulls' launches, times and
    subnormal shares of 17b-17c), then the last line ``{"ok": true,
@@ -309,6 +330,11 @@ ELBO_ATOL = 0.5
 # order, and each gradient leaf (or theta's gradient in phases 8d, 10d) is
 # compared by the norm of its difference
 LOSS_ATOL, GRAD_RTOL = 1.0, 1e-3
+# the continuous adjoint's gradient against the fold route's (phase 19b):
+# each leaf within this share of its largest entry (the adjoint's backward
+# re-integrates on RK4 substeps; tests/test_solvers.py holds its y0
+# gradient at 5e-2 against backprop through rk4)
+ADJOINT_RTOL = 5e-2
 
 
 def fail(msg):
@@ -1472,9 +1498,10 @@ def train_nets(device, spec, phase, kind, nets=("precisions",)):
     return launches, step_ms, training
 
 
-def one_step(device, solver, rows, K, seed, spec=SPEC, dreg=False):
+def one_step(device, solver, rows, K, seed, spec=SPEC, dreg=False, adjoint=False):
     """(Training, params, optimizer, step closure) for one training step of
-    ``spec``'s model (dr_constant_icml unless named) under ``solver`` on the
+    ``spec``'s model (dr_constant_icml unless named) under ``solver`` (with
+    ``adjoint_solver: true`` where ``adjoint``) on the
     train split's ``rows`` at K draws, with seeded params and draws ``u``,
     set up as run_on_split sets it up; with ``dreg`` the step takes the DReG
     gradient (``training.dreg_value_and_grad``), as ``--dreg`` does.  On
@@ -1488,6 +1515,7 @@ def one_step(device, solver, rows, K, seed, spec=SPEC, dreg=False):
                                           param_leaves)
 
     args, settings = training_settings(solver, spec)
+    settings.params.adjoint_solver = adjoint
     data, training = run_xval.make_training(args, settings, device=device)
     params, opt, _ = training.init_state(device)
     host = training.train_groups[0][1] if training.multi else data.train.batch()
@@ -2184,11 +2212,324 @@ def phase_figures(device):
 
 
 
+ADAPTIVE_SOLVER = "dopri5"
+ADAPTIVE_FLAGS = ["--experiment", "chip_smoke_dopri5", "--epochs", "1", "--test_epoch", "1",
+                  "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed",
+                  str(SEED)]
+
+
+class CountingRhs:
+    """A right-hand side that records the time of each of its calls (one
+    device sync a call: this counting run is not timed)."""
+
+    def __init__(self, rhs):
+        self.rhs, self.ts = rhs, []
+
+    def __call__(self, t, y):
+        self.ts.append(float(t))
+        return self.rhs(t, y)
+
+
+def adaptive_step_counts(ts, times, stages, cap):
+    """Per interval of the grid ``times``: (attempted, accepted) steps of
+    one adaptive forward whose right-hand side was called at ``ts`` (each
+    step calls it ``stages`` times, the first at the step's start).  A step
+    is accepted where the next step of its interval starts later, or where
+    it ends its interval below the cap; the last step of an interval that
+    hit the cap counts as rejected."""
+    import numpy as np
+
+    starts = np.asarray(ts[::stages])
+    interval = np.searchsorted(np.asarray(times), starts, side="right") - 1
+    attempted = np.bincount(interval, minlength=len(times) - 1)
+    accepted = np.zeros_like(attempted)
+    for j, i in enumerate(interval):
+        last = j + 1 == len(starts) or interval[j + 1] != i
+        accepted[i] += (starts[j + 1] > starts[j]) if not last else attempted[i] < cap
+    return attempted, accepted
+
+
+def phase_adaptive(device):
+    """Phase 19: path (a), ``dr_constant_icml`` under ``solver: dopri5``
+    (the continuous adjoint's backward, no kernel): ``run_on_split`` for one
+    epoch of 7 steps at B=36 x K=200, evaluated at K=200 (train split) and
+    K=1000 (valid split), the xval artifacts; the steps one forward takes
+    per interval on a training step's operands (``dopri.integrate_adaptive``
+    on the model's own right-hand side, its calls counted); one ``predict``
+    request at K=1000 on the trained params; and one epoch with ``--dreg``."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from vihds_tpu_torch import run_xval
+    from vihds_tpu_torch.config import Trainer
+    from vihds_tpu_torch.ops import dopri
+    from vihds_tpu_torch.predict import create_parser, predict
+    from vihds_tpu_torch.training import batch_tensors
+
+    out = {}
+    for dreg in (False, True):
+        args, settings = training_settings(ADAPTIVE_SOLVER, SPEC,
+                                           ADAPTIVE_FLAGS + (["--dreg"] if dreg else []))
+        with tempfile.TemporaryDirectory() as results_dir:
+            os.environ["INFERENCE_RESULTS_DIR"] = results_dir
+            settings.trainer = Trainer(args, add_timestamp=True)
+            t0 = time.perf_counter()
+            data, results, training = run_xval.run_on_split(args, settings, device=device)
+            wall = time.perf_counter() - t0
+            if results is None:
+                fail("phase 19: training left no best-validation results")
+            run_xval.save_xval(args, settings, data, results)
+            names = os.listdir(settings.trainer.tb_log_dir)
+        del os.environ["INFERENCE_RESULTS_DIR"]
+        log = training.log_data
+        elbos = log.training_elbo_list + log.validation_elbo_list + list(results.elbo_list)
+        n_xval = len([n for n in names if n.startswith("xval_")])
+        if not elbos or not all(math.isfinite(e) for e in elbos) or n_xval != 16:
+            fail("phase 19: ELBOs %s, %d xval_* files" % (elbos, n_xval))
+        step_ms = statistics.median(training.step_ms)
+        print("phase 19: %s, split 1 of 4, solver %s%s, B=%d, K=%d, %d epoch(s) of %d steps in "
+              "%.2f s wall (evaluation at K=%d / %d included); median step %.1f ms (steps: %s "
+              "ms); ELBOs %s; %d xval_* files"
+              % ("dr_constant_icml", settings.params.solver, " --dreg" if dreg else "",
+                 settings.params.n_batch, args.train_samples, args.epochs,
+                 training.steps_per_epoch, wall, args.train_samples, args.test_samples, step_ms,
+                 ", ".join("%.0f" % t for t in training.step_ms),
+                 ", ".join("%.1f" % e for e in elbos), n_xval))
+        out["dreg_step_ms" if dreg else "step_ms"] = step_ms
+        out["dreg_wall" if dreg else "wall"] = wall
+        if dreg:
+            continue
+
+        # the steps of one forward, on the operands of a training step
+        model, program, params = training.model, training.program, training.final_params
+        host = data.train.batch()
+        B = settings.params.n_batch
+        times = torch.as_tensor(host.times, dtype=torch.float32, device=device)
+        batch = batch_tensors(host, np.arange(B), times, device)
+        gen = torch.Generator(device=device).manual_seed(SEED + 7)
+        with torch.no_grad():
+            q = model.encoder(params["enc"], batch)
+            u = model.sample_u(gen, B, K_TRAIN, device)
+            th = program.theta_dict(program.clip(program.sample(q, u)))
+            ode = model.ode_model
+            th = ode.condition_theta(params["dec"], th, batch.dev_1hot)
+            y0 = ode.initialize_state(params["dec"], th, batch.inputs, B, K_TRAIN)
+            rhs = CountingRhs(ode.make_rhs(params["dec"], th, batch.inputs, batch.dev_1hot))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dopri.integrate_adaptive(rhs, y0, times, method=ADAPTIVE_SOLVER)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+        cap = dopri.max_steps_default(ADAPTIVE_SOLVER)
+        attempted, accepted = adaptive_step_counts(rhs.ts, host.times, 7, cap)
+        rejected = attempted - accepted
+        out.update(steps_total=int(attempted.sum()), steps_max=int(attempted.max()),
+                   accepted_total=int(accepted.sum()), rejected_total=int(rejected.sum()),
+                   rejected_max=int(rejected.max()), capped=int((attempted >= cap).sum()),
+                   rhs_calls=len(rhs.ts), counted_forward_s=fwd_s)
+        print("phase 19: one dopri5 forward on a training step's operands (B=%d x K=%d, T=%d): "
+              "%d steps attempted (%d accepted, %d rejected) over %d intervals, per interval "
+              "max %d (max rejected %d); %d right-hand side calls; intervals at the cap of %d: "
+              "%d; %.3f s with a sync per call"
+              % (B, K_TRAIN, len(host.times), out["steps_total"], out["accepted_total"],
+                 out["rejected_total"], len(attempted), out["steps_max"], out["rejected_max"],
+                 len(rhs.ts), cap, out["capped"], fwd_s))
+        if out["capped"]:
+            fail("phase 19: %d interval(s) hit the step cap" % out["capped"])
+
+        # one serving request at K=1000 on the trained params
+        req = create_parser().parse_args([SPEC, "--data", REQUESTS[0], "--test_samples",
+                                          str(K_SERVE), "--seed", str(SEED)])
+        t0 = time.perf_counter()
+        served = predict(req, settings, params=params, device=device)
+        torch.cuda.synchronize()
+        out["request_s"] = time.perf_counter() - t0
+        n = check_request(served, program.n_theta, iw_state_count(ode))
+        print("phase 19: a predict request under %s, %s, %d series at K=%d: wall %.3f s, "
+              "elbo %.3f" % (model.ode_model._solver_for(True), REQUESTS[0],
+                             n, K_SERVE, out["request_s"], served.merged.elbo))
+    return out
+
+
+def phase_adjoint_check(device):
+    """Phase 19b: one training step on 4 series x 50 samples, with the same
+    params and u: the dopri5 adjoint's gradient against the fold route's rk4
+    gradient, and ``adjoint_solver: true`` midpoint against the fold route's
+    midpoint, each leaf within ADJOINT_RTOL of its largest entry."""
+    import torch
+
+    from vihds_tpu_torch.training import param_leaves
+
+    out = {}
+    for solver, adjoint, ref in ((ADAPTIVE_SOLVER, False, "rk4"), ("midpoint", True, "midpoint")):
+        res = {}
+        for name, s, adj in (("adjoint", solver, adjoint), ("fold", ref, False)):
+            _, params, _, step = one_step(device, s, range(4), 50, SEED + 5, adjoint=adj)
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            res[name] = (float(loss.detach()), time.perf_counter() - t0,
+                         [leaf.grad.detach().clone() for leaf in param_leaves(params)])
+        (la, wa, ga), (lf, wf, gf) = res["adjoint"], res["fold"]
+        worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                    for a, b in zip(ga, gf))
+        label = "%s%s" % (solver, " adjoint_solver" if adjoint else "")
+        print("phase 19b: one training step of dr_constant_icml, 4 series x 50 samples: %s "
+              "loss %.4f vs fold route %s %.4f; gradients max leaf |diff| / leaf max %.3e "
+              "(tol %g); step wall %.3f s (adjoint) vs %.3f s (fold route)"
+              % (label, la, ref, lf, worst, ADJOINT_RTOL, wa, wf))
+        if not worst <= ADJOINT_RTOL:
+            fail("phase 19b: the %s adjoint's gradient disagrees with the fold route's %s"
+                 % (label, ref))
+        out[label] = dict(worst=worst, wall=wa, fold_wall=wf)
+    return out
+
+
+def graph_doc(directory, spec_dr):
+    """The demo graph with ``epochs`` / ``test_epoch`` cut to 2 and ``folds:
+    2`` on each node, its specs as absolute paths and the ``dr`` node's
+    spec replaced by ``spec_dr``; returns the YAML's path."""
+    import yaml
+
+    with open(os.path.join(HERE, "inferencegraphs", "demo_graph.yaml")) as f:
+        doc = yaml.safe_load(f)
+    for name, node in doc["nodes"].items():
+        node.update(epochs=2, test_epoch=2, folds=2)
+        node["spec"] = spec_dr if name == "dr" else os.path.join(HERE, node["spec"])
+    path = os.path.join(directory, "demo_graph.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f, sort_keys=False)
+    return path
+
+
+def check_propagation(result, graph_path):
+    """Each downstream node's propagatedParams.txt against mu and sigma
+    recomputed from its upstream's xval_q_* files; returns (propagated,
+    skipped) edge counts."""
+    import numpy as np
+
+    from vihds_tpu_torch import inference_graph as ig
+
+    graph = ig.create_inference_graph(graph_path, "check")
+    propagated = skipped = 0
+    for name, node in graph.items():
+        if not node.incoming:
+            continue
+        with open(os.path.join(result[name], "propagatedParams.txt")) as f:
+            prop = f.read()
+        for edge in node.incoming:
+            up = result[edge.source.name]
+            values = np.load(os.path.join(up, "xval_q_values.npy"), allow_pickle=True)
+            with open(os.path.join(up, "xval_q_names.txt")) as f:
+                names = [line.rstrip() for line in f]
+            if edge.sourceParam + ".mu" not in names:
+                skipped += 1
+                continue
+            mu = float(np.mean(values[names.index(edge.sourceParam + ".mu")]))
+            precs = values[names.index(edge.sourceParam + ".prec")]
+            sigma = 1.0 / np.sqrt(float(len(precs) / sum(1.0 / x for x in precs)))
+            want = "%r: AttrDict({'distribution': 'LogNormal', 'mu': %r, 'sigma': %r})" % (
+                edge.targetParam, mu, sigma)
+            if want not in prop:
+                fail("phase 20: %s's propagatedParams.txt lacks %s" % (name, want))
+            propagated += 1
+    return propagated, skipped
+
+
+def phase_graph(device):
+    """Phase 20: path (c), the demo inference graph (auto -> prpr -> dr, the
+    ``*_constant_precisions`` models at the graph's own K=50 / 100) with
+    epochs cut to 2 and 2 folds a node, its ``dr`` node under ``solver:
+    pallas_midpoint`` (the ``dr_prec`` kernels, launches counted): each
+    downstream prior held against its upstream's files, then a second run
+    that skips all three nodes and launches nothing."""
+    import io
+
+    from vihds_tpu_torch import run_inference_graph as rig
+
+    with tempfile.TemporaryDirectory() as directory:
+        os.environ["INFERENCE_RESULTS_DIR"] = os.path.join(directory, "results")
+        spec_dr = write_spec(SPEC_PREC, directory, solver=TRAIN_SOLVER)
+        path = graph_doc(directory, spec_dr)
+        runs = []
+        for _ in range(2):
+            for k in ("dr_prec_fwd", "dr_prec_bwd"):
+                _counter(k).launches = 0
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                result = rig.main([path, "--graph", "demo"], device=device)
+            wall = time.perf_counter() - t0
+            launches = {k: _counter(k).launches for k in ("dr_prec_fwd", "dr_prec_bwd")}
+            marks = {n: os.path.getmtime(os.path.join(d, "completed.txt"))
+                     for n, d in result.items()}
+            runs.append((result, wall, launches, text.getvalue(), marks))
+        propagated, skipped = check_propagation(runs[0][0], path)
+    del os.environ["INFERENCE_RESULTS_DIR"]
+    (result, wall, launches, log, marks), (again, wall2, launches2, log2, marks2) = runs
+    warnings = [line for line in log.splitlines() if line.startswith("WARNING")]
+    targets = [line for line in log.splitlines() if line.startswith("Target parameter")]
+    print("phase 20: the demo graph, 3 nodes x 2 folds x 2 epochs, dr under %s: %.1f s wall; "
+          "nodes %s; %d edges propagated (each prior equal to mu, 1/sqrt(pooled prec) "
+          "recomputed from its upstream's files), %d skipped (%s); dr_prec_fwd launches %d, "
+          "dr_prec_bwd launches %d"
+          % (TRAIN_SOLVER, wall, sorted(n for n in result), propagated, skipped,
+             "; ".join(warnings) or "none", launches["dr_prec_fwd"], launches["dr_prec_bwd"]))
+    for line in targets:
+        print("  " + line)
+    skipped_nodes = sorted(n for n in result if "Node %s already completed." % n in log2)
+    print("phase 20: second run in %.1f s: skipped %s; launches %s; completed.txt untouched: %s"
+          % (wall2, skipped_nodes, launches2, marks2 == marks))
+    if sorted(result) != ["auto", "dr", "prpr"] or not propagated:
+        fail("phase 20: nodes %s, %d edges propagated" % (sorted(result), propagated))
+    if min(launches.values()) == 0:
+        fail("phase 20: the dr node did not launch the dr_prec kernels: %s" % launches)
+    if again != result or skipped_nodes != sorted(result) or any(launches2.values()) or \
+            marks2 != marks:
+        fail("phase 20: the second run did not skip every node")
+    return dict(wall=wall, launches=launches, propagated=propagated, skipped=skipped)
+
+
+def phase_graph_jobs(device):
+    """Phase 20b: ``--jobs 2`` on two same-stage ``dr_constant_icml`` nodes
+    (the kernel route, 1 epoch, 2 folds, K=200 / 1000) in spawn workers on
+    the one card: both complete."""
+    import yaml
+
+    from vihds_tpu_torch import run_inference_graph as rig
+
+    with tempfile.TemporaryDirectory() as directory:
+        os.environ["INFERENCE_RESULTS_DIR"] = os.path.join(directory, "results")
+        spec = write_spec(SPEC, directory, solver=TRAIN_SOLVER)
+        node = dict(spec=spec, seed=0, epochs=1, test_epoch=1, plot_epoch=0, folds=2,
+                    train_samples=K_TRAIN, test_samples=K_SERVE)
+        doc = {"nodes": {"left": dict(node, experiment="left"),
+                         "right": dict(node, experiment="right", seed=1)}, "edges": []}
+        path = os.path.join(directory, "jobs.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(doc, f)
+        t0 = time.perf_counter()
+        result = rig.main([path, "--graph", "jobs", "--jobs", "2"], device=device)
+        wall = time.perf_counter() - t0
+        done = {n: open(os.path.join(d, "completed.txt")).read() for n, d in result.items()}
+        n_xval = {n: len([x for x in os.listdir(d) if x.startswith("xval_")
+                          and x.endswith((".npy", ".txt"))]) for n, d in result.items()}
+    del os.environ["INFERENCE_RESULTS_DIR"]
+    print("phase 20b: --jobs 2, two dr_constant_icml nodes (%s, 1 epoch, 2 folds) in spawn "
+          "workers: %.1f s wall; completed %s; xval_* files %s"
+          % (TRAIN_SOLVER, wall, done, n_xval))
+    if done != {"left": "jobs/left", "right": "jobs/right"} or set(n_xval.values()) != {16}:
+        fail("phase 20b: the workers left %s, %s" % (done, n_xval))
+    return dict(wall=wall)
+
+
 def kernel_row(kind, direction, rows, launches, **extra):
     """One entry of the ``kernels`` line: the midpoint readings of phase 3
     (the forward's at the serving chunk), the launches on the main path."""
     row = rows["midpoint"]
-    first_line = {("fwd", False): 340, ("bwd", False): 364, ("fwd", True): 473, ("bwd", True): 500}
+    first_line = {("fwd", False): 340, ("bwd", False): 364, ("fwd", True): 474, ("bwd", True): 500}
     from vihds_tpu_torch.ops import fused_ode
 
     if kind == "blackbox":
@@ -2289,6 +2630,11 @@ def main():
     phase_profile_dir(device)
     phase_figures(device)
 
+    adaptive = phase_adaptive(device)
+    adaptive["check"] = phase_adjoint_check(device)
+    graph = phase_graph(device)
+    graph["jobs_wall"] = phase_graph_jobs(device)["wall"]
+
     kernels = []
     for kind, (fwd_rows, bwd_rows, train_fwd_rows) in measured.items():
         # the launches: the training path's (for the plain relay / degrader
@@ -2297,6 +2643,8 @@ def main():
         extra = {"launches_serving": serving[kind]} if kind in serving else {}
         # the dr kernels on phases 14-15's merge: false path, timed at T=100
         um = kind == "dr"
+        if kind == "dr_prec":  # phase 20's dr node
+            extra["launches_graph"] = graph["launches"]["dr_prec_fwd"]
         kernels.append(kernel_row(
             kind, "fwd", fwd_rows, launches[kind + "_fwd"],
             train_shape={k: train_fwd_rows["midpoint"][k]
@@ -2318,12 +2666,15 @@ def main():
                          dreg_standard_pull_subnormal_share=ops["standard"]["subnormal_share"])
             if kind == "dr":
                 extra["launches_dreg_training"] = dreg["launches"]["dr_bwd"]
+        if kind == "dr_prec":
+            extra["launches_graph"] = graph["launches"]["dr_prec_bwd"]
         kernels.append(kernel_row(
             kind, "bwd", bwd_rows, launches[kind + "_bwd"],
             **{key: bwd_rows["midpoint"][key] for key in ("step_ms", "step_zero_share")},
             **({"launches_unmerged": {"training": unmerged["dr_bwd"]},
                 "unmerged_t100": t100["bwd"]} if um else {}), **extra))
-    print("phase 19: total %.1f s" % (time.perf_counter() - t_start))
+    print("phase 21: total %.1f s" % (time.perf_counter() - t_start))
+    print("phase 21: paths " + json.dumps({"adaptive": adaptive, "graph": graph}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,6 +7,8 @@ to ~1e3 (log, square and a 35-term sum in float32, summed in another
 order); encoder q rtol 1e-5 (conv, pool and matmul reduce in another
 order)."""
 
+import glob
+import os
 from types import SimpleNamespace
 
 import jax
@@ -135,3 +137,39 @@ def test_port_init_params_have_jax_shapes():
         return {k: shapes(v) for k, v in t.items()} if isinstance(t, dict) else tuple(t.shape)
 
     assert shapes(tparams) == jshapes
+
+
+ALL_SPECS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "specs", "*.yaml")))
+
+
+@pytest.mark.parametrize("spec_name", ALL_SPECS + ["synthetic"])
+def test_fingerprints_and_runtime_priors_match(spec_name):
+    """``fingerprint``, ``structural_fingerprint`` (SHA1 digests, letter for
+    letter) and ``runtime_priors`` (float32 arrays, exactly, at 4 and 2
+    standard deviations) equal the JAX package's for every shipped spec."""
+    jp, tp = programs(spec_name)
+    assert tp.fingerprint() == jp.fingerprint()
+    assert tp.structural_fingerprint() == jp.structural_fingerprint()
+    assert tp.fingerprint() != tp.structural_fingerprint()
+    for stddevs in (4, 2):
+        jr, tr = jp.runtime_priors(stddevs), tp.runtime_priors(stddevs)
+        assert list(tr) == list(jr) == ["mu", "prec", "clip_lo", "clip_hi"]
+        for key in jr:
+            assert tr[key].dtype == jr[key].dtype == np.float32
+            np.testing.assert_array_equal(tr[key], jr[key], err_msg=key)
+
+
+def test_structural_fingerprint_ignores_the_prior_moments():
+    """Two programs that differ only in a prior's moments (an inference-graph
+    node before and after propagation) share the structural digest, not the
+    full one, in both packages."""
+    import copy
+
+    base = copy.deepcopy(SYNTHETIC_PARAMS)
+    moved = copy.deepcopy(SYNTHETIC_PARAMS)
+    moved["global"]["ln"] = {"distribution": "LogNormal", "mu": 0.3, "sigma": 0.2}
+    for build, parse in ((TProgram, t_parse), (JProgram, j_parse)):
+        a, b = build(parse(base)), build(parse(moved))
+        assert a.structural_fingerprint() == b.structural_fingerprint()
+        assert a.fingerprint() != b.fingerprint()

@@ -16,6 +16,9 @@ import yaml
 
 from vihds_tpu_torch.utils.attrdict import attrdictify
 
+#: the repository's root, which holds ``specs/`` and ``data/``
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 #: Default hyper-parameters merged under YAML ``params:`` (the JAX package's
 #: ``config.DEFAULT_PARAMS``; both packages must resolve a spec identically).
 DEFAULT_PARAMS = dict(
@@ -113,7 +116,8 @@ def apply_defaults_data(config):
 class Config:
     """Settings = YAML spec (+ defaults) + CLI args.
 
-    ``args`` needs ``yaml`` and ``seed``.  Training's flags, where ``args``
+    ``args`` needs ``yaml`` and ``seed``; with ``yaml`` None no spec is read
+    and the settings stay empty.  Training's flags, where ``args``
     has them, act as in the JAX package: ``test_epoch`` and ``plot_epoch``
     are clamped to ``epochs``, and ``--precision_hidden_layers``, ``--q_global_init`` and
     ``--grad_clip_norm`` override their ``params:`` entries."""
@@ -126,8 +130,14 @@ class Config:
                     setattr(args, flag, epochs)
         if args.seed is not None:
             np.random.seed(args.seed)
+        if args.yaml is None:
+            return
         if not os.path.exists(args.yaml):
-            raise SystemExit("Spec file not found: %s" % args.yaml)
+            hint = ""
+            candidate = os.path.join(_REPO, "specs", os.path.basename(args.yaml))
+            if os.path.exists(candidate):
+                hint = " (did you mean %s?)" % candidate
+            raise SystemExit("Spec file not found: %s%s" % (args.yaml, hint))
         with open(args.yaml, "r") as stream:
             config = attrdictify(yaml.safe_load(stream))
         for section in ("data", "params"):
@@ -136,7 +146,9 @@ class Config:
                     "Spec %s is missing its '%s:' section (or it is empty)" % (args.yaml, section)
                 )
         if "model" not in config:
-            raise SystemExit("Spec %s has no top-level 'model:' key" % args.yaml)
+            nested = " (found one nested under params: — move it to the top level)"
+            raise SystemExit("Spec %s has no top-level 'model:' key%s"
+                             % (args.yaml, nested if "model" in config.params else ""))
         self.data = apply_defaults_data(config.data)
         self.params = apply_defaults_params(config.params)
         for flag, key in (
@@ -157,7 +169,7 @@ def get_data_directory():
     data_dir = os.getenv("INFERENCE_DATA_DIR")
     if data_dir:
         return data_dir
-    repo_data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+    repo_data = os.path.join(_REPO, "data")
     if os.path.isdir(repo_data):
         return repo_data
     return "data"

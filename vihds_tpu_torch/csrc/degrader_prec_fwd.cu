@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas TPU kernel of vihds_tpu/ops/pallas_ode.py, kind
 // "degrader_prec": _make_kernel with the _with_precisions right-hand side,
-// launched by _integrate_padded_w (pallas_ode.py:473). It computes the same
+// launched by _integrate_padded_w (pallas_ode.py:474). It computes the same
 // thing: y(t0) = y0, then T-1 fixed-grid steps of modeuler / midpoint / rk4 of
 // the right-hand side, storing every state. The kernel is dr_common.cuh's
 // prec_fwd_kernel over Degrader: a block of 32 rows x 5 warps, one for the

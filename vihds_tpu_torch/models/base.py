@@ -255,7 +255,8 @@ class OdeModel:
         that declare ``pallas_kinds`` through the fused CUDA integrator,
         which is differentiable (its backward is a kernel too); any other
         family or configuration takes the same fixed-grid method on the
-        generic solver."""
+        generic solver.  Adaptive methods and ``adjoint_solver: true`` take
+        the continuous adjoint (``ops.adjoint``)."""
         n_batch = treatments.shape[0]
         method = self._solver_for(eval_mode)
         if method.startswith("pallas_"):
@@ -278,7 +279,9 @@ class OdeModel:
                 )
                 return sol.permute(1, 2, 3, 0)
         init_state = self.initialize_state(params, theta, treatments, n_batch, n_iwae)
-        rhs = self.make_rhs(params, theta, treatments, dev_1hot)
+        # the right-hand side's builder and arguments: the adjoint route
+        # (adaptive methods, adjoint_solver) hands its gradient to each tensor
+        rhs = (self.make_rhs, (params, theta, treatments, dev_1hot))
         sol = integrate(rhs, init_state, times, method=method, adjoint=self.adjoint)  # [T,B,K,S]
         return sol.permute(1, 2, 3, 0)
 

@@ -62,7 +62,7 @@ def _dr_constants(theta, treatments, version):
 
 def _dr_species_rhs(c, t, state):
     """Mechanistic RHS over the 8 states of state[..., 8]."""
-    x, rfp, yfp, cfp, f530, f480, luxR, lasR = [state[..., i] for i in range(8)]
+    x, rfp, yfp, cfp, f530, f480, luxR, lasR = state[..., :8].unbind(-1)
 
     gr = c["r"] * torch.sigmoid(4.0 * (t - c["tlag"]))
     gamma = gr * (1.0 - x / c["K"])

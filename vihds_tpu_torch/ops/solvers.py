@@ -5,7 +5,9 @@ there).  This is the generic path for any model RHS; ``dr_constant`` under
 ``solver: pallas_<method>`` takes the fused CUDA kernels instead
 (``vihds_tpu_torch.ops.fused_ode``).  ``integrate_fixed`` returns
 [T, *y0.shape] with the initial state at index 0; ``integrate_fold`` is the
-training objective's form, which never keeps the trajectory.
+training objective's form, which never keeps the trajectory.  ``integrate``
+routes the adaptive methods (``ops.dopri``) and ``adjoint_solver: true``
+through the continuous adjoint (``ops.adjoint``).
 """
 
 import torch
@@ -83,15 +85,28 @@ def integrate_fold(rhs, y0, times, fold, xs, method="midpoint"):
     return y, acc
 
 
-def integrate(rhs, y0, times, method="midpoint", adjoint=False):
-    """Integrate and return [T, *y0.shape]."""
-    if method in ADAPTIVE_SOLVERS or adjoint:
-        raise NotImplementedError(
-            "adaptive solvers and the continuous adjoint (%s) are not ported yet "
-            "(ROADMAP queue 1, \"ops/dopri.py + ops/adjoint.py\")" % method
-        )
+def integrate(rhs, y0, times, method="midpoint", adjoint=False, **opts):
+    """Integrate and return [T, *y0.shape].  ``rhs`` is the right-hand side
+    ``f(t, y)`` or, where the continuous adjoint may be taken, ``(make_rhs,
+    args)``, which builds it (``ops.adjoint.integrate_adjoint``).
+
+    An adaptive method always goes through the adjoint, with ``opts``
+    (rtol, atol, max_steps_per_interval) forwarded to its integrator;
+    ``adjoint=True`` sends a fixed-grid method through it as well."""
+    if method in ADAPTIVE_SOLVERS or (adjoint and method in FIXED_GRID_SOLVERS):
+        from vihds_tpu_torch.ops.adjoint import integrate_adjoint
+
+        return integrate_adjoint(rhs, y0, times, method=method,
+                                 **(opts if method in ADAPTIVE_SOLVERS else {}))
     if method not in FIXED_GRID_SOLVERS:
         raise ValueError(
-            "Unknown solver %r; supported: %s" % (method, sorted(FIXED_GRID_SOLVERS))
+            "Unknown solver %r; supported: %s (fixed-grid) and %s (adaptive). "
+            "torchdiffeq's Adams family and tsit5 are deliberately excluded — "
+            "see PARITY.md's solver row." % (
+                method, sorted(FIXED_GRID_SOLVERS), list(ADAPTIVE_SOLVERS),
+            )
         )
+    if not callable(rhs):
+        make_rhs, args = rhs
+        rhs = make_rhs(*args)
     return integrate_fixed(rhs, y0, times, method=method)

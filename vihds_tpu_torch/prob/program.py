@@ -107,6 +107,50 @@ class ParamProgram:
             self._tensors[key] = t
         return t
 
+    def fingerprint(self):
+        """SHA1 of the whole program: ``structural_fingerprint`` and the
+        prior moments.  The JAX package's digest of the same spec, letter for
+        letter (the arrays have its dtypes and the sites its ``repr``s)."""
+        import hashlib
+
+        h = hashlib.sha1()
+        h.update(self.structural_fingerprint().encode())
+        for arr in (self.prior_mu, self.prior_prec):
+            h.update(np.ascontiguousarray(arr).tobytes())
+        return h.hexdigest()
+
+    def runtime_priors(self, stddevs=4):
+        """The prior moments and theta's clip bounds as host float32 arrays
+        (``mu``, ``prec``, ``clip_lo``, ``clip_hi``): what differs between
+        two programs of one structure, e.g. inference-graph nodes after
+        posterior-to-prior propagation."""
+        lo, hi = self.clip_bounds(stddevs)
+        return AttrDict(
+            mu=np.asarray(self.prior_mu, np.float32),
+            prec=np.asarray(self.prior_prec, np.float32),
+            clip_lo=np.asarray(lo, np.float32),
+            clip_hi=np.asarray(hi, np.float32),
+        )
+
+    def structural_fingerprint(self):
+        """``fingerprint`` without the prior moments: site names, tiers,
+        kinds, conditioning, dependency wiring, constant values, truncation
+        bounds and Kumaraswamy supports."""
+        import hashlib
+
+        h = hashlib.sha1()
+        for s in self.sites.ordered:
+            h.update(repr((s.name, s.tier, s.kind, s.mu_dep, s.prec_dep, s.cond_devices,
+                           s.cond_treatments)).encode())
+        for arr in (self.is_lognormal, self.is_constant, self.is_truncated, self.is_kumaraswamy,
+                    self.const_value, self.trunc_a, self.trunc_b, self.zmin, self.zmax):
+            h.update(np.ascontiguousarray(arr).tobytes())
+        h.update(repr(self.dep_sites).encode())
+        h.update(repr(self.topo_order).encode())
+        h.update(repr((self.local_slice, self.global_cond_slice, self.global_slice,
+                       self.constant_slice)).encode())
+        return h.hexdigest()
+
     def prior_q(self, device="cpu"):
         """The prior p as q-style tensors (row-broadcastable)."""
         return AttrDict(

@@ -39,7 +39,11 @@ Phases, each printing lines of its own:
    shapes), the backward per weight leaf, constant and state row against
    float64 run on the plain float32 sweep's relu masks, two backward runs
    bit-equal in dW, its time on a training step's operands, and the
-   backward's block;
+   backward's block; 3f, the weighted kernels' fold axis (``dr_prec``,
+   ``blackbox``) at 4 folds of the training shape: one launch against 4
+   launches on each fold's slice and F=1 against the launch without the
+   axis, bit for bit forward and backward, the fold launch against its plain
+   version, and the times of one launch and of the 4;
 4. serving ``dr_constant_icml`` at full width: three ``predict`` requests at
    K=1000 with ``eval_solver: pallas_midpoint``, one with a counterfactual,
    with the kernel's launch count; 4b, the kernel route held against the
@@ -51,7 +55,13 @@ Phases, each printing lines of its own:
    counts (the backward once per step); 5b, one step through the kernels
    held against the plain online log-likelihood route on a small input; 5c,
    a profile of one step; 5d, k-fold cross-validation through ``call_run_xval.execute``,
-   4 folds of 2 epochs, its merged xval artifacts;
+   4 folds of 2 epochs, its merged xval artifacts; 5e, the same with
+   ``--vmap_folds`` (all 4 folds in one batched step): the artifacts, each
+   fold's ELBOs against 5d's, the ``dr`` kernels' launches against 5d's over
+   4, the median batched step, one step's device busy time and the wall
+   beside 5d's; 5f, one epoch of ``--vmap_folds`` on
+   ``dr_constant_precisions`` and ``dr_blackbox_icml`` (the weighted
+   kernels' fold axis on the training path) with their launches;
 6. serving ``dr_constant_precisions`` as phase 4 (three requests, one with a
    counterfactual), and one request of ``dr_constant_precisions_v2``;
 7. training ``dr_constant_precisions`` as phase 5 (the precision nets'
@@ -132,7 +142,10 @@ Phases, each printing lines of its own:
    three nodes; 20b, ``--jobs 2`` on two same-stage ``dr_constant_icml``
    nodes (kernel route, 1 epoch, 2 folds) in spawn workers on the one card;
 21. the total time, one line with the readings of phases 19-20b, and the
-   ``kernels`` JSON line (the ``dr`` rows with the
+   ``kernels`` JSON line (every row with ``launches_vmap``, its launches
+   on phases 5e-5f's ``--vmap_folds`` paths, null where none ran it; the
+   ``dr_prec`` and ``blackbox`` rows with phase 3f's fold launch times
+   ``vmap_fold``; the ``dr`` rows with the
    launches of phases 14-15 and the times of 14c; the ``dr``, ``dr_prec``
    and ``blackbox`` backward rows with the DReG pulls' launches, times and
    subnormal shares of 17b-17c), then the last line ``{"ok": true,
@@ -324,6 +337,9 @@ FLT_MIN = 2.0 ** -126
 # so the per-item ELBO is compared in absolute nats)
 ROUTE_RTOL, ROUTE_ATOL = 1e-3, 1e-4
 ELBO_ATOL = 0.5
+# the batched folds' ELBO lists against the sequential folds' (phase 5e):
+# the JAX package's limit for its vmapped folds (tests/test_run_xval.py)
+VMAP_ELBO_RTOL = 1e-3
 # one training step, kernel route vs the plain fold route on the card: the
 # loss (~1e5 nats at random weights for dr_constant_icml, ~1e2 for the
 # models whose precisions are states) sums the same float32 terms in another
@@ -1136,6 +1152,127 @@ def phase_blackbox_kernels(device, seed):
     return fwd_rows, rows, train_fwd_rows
 
 
+#: the folds of the fold-axis checks and of ``call_run_xval --vmap_folds``
+VMAP_FOLDS = 4
+
+
+def fold_operands(device, kind, f):
+    """Fold ``f``'s operands of a fold-axis kernel (``dr_prec`` or
+    ``blackbox``) at the training shape: its own chunk of theta drawn from
+    the prior (seed ``SEED + 201 + f``) and the seeded nets' weights scaled
+    by 1 + 0.1 f, so that no two folds share weights.  Returns (weights,
+    packed [NC, R_f], y0 [S, R_f], times, the leaves' shapes or None)."""
+    seed = SEED + 201 + f
+    if kind == "blackbox":
+        _, _, _, w, packed, y0, times, shapes = blackbox_inputs(device, K_TRAIN, seed)
+    else:
+        _, _, _, w, packed, y0, times = kind_inputs(device, kind, K_TRAIN, seed)
+        shapes = None
+    return (w * (1.0 + 0.1 * f)).contiguous(), packed, y0, times, shapes
+
+
+def phase_fold_kernels(device):
+    """Phase 3f: the fold grid axis of the weighted kernels (``dr_prec_fwd``
+    / ``dr_prec_bwd``, ``blackbox_fwd`` / ``blackbox_bwd``) at the training
+    shape of ``VMAP_FOLDS`` folds (R = 4 x 7,200): one launch on [F, ...]
+    weights against F launches on each fold's slice, bit for bit in the
+    trajectory and in dc, dy0 and dW; F = 1 (the axis on one fold's weights)
+    against the launch without the axis, bit for bit; the fold launch's
+    trajectory against its plain version within phase 3's limits; and each
+    launch's time beside the F separate launches'.  Returns {kernel:
+    {method: readings}}."""
+    import torch
+
+    from vihds_tpu_torch.ops import fused_blackbox as fb, fused_ode
+
+    F = VMAP_FOLDS
+    NS = fb.KERNEL_N_STATES
+    out = {}
+    for kind in ("dr_prec", "blackbox"):
+        parts = [fold_operands(device, kind, f) for f in range(F)]
+        times, shapes = parts[0][3], parts[0][4]
+        wv = torch.stack([p[0] for p in parts]).contiguous()
+        packed = torch.cat([p[1] for p in parts], dim=1).contiguous()
+        y0 = torch.cat([p[2] for p in parts], dim=1).contiguous()
+        R, T = packed.shape[1], times.shape[0]
+        Rf = R // F
+        if kind == "blackbox":
+            def fwd(w, pk, y, m):
+                return fb.blackbox_fwd(w, pk, y, times, shapes, NS, m)
+
+            def bwd(w, pk, tr, g, m):
+                return fb.blackbox_bwd(w, pk, times, tr, g, shapes, NS, m)
+
+            def plain(w, pk, y, m):
+                return fb._plain_fwd_flat(w, shapes, pk, y, times, NS, m)
+
+            def close(got, ref):
+                return bb_states_ok(got.movedim(1, -1), ref.movedim(1, -1))
+        else:
+            def fwd(w, pk, y, m):
+                return fused_ode.kind_fwd(kind, w, pk, y, times, m)
+
+            def bwd(w, pk, tr, g, m):
+                return fused_ode.kind_bwd(kind, w, pk, times, tr, g, m)
+
+            def plain(w, pk, y, m):
+                return fused_ode._plain_fwd(kind, w, pk, y, times, m)
+
+            def close(got, ref):
+                return states_ok(got.movedim(1, -1), ref.movedim(1, -1), kind)
+        print("phase 3f (%s): the fold axis, %d folds of B=36 x K=%d (R=%d = %d x %d), T=%d: "
+              "one launch on [%d, ...] weights vs %d launches on each fold's slice; F=1 vs the "
+              "launch without the axis; the fold launch vs its plain version (phase 3's limits)"
+              % (kind, F, K_TRAIN, R, F, Rf, T, F, F))
+        rows = out[kind] = {}
+        for method in fused_ode.METHODS:
+            with torch.no_grad():
+                traj = fwd(wv, packed, y0, method)
+                sep = [fwd(w, pk, y, method) for w, pk, y, _, _ in parts]
+                sl = [slice(f * Rf, (f + 1) * Rf) for f in range(F)]
+                fwd_same = all(torch.equal(traj[..., sl[f]], sep[f]) for f in range(F))
+                fwd_one = bool(torch.equal(fwd(wv[:1], parts[0][1], parts[0][2], method), sep[0]))
+                ref = plain(wv, packed, y0, method)
+                errs, ok = close(traj, ref)
+                del ref
+                gen = torch.Generator(device=device).manual_seed(SEED + 301)
+                g = torch.randn(traj.shape, generator=gen, device=device)
+                dw, dc, dy0 = bwd(wv, packed, traj, g, method)
+                parts_g = [g[..., sl[f]].contiguous() for f in range(F)]
+                sep_b = [bwd(parts[f][0], parts[f][1], sep[f], parts_g[f], method)
+                         for f in range(F)]
+                bwd_same = all(torch.equal(dw[f], sep_b[f][0])
+                               and torch.equal(dc[:, sl[f]], sep_b[f][1])
+                               and torch.equal(dy0[:, sl[f]], sep_b[f][2]) for f in range(F))
+                one_b = bwd(wv[:1], parts[0][1], sep[0], parts_g[0], method)
+                bwd_one = (torch.equal(one_b[0][0], sep_b[0][0])
+                           and torch.equal(one_b[1], sep_b[0][1])
+                           and torch.equal(one_b[2], sep_b[0][2]))
+                r = rows[method] = dict(
+                    fwd_ms=cuda_ms(lambda: fwd(wv, packed, y0, method), 20),
+                    fwd_separate_ms=cuda_ms(
+                        lambda: [fwd(w, pk, y, method) for w, pk, y, _, _ in parts], 20),
+                    bwd_ms=cuda_ms(lambda: bwd(wv, packed, traj, g, method), 20),
+                    bwd_separate_ms=cuda_ms(
+                        lambda: [bwd(parts[f][0], parts[f][1], sep[f], parts_g[f], method)
+                                 for f in range(F)], 20),
+                    fwd_bit_equal=fwd_same, bwd_bit_equal=bwd_same, fwd_f1_bit_equal=fwd_one,
+                    bwd_f1_bit_equal=bool(bwd_one),
+                    max_rel_err=max(e for e in errs if e is not None))
+            print("  %-9s F=%d vs %d launches bit-equal: forward %s, backward (dW, dc, dy0) %s; "
+                  "F=1 vs no axis bit-equal: forward %s, backward %s; vs plain max_rel_err %s  "
+                  "%s; forward %.4f ms (%d separate: %.4f ms), backward %.4f ms (%d separate: "
+                  "%.4f ms)"
+                  % (method, F, F, fwd_same, bwd_same, fwd_one, bool(bwd_one),
+                     "/".join(_fmt(e) for e in errs), "ok" if ok else "MISMATCH", r["fwd_ms"], F,
+                     r["fwd_separate_ms"], r["bwd_ms"], F, r["bwd_separate_ms"]))
+            if not ok:
+                fail("%s %s: the fold launch disagrees with its plain version" % (kind, method))
+            if not (fwd_same and bwd_same and fwd_one and bwd_one):
+                fail("%s %s: the fold axis changed a fold's bits" % (kind, method))
+    return out
+
+
 def check_request(out, n_theta, n_states):
     m = out.merged
     B, S, T = out.host.observations.shape
@@ -1665,7 +1802,178 @@ def phase_call_run_xval(device, spec=SPEC, phase="5d"):
              [int(c) for c in merge.chunk_sizes], launches["dr_fwd"], launches["dr_bwd"]))
     if min(launches.values()) == 0:
         fail("call_run_xval did not launch the dr kernels: %s" % launches)
-    return launches
+    return dict(launches=launches, wall=wall, elbo=elbo.tolist(),
+                elbo_list=[list(map(float, e)) for e in merge.elbo_list])
+
+
+class _RecordedRunner:
+    """Keeps the ``xfold.VmapXval`` runners made while it is entered (their
+    step times and params are read after the run)."""
+
+    def __enter__(self):
+        from vihds_tpu_torch import xfold
+
+        self.made, self._cls = [], xfold.VmapXval
+        made = self.made
+
+        class Recorded(self._cls):
+            def run(self):
+                made.append(self)
+                return super().run()
+
+        xfold.VmapXval = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        from vihds_tpu_torch import xfold
+
+        xfold.VmapXval = self._cls
+
+
+def vmap_xval(device, spec, flags, phase, kernels):
+    """``call_run_xval.execute`` with ``--vmap_folds`` on ``spec``'s model
+    under ``solver: pallas_midpoint``: all folds in one batched step.  It
+    must train without falling back, write each fold's cache, the 16 merged
+    ``xval_*`` files and the completed marker, and hold each series out
+    once.  Counts ``kernels``' launches over the path from 0.  Returns
+    (readings, the runner)."""
+    import statistics
+
+    import numpy as np
+
+    from vihds_tpu_torch import call_run_xval
+    from vihds_tpu_torch.config import Config, Trainer
+
+    args = call_run_xval.create_parser(False).parse_args([spec] + flags + ["--vmap_folds"])
+    settings = Config(args)
+    settings.params.solver = TRAIN_SOLVER
+    name = os.path.basename(spec)[: -len(".yaml")]
+    print("phase %s: call_run_xval --vmap_folds on %s, %d folds of %d epochs in one batched "
+          "step, solver %s, K=%d / %d"
+          % (phase, name, args.folds, args.epochs, settings.params.solver, args.train_samples,
+             args.test_samples))
+    with tempfile.TemporaryDirectory() as results_dir, _RecordedRunner() as rec:
+        os.environ["INFERENCE_RESULTS_DIR"] = results_dir
+        settings.trainer = Trainer(args, add_timestamp=True)
+        for k in kernels:
+            _counter(k).launches = 0
+        t0 = time.perf_counter()
+        merge = call_run_xval.execute(args, settings, device=device)
+        wall = time.perf_counter() - t0
+        launches = {k: _counter(k).launches for k in kernels}
+        names = set(os.listdir(settings.trainer.tb_log_dir))
+    del os.environ["INFERENCE_RESULTS_DIR"]
+    if len(rec.made) != 1:
+        fail("call_run_xval --vmap_folds fell back to the sequential folds")
+    runner = rec.made[0]
+    xval = sorted(n for n in names if n.startswith("xval_"))
+    caches = sorted(n for n in names if n.startswith(".vihds_cache_"))
+    if (merge is None or len(xval) != 16 or "completed.txt" not in names
+            or caches != [".vihds_cache_%d_of_%d" % (f + 1, args.folds)
+                          for f in range(args.folds)]):
+        fail("call_run_xval --vmap_folds left %s" % sorted(names))
+    ids = np.asarray(merge.ids).tolist()
+    elbo = np.asarray(merge.elbo, dtype=float)
+    if elbo.shape != (args.folds,) or not np.isfinite(elbo).all():
+        fail("call_run_xval --vmap_folds: fold ELBOs %s" % elbo)
+    if len(set(ids)) != len(ids) or sum(int(c) for c in merge.chunk_sizes) != len(ids):
+        fail("call_run_xval --vmap_folds: a series was held out by more than one fold")
+    spe = runner.steps_per_epoch
+    step_ms = statistics.median(runner.step_ms[spe:] or runner.step_ms)
+    print("  %d folds in %.1f s wall; fold ELBOs %s; %d xval_* files, caches %s, completed.txt; "
+          "%d series held out (per fold %s); %d batched steps (%d per epoch), median %.2f ms%s; "
+          "%s"
+          % (args.folds, wall, ", ".join("%.1f" % e for e in elbo), len(xval), caches, len(ids),
+             [int(c) for c in merge.chunk_sizes], len(runner.step_ms), spe, step_ms,
+             " after the first epoch" if runner.step_ms[spe:] else "",
+             ", ".join("%s launches %d" % kv for kv in launches.items())))
+    if min(launches.values()) == 0:
+        fail("call_run_xval --vmap_folds did not launch %s" % launches)
+    return dict(launches=launches, wall=wall, elbo=elbo.tolist(), step_ms=step_ms,
+                elbo_list=[list(map(float, e)) for e in merge.elbo_list]), runner
+
+
+def batched_step_profile(device, runner, phase):
+    """torch.profiler over one batched optimizer step of ``runner``'s folds
+    (fresh state, the first batch of epoch 1) after two warm-up steps: the
+    device busy time, the launches and the step's wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    params_v, opt, gen = runner.init_state(device)
+    data, n_max = runner._train_data(device)
+    idx, mask = runner._chunk_stacks(SEED, 1, 1, [True] * runner.folds, n_max)
+    times = torch.as_tensor(runner.train_hosts[0].times, dtype=torch.float32, device=device)
+
+    def step():
+        runner.train_steps(params_v, opt, gen, idx[:1], mask[:1], data, times)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events, total_us = device_events(prof)
+    if total_us == 0:
+        print("phase %s: profiler saw no device time (device busy: not measured)" % phase)
+        return dict(busy_ms=None, launches=None, wall_ms=wall * 1e3)
+    n = sum(e.count for e in events)
+    print("phase %s: one batched step of %d folds (R=%d rows a fold's batch x K=%d): %d kernel "
+          "launches, device busy %.3f ms of %.3f ms step wall (busy share %.4f)"
+          % (phase, runner.folds, runner.n_batch, runner.args.train_samples, n, total_us / 1e3,
+             wall * 1e3, total_us / 1e6 / wall))
+    return dict(busy_ms=total_us / 1e3, launches=n, wall_ms=wall * 1e3)
+
+
+def phase_vmap_xval(device, seq):
+    """Phase 5e: phase 5d's 4 folds x 2 epochs of ``dr_constant_icml`` with
+    ``--vmap_folds``: the artifacts as 5d checks them, each fold's ELBOs
+    against 5d's (rtol ``VMAP_ELBO_RTOL``), the ``dr`` kernels' launches
+    against 5d's over 4 (the backward's exactly: one batched step trains
+    every fold), the median batched step, one step's device busy time, and
+    the wall beside 5d's."""
+    import numpy as np
+
+    got, runner = vmap_xval(device, SPEC, XVAL_FLAGS, "5e", ("dr_fwd", "dr_bwd"))
+    diff = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b)) / np.abs(np.asarray(b))))
+               for a, b in zip(got["elbo_list"], seq["elbo_list"]))
+    quarter = {k: v / VMAP_FOLDS for k, v in seq["launches"].items()}
+    print("  fold ELBOs against phase 5d's sequential folds: max relative difference %.3e "
+          "(rtol %g); launches %s against 5d's / %d = %s; wall %.1f s against 5d's %.1f s"
+          % (diff, VMAP_ELBO_RTOL, got["launches"], VMAP_FOLDS, quarter, got["wall"],
+             seq["wall"]))
+    if not diff <= VMAP_ELBO_RTOL:
+        fail("the batched folds' ELBOs disagree with the sequential folds'")
+    if got["launches"]["dr_bwd"] != quarter["dr_bwd"]:
+        fail("dr_bwd launched %d times, not 5d's %d / %d"
+             % (got["launches"]["dr_bwd"], seq["launches"]["dr_bwd"], VMAP_FOLDS))
+    if got["launches"]["dr_fwd"] > quarter["dr_fwd"]:
+        fail("dr_fwd launched %d times, more than 5d's / %d" % (got["launches"]["dr_fwd"],
+                                                                VMAP_FOLDS))
+    got["profile"] = batched_step_profile(device, runner, "5e")
+    return got
+
+
+VMAP_WEIGHTED_FLAGS = ["--experiment", "chip_smoke_vmap", "--epochs", "1", "--test_epoch", "1",
+                       "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed",
+                       str(SEED), "--folds", str(VMAP_FOLDS)]
+
+
+def phase_vmap_weighted(device):
+    """Phase 5f: one epoch of ``--vmap_folds`` on ``dr_constant_precisions``
+    and ``dr_blackbox_icml``: the weighted kernels with their fold axis on
+    the training path, with their launches."""
+    out = {}
+    for spec, kind in ((SPEC_PREC, "dr_prec"), (SPEC_BB, "blackbox")):
+        got, _ = vmap_xval(device, spec, VMAP_WEIGHTED_FLAGS, "5f",
+                           (kind + "_fwd", kind + "_bwd"))
+        out[kind] = got["launches"]
+    return out
 
 UNMERGED_FLAGS = ["--experiment", "chip_smoke_unmerged", "--epochs", "2", "--test_epoch", "1",
                   "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed",
@@ -2579,6 +2887,7 @@ def main():
     measured = {kind: phase_kind_kernels(device, kind, SEED + 10 * i + 1)
                 for i, kind in enumerate(fused_ode.KINDS)}
     measured["blackbox"] = phase_blackbox_kernels(device, SEED + 101)
+    fold_axis = phase_fold_kernels(device)
 
     serving, training = {}, {}
     serving["dr"], walls, served = serve(device, SPEC, REQUESTS, "4", "dr_fwd")
@@ -2587,7 +2896,10 @@ def main():
     training["dr"], step_ms_5, _ = train(device, SPEC, "5", "dr_fwd", "dr_bwd")
     phase_route_check_training(device)
     phase_profile_training(device)
-    phase_call_run_xval(device)
+    vmap = phase_vmap_xval(device, phase_call_run_xval(device))
+    vmap_launches = dict(vmap["launches"])
+    for launches in phase_vmap_weighted(device).values():
+        vmap_launches.update(launches)
 
     serving["dr_prec"] = serve(device, SPEC_PREC, REQUESTS, "6", "dr_prec_fwd")[0]
     # v2's version lives in the host-side fracLuxR / fracLasR: the same kernel
@@ -2645,6 +2957,12 @@ def main():
         um = kind == "dr"
         if kind == "dr_prec":  # phase 20's dr node
             extra["launches_graph"] = graph["launches"]["dr_prec_fwd"]
+        # phases 5e-5f: launches on the --vmap_folds path (None: no such
+        # phase runs the kernel); 3f: the fold launch's time at 4 x 7,200 rows
+        extra["launches_vmap"] = vmap_launches.get(kind + "_fwd")
+        if kind in fold_axis:
+            extra["vmap_fold"] = {k: fold_axis[kind]["midpoint"][k]
+                                  for k in ("fwd_ms", "fwd_separate_ms")}
         kernels.append(kernel_row(
             kind, "fwd", fwd_rows, launches[kind + "_fwd"],
             train_shape={k: train_fwd_rows["midpoint"][k]
@@ -2668,13 +2986,18 @@ def main():
                 extra["launches_dreg_training"] = dreg["launches"]["dr_bwd"]
         if kind == "dr_prec":
             extra["launches_graph"] = graph["launches"]["dr_prec_bwd"]
+        extra["launches_vmap"] = vmap_launches.get(kind + "_bwd")
+        if kind in fold_axis:
+            extra["vmap_fold"] = {k: fold_axis[kind]["midpoint"][k]
+                                  for k in ("bwd_ms", "bwd_separate_ms")}
         kernels.append(kernel_row(
             kind, "bwd", bwd_rows, launches[kind + "_bwd"],
             **{key: bwd_rows["midpoint"][key] for key in ("step_ms", "step_zero_share")},
             **({"launches_unmerged": {"training": unmerged["dr_bwd"]},
                 "unmerged_t100": t100["bwd"]} if um else {}), **extra))
     print("phase 21: total %.1f s" % (time.perf_counter() - t_start))
-    print("phase 21: paths " + json.dumps({"adaptive": adaptive, "graph": graph}))
+    print("phase 21: paths " + json.dumps({"adaptive": adaptive, "graph": graph,
+                                           "vmap_folds": vmap}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -297,9 +297,9 @@ def test_bwd_partials_follow_the_kernel_block():
     rows = re.findall(r"^constexpr int BWD_ROWS = (\d+);", common, re.M)
     assert rows == [str(fb.BWD_ROWS)]
     launch = open(os.path.join(CSRC, "blackbox_bwd.cu")).read()
-    assert "(R + bb::BWD_ROWS - 1) / bb::BWD_ROWS" in launch
+    assert "(Rf + bb::BWD_ROWS - 1) / bb::BWD_ROWS), (unsigned)folds)" in launch
     assert "blockIdx.x * BWD_ROWS + th.row" in common
-    assert "dw_out[(size_t)blockIdx.x * N_W + e]" in common
+    assert "dw_out[((size_t)fold * gridDim.x + blockIdx.x) * N_W + e]" in common
 
 
 def _header_value(consts, name):
@@ -323,14 +323,15 @@ def test_fwd_block_follows_the_header(part):
     kernel = common[common.index("fwd_kernel(const float*"):common.index("bwd_kernel(")]
     if part == "grid":
         launch = open(os.path.join(CSRC, "blackbox_fwd.cu")).read()
-        assert "const dim3 grid((unsigned)((R + bb::FWD_ROWS - 1) / bb::FWD_ROWS));" in launch
+        assert ("const dim3 grid((unsigned)((Rf + bb::FWD_ROWS - 1) / bb::FWD_ROWS), "
+                "(unsigned)folds);" in launch)
         assert launch.count("<<<grid, bb::FWD_THREADS, 0, s>>>") == 3
         assert "__launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)\nfwd_kernel(" in common
     elif part == "rows":
         assert "const int r0 = blockIdx.x * FWD_ROWS + th.row;" in kernel
         assert "th.row = threadIdx.x % FWD_ROWS;" in kernel
         assert "th.q = threadIdx.x / FWD_ROWS;" in kernel
-        assert "const int r = live ? r0 : R - 1;" in kernel
+        assert "const int r = fold * Rf + (live ? r0 : Rf - 1);" in kernel
         assert kernel.count("if (live") == 2  # y0 and each step: stored by live rows only
     else:
         assert consts["FWD_ROWS"] == "BWD_ROWS"

@@ -140,14 +140,25 @@ def test_pooled_prec_is_harmonic():
 
 
 def test_unported_flag_stops_the_graph_before_any_node_trains(tmp_results):
-    """A node of the last stage with ``vmap_folds`` stops the run with its
+    """A node of the last stage with ``mesh: auto`` stops the run with its
     one-line ROADMAP error, before the first stage trains."""
-    path = _write(tmp_results, {"up": _node("up"), "down": _node("down", vmap_folds=True)},
+    path = _write(tmp_results, {"up": _node("up"), "down": _node("down", mesh="auto")},
                   [_edge("up", "down")])
-    with pytest.raises(SystemExit,
-                       match='--vmap_folds is not ported .*ROADMAP queue 1, "xfold.py"'):
+    with pytest.raises(SystemExit, match='--mesh is not ported .*ROADMAP queue 1, '
+                                         '"parallel/ \\+ parallel/multihost.py"'):
         rig.main([path, "--graph", "tg"], device="cpu")
     assert not os.path.exists(tmp_results / "tg")
+
+
+def test_vmap_folds_node_trains(tmp_results, monkeypatch, capsys):
+    """A node with ``vmap_folds`` trains its folds in one batched run and
+    completes."""
+    monkeypatch.setattr(call_run_xval, "write_figures", lambda merge: None)
+    path = _write(tmp_results, {"one": _node("one", vmap_folds=True)}, [], "v.yaml")
+    result = rig.main([path, "--graph", "tv"], device="cpu")
+    out = capsys.readouterr().out
+    assert "Training: 2 folds vmapped (one batched program)" in out and "falling back" not in out
+    assert open(os.path.join(result["one"], "completed.txt")).read() == "tv/one"
 
 
 def test_graph_end_to_end_and_resumed(tmp_results, monkeypatch, capsys):

@@ -263,14 +263,15 @@ def test_prec_kernel_sources_match_the_wrapper():
     # one partial per block of PREC_BWD_ROWS rows: the grid, the lanes and the
     # block's sum over its rows all count PREC_BWD_ROWS
     assert consts["PREC_BWD_ROWS"] == str(fused_ode.PREC_BWD_ROWS)
-    assert "(R + PREC_BWD_ROWS - 1) / PREC_BWD_ROWS" in common
-    assert "const int r = blockIdx.x * PREC_BWD_ROWS + lane;" in common
+    assert "(Rf + PREC_BWD_ROWS - 1) / PREC_BWD_ROWS), (unsigned)folds)" in common
+    assert "const int rl = blockIdx.x * PREC_BWD_ROWS + lane;" in common
+    assert "dw_out[((size_t)fold * gridDim.x + blockIdx.x) * NW + e] = sum;" in common
     assert "for (int q = 0; q < PREC_BWD_ROWS; ++q) sum += sh.dW[e][q];" in common
     for family, F in (("dr", "Dr"), ("relay", "Relay"), ("degrader", "Degrader")):
         src = open(os.path.join(CSRC, family + "_prec_bwd.cu")).read()
         assert '#include "dr_common.cuh"' in src, family
         assert re.search(r"return bwd_launch<%s, true>\(wmat, consts, times, traj, g, dw, dc, "
-                         r"dy0, R, T, method,\s+stream\);" % F, src), family
+                         r"dy0, R, T, method,\s+stream, folds\);" % F, src), family
 
 
 @pytest.mark.parametrize("family, F", [("dr", "Dr"), ("relay", "Relay"),
@@ -285,8 +286,9 @@ def test_prec_fwd_sources_follow_the_header(family, F):
     consts = {m.group(1): m.group(2) for m in re.finditer(r"constexpr int (\w+) = ([^;]+);", common)}
     assert consts["PREC_FWD_ROWS"] == "32"
     assert consts["PREC_FWD_THREADS"] == "PREC_FWD_ROWS * (N_PREC + 1)"
-    assert "const dim3 grid((unsigned)((R + PREC_FWD_ROWS - 1) / PREC_FWD_ROWS));" in common
-    assert "const int r = blockIdx.x * PREC_FWD_ROWS + lane;" in common
+    assert ("const dim3 grid((unsigned)((Rf + PREC_FWD_ROWS - 1) / PREC_FWD_ROWS), "
+            "(unsigned)folds);" in common)
+    assert "const int rl = blockIdx.x * PREC_FWD_ROWS + lane;" in common
     for method in ("MODEULER", "MIDPOINT", "RK4"):
         assert re.search(r"return block_of\(prec_fwd_kernel<F, %s>, PREC_FWD_ROWS, "
                          r"PREC_FWD_THREADS, rows,\s+threads, smem_bytes, registers, "
@@ -299,7 +301,7 @@ def test_prec_fwd_sources_follow_the_header(family, F):
     src = open(os.path.join(CSRC, family + "_prec_fwd.cu")).read()
     assert '#include "dr_common.cuh"' in src
     assert re.search(r"return fwd_launch<%s, true>\(wmat, consts, y0, times, out, R, T, method, "
-                     r"stream\);" % F, src)
+                     r"stream, folds\);" % F, src)
     assert re.search(r"return prec_fwd_block<%s>\(method, rows, threads, smem_bytes, registers, "
                      r"blocks_per_sm\);" % F, src)
     plain = open(os.path.join(CSRC, family + "_fwd.cu")).read()

@@ -125,7 +125,7 @@ def test_resumed_run_ends_where_the_uninterrupted_run_ends(tmp_results):
     [(["--mesh", "auto"], "parallel/ + parallel/multihost.py"),
      (["--mesh_data", "2"], "parallel/ + parallel/multihost.py"),
      (["--distributed", "auto"], "parallel/ + parallel/multihost.py"),
-     (["--vmap_folds"], "xfold.py")],
+     (["--mesh_sample", "2"], "parallel/ + parallel/multihost.py")],
     ids=lambda v: v if isinstance(v, str) else v[0],
 )
 def test_unported_flags_stop_with_their_roadmap_item(flags, item, tmp_results):

@@ -125,7 +125,22 @@ def test_merged_artifacts_equal_the_jax_packages(tmp_results, monkeypatch, folds
     assert np.load(os.path.join(dirs["port"], "xval_elbo.npy")).shape == (folds,)
 
 
-def test_vmap_folds_stops_with_its_roadmap_item(tmp_results):
-    with pytest.raises(SystemExit, match='--vmap_folds is not ported .*ROADMAP queue 1, "xfold.py"'):
-        call_run_xval.main([SPEC, "--vmap_folds"], device="cpu")
-    assert os.listdir(tmp_results) == []
+def test_vmap_folds_trains_every_fold_in_one_batched_step(tmp_results, capsys, monkeypatch):
+    """``--vmap_folds`` trains both folds in one batched run (no fall-back
+    line, the JAX package's per-fold epoch lines) and writes what the
+    sequential driver writes: each fold's cache, the 16 ``xval_*`` files and
+    the completed marker.  Its numbers against the sequential driver's are
+    held in tests/test_torch_xfold.py."""
+    monkeypatch.setattr(call_run_xval, "write_figures", lambda merge: None)
+    merge = call_run_xval.main(
+        [SPEC, "--experiment", "xv", "--epochs", "1", "--test_epoch", "1", "--folds", "2",
+         "--train_samples", "4", "--test_samples", "4", "--seed", "0", "--vmap_folds"],
+        device="cpu")
+    out = capsys.readouterr().out
+    assert "falling back" not in out and "FOLD 1 of 2" not in out
+    assert "Training: 2 folds vmapped (one batched program)" in out
+    assert "epoch    1 | fold 1 | train" in out and "epoch    1 | fold 2 | train" in out
+    run_dir = merge.trainer.tb_log_dir
+    names = os.listdir(run_dir)
+    assert {".vihds_cache_1_of_2", ".vihds_cache_2_of_2", "completed.txt"} <= set(names)
+    assert sorted(n for n in names if n.startswith("xval_")) == XVAL_NAMES

@@ -84,12 +84,19 @@ def edited_copy(name, pattern, repl):
     return dst
 
 
-def launcher(path, direction):
-    fn = getattr(ctypes.CDLL(path), "blackbox_%s_launch" % direction)
+def launcher(path, direction, source):
+    """The C entry point of a build of ``blackbox_<direction>.cu`` from
+    ``source``, called with the arguments of one without the fold count."""
+    from prec_bwd_compare import single_fold, takes_folds
+
+    entry = "blackbox_%s_launch" % direction
+    folds = takes_folds(source, entry)
+    fn = getattr(ctypes.CDLL(path), entry)
     p = ctypes.c_void_p
-    fn.argtypes = [p] * {"fwd": 5, "bwd": 8}[direction] + [ctypes.c_int] * 3 + [p]
+    fn.argtypes = ([p] * {"fwd": 5, "bwd": 8}[direction] + [ctypes.c_int] * (4 if folds else 3)
+                   + [p])
     fn.restype = ctypes.c_int
-    return fn
+    return single_fold(fn, folds)
 
 
 def sass(path):
@@ -204,7 +211,7 @@ def main(argv=None):
     builds, kernels = {}, {}  # name -> (launch function, rows a block); name -> sass()
     for name, source, include, rows in sources:
         path, lines = build_library("blackbox_%s_%s" % (d, name), source, include)
-        builds[name] = (launcher(path, d), rows)
+        builds[name] = (launcher(path, d, source), rows)
         kernels[name] = sass(path)
         for ln in lines:
             print("  %s ptxas: %s" % (name, ln))

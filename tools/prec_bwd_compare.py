@@ -101,16 +101,35 @@ def edited_copy(name, edits):
     return dst
 
 
-def launcher(path, kind):
-    """The C entry point of a build of ``<kind>_bwd.cu``."""
+def takes_folds(source, entry):
+    """True where ``source``'s C entry point ``entry`` takes the fold count
+    (sources from before the fold axis do not)."""
+    text = open(source).read()
+    head = text[text.index('extern "C" int %s(' % entry):]
+    return "int folds" in head[:head.index("{")]
+
+
+def single_fold(fn, folds):
+    """``fn`` called with the arguments of an entry point without the fold
+    count: where it takes one (``folds``), 1 goes in before the stream."""
+    if not folds:
+        return fn
+    return lambda *args: fn(*args[:-1], 1, args[-1])
+
+
+def launcher(path, kind, source):
+    """The C entry point of a build of ``<kind>_bwd.cu`` from ``source``,
+    called with the arguments of one without the fold count."""
     from vihds_tpu_torch.ops import fused_ode
 
     n_ptr = 8 if fused_ode.KINDS[kind].prec else 6
-    fn = getattr(ctypes.CDLL(path), "%s_bwd_launch" % kind)
+    entry = "%s_bwd_launch" % kind
+    folds = takes_folds(source, entry)
+    fn = getattr(ctypes.CDLL(path), entry)
     p = ctypes.c_void_p
-    fn.argtypes = [p] * n_ptr + [ctypes.c_int] * 3 + [p]
+    fn.argtypes = [p] * n_ptr + [ctypes.c_int] * (4 if folds else 3) + [p]
     fn.restype = ctypes.c_int
-    return fn
+    return single_fold(fn, folds)
 
 
 def main(argv=None):
@@ -151,21 +170,23 @@ def main(argv=None):
             if name not in ("no_dw", "no_prec") or fused_ode.KINDS[kind].prec]
     with concurrent.futures.ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
         # every build at once: nvcc runs in its own process
-        built = {}
+        built, sources = {}, {}
         for kind, name, tree in jobs:
             bwd = fused_ode.KINDS[kind].bwd
+            sources[kind, name] = os.path.join(tree, bwd + ".cu")
             built[kind, name] = pool.submit(build_library, "%s_%s" % (bwd, name),
-                                            os.path.join(tree, bwd + ".cu"))
+                                            sources[kind, name])
         this_logs = build.build([fused_ode.KINDS[kind].bwd for kind in kinds])
         built = {key: f.result() for key, f in built.items()}
     for kind in kinds:
         k = fused_ode.KINDS[kind]
-        builds = {"this": fused_ode._launcher(k.bwd, 8 if k.prec else 6)}
+        builds = {"this": single_fold(fused_ode._launcher(k.bwd, 8 if k.prec else 6),
+                                      k.bwd in fused_ode.FOLD_KERNELS)}
         for ln in ptxas_lines(this_logs.get(k.bwd, "")):
             print("  %s this ptxas: %s" % (k.bwd, ln))
         for (kind_, name), (path, lines) in built.items():
             if kind_ == kind:
-                builds[name] = launcher(path, kind)
+                builds[name] = launcher(path, kind, sources[kind, name])
                 for ln in lines:
                     print("  %s %s ptxas: %s" % (k.bwd, name, ln))
 

@@ -42,19 +42,22 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, "tools"))
 
-from prec_bwd_compare import build_library, ptxas_lines  # noqa: E402
+from prec_bwd_compare import build_library, ptxas_lines, single_fold, takes_folds  # noqa: E402
 
 
-def launcher(path, kind):
-    """The C entry point of a build of ``<kind>_fwd.cu``."""
+def launcher(path, kind, source):
+    """The C entry point of a build of ``<kind>_fwd.cu`` from ``source``,
+    called with the arguments of one without the fold count."""
     from vihds_tpu_torch.ops import fused_ode
 
     n_ptr = 5 if fused_ode.KINDS[kind].prec else 4
-    fn = getattr(ctypes.CDLL(path), "%s_fwd_launch" % kind)
+    entry = "%s_fwd_launch" % kind
+    folds = takes_folds(source, entry)
+    fn = getattr(ctypes.CDLL(path), entry)
     p = ctypes.c_void_p
-    fn.argtypes = [p] * n_ptr + [ctypes.c_int] * 3 + [p]
+    fn.argtypes = [p] * n_ptr + [ctypes.c_int] * (4 if folds else 3) + [p]
     fn.restype = ctypes.c_int
-    return fn
+    return single_fold(fn, folds)
 
 
 def device_ms(call, reps=20, warmup=3):
@@ -115,6 +118,7 @@ def main(argv=None):
     stream = torch.cuda.current_stream(device).cuda_stream
     jobs = [(kind, name, os.path.join(ref, fused_ode.KINDS[kind].fwd + ".cu"))
             for kind in kinds for name, ref in refs.items()]
+    sources = {(kind, name): source for kind, name, source in jobs}
     floors = {kind: kind[: -len("_prec")] for kind in kinds if fused_ode.KINDS[kind].prec}
     with concurrent.futures.ThreadPoolExecutor(max_workers=max(len(jobs), 1)) as pool:
         # every build at once: nvcc runs in its own process
@@ -128,7 +132,8 @@ def main(argv=None):
     result = {"card": card, "kinds": {}}
     for kind in kinds:
         k = fused_ode.KINDS[kind]
-        builds = {"this": fused_ode._launcher(k.fwd, 5 if k.prec else 4)}
+        builds = {"this": single_fold(fused_ode._launcher(k.fwd, 5 if k.prec else 4),
+                                      k.fwd in fused_ode.FOLD_KERNELS)}
         for ln in ptxas_lines(this_logs.get(k.fwd, "")):
             print("  %s this ptxas: %s" % (k.fwd, ln))
         entry = result["kinds"][kind] = {"block": {}}
@@ -138,7 +143,7 @@ def main(argv=None):
                 (36 * chip_smoke.K_TRAIN, 36 * chip_smoke.K_SERVE))
         for (kind_, name), (path, lines) in built.items():
             if kind_ == kind:
-                builds[name] = launcher(path, kind)
+                builds[name] = launcher(path, kind, sources[kind, name])
                 for ln in lines:
                     print("  %s %s ptxas: %s" % (k.fwd, name, ln))
         floor = floors.get(kind)

@@ -5,7 +5,10 @@ The port's ``python -m vihds_tpu.call_run_xval``, with the same flags::
   python -m vihds_tpu_torch.call_run_xval specs/dr_constant_icml.yaml \\
       --experiment X --epochs 1000 --test_epoch 20 --folds 4
 
-It runs ``run_xval.run_on_split`` on folds 1 .. ``--folds``, adds each fold's
+It runs ``run_xval.run_on_split`` on folds 1 .. ``--folds`` (with
+``--vmap_folds``, all folds in one batched step: ``xfold.run_all_folds``,
+which falls back to the fold loop, saying why, where the batched run cannot
+express the configuration), adds each fold's
 best-validation results to one ``XvalMerge`` and writes the merged
 ``xval_*`` set, the xval figures (png, pdf and the ``xval/`` event files,
 as the JAX package always does) and ``completed.txt`` under
@@ -15,10 +18,9 @@ matplotlib, seaborn or tensorboard is not installed, the figures are left
 out (said once) and the rest is written.  It trains on the CUDA device
 unless ``main`` is given ``device="cpu"``.
 
-Not ported yet, each waiting for its ROADMAP item: all folds as one batched
-program (``--vmap_folds``, "xfold.py") and the multi-process launch
-("parallel/ + parallel/multihost.py").  Their flags stop the run with a
-one-line error, as in ``run_xval``.
+Not ported yet: the meshes and the multi-process launch ("parallel/ +
+parallel/multihost.py" in ROADMAP queue 1).  Their flags stop the run with a
+one-line error, as in ``run_xval``, with ``--vmap_folds`` too.
 """
 
 from vihds_tpu_torch.config import Config, Trainer
@@ -28,17 +30,28 @@ from vihds_tpu_torch.xval import XvalMerge
 
 
 def execute(args, settings, device="cuda"):
-    """Train folds 1 .. ``args.folds`` one after another and write the
-    merged artifacts; returns the ``XvalMerge`` (None when no fold left
-    results)."""
+    """Train folds 1 .. ``args.folds`` (one after another, or with
+    ``args.vmap_folds`` all in one batched step) and write the merged
+    artifacts; returns the ``XvalMerge`` (None when no fold left results)."""
     xval_merge = XvalMerge(args, settings)
-    for split_idx in range(1, args.folds + 1):
-        print("================================================================")
-        print("    FOLD %d of %d" % (split_idx, args.folds))
-        print("---------------------------")
-        data_pair, val_results, _ = run_on_split(args, settings, split=split_idx, device=device)
-        if val_results is not None:
-            xval_merge.add(split_idx, data_pair, val_results)
+    fold_results = None
+    if getattr(args, "vmap_folds", False):
+        from vihds_tpu_torch import xfold
+
+        fold_results = xfold.run_all_folds(args, settings, device=device)
+    if fold_results is not None:
+        for split_idx, data_pair, val_results in fold_results:
+            if val_results is not None:
+                xval_merge.add(split_idx, data_pair, val_results)
+    else:
+        for split_idx in range(1, args.folds + 1):
+            print("================================================================")
+            print("    FOLD %d of %d" % (split_idx, args.folds))
+            print("---------------------------")
+            data_pair, val_results, _ = run_on_split(args, settings, split=split_idx,
+                                                     device=device)
+            if val_results is not None:
+                xval_merge.add(split_idx, data_pair, val_results)
     print("================================================================")
     if len(xval_merge.elbo) == 0:
         print("No results in xval. Exiting...")

@@ -5,7 +5,10 @@ The counterpart of ``vihds_tpu.checkpoint`` (orbax there).  ``directory``
 holds ``<epoch>.pt`` files; the newest three are kept.  A run resumed from
 a checkpoint follows the uninterrupted run: the batch orders are a function
 of (seed, epoch) alone (``training.epoch_perm``) and the latent draws
-continue from the saved generator state.
+continue from the saved generator state.  ``call_run_xval --vmap_folds``
+saves its stacked state here too, in ``checkpoints_vmap/``: params and Adam
+moments with their fold axis, the generator, the epoch and the per-fold
+``alive`` mask (``xfold.VmapXval``).
 """
 
 import os

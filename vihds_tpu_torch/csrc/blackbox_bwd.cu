@@ -15,12 +15,13 @@
 // bit for bit.
 //
 // Layout (the wrapper fused_blackbox.blackbox_bwd checks it):
-//   wflat  [1760]          the weights, as blackbox_fwd.cu
+//   (R = F x Rf sample rows, fold-major; F = 1 is one fold)
+//   wflat  [F, 1760]       each fold's weights, as blackbox_fwd.cu
 //   consts [21, R]         per-row constants
 //   times  [T]             the time grid (it gets no cotangent)
 //   traj   [T, 10, R]      the forward trajectory
 //   g      [T, 10, R]      cotangent of the trajectory
-//   dw     [n_blocks, 1760] out: each 32-row block's partial sum of dW
+//   dw     [F, n_blocks, 1760] out: each 32-row block's partial sum of dW
 //   dc     [21, R]         out: cotangent of the constants
 //   dy0    [10, R]         out: cotangent of y0
 //
@@ -49,34 +50,38 @@
 // a kernel gets unasked (bb::bwd_smem_bytes), so the launch asks first.
 template <int METHOD>
 static int launch(const float* wflat, const float* consts, const float* times, const float* traj,
-                  const float* g, float* dw, float* dc, float* dy0, int R, int T,
+                  const float* g, float* dw, float* dc, float* dy0, int R, int T, int folds,
                   cudaStream_t s) {
   constexpr int smem = bb::bwd_smem_bytes(METHOD);
   const cudaError_t err = cudaFuncSetAttribute(
       bb::bwd_kernel<METHOD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((R + bb::BWD_ROWS - 1) / bb::BWD_ROWS));
+  const int Rf = R / folds;
+  const dim3 grid((unsigned)((Rf + bb::BWD_ROWS - 1) / bb::BWD_ROWS), (unsigned)folds);
   bb::bwd_kernel<METHOD><<<grid, bb::BWD_THREADS, smem, s>>>(wflat, consts, times, traj, g, dw,
-                                                             dc, dy0, R, T);
+                                                             dc, dy0, R, Rf, T);
   return (int)cudaGetLastError();
 }
 
-// Device pointers of contiguous float32 tensors (dw holds ceil(R / 32)
-// partials of [1760]); stream is a cudaStream_t.  Returns the cudaError_t of
+// Device pointers of contiguous float32 tensors (R rows in folds folds of
+// R / folds rows each; wflat holds folds weight vectors of [1760], dw folds x
+// ceil(R / folds / 32) partials of [1760], fold-major); stream is a
+// cudaStream_t.  Returns the cudaError_t of
 // the launch (0 on success); a bad method or shape returns
 // cudaErrorInvalidValue without launching.
 extern "C" int blackbox_bwd_launch(const float* wflat, const float* consts, const float* times,
                                    const float* traj, const float* g, float* dw, float* dc,
-                                   float* dy0, int R, int T, int method, void* stream) {
-  if (R <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+                                   float* dy0, int R, int T, int method, int folds,
+                                   void* stream) {
+  if (R <= 0 || T <= 0 || folds <= 0 || R % folds != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (method) {
     case MODEULER:
-      return launch<MODEULER>(wflat, consts, times, traj, g, dw, dc, dy0, R, T, s);
+      return launch<MODEULER>(wflat, consts, times, traj, g, dw, dc, dy0, R, T, folds, s);
     case MIDPOINT:
-      return launch<MIDPOINT>(wflat, consts, times, traj, g, dw, dc, dy0, R, T, s);
+      return launch<MIDPOINT>(wflat, consts, times, traj, g, dw, dc, dy0, R, T, folds, s);
     case RK4:
-      return launch<RK4>(wflat, consts, times, traj, g, dw, dc, dy0, R, T, s);
+      return launch<RK4>(wflat, consts, times, traj, g, dw, dc, dy0, R, T, folds, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -680,6 +680,14 @@ __device__ __forceinline__ void step_vjp(BwdThread& th, float t1, float t2, cons
 // (pallas_blackbox.py:256-260); rows past the edge (r >= R) run on row R - 1,
 // to reach every barrier, and store nothing.
 //
+// The fold axis (the TPU kernel's grid under jax.vmap): R = folds x Rf rows,
+// fold-major, each fold with its own weights (wflat [folds, N_W]).  Both
+// kernels run on the grid (ceil(Rf / 32), folds): block (x, y) stages fold
+// y's weights and runs rows x * 32 .. of fold y only, its edge at Rf (the
+// backward writes partial y * gridDim.x + x).  Within a fold the rows fall
+// into blocks as in a launch on that fold alone, so each fold's outputs are
+// that launch's bit for bit; folds = 1 is the launch without the axis.
+//
 // Backward (_make_bwd_kernel): the reverse sweep over the stored trajectory
 // by the block described above (each step's stages evaluated from traj[i]
 // into their slots, then pulled back in reverse; dc, dy0 per row in
@@ -689,18 +697,20 @@ template <int METHOD>
 __global__ void __launch_bounds__(FWD_THREADS, FWD_MIN_BLOCKS)
 fwd_kernel(const float* __restrict__ wflat, const float* __restrict__ consts,
            const float* __restrict__ y0, const float* __restrict__ times,
-           float* __restrict__ out, int R, int T) {
+           float* __restrict__ out, int R, int Rf, int T) {
   __shared__ __align__(16) float Ws[N_WF];
   __shared__ __align__(16) float slot[N_SLOT * LD];
-  for (int e = threadIdx.x; e < N_WF; e += FWD_THREADS) Ws[e] = staged_weight(wflat, e);
+  const int fold = blockIdx.y;
+  const float* __restrict__ wf = wflat + (size_t)fold * N_W;
+  for (int e = threadIdx.x; e < N_WF; e += FWD_THREADS) Ws[e] = staged_weight(wf, e);
   SliceThread th;
   th.Ws = Ws;
   th.row = threadIdx.x % FWD_ROWS;
   th.q = threadIdx.x / FWD_ROWS;
 
-  const int r0 = blockIdx.x * FWD_ROWS + th.row;
-  const bool live = r0 < R;
-  const int r = live ? r0 : R - 1;
+  const int r0 = blockIdx.x * FWD_ROWS + th.row;  // the row within its fold
+  const bool live = r0 < Rf;
+  const int r = fold * Rf + (live ? r0 : Rf - 1);
   const size_t stride = (size_t)R;
 
 #pragma unroll
@@ -733,8 +743,10 @@ __global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
 bwd_kernel(const float* __restrict__ wflat, const float* __restrict__ consts,
            const float* __restrict__ times, const float* __restrict__ traj,
            const float* __restrict__ g, float* __restrict__ dw_out,
-           float* __restrict__ dc_out, float* __restrict__ dy0_out, int R, int T) {
+           float* __restrict__ dc_out, float* __restrict__ dy0_out, int R, int Rf, int T) {
   extern __shared__ __align__(16) float smem[];
+  const int fold = blockIdx.y;
+  const float* __restrict__ wf = wflat + (size_t)fold * N_W;
   BwdThread th;
   th.Ws = smem;
   th.dWs = smem + N_WS;
@@ -743,15 +755,15 @@ bwd_kernel(const float* __restrict__ wflat, const float* __restrict__ consts,
   th.tid = threadIdx.x;
   th.row = th.tid % BWD_ROWS;
   th.q = th.tid / BWD_ROWS;
-  for (int e = th.tid; e < N_WS; e += BWD_THREADS) smem[e] = staged_weight(wflat, e);
+  for (int e = th.tid; e < N_WS; e += BWD_THREADS) smem[e] = staged_weight(wf, e);
   for (int e = th.tid; e < N_W; e += BWD_THREADS) {
     th.dWs[e] = 0.0f;
     reinterpret_cast<unsigned*>(smem + N_WS + N_W)[e] = entry_features(e);
   }
 
-  const int r0 = blockIdx.x * BWD_ROWS + th.row;
-  th.live = r0 < R;
-  const int r = th.live ? r0 : R - 1;
+  const int r0 = blockIdx.x * BWD_ROWS + th.row;  // the row within its fold
+  th.live = r0 < Rf;
+  const int r = fold * Rf + (th.live ? r0 : Rf - 1);
   const size_t stride = (size_t)R;
   const size_t tstride = (size_t)S * stride;
 
@@ -799,7 +811,7 @@ bwd_kernel(const float* __restrict__ wflat, const float* __restrict__ consts,
   // each thread writes the entries it reduced (the last pullback ended on a
   // barrier, so every entry is final)
   for (int e = th.tid; e < N_W; e += BWD_THREADS)
-    dw_out[(size_t)blockIdx.x * N_W + e] = th.dWs[e];
+    dw_out[((size_t)fold * gridDim.x + blockIdx.x) * N_W + e] = th.dWs[e];
 }
 
 }  // namespace bb

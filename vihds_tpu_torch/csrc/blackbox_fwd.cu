@@ -8,7 +8,9 @@
 // blackbox_common.cuh's bb::fwd_kernel.
 //
 // Layout (the wrapper fused_blackbox.blackbox_fwd checks it):
-//   wflat  [1760]       the 12 weight leaves of WEIGHT_LEAVES, row-major, concatenated
+//   (R = F x Rf sample rows, fold-major; F = 1 is one fold)
+//   wflat  [F, 1760]    each fold's 12 weight leaves of WEIGHT_LEAVES, row-major,
+//                       concatenated
 //   consts [21, R]      per-row constants [z1..5, x1..5, y1..2, treatments, device one-hot]
 //   y0     [10, R]      initial states: 4 observed, 2 latent species, 4 precisions
 //   times  [T]          the time grid
@@ -39,24 +41,29 @@
 
 #include "blackbox_common.cuh"
 
-// Device pointers of contiguous float32 tensors; stream is a cudaStream_t.
+// Device pointers of contiguous float32 tensors; R rows in folds folds of R /
+// folds rows each; stream is a cudaStream_t.
 // Returns the cudaError_t of the launch (0 on success); a bad method or shape
 // returns cudaErrorInvalidValue without launching.
 extern "C" int blackbox_fwd_launch(const float* wflat, const float* consts, const float* y0,
                                    const float* times, float* out, int R, int T, int method,
-                                   void* stream) {
-  if (R <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((R + bb::FWD_ROWS - 1) / bb::FWD_ROWS));
+                                   int folds, void* stream) {
+  if (R <= 0 || T <= 0 || folds <= 0 || R % folds != 0) return (int)cudaErrorInvalidValue;
+  const int Rf = R / folds;
+  const dim3 grid((unsigned)((Rf + bb::FWD_ROWS - 1) / bb::FWD_ROWS), (unsigned)folds);
   cudaStream_t s = (cudaStream_t)stream;
   switch (method) {
     case MODEULER:
-      bb::fwd_kernel<MODEULER><<<grid, bb::FWD_THREADS, 0, s>>>(wflat, consts, y0, times, out, R, T);
+      bb::fwd_kernel<MODEULER><<<grid, bb::FWD_THREADS, 0, s>>>(wflat, consts, y0, times, out, R,
+                                                                 Rf, T);
       break;
     case MIDPOINT:
-      bb::fwd_kernel<MIDPOINT><<<grid, bb::FWD_THREADS, 0, s>>>(wflat, consts, y0, times, out, R, T);
+      bb::fwd_kernel<MIDPOINT><<<grid, bb::FWD_THREADS, 0, s>>>(wflat, consts, y0, times, out, R,
+                                                                 Rf, T);
       break;
     case RK4:
-      bb::fwd_kernel<RK4><<<grid, bb::FWD_THREADS, 0, s>>>(wflat, consts, y0, times, out, R, T);
+      bb::fwd_kernel<RK4><<<grid, bb::FWD_THREADS, 0, s>>>(wflat, consts, y0, times, out, R, Rf,
+                                                            T);
       break;
     default:
       return (int)cudaErrorInvalidValue;

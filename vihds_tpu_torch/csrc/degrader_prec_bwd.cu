@@ -15,13 +15,15 @@
 // PrecWarp).
 //
 // Layout (the wrapper fused_ode.kind_bwd checks it):
-//   wmat   [8, 13]    the precision nets' weights: rows 0..3 production,
-//                     4..7 degradation, column 0 the bias
+//   (R = F x Rf sample rows, fold-major; F = 1 is one fold, the kernel's grid
+//   is (blocks of a fold, F): see dr_common.cuh)
+//   wmat   [F, 8, 13] the precision nets' weights of each of F folds: rows
+//                     0..3 production, 4..7 degradation, column 0 the bias
 //   consts [28, R]    per-row constants in DEGRADER_CONST_NAMES order
 //   times  [T]        the time grid (it gets no cotangent)
 //   traj   [T, 15, R] the forward trajectory, traj[0] = y0
 //   g      [T, 15, R] cotangent of the trajectory
-//   dw     [n_blocks, 8, 13]  out: each 32-row block's partial sum of dW
+//   dw     [F, n_blocks, 8, 13]  out: each 32-row block's partial sum of dW
 //   dc     [28, R]    out: cotangent of the constants
 //   dy0    [15, R]    out: cotangent of y0
 //
@@ -34,9 +36,10 @@
 
 extern "C" int degrader_prec_bwd_launch(const float* wmat, const float* consts, const float* times,
                                         const float* traj, const float* g, float* dw, float* dc,
-                                        float* dy0, int R, int T, int method, void* stream) {
+                                        float* dy0, int R, int T, int method, int folds,
+                                        void* stream) {
   return bwd_launch<Degrader, true>(wmat, consts, times, traj, g, dw, dc, dy0, R, T, method,
-                                    stream);
+                                    stream, folds);
 }
 
 // The kernel's block for method (sample rows, threads, static shared memory

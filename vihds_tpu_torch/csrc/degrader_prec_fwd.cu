@@ -12,8 +12,10 @@
 // each point's features through a ring of shared tiles.
 //
 // Layout (the wrapper vihds_tpu_torch/ops/fused_ode.py packs and checks it):
-//   wmat   [8, 13]    the precision nets' weights: rows 0..3 production,
-//                     4..7 degradation, column 0 the bias
+//   (R = F x Rf sample rows, fold-major; F = 1 is one fold, the kernel's grid
+//   is (blocks of a fold, F): see dr_common.cuh)
+//   wmat   [F, 8, 13] the precision nets' weights of each of F folds: rows
+//                     0..3 production, 4..7 degradation, column 0 the bias
 //   consts [28, R]    per-row constants in DEGRADER_CONST_NAMES order
 //   y0     [15, R]    initial state, state-major
 //   times  [T]        the time grid
@@ -28,8 +30,8 @@
 
 extern "C" int degrader_prec_fwd_launch(const float* wmat, const float* consts, const float* y0,
                                         const float* times, float* out, int R, int T, int method,
-                                        void* stream) {
-  return fwd_launch<Degrader, true>(wmat, consts, y0, times, out, R, T, method, stream);
+                                        int folds, void* stream) {
+  return fwd_launch<Degrader, true>(wmat, consts, y0, times, out, R, T, method, stream, folds);
 }
 
 // The kernel's block for method (sample rows, threads, static shared memory

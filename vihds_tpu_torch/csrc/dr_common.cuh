@@ -1230,6 +1230,14 @@ bwd_kernel(const float* __restrict__ consts, const float* __restrict__ times,
 // the host (pallas_ode.py:533).  Rows past the edge (r >= R) sweep row R - 1
 // and keep nothing: they write no dc or dy0 and put exact zeros into the
 // block's partial, and they reach every barrier.
+//
+// The fold axis (the TPU kernel's grid under jax.vmap): R = folds x Rf rows,
+// fold-major, each fold with its own W ([folds, 8, 2 + NS]).  The grid is
+// (ceil(Rf / 32), folds); block (x, y) stages fold y's W and sweeps rows
+// x * 32 .. of fold y only, its edge at Rf, and writes partial y * gridDim.x
+// + x.  Within a fold the rows fall into blocks as in a launch on that fold
+// alone, so each fold's trajectory cotangents and partials are that launch's
+// bit for bit; folds = 1 is the launch without the axis.
 // --------------------------------------------------------------------------
 constexpr int PREC_BWD_ROWS = 32;
 constexpr int PREC_BWD_THREADS = PREC_BWD_ROWS * (N_PREC + 1);
@@ -1391,17 +1399,22 @@ __global__ void __launch_bounds__(PREC_BWD_THREADS, 2)
 prec_bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts,
                 const float* __restrict__ times, const float* __restrict__ traj,
                 const float* __restrict__ g, float* __restrict__ dw_out,
-                float* __restrict__ dc_out, float* __restrict__ dy0_out, int R, int T) {
+                float* __restrict__ dc_out, float* __restrict__ dy0_out, int R, int Rf,
+                int T) {
   constexpr int NS = F::NS, S = NS + N_PREC, NF = n_feat(NS), NW = n_w(NS);
   constexpr int NPTS = n_points<METHOD>();
   __shared__ PrecBwdTiles<NS, NPTS> sh;
   const int tid = threadIdx.x;
   const int lane = tid % PREC_BWD_ROWS, warp = tid / PREC_BWD_ROWS;
-  for (int e = tid; e < NW; e += PREC_BWD_THREADS) sh.W[e] = wmat[e];
+  const int fold = blockIdx.y;
+  const float* __restrict__ wf = wmat + (size_t)fold * NW;
+  for (int e = tid; e < NW; e += PREC_BWD_THREADS) sh.W[e] = wf[e];
   __syncthreads();
 
-  const int r = blockIdx.x * PREC_BWD_ROWS + lane;
-  const int rr = min(r, R - 1);  // the row this thread sweeps
+  const int rl = blockIdx.x * PREC_BWD_ROWS + lane;  // the row within its fold
+  const bool live = rl < Rf;
+  const int r = fold * Rf + rl;
+  const int rr = fold * Rf + min(rl, Rf - 1);  // the row this thread sweeps
   const size_t stride = (size_t)R;
   const size_t tstride = (size_t)S * stride;
   const float* gT = g + (size_t)(T - 1) * tstride + rr;
@@ -1433,7 +1446,7 @@ prec_bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
     }
     bar_arrive(BAR_DONE, PREC_BWD_THREADS);
 
-    if (r < R) {
+    if (live) {
 #pragma unroll
       for (int q = 0; q < F::NC; ++q) dc_out[q * stride + r] = dc[q];
 #pragma unroll
@@ -1467,13 +1480,13 @@ prec_bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
       a[0] += g[(size_t)i * tstride + (NS + j) * stride + rr];
       t2 = t1;
     }
-    if (r < R) dy0_out[(NS + j) * stride + r] = a[0];
+    if (live) dy0_out[(NS + j) * stride + r] = a[0];
 
     bar_sync(BAR_DONE, PREC_BWD_THREADS);
 #pragma unroll
     for (int k = 0; k < NF; ++k) {
-      sh.dW[j * NF + k][lane] = r < R ? dWp[k] : 0.0f;
-      sh.dW[(N_PREC + j) * NF + k][lane] = r < R ? dWd[k] : 0.0f;
+      sh.dW[j * NF + k][lane] = live ? dWp[k] : 0.0f;
+      sh.dW[(N_PREC + j) * NF + k][lane] = live ? dWd[k] : 0.0f;
     }
   }
 
@@ -1483,7 +1496,7 @@ prec_bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
   for (int e = tid; e < NW; e += PREC_BWD_THREADS) {
     float sum = 0.0f;
     for (int q = 0; q < PREC_BWD_ROWS; ++q) sum += sh.dW[e][q];
-    dw_out[(size_t)blockIdx.x * NW + e] = sum;
+    dw_out[((size_t)fold * gridDim.x + blockIdx.x) * NW + e] = sum;
   }
 }
 
@@ -1524,7 +1537,9 @@ prec_bwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
 // did there: midpoint and rk4 give that kernel's trajectory bit for bit;
 // in modeuler's f1 + f2 nvcc fuses the other product of species 0, as it
 // does in a one-thread-per-row forward of the plain kinds.  Rows past the edge (r >= R) run row
-// R - 1, store nothing and reach every barrier.
+// R - 1, store nothing and reach every barrier.  The fold axis is the
+// backward's: grid (ceil(Rf / 32), folds), block (x, y) on fold y's W and
+// rows, its edge at Rf.
 // --------------------------------------------------------------------------
 constexpr int PREC_FWD_ROWS = 32;
 constexpr int PREC_FWD_THREADS = PREC_FWD_ROWS * (N_PREC + 1);
@@ -1597,18 +1612,22 @@ template <class F, int METHOD>
 __global__ void __launch_bounds__(PREC_FWD_THREADS, 3)
 prec_fwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts,
                 const float* __restrict__ y0, const float* __restrict__ times,
-                float* __restrict__ out, int R, int T) {
+                float* __restrict__ out, int R, int Rf, int T) {
   constexpr int NS = F::NS, S = NS + N_PREC, NF = n_feat(NS), NW = n_w(NS);
   constexpr int RING = fwd_ring<METHOD>();
   using Tiles = PrecFwdTiles<NS, RING>;
   __shared__ Tiles sh;
   const int tid = threadIdx.x;
   const int lane = tid % PREC_FWD_ROWS, warp = tid / PREC_FWD_ROWS;
-  for (int e = tid; e < NW; e += PREC_FWD_THREADS) sh.W[e] = wmat[e];
+  const int fold = blockIdx.y;
+  const float* __restrict__ wf = wmat + (size_t)fold * NW;
+  for (int e = tid; e < NW; e += PREC_FWD_THREADS) sh.W[e] = wf[e];
   __syncthreads();
 
-  const int r = blockIdx.x * PREC_FWD_ROWS + lane;
-  const int rr = min(r, R - 1);  // the row this thread runs
+  const int rl = blockIdx.x * PREC_FWD_ROWS + lane;  // the row within its fold
+  const bool live = rl < Rf;
+  const int r = fold * Rf + rl;
+  const int rr = fold * Rf + min(rl, Rf - 1);  // the row this thread runs
   const size_t stride = (size_t)R;
   int slot = 0;
 
@@ -1619,7 +1638,7 @@ prec_fwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
     float y[NS];
 #pragma unroll
     for (int s = 0; s < NS; ++s) y[s] = y0[s * stride + rr];
-    if (r < R) {
+    if (live) {
 #pragma unroll
       for (int s = 0; s < NS; ++s) out[s * stride + r] = y[s];
     }
@@ -1628,7 +1647,7 @@ prec_fwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
     for (int i = 1; i < T; ++i) {
       const float t2 = __ldg(times + i);
       one_step<METHOD, NS>(species, t1, t2, y);
-      if (r < R) {
+      if (live) {
         float* o = out + (size_t)i * S * stride + r;
 #pragma unroll
         for (int s = 0; s < NS; ++s) o[s * stride] = y[s];
@@ -1651,13 +1670,13 @@ prec_fwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
 #pragma unroll
     for (int q = 0; q < RING; ++q) bar_arrive(Tiles::BAR_FREE + q, PREC_FWD_THREADS);
     float v[1] = {y0[j * stride + rr]};
-    if (r < R) out[j * stride + r] = v[0];
+    if (live) out[j * stride + r] = v[0];
     const PrecFwdWarp<NS, RING> prec{&sh, lane, Wp, Wd, &slot};
     float t1 = __ldg(times);
     for (int i = 1; i < T; ++i) {
       const float t2 = __ldg(times + i);
       one_step<METHOD, 1>(prec, t1, t2, v);
-      if (r < R) out[((size_t)i * S + j) * stride + r] = v[0];
+      if (live) out[((size_t)i * S + j) * stride + r] = v[0];
       t1 = t2;
     }
   }
@@ -1665,26 +1684,33 @@ prec_fwd_kernel(const float* __restrict__ wmat, const float* __restrict__ consts
 
 // The launchers behind the C entry points.  All pointers are device pointers
 // of contiguous float32 tensors (wmat and dw null without the precision
-// block; dw holds ceil(R / 32) partials of [8, 2 + NS]); stream is a
-// cudaStream_t.  They return the cudaError_t of the launch (0 on success); a
-// bad method or shape returns cudaErrorInvalidValue without launching.
+// block; with it, wmat holds folds matrices [8, 2 + NS] and dw folds x
+// ceil(R / folds / 32) partials of that shape, fold-major); stream is a
+// cudaStream_t.  R counts the rows of all folds, folds of R / folds rows
+// each (1 without the precision block).  They return the cudaError_t of the
+// launch (0 on success); a bad method or shape returns
+// cudaErrorInvalidValue without launching.
 template <class F, bool PREC>
 int fwd_launch(const float* wmat, const float* consts, const float* y0, const float* times,
-               float* out, int R, int T, int method, void* stream) {
-  if (R <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+               float* out, int R, int T, int method, void* stream, int folds = 1) {
+  if (R <= 0 || T <= 0 || folds <= 0 || R % folds != 0 || (!PREC && folds != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if constexpr (PREC) {
+    const int Rf = R / folds;
     const dim3 block(PREC_FWD_THREADS);
-    const dim3 grid((unsigned)((R + PREC_FWD_ROWS - 1) / PREC_FWD_ROWS));
+    const dim3 grid((unsigned)((Rf + PREC_FWD_ROWS - 1) / PREC_FWD_ROWS), (unsigned)folds);
     switch (method) {
       case MODEULER:
-        prec_fwd_kernel<F, MODEULER><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
+        prec_fwd_kernel<F, MODEULER><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, Rf,
+                                                            T);
         break;
       case MIDPOINT:
-        prec_fwd_kernel<F, MIDPOINT><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
+        prec_fwd_kernel<F, MIDPOINT><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, Rf,
+                                                            T);
         break;
       case RK4:
-        prec_fwd_kernel<F, RK4><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, T);
+        prec_fwd_kernel<F, RK4><<<grid, block, 0, s>>>(wmat, consts, y0, times, out, R, Rf, T);
         break;
       default:
         return (int)cudaErrorInvalidValue;
@@ -1712,24 +1738,26 @@ int fwd_launch(const float* wmat, const float* consts, const float* y0, const fl
 template <class F, bool PREC>
 int bwd_launch(const float* wmat, const float* consts, const float* times, const float* traj,
                const float* g, float* dw, float* dc, float* dy0, int R, int T, int method,
-               void* stream) {
-  if (R <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+               void* stream, int folds = 1) {
+  if (R <= 0 || T <= 0 || folds <= 0 || R % folds != 0 || (!PREC && folds != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if constexpr (PREC) {
+    const int Rf = R / folds;
     const dim3 block(PREC_BWD_THREADS);
-    const dim3 grid((unsigned)((R + PREC_BWD_ROWS - 1) / PREC_BWD_ROWS));
+    const dim3 grid((unsigned)((Rf + PREC_BWD_ROWS - 1) / PREC_BWD_ROWS), (unsigned)folds);
     switch (method) {
       case MODEULER:
         prec_bwd_kernel<F, MODEULER><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc,
-                                                            dy0, R, T);
+                                                            dy0, R, Rf, T);
         break;
       case MIDPOINT:
         prec_bwd_kernel<F, MIDPOINT><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc,
-                                                            dy0, R, T);
+                                                            dy0, R, Rf, T);
         break;
       case RK4:
         prec_bwd_kernel<F, RK4><<<grid, block, 0, s>>>(wmat, consts, times, traj, g, dw, dc, dy0,
-                                                       R, T);
+                                                       R, Rf, T);
         break;
       default:
         return (int)cudaErrorInvalidValue;

@@ -13,13 +13,15 @@
 // pullback is written out by hand there (dr_rhs_vjp, CoreWarp and PrecWarp).
 //
 // Layout (the wrapper fused_ode.kind_bwd checks it):
-//   wmat   [8, 10]    the precision nets' weights: rows 0..3 production,
-//                     4..7 degradation, column 0 the bias
+//   (R = F x Rf sample rows, fold-major; F = 1 is one fold, the kernel's grid
+//   is (blocks of a fold, F): see dr_common.cuh)
+//   wmat   [F, 8, 10] the precision nets' weights of each of F folds: rows
+//                     0..3 production, 4..7 degradation, column 0 the bias
 //   consts [23, R]    per-row constants in DR_CONST_NAMES order
 //   times  [T]        the time grid (it gets no cotangent)
 //   traj   [T, 12, R] the forward trajectory, traj[0] = y0
 //   g      [T, 12, R] cotangent of the trajectory
-//   dw     [n_blocks, 8, 10]  out: each 32-row block's partial sum of dW
+//   dw     [F, n_blocks, 8, 10]  out: each 32-row block's partial sum of dW
 //   dc     [23, R]    out: cotangent of the constants
 //   dy0    [12, R]    out: cotangent of y0
 //
@@ -32,8 +34,10 @@
 
 extern "C" int dr_prec_bwd_launch(const float* wmat, const float* consts, const float* times,
                                   const float* traj, const float* g, float* dw, float* dc,
-                                  float* dy0, int R, int T, int method, void* stream) {
-  return bwd_launch<Dr, true>(wmat, consts, times, traj, g, dw, dc, dy0, R, T, method, stream);
+                                  float* dy0, int R, int T, int method, int folds,
+                                  void* stream) {
+  return bwd_launch<Dr, true>(wmat, consts, times, traj, g, dw, dc, dy0, R, T, method,
+                              stream, folds);
 }
 
 // The kernel's block for method (sample rows, threads, static shared memory

@@ -14,13 +14,15 @@
 // pullback is written out by hand there (relay_rhs_vjp, CoreWarp and PrecWarp).
 //
 // Layout (the wrapper fused_ode.kind_bwd checks it):
-//   wmat   [8, 14]    the precision nets' weights: rows 0..3 production,
-//                     4..7 degradation, column 0 the bias
+//   (R = F x Rf sample rows, fold-major; F = 1 is one fold, the kernel's grid
+//   is (blocks of a fold, F): see dr_common.cuh)
+//   wmat   [F, 8, 14] the precision nets' weights of each of F folds: rows
+//                     0..3 production, 4..7 degradation, column 0 the bias
 //   consts [29, R]    per-row constants in RELAY_CONST_NAMES order
 //   times  [T]        the time grid (it gets no cotangent)
 //   traj   [T, 16, R] the forward trajectory, traj[0] = y0
 //   g      [T, 16, R] cotangent of the trajectory
-//   dw     [n_blocks, 8, 14]  out: each 32-row block's partial sum of dW
+//   dw     [F, n_blocks, 8, 14]  out: each 32-row block's partial sum of dW
 //   dc     [29, R]    out: cotangent of the constants
 //   dy0    [16, R]    out: cotangent of y0
 //
@@ -33,8 +35,10 @@
 
 extern "C" int relay_prec_bwd_launch(const float* wmat, const float* consts, const float* times,
                                      const float* traj, const float* g, float* dw, float* dc,
-                                     float* dy0, int R, int T, int method, void* stream) {
-  return bwd_launch<Relay, true>(wmat, consts, times, traj, g, dw, dc, dy0, R, T, method, stream);
+                                     float* dy0, int R, int T, int method, int folds,
+                                     void* stream) {
+  return bwd_launch<Relay, true>(wmat, consts, times, traj, g, dw, dc, dy0, R, T, method,
+                                 stream, folds);
 }
 
 // The kernel's block for method (sample rows, threads, static shared memory

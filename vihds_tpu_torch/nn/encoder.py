@@ -112,6 +112,8 @@ class Encoder:
 
     def __call__(self, p, data):
         """data: batch AttrDict of tensors -> q {mu, prec, logprec} [B, n_theta].
+        With a fold axis on the params the rows are the folds', fold-major
+        (``layers``).
 
         A batch of ``merge: false`` data carries ``enc_observations``, its
         series snapped onto the shortest grid the trunk was built for, while
@@ -140,8 +142,8 @@ class Encoder:
             parts_mu.append(layers.linear_apply(p["gc_mu"], x_gc))
             parts_lp.append(layers.linear_apply(p["gc_lp"], x_gc))
         if self.n_global:
-            parts_mu.append(p["glob_mu"][None, :].expand(B, self.n_global))
-            parts_lp.append(p["glob_lp"][None, :].expand(B, self.n_global))
+            parts_mu.append(layers.rows_of(p["glob_mu"], B))
+            parts_lp.append(layers.rows_of(p["glob_lp"], B))
         n_const = len(self.program.sites.constant)
         if n_const:
             cvals = self.program.const_value[self.program.constant_slice]

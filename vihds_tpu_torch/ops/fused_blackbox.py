@@ -21,6 +21,10 @@ kernels or raises, on a CPU tensor it runs the plain versions
 
 This is a module of its own, not a kind of ``fused_ode.KINDS``: the
 mechanistic kinds carry per-row constants only, this one shares its weights.
+Leaves with a fold axis (``[F, ...]``, one set of nets a fold, the TPU
+kernels' grid axis under ``jax.vmap``) pack into ``[F, 1760]`` weights; the
+rows are then F folds', fold-major, and each kernel runs every fold on its
+own weights in one launch.
 """
 
 import ctypes
@@ -187,6 +191,33 @@ def _plain_fwd(wv, packed, y0_cols, times, n_states, method):
     return fused_ode._integrate(_rhs, (wv, packed, n_states), y0_cols, times, method)
 
 
+def _plain_fwd_flat(wflat, shapes, packed, y0_cols, times, n_states, method):
+    """``_plain_fwd`` on packed weights [n_w], or [F, n_w] with the fold
+    axis: each fold's columns on its own weights, as F calls would."""
+    n_folds = fused_ode.fold_count(wflat, 1)
+    if n_folds is None:
+        return _plain_fwd(_split(wflat, shapes), packed, y0_cols, times, n_states, method)
+    return torch.cat([
+        _plain_fwd(_split(wflat[f], shapes), fused_ode.fold_cols(packed, f, n_folds),
+                   fused_ode.fold_cols(y0_cols, f, n_folds), times, n_states, method)
+        for f in range(n_folds)], dim=-1)
+
+
+def _plain_bwd_flat(wflat, shapes, packed, times, traj, g, n_states, method):
+    """``_plain_bwd`` on packed weights [n_w] (or [F, n_w]): (dW packed as
+    the weights, dc, dy0)."""
+    n_folds = fused_ode.fold_count(wflat, 1)
+    if n_folds is None:
+        dwv, dc, dy0 = _plain_bwd(_split(wflat, shapes), packed, times, traj, g, n_states, method)
+        return torch.cat([d.reshape(-1) for d in dwv]), dc, dy0
+    parts = [_plain_bwd_flat(wflat[f], shapes, fused_ode.fold_cols(packed, f, n_folds), times,
+                             fused_ode.fold_cols(traj, f, n_folds),
+                             fused_ode.fold_cols(g, f, n_folds), n_states, method)
+             for f in range(n_folds)]
+    return (torch.stack([p[0] for p in parts]), torch.cat([p[1] for p in parts], dim=-1),
+            torch.cat([p[2] for p in parts], dim=-1))
+
+
 def _plain_bwd(wv, packed, times, traj, g, n_states, method, relu_mask=_relu_live):
     """Plain version of csrc/blackbox_bwd.cu: the reverse sweep over the
     stored trajectory ``traj`` [T, S, R] for its cotangent ``g`` (the
@@ -227,18 +258,31 @@ def _check_widths(kernel, shapes, n_states, n_const):
                tuple(shapes)))
 
 
+def _weight_shape(kernel, wflat, R):
+    """(the weight operand's shape, [1760] or [F, 1760]; F or None)."""
+    n_folds = fused_ode.fold_count(wflat, 1)
+    if n_folds is None:
+        return (KERNEL_N_W,), None
+    if n_folds < 1 or R % n_folds:
+        raise ValueError("%s: %d rows do not split into %d folds" % (kernel, R, n_folds))
+    return (n_folds, KERNEL_N_W), n_folds
+
+
 def blackbox_fwd(wflat, packed, y0_cols, times, shapes, n_states, method):
     """Launch csrc/blackbox_fwd.cu on the current stream: the packed [1760]
-    weights, [21, R] constants, [10, R] y0, [T] times -> [T, 10, R].  CUDA
-    tensors only; ``_plain_fwd`` is its plain version."""
+    weights, [21, R] constants, [10, R] y0, [T] times -> [T, 10, R].  With
+    weights [F, 1760] the rows are F folds', fold-major, each run on its own
+    weights in the one launch.  CUDA tensors only; ``_plain_fwd`` is its
+    plain version."""
     R, T, S = packed.shape[1], times.shape[0], n_states + N_PREC
     _check_widths("blackbox_fwd", shapes, n_states, packed.shape[0])
-    operands = [("weights", wflat, (KERNEL_N_W,)), ("constants", packed, (KERNEL_N_CONST, R)),
+    w_shape, n_folds = _weight_shape("blackbox_fwd", wflat, R)
+    operands = [("weights", wflat, w_shape), ("constants", packed, (KERNEL_N_CONST, R)),
                 ("y0", y0_cols, (S, R)), ("times", times, (T,))]
     fused_ode._check_operands("blackbox_fwd", packed.device, operands)
     out = torch.empty((T, S, R), dtype=torch.float32, device=packed.device)
     fused_ode._launch("blackbox_fwd", R, T, method, packed.device, *[t for _, t, _ in operands],
-                      out)
+                      out, folds=n_folds)
     COUNTERS["blackbox_fwd"].launches += 1
     return out
 
@@ -249,21 +293,25 @@ def blackbox_bwd(wflat, packed, times, traj, g, shapes, n_states, method):
     ``wflat``; dc [21, R]; dy0 [10, R]).  The kernel writes one partial sum
     of dW per block of ``BWD_ROWS`` sample rows, each reduced in a fixed order;
     their sum here is the last step, so two runs give the same dW bit for
-    bit.  CUDA tensors only; ``_plain_bwd`` is its plain version."""
+    bit.  With weights [F, 1760] dW is [F, 1760], each fold's partials summed
+    as a launch on that fold alone sums them.  CUDA tensors only;
+    ``_plain_bwd`` is its plain version."""
     R, T, S = packed.shape[1], times.shape[0], n_states + N_PREC
     _check_widths("blackbox_bwd", shapes, n_states, packed.shape[0])
-    operands = [("weights", wflat, (KERNEL_N_W,)), ("constants", packed, (KERNEL_N_CONST, R)),
+    w_shape, n_folds = _weight_shape("blackbox_bwd", wflat, R)
+    operands = [("weights", wflat, w_shape), ("constants", packed, (KERNEL_N_CONST, R)),
                 ("times", times, (T,)), ("trajectory", traj, (T, S, R)),
                 ("cotangent", g, (T, S, R))]
     fused_ode._check_operands("blackbox_bwd", packed.device, operands)
-    n_blocks = -(-R // BWD_ROWS)
-    partials = torch.empty((n_blocks, KERNEL_N_W), dtype=torch.float32, device=packed.device)
+    n_blocks = -(-(R // (n_folds or 1)) // BWD_ROWS)
+    partials = torch.empty((n_folds or 1, n_blocks, KERNEL_N_W), dtype=torch.float32,
+                           device=packed.device)
     dc = torch.empty_like(packed)
     dy0 = torch.empty((S, R), dtype=torch.float32, device=packed.device)
     fused_ode._launch("blackbox_bwd", R, T, method, packed.device, *[t for _, t, _ in operands],
-                      partials, dc, dy0)
+                      partials, dc, dy0, folds=n_folds)
     COUNTERS["blackbox_bwd"].launches += 1
-    return partials.sum(dim=0), dc, dy0
+    return fused_ode.fold_partial_sums(partials, n_folds), dc, dy0
 
 
 def _block(kernel, method):
@@ -290,8 +338,9 @@ def bwd_block(method):
 
 
 class _BlackboxIntegrate(torch.autograd.Function):
-    """(packed weights [n_w], [NC, R] constants, [S, R] y0, [T] times, leaf
-    shapes, n_states, method) -> [T, S, R] trajectory, differentiable in the
+    """(packed weights [n_w] or [F, n_w], [NC, R] constants, [S, R] y0, [T]
+    times, one fold's leaf shapes, n_states, method) -> [T, S, R] trajectory,
+    differentiable in the
     weights, the constants and y0 (the TPU kernel's ``_integrate_padded``
     custom VJP; times get no cotangent).  CUDA tensors launch
     csrc/blackbox_fwd.cu and csrc/blackbox_bwd.cu; CPU tensors run the plain
@@ -302,7 +351,7 @@ class _BlackboxIntegrate(torch.autograd.Function):
         if packed.device.type == "cuda":
             traj = blackbox_fwd(wflat, packed, y0_cols, times, shapes, n_states, method)
         else:
-            traj = _plain_fwd(_split(wflat, shapes), packed, y0_cols, times, n_states, method)
+            traj = _plain_fwd_flat(wflat, shapes, packed, y0_cols, times, n_states, method)
         ctx.shapes, ctx.n_states, ctx.method = shapes, n_states, method
         ctx.save_for_backward(wflat, packed, times, traj)
         return traj
@@ -316,9 +365,8 @@ class _BlackboxIntegrate(torch.autograd.Function):
             dw, dc, dy0 = blackbox_bwd(wflat, packed, times, traj, g, ctx.shapes, ctx.n_states,
                                        ctx.method)
         else:
-            dwv, dc, dy0 = _plain_bwd(_split(wflat, ctx.shapes), packed, times, traj, g,
-                                      ctx.n_states, ctx.method)
-            dw = torch.cat([d.reshape(-1) for d in dwv])
+            dw, dc, dy0 = _plain_bwd_flat(wflat, ctx.shapes, packed, times, traj, g,
+                                          ctx.n_states, ctx.method)
         return dw, dc, dy0, None, None, None, None
 
 
@@ -327,13 +375,29 @@ class _BlackboxIntegrate(torch.autograd.Function):
 # --------------------------------------------------------------------------- #
 def _pack(params, constants, y0):
     """(the 12 leaves, packed [n_w] weights, [NC, R] constants, [S, R] y0)
-    from the DR_Blackbox params, constants [B, K, NC] and y0 [B, K, S]."""
+    from the DR_Blackbox params, constants [B, K, NC] and y0 [B, K, S].
+    Leaves with a fold axis pack into [F, n_w]."""
     B, K, S = y0.shape
     R = B * K
     wv = [params[a][b][c] for a, b, c in WEIGHT_LEAVES]
-    wflat = torch.cat([w.reshape(-1) for w in wv])
+    n_folds = _leaf_folds(wv)
+    if n_folds is None:
+        wflat = torch.cat([w.reshape(-1) for w in wv])
+    else:
+        wflat = torch.cat([w.reshape(n_folds, -1) for w in wv], dim=1)
     packed = torch.broadcast_to(constants, (B, K, constants.shape[-1])).reshape(R, -1)
     return wv, wflat, packed.t().contiguous(), y0.reshape(R, S).t().contiguous()
+
+
+def _leaf_folds(wv):
+    """F of the 12 leaves with a fold axis (the hidden bias [F, n]), or None."""
+    return fused_ode.fold_count(wv[1], 1)
+
+
+def _leaf_shapes(wv):
+    """One fold's shapes of the 12 leaves."""
+    skip = 0 if _leaf_folds(wv) is None else 1
+    return tuple(tuple(w.shape[skip:]) for w in wv)
 
 
 def _check(y0, n_states):
@@ -359,7 +423,7 @@ def blackbox_simulate(params, constants, y0, times, n_states, method="midpoint")
         raise ValueError("blackbox_simulate: no kernel for device %s" % y0.device)
     B, K, _ = y0.shape
     wv, wflat, packed, y0_cols = _pack(params, constants, y0)
-    shapes = tuple(tuple(w.shape) for w in wv)
+    shapes = _leaf_shapes(wv)
     out = _BlackboxIntegrate.apply(wflat, packed, y0_cols, times.contiguous(), shapes, n_states,
                                    method)
     return fused_ode._unpack(out, B, K)
@@ -370,8 +434,9 @@ def blackbox_simulate_plain(params, constants, y0, times, n_states, method="midp
     fused_ode._check_method(method)
     _check(y0, n_states)
     B, K, _ = y0.shape
-    wv, _, packed, y0_cols = _pack(params, constants, y0)
-    return fused_ode._unpack(_plain_fwd(wv, packed, y0_cols, times, n_states, method), B, K)
+    wv, wflat, packed, y0_cols = _pack(params, constants, y0)
+    return fused_ode._unpack(
+        _plain_fwd_flat(wflat, _leaf_shapes(wv), packed, y0_cols, times, n_states, method), B, K)
 
 
 #: kernel -> the function whose ``launches`` attribute counts its launches

@@ -19,6 +19,13 @@ species' 8-row core, and the ``_prec`` kinds the precision block, whose
 backward also returns the cotangent of the precision nets' weight matrix,
 summed over all rows.  ``KINDS`` lists the kinds.
 
+The ``_prec`` kinds take a fold axis, the TPU kernels' grid axis under
+``jax.vmap``: a weight matrix ``[F, 8, 2 + NS]`` with the rows of F folds,
+fold-major (``R = F * Rf``), runs each fold on its own weights in one
+launch, and the backward returns ``dW [F, 8, 2 + NS]``, each fold's partials
+summed as a launch on that fold alone sums them.  The plain kinds need no
+axis: their constants are per row, so the folds' rows simply stack.
+
 ``<family>_simulate`` (``dr_constant_simulate``, ...,
 ``degrader_constant_precisions_simulate``) are the differentiable wrappers:
 ``_KindIntegrate``, a ``torch.autograd.Function`` at the packed ``[NC, R]`` /
@@ -589,11 +596,34 @@ def _sweep(rhs, vjp, c, dc, times, traj, g, method):
     return a
 
 
+def fold_count(w, dims):
+    """F of a weight operand with the fold axis (``dims + 1`` dimensions,
+    ``[F, ...]``), or None for one without it (``dims`` dimensions)."""
+    if w is None or w.dim() == dims:
+        return None
+    if w.dim() != dims + 1:
+        raise ValueError("weights of %d dimensions, want %d or %d (a fold axis)"
+                         % (w.dim(), dims, dims + 1))
+    return w.shape[0]
+
+
+def fold_cols(x, f, n_folds):
+    """Fold ``f``'s columns of ``x`` [..., R] (R = n_folds * Rf, fold-major)."""
+    rf = x.shape[-1] // n_folds
+    return x[..., f * rf:(f + 1) * rf]
+
+
 def _plain_fwd(kind, wmat, packed, y0_cols, times, method):
     """Plain version of csrc/<kind>_fwd.cu: [8, 2 + NS] weights (``_prec``
     kinds; else None), [NC, R] constants, [S, R] y0, [T] times -> [T, S, R]
-    trajectory."""
+    trajectory.  Weights [F, 8, 2 + NS] run each fold's columns on its own
+    matrix, as F calls would."""
     k = KINDS[kind]
+    n_folds = fold_count(wmat, 2)
+    if n_folds is not None:
+        return torch.cat([_plain_fwd(kind, wmat[f], fold_cols(packed, f, n_folds),
+                                     fold_cols(y0_cols, f, n_folds), times, method)
+                          for f in range(n_folds)], dim=-1)
     cdict = dict(zip(k.names, packed))
     return _integrate(_rhs_and_vjp(kind)[0], (cdict, wmat) if k.prec else cdict, y0_cols, times,
                       method)
@@ -603,8 +633,16 @@ def _plain_bwd(kind, wmat, packed, times, traj, g, method):
     """Plain version of csrc/<kind>_bwd.cu: the reverse sweep over the stored
     trajectory ``traj`` [T, S, R] for the trajectory cotangent ``g``
     [T, S, R].  Returns (dW [8, 2 + NS] summed over the rows, or None without
-    the precision block; dc [NC, R]; dy0 [S, R])."""
+    the precision block; dc [NC, R]; dy0 [S, R]).  Weights [F, 8, 2 + NS]
+    sweep each fold's columns on its own matrix and return dW [F, 8, 2 + NS]."""
     k = KINDS[kind]
+    n_folds = fold_count(wmat, 2)
+    if n_folds is not None:
+        parts = [_plain_bwd(kind, wmat[f], fold_cols(packed, f, n_folds), times,
+                            fold_cols(traj, f, n_folds), fold_cols(g, f, n_folds), method)
+                 for f in range(n_folds)]
+        return (torch.stack([p[0] for p in parts]), torch.cat([p[1] for p in parts], dim=-1),
+                torch.cat([p[2] for p in parts], dim=-1))
     rhs, vjp = _rhs_and_vjp(kind)
     cdict = dict(zip(k.names, packed))
     dc = {name: torch.zeros_like(packed[0]) for name in k.names}
@@ -640,13 +678,21 @@ def _integrate_prec_plain_bwd(wmat, packed, times, traj, g, method):
 # --------------------------------------------------------------------------- #
 # CUDA kernels
 # --------------------------------------------------------------------------- #
+#: the kernels whose entry point takes the fold count (after the method):
+#: the ``_prec`` kinds' and the black-box ODE's (ops/fused_blackbox.py)
+FOLD_KERNELS = frozenset([k + "_" + d for k in ("dr_prec", "relay_prec", "degrader_prec",
+                                                "blackbox") for d in ("fwd", "bwd")])
+
+
 def _launcher(name, n_ptr):
     """The ctypes entry point ``<name>_launch`` of csrc/<name>.cu: ``n_ptr``
-    device pointers and the stream as ``c_void_p``, then (R, T, method) ints."""
+    device pointers, then (R, T, method) ints, the fold count for a kernel of
+    ``FOLD_KERNELS``, and the stream as ``c_void_p``."""
     fn = getattr(build.load(name), name + "_launch")
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p] * n_ptr + [ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+        n_int = 4 if name in FOLD_KERNELS else 3
+        fn.argtypes = [p] * n_ptr + [ctypes.c_int] * n_int + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -667,36 +713,50 @@ def _check_operands(kernel, device, operands):
             raise ValueError("%s: %s must be contiguous" % (kernel, name))
 
 
-def _launch(name, R, T, method, device, *tensors):
+def _launch(name, R, T, method, device, *tensors, folds=None):
+    """Launch kernel ``name`` on ``device``'s current stream; ``folds`` (a
+    kernel of ``FOLD_KERNELS``: 1 without the fold axis) is its fold count."""
     if R == 0 or T == 0:
         raise ValueError("%s: empty input (R=%d, T=%d)" % (name, R, T))
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _launcher(name, len(tensors))(*[t.data_ptr() for t in tensors], R, T,
-                                        METHODS.index(method), stream)
+    ints = [R, T, METHODS.index(method)] + ([folds or 1] if name in FOLD_KERNELS else [])
+    err = _launcher(name, len(tensors))(*[t.data_ptr() for t in tensors], *ints, stream)
     if err != 0:
         raise RuntimeError("%s kernel launch failed with cudaError %d" % (name, err))
 
 
-def _weights(k, wmat):
-    """The weight operand of kind ``k``'s kernels: [(name, tensor, shape)]
-    with the precision block, else []."""
-    return [("weights", wmat, k.wmat_shape)] if k.prec else []
+def _weights(k, wmat, R):
+    """(the weight operand of kind ``k``'s kernels: [(name, tensor, shape)]
+    with the precision block, else []; the fold count F of ``wmat``
+    [F, 8, 2 + NS], or None)."""
+    if not k.prec:
+        return [], None
+    n_folds = fold_count(wmat, 2)
+    if n_folds is None:
+        return [("weights", wmat, k.wmat_shape)], None
+    if n_folds < 1 or R % n_folds:
+        raise ValueError("%s: %d rows do not split into %d folds" % (k.name, R, n_folds))
+    return [("weights", wmat, (n_folds,) + k.wmat_shape)], n_folds
 
 
 def kind_fwd(kind, wmat, packed, y0_cols, times, method):
     """Launch csrc/<kind>_fwd.cu on the current stream; returns [T, S, R].
-    ``wmat`` is the weight matrix of a ``_prec`` kind, else None.  CUDA
-    tensors only; ``_plain_fwd`` is its plain version."""
+    ``wmat`` is the weight matrix of a ``_prec`` kind, else None; with a fold
+    axis ([F, 8, 2 + NS]) the rows are F folds', fold-major, each run on its
+    own matrix in the one launch.  CUDA tensors only; ``_plain_fwd`` is its
+    plain version."""
     k = KINDS[kind]
     R, T = packed.shape[1], times.shape[0]
-    operands = _weights(k, wmat) + [
+    weights, n_folds = _weights(k, wmat, R)
+    operands = weights + [
         ("constants", packed, (len(k.names), R)),
         ("y0", y0_cols, (k.n_states, R)),
         ("times", times, (T,)),
     ]
     _check_operands(k.fwd, packed.device, operands)
     out = torch.empty((T, k.n_states, R), dtype=torch.float32, device=packed.device)
-    _launch(k.fwd, R, T, method, packed.device, *[t for _, t, _ in operands], out)
+    _launch(k.fwd, R, T, method, packed.device, *[t for _, t, _ in operands], out,
+            folds=n_folds)
     COUNTERS[k.fwd].launches += 1
     return out
 
@@ -707,10 +767,13 @@ def kind_bwd(kind, wmat, packed, times, traj, g, method):
     dc [NC, R], dy0 [S, R]).  A ``_prec`` kernel writes one partial sum of dW
     per block of ``PREC_BWD_ROWS`` rows; their sum here is the last step
     of a reduction whose order is fixed, so two runs give the same dW bit for
-    bit.  CUDA tensors only; ``_plain_bwd`` is its plain version."""
+    bit.  With a fold axis (``wmat`` [F, 8, 2 + NS]) dW is [F, 8, 2 + NS],
+    each fold's partials summed as a launch on that fold alone sums them.
+    CUDA tensors only; ``_plain_bwd`` is its plain version."""
     k = KINDS[kind]
     R, T, S = packed.shape[1], times.shape[0], k.n_states
-    operands = _weights(k, wmat) + [
+    weights, n_folds = _weights(k, wmat, R)
+    operands = weights + [
         ("constants", packed, (len(k.names), R)),
         ("times", times, (T,)),
         ("trajectory", traj, (T, S, R)),
@@ -719,14 +782,26 @@ def kind_bwd(kind, wmat, packed, times, traj, g, method):
     _check_operands(k.bwd, packed.device, operands)
     outs = []
     if k.prec:
-        n_blocks = -(-R // PREC_BWD_ROWS)
-        outs.append(torch.empty((n_blocks,) + k.wmat_shape, dtype=torch.float32,
+        n_blocks = -(-(R // (n_folds or 1)) // PREC_BWD_ROWS)
+        outs.append(torch.empty((n_folds or 1, n_blocks) + k.wmat_shape, dtype=torch.float32,
                                 device=packed.device))
     dc = torch.empty_like(packed)
     dy0 = torch.empty((S, R), dtype=torch.float32, device=packed.device)
-    _launch(k.bwd, R, T, method, packed.device, *[t for _, t, _ in operands], *outs, dc, dy0)
+    _launch(k.bwd, R, T, method, packed.device, *[t for _, t, _ in operands], *outs, dc, dy0,
+            folds=n_folds)
     COUNTERS[k.bwd].launches += 1
-    return (outs[0].sum(dim=0) if k.prec else None), dc, dy0
+    return (fold_partial_sums(outs[0], n_folds) if k.prec else None), dc, dy0
+
+
+def fold_partial_sums(partials, n_folds):
+    """A backward's weight cotangent from its per-block partials [F, n_blocks,
+    ...]: the sum over blocks, fold by fold, each over the contiguous
+    [n_blocks, ...] slice a launch on that fold alone would have written, so
+    each fold's dW is that launch's bit for bit.  ``n_folds`` None drops the
+    fold axis (a launch without it)."""
+    if n_folds is None:
+        return partials[0].sum(dim=0)
+    return torch.stack([partials[f].sum(dim=0) for f in range(n_folds)])
 
 
 def _block(name, method):
@@ -795,11 +870,12 @@ def degrader_prec_bwd(wmat, packed, times, traj, g, method):
 
 
 class _KindIntegrate(torch.autograd.Function):
-    """(kind, [8, 2 + NS] weights or None, [NC, R] constants, [S, R] y0, [T]
-    times, method) -> [T, S, R] trajectory, differentiable in the weights, the
-    constants and y0 (the TPU kernel's ``_integrate_padded`` /
-    ``_integrate_padded_w`` custom VJPs).  CUDA tensors launch the kind's
-    forward and backward kernels; CPU tensors run the plain versions."""
+    """(kind, [8, 2 + NS] (or, with a fold axis, [F, 8, 2 + NS]) weights or
+    None, [NC, R] constants, [S, R] y0, [T] times, method) -> [T, S, R]
+    trajectory, differentiable in the weights, the constants and y0 (the TPU
+    kernel's ``_integrate_padded`` / ``_integrate_padded_w`` custom VJPs).
+    CUDA tensors launch the kind's forward and backward kernels; CPU tensors
+    run the plain versions."""
 
     @staticmethod
     def forward(ctx, kind, wmat, packed, y0_cols, times, method):
@@ -853,11 +929,13 @@ def _prec_wmat(prec_params):
     ``prod``, 4..7 ``degr``; column 0 the bias, columns 1.. ``w.T`` over the
     input [t, species 0 .. NS-1].  ``prec_params``: {'prod': {'w': [1 + NS,
     4], 'b': [4]}, 'degr': {...}}.  Plain torch, so autograd carries dW back
-    to the ``w`` and ``b`` leaves."""
+    to the ``w`` and ``b`` leaves.  Leaves with a fold axis ([F, 1 + NS, 4],
+    [F, 4]) give [F, 8, 2 + NS]."""
     return torch.cat(
-        [torch.cat([prec_params[net]["b"][:, None], prec_params[net]["w"].t()], dim=1)
+        [torch.cat([prec_params[net]["b"][..., :, None],
+                    prec_params[net]["w"].transpose(-1, -2)], dim=-1)
          for net in ("prod", "degr")],
-        dim=0,
+        dim=-2,
     ).contiguous()
 
 

@@ -5,7 +5,9 @@ a timer of steps.
 (CPU activity, and CUDA activity where a card is visible) and writes one
 Chrome trace, ``<profile_dir>/<name>.json``, viewable in Perfetto or
 ``chrome://tracing``.  ``Training.run`` wraps the first chunk of epochs after
-the start epoch in it, as ``vihds_tpu.training`` does with its device trace.
+the start epoch in it, as ``vihds_tpu.training`` does with its device trace;
+under ``--vmap_folds`` ``xfold.VmapXval.run`` wraps its first batched chunk
+after the start epoch, every fold in the one trace.
 """
 
 import contextlib

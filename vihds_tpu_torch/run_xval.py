@@ -37,7 +37,6 @@ NOT_PORTED = {
     "--mesh_data": (lambda a: a.mesh_data is not None, "parallel/ + parallel/multihost.py"),
     "--mesh_sample": (lambda a: a.mesh_sample is not None, "parallel/ + parallel/multihost.py"),
     "--distributed": (lambda a: a.distributed is not None, "parallel/ + parallel/multihost.py"),
-    "--vmap_folds": (lambda a: a.vmap_folds, "xfold.py"),
 }
 
 
@@ -110,11 +109,33 @@ def create_parser(with_split: bool):
             "--figures", action="store_true", default=False, help="Create figures (default: False)"
         )
     parser.add_argument("--folds", type=int, default=4, help="Cross-validation folds")
-    parser.add_argument("--vmap_folds", action="store_true", default=False, help="Not ported yet")
-    parser.add_argument("--rerun_outliers", action="store_true", default=False,
-                        help="(with --vmap_folds) not ported yet")
-    parser.add_argument("--outlier_nats", type=float, default=50.0,
-                        help="(with --vmap_folds) not ported yet")
+    parser.add_argument(
+        "--vmap_folds",
+        action="store_true",
+        default=False,
+        help="(call_run_xval) train ALL folds as one batched compiled program "
+        "(jax.vmap over a fold axis) instead of serial per-fold runs — "
+        "collapses k folds' worth of device dispatches/transfers into one "
+        "stream; falls back to the sequential driver for configurations the "
+        "batched program cannot express",
+    )
+    parser.add_argument(
+        "--rerun_outliers",
+        action="store_true",
+        default=False,
+        help="(call_run_xval --vmap_folds) after the batched run, retrain any "
+        "fold whose best-val ELBO lands > --outlier_nats below the sibling "
+        "median (a slow-basin optimum) through the sequential driver under a "
+        "fresh training RNG, keeping the better result",
+    )
+    parser.add_argument(
+        "--outlier_nats",
+        type=float,
+        default=50.0,
+        help="Slow-basin fold threshold: nats below the sibling-fold median "
+        "best-val ELBO at which a fold is flagged (and rerun under "
+        "--rerun_outliers)",
+    )
     return parser
 
 

@@ -20,10 +20,15 @@ With ``--dreg`` a step takes the doubly-reparameterised gradient
 graph, through the fused kernels' backward twice where both reach them.
 Each evaluation writes TensorBoard scalars (``update_summaries``) to the
 writers ``train_<split>`` / ``valid_<split>`` and, every ``plot_epoch``,
-figures (``plotting_hooks``), rendered inline; where tensorboard or
-matplotlib is not installed they are left out, said once.  With
+figures (``plotting_hooks``), rendered on one background thread
+(``HostWorker``; inline where ``VIHDS_SYNC_EVAL`` is set); where tensorboard
+or matplotlib is not installed they are left out, said once.  With
 ``--profile_dir`` the first chunk of epochs after the start epoch is traced
 (``profiling.trace``).
+
+The loss, the DReG gradient and the optimizer also take a fold axis
+(``folds``, ``vihds_tpu_torch.xfold``): params with a leading ``[F]`` axis,
+rows of F folds fold-major, one loss and one gradient clip per fold.
 """
 
 import math
@@ -65,17 +70,26 @@ def iwae_elbo_terms(program, out, batch, use_laplace):
     )
 
 
-def masked_mean(x, mask):
+def masked_mean(x, mask, folds=None):
+    """The (masked) mean of x [B]; with ``folds``, of each fold's B / folds
+    rows (fold-major): [folds]."""
+    if folds is not None:
+        x = x.reshape(folds, -1)
+        if mask is None:
+            return x.mean(dim=1)
+        mask = mask.reshape(folds, -1)
+        return (x * mask).sum(dim=1) / mask.sum(dim=1)
     if mask is None:
         return x.mean()
     return (x * mask).sum() / mask.sum()
 
 
-def iwae_elbo(terms, mask=None):
-    """IWAE bound = mean_B(logsumexp_K(log w) - log K)."""
+def iwae_elbo(terms, mask=None, folds=None):
+    """IWAE bound = mean_B(logsumexp_K(log w) - log K); with ``folds``, one
+    bound per fold [folds]."""
     n_iwae = terms.log_w.shape[1]
     lse = torch.logsumexp(terms.log_w, dim=1)
-    return masked_mean(lse - math.log(n_iwae), mask)
+    return masked_mean(lse - math.log(n_iwae), mask, folds)
 
 
 def _importance_weighted_outputs(terms, out):
@@ -237,17 +251,32 @@ def learning_rate(p, steps_per_epoch, count):
     return lr
 
 
+def clip_scale(grads, clip_norm, folds=None):
+    """optax.clip_by_global_norm's factor: max_norm / |g| where |g| >=
+    max_norm, else 1.  With ``folds`` (leaves [F, ...]) one factor per fold
+    from that fold's own norm, [F, 1] (what the clip gives under
+    ``jax.vmap``), each summed as a run on that fold alone sums it."""
+    if folds is not None:
+        return torch.stack([clip_scale([g[f] for g in grads], clip_norm)
+                            for f in range(folds)])[:, None]
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    return torch.where(norm < clip_norm, torch.ones_like(norm), clip_norm / norm)
+
+
 class Optimizer:
     """The counterpart of the JAX package's ``make_optimizer``: Adam with the
     multi-step learning-rate decay and the optional global gradient-norm
     clip (``params.grad_clip_norm``).  ``torch.optim.Adam``'s update with its
     default betas and eps is optax's ``adam``; ``count`` is the schedule's
-    step."""
+    step.  With ``folds`` the leaves carry a fold axis and each fold is
+    clipped by its own norm; Adam is elementwise and the schedule's count is
+    shared, so the rest is each fold's own optimizer as it stands."""
 
-    def __init__(self, params, p, steps_per_epoch):
+    def __init__(self, params, p, steps_per_epoch, folds=None):
         self.leaves = param_leaves(params)
         self.p = p
         self.steps_per_epoch = steps_per_epoch
+        self.folds = folds
         self.clip_norm = p.get("grad_clip_norm")
         self.adam = torch.optim.Adam(self.leaves, lr=learning_rate(p, steps_per_epoch, 0))
         self.count = 0
@@ -257,13 +286,11 @@ class Optimizer:
 
     def step(self):
         if self.clip_norm:
-            # optax.clip_by_global_norm: g * max_norm / |g| where |g| >= max_norm
             grads = [leaf.grad for leaf in self.leaves if leaf.grad is not None]
-            norm = torch.sqrt(sum((g * g).sum() for g in grads))
-            scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
-                                self.clip_norm / norm)
+            scale = clip_scale(grads, self.clip_norm, self.folds)
             for g in grads:
-                g.mul_(scale)
+                g.mul_(scale if self.folds is None
+                       else scale.reshape((self.folds,) + (1,) * (g.dim() - 1)))
         for group in self.adam.param_groups:
             group["lr"] = learning_rate(self.p, self.steps_per_epoch, self.count)
         self.adam.step()
@@ -277,12 +304,14 @@ class Optimizer:
         self.count = int(state["count"])
 
 
-def loss_fn(model, program, params, batch, mask, u):
+def loss_fn(model, program, params, batch, mask, u, folds=None):
     """-IWAE ELBO of one batch at the draws ``u`` [B, K, n_theta].  Fixed-grid
     solvers take the online log-likelihood route (``forward_logprob``, each
     step recomputed in the backward); ``pallas_<method>`` the trajectory
     route through the fused kernels.  log q and log p score the sampled
-    theta."""
+    theta.  With ``folds`` (params with a fold axis, the batch's rows the
+    folds', fold-major) it returns each fold's loss [folds]; their sum's
+    gradient is each fold's own, since the folds share no param."""
     if model.ode_model.supports_fold():
         out = model.forward_logprob(params, batch, u)
         log_p_obs = out.log_p_by_species.sum(dim=2)
@@ -292,10 +321,10 @@ def loss_fn(model, program, params, batch, mask, u):
     else:
         out = model.forward(params, batch, u)
         terms = iwae_elbo_terms(program, out, batch, model.use_laplace)
-    return -iwae_elbo(terms, mask)
+    return -iwae_elbo(terms, mask, folds)
 
 
-def dreg_value_and_grad(model, program, params, batch, mask, u):
+def dreg_value_and_grad(model, program, params, batch, mask, u, folds=None):
     """The doubly-reparameterised gradient estimator (DReG, Tucker et al.
     2019) of the IWAE bound for one batch at the draws ``u``: the
     counterpart of ``vihds_tpu.training.dreg_value_and_grad``.
@@ -314,7 +343,9 @@ def dreg_value_and_grad(model, program, params, batch, mask, u):
 
     Both pulls run a fused kernel's backward where they reach it, on the
     one saved context.  Returns (-ELBO, {"enc": [...], "dec": [...]}), the
-    gradients of -ELBO in the order of ``param_leaves`` of each part."""
+    gradients of -ELBO in the order of ``param_leaves`` of each part.  With
+    ``folds`` (as ``loss_fn``) -ELBO is [folds] and each fold's rows weigh by
+    that fold's mask."""
     if model.ode_model.supports_fold():
         out = model.forward_logprob(params, batch, u)
         log_p_by_species = out.log_p_by_species
@@ -334,12 +365,16 @@ def dreg_value_and_grad(model, program, params, batch, mask, u):
     B, n_iwae = log_w_std.shape
     log_w = log_w_std.detach()
     lse = torch.logsumexp(log_w, dim=1, keepdim=True)
-    elbo = masked_mean(lse[:, 0] - math.log(n_iwae), mask)
+    elbo = masked_mean(lse[:, 0] - math.log(n_iwae), mask, folds)
     w_tilde = torch.exp(log_w - lse)  # [B, K]
+    n_folds = folds or 1
     if mask is None:
-        coeff = torch.full((B, 1), 1.0 / B, device=log_w.device)
-    else:
+        coeff = torch.full((B, 1), n_folds / B, device=log_w.device)
+    elif folds is None:
         coeff = (mask / mask.sum())[:, None]
+    else:
+        m = mask.reshape(folds, -1)
+        coeff = (m / m.sum(dim=1, keepdim=True)).reshape(B, 1)
     grads = {}
     pulls = (("dec", log_w_std, w_tilde * coeff), ("enc", log_w_dreg, w_tilde ** 2 * coeff))
     for i, (part, target, cotangent) in enumerate(pulls):
@@ -416,6 +451,59 @@ class TrainingLogData:
         self.max_val_elbo = -float("inf")
 
 
+class HostWorker:
+    """One daemon thread that runs submitted callables in order: the
+    figures of an evaluation (rendering and their TensorBoard writes), so
+    that drawing them does not hold the training loop.  Every value a figure
+    shows is computed on the training thread before it is submitted; only
+    the rendering moves.  A figure that raises prints its traceback and
+    training goes on.  Where ``VIHDS_SYNC_EVAL`` is set, ``for_run`` gives
+    None and the callers render inline (the JAX package's ``HostWorker``)."""
+
+    def __init__(self):
+        import queue
+        import threading
+
+        self._q = queue.Queue()
+        self._t = threading.Thread(target=self._loop, daemon=True)
+        self._t.start()
+
+    @classmethod
+    def for_run(cls, settings):
+        """A worker for a run that writes TensorBoard files, else None."""
+        if getattr(settings, "trainer", None) is None or os.environ.get("VIHDS_SYNC_EVAL"):
+            return None
+        return cls()
+
+    def _loop(self):
+        import traceback
+
+        while True:
+            fn = self._q.get()
+            if fn is None:
+                return
+            try:
+                fn()
+            except Exception:  # a failed figure must not stop training
+                traceback.print_exc()
+
+    def submit(self, fn):
+        self._q.put(fn)
+
+    def join(self):
+        """Run what was submitted to its end and stop the thread."""
+        self._q.put(None)
+        self._t.join()
+
+
+def run_on(worker, fn):
+    """``fn()`` on ``worker``, or here and now where it is None."""
+    if worker is None:
+        fn()
+    else:
+        worker.submit(fn)
+
+
 def elapsed_ms(marks):
     """Milliseconds between consecutive marks of ``Training.train_epochs``
     (CUDA events, read after the device has caught up, or host clocks)."""
@@ -476,6 +564,8 @@ class Training:
         self.empty_cache = True
         #: milliseconds of each optimizer step of the last ``run``
         self.step_ms = []
+        #: the figures' thread during ``run`` (``HostWorker``), else None
+        self.host_worker = None
 
     def evaluate(self, params, host, n_samples, generator, device="cuda", with_theta=True):
         """Evaluate a host batch (numpy observations[B,S,T] training-scaled,
@@ -635,17 +725,23 @@ class Training:
                log_data.total_test_time)
         )
         if plot:
-            # rendered after the epoch's line, so what the hooks say stands
-            # on lines of its own; their time counts as test time
+            # after the epoch's line, so what the hooks say stands on lines
+            # of its own; the values here, the rendering on the host worker
+            # (inline without one), its time counted as test time
             t0 = time.time()
-            for writer, dataset, merged in ((train_writer, self.train_data, train_merged),
-                                            (valid_writer, self.valid_data, valid_merged)):
-                if writer is not None:
-                    plotting_hooks.eval_plots(self, writer, epoch, dataset,
-                                              make_results(self.model, self.program, merged),
+            outputs = [(writer, dataset, make_results(self.model, self.program, merged))
+                       for writer, dataset, merged in (
+                           (train_writer, self.train_data, train_merged),
+                           (valid_writer, self.valid_data, valid_merged)) if writer is not None]
+
+            def figures():
+                for writer, dataset, output in outputs:
+                    plotting_hooks.eval_plots(self, writer, epoch, dataset, output,
                                               dynamic=dynamic)
-            if want_theta_plot:
-                plotting_hooks.weighted_theta_plot(self, valid_writer, epoch, train_merged)
+                if want_theta_plot:
+                    plotting_hooks.weighted_theta_plot(self, valid_writer, epoch, train_merged)
+
+            run_on(self.host_worker, figures)
             log_data.total_test_time += time.time() - t0
 
     def init_state(self, device):
@@ -668,9 +764,13 @@ class Training:
         writers = (None, None)
         if self.train_path is not None:
             writers = (summary_writer(self.train_path), summary_writer(self.valid_path))
+        self.host_worker = HostWorker.for_run(self.settings)
         try:
             return self._run(device, writers)
         finally:
+            if self.host_worker is not None:
+                self.host_worker.join()
+                self.host_worker = None
             for writer in writers:
                 if writer is not None:
                     writer.close()

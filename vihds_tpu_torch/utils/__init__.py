@@ -37,6 +37,12 @@ def resolve_device(device="cuda"):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+        # cuDNN's fastest weight gradient of the encoder conv sums with
+        # atomics, in another order run to run; Adam turns such last-bit
+        # differences in near-zero gradient entries into learning-rate-sized
+        # steps, so two runs (or a fold run alone and in a batched run of
+        # all folds) would part after a few steps
+        torch.backends.cudnn.deterministic = True
     return dev
 
 

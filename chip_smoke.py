@@ -141,15 +141,46 @@ Phases, each printing lines of its own:
    from its upstream's ``xval_q_*`` files, then a second run that skips all
    three nodes; 20b, ``--jobs 2`` on two same-stage ``dr_constant_icml``
    nodes (kernel route, 1 epoch, 2 folds) in spawn workers on the one card;
-21. the total time, one line with the readings of phases 19-20b, and the
+   20c, the simulator (``simulate.main``) at the recovery study's flags (48
+   series a device, sigma_scale 0.5, calibration to a probe peak of 1.0 in
+   200 Adam steps, blocked rejection) on ``dr_constant_precisions`` (the
+   ``dr_prec`` kernels, max_scaled 2.0) and ``dr_constant_icml`` (the ``dr``
+   kernels, max_scaled 3.0: its probe cannot peak below e, ``SIM_RUNS``),
+   each under ``solver: pallas_midpoint``: the launches (the backward once
+   per calibration step, the forward's count accounted for), the walls of
+   calibration, rejection and writing, the kernel-route decode of the
+   accepted theta against the plain generic midpoint decode, the CSV
+   reloaded through ``build_datasets``, the global sites shared, the
+   peaks, and the calibration's backward on its own operands
+   (``check_calibration``: the gradient of the probe's peak in the shared
+   center at g = 0 and at the calibrated center, through the kernels
+   against the plain route in float64 at phase 3's backward limits: a
+   one-hot cotangent at the peak, the calibration's own ``torch.max``, a
+   dense cotangent over all 288 rows); 20d, the JAX package's recorded truths
+   (``reports/recovery_study`` and ``reports/recovery_precisions``) decoded
+   again through ``dr_fwd`` and ``dr_prec_fwd`` against their recorded
+   x_noiseless and precisions; 20e, ``recovery_study.main`` on
+   ``dr_constant_one`` under ``solver: pallas_midpoint`` at its defaults
+   (1000 epochs, K 200 / 1000, 48 series; the HMC stages off): the
+   headline, the wall and the ``dr`` kernels' launches, each equal to the
+   count of the simulator, the training steps and the evaluation chunks,
+   then ``check_calibration`` on its design (R = 48: the last 32-row block
+   half full); 20f, the study's stages 2-3 (``train_and_score``) at its
+   defaults on the JAX package's recorded simulation under
+   ``reports/recovery_study`` (its CSV and truth), its headline beside the
+   recorded report's, the same checks and launch counts as 20e;
+21. the total time, one line with the readings of phases 19-20f, and the
    ``kernels`` JSON line (every row with ``launches_vmap``, its launches
    on phases 5e-5f's ``--vmap_folds`` paths, null where none ran it; the
    ``dr_prec`` and ``blackbox`` rows with phase 3f's fold launch times
    ``vmap_fold``; the ``dr`` rows with the
    launches of phases 14-15 and the times of 14c; the ``dr``, ``dr_prec``
    and ``blackbox`` backward rows with the DReG pulls' launches, times and
-   subnormal shares of 17b-17c), then the last line ``{"ok": true,
-   "device": {...}}``.
+   subnormal shares of 17b-17c; the ``dr`` and ``dr_prec`` rows with
+   ``launches_simulate`` (20c), ``launches_recovery`` (20e) and
+   ``launches_recorded_study`` (20f; both null for ``dr_prec``), their
+   forward rows with ``launches_recorded_truth`` (20d)), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, where CUDA is not available or the package is missing.
@@ -2833,6 +2864,486 @@ def phase_graph_jobs(device):
     return dict(wall=wall)
 
 
+SPEC_ONE = os.path.join(HERE, "specs", "dr_constant_one.yaml")
+#: the recovery study's simulator flags (tools/recovery_study.py's defaults:
+#: 48 series a device, the recorded study's design) but ``--max_scaled``
+CALIBRATE_TARGET = 1.0
+SIM_FLAGS = ["--n_per_device", "48", "--sigma_scale", "0.5",
+             "--calibrate_target", str(CALIBRATE_TARGET), "--seed", str(SEED)]
+#: (spec, kind, --max_scaled) of phase 20c.  dr_constant_icml's local K has
+#: prior mean e (LogNormal mu 1), so its probe (locals at their prior mean)
+#: peaks at e ~ 2.718 in OD whatever the shared sites: the study's 2.0 is out
+#: of reach there in both packages (the JAX package's simulator also
+#: calibrates to 2.718 and finds no shared draw in 1000 attempts), and 3.0 is
+#: the first round bound above it
+SIM_RUNS = ((SPEC_PREC, "dr_prec", 2.0), (SPEC, "dr", 3.0))
+SIM_CALIBRATION_STEPS = 200
+#: the JAX package's recorded recovery runs: (reports/ folder, source spec,
+#: the forward kernel that decodes it)
+RECORDED_TRUTHS = (("recovery_study", SPEC_ONE, "dr_fwd"),
+                   ("recovery_precisions", SPEC_PREC, "dr_prec_fwd"))
+# a decode of a recorded truth against the recorded x_noiseless / precisions,
+# each series against its own largest magnitude: the JAX package's own CPU
+# decode of the same files reaches 3.7e-6 / 3.0e-6 in x and 2.3e-4 in the
+# learned precisions (they integrate to large values, where two backends
+# round differently)
+RECORDED_X_RTOL, RECORDED_PREC_RTOL = 1e-4, 1e-3
+# the simulated CSV reloaded through build_datasets against the simulated
+# observations (one float32 multiply / divide round trip)
+CSV_RTOL = 2e-6
+
+
+def simulator_launches(truth):
+    """The forward launches of a calibrated, conditioned simulation whose
+    truth npz is ``truth``: a forward a calibration step (a backward each
+    too), then its probe; the eval decode's probe; stage A's attempts, stage
+    B's rounds; the data's decode."""
+    return (SIM_CALIBRATION_STEPS + 2 + int(truth["truth_attempt"]) + 1
+            + int(truth["local_rounds"]) + 1 + 1)
+
+
+def study_launches(args, spec):
+    """The forward and backward launches of stages 2 and 3 of a recovery
+    study at ``args`` on the derived ``spec``: one of each a training step,
+    one forward an evaluation chunk of ``n_batch`` rows (both splits at
+    every ``test_epoch``, every series at the end)."""
+    from vihds_tpu_torch.config import Config
+    from vihds_tpu_torch.data.datasets import build_datasets
+    from vihds_tpu_torch.run_xval import create_parser
+
+    targs = create_parser(True).parse_args([spec])
+    targs.seed, targs.folds, targs.split = args.seed, args.folds, 1
+    settings = Config(targs)
+    data = build_datasets(targs, settings)
+    n_batch = min(settings.params.n_batch, data.n_train)
+
+    def chunks(n):
+        return math.ceil(n / n_batch)
+
+    steps = args.epochs * max(1, chunks(data.n_train))
+    evals = ((args.epochs // args.test_epoch) * (chunks(data.n_train) + chunks(data.n_test))
+             + chunks(data.n_train + data.n_test))
+    return steps + evals, steps
+
+
+def series_rel(got, ref):
+    """max |got - ref| over each series' largest |ref| (arrays [L, ...])."""
+    import numpy as np
+
+    axes = tuple(range(1, ref.ndim))
+    return float((np.abs(got - ref) / np.abs(ref).max(axis=axes, keepdims=True)).max())
+
+
+def decode_numpy(sim, settings, program, truth, device, params):
+    """``sim.make_decoder``'s decode of the truth npz's clipped theta on its
+    design: numpy (x [L, S, T], precisions [L, S, T])."""
+    import torch
+
+    _, _, decode = sim.make_decoder(settings, program, truth["devices"], truth["treatments"],
+                                    truth["times"], None, device=device, params_dec=params)
+    x, prec = decode(truth["theta_clipped"][:, None, :])
+    prec = torch.broadcast_to(prec, x.shape)
+    return x.cpu().numpy()[:, 0], prec.cpu().numpy()[:, 0]
+
+
+def probe_gradients(sim, settings, program, truth, device, params, g, solver, dtype, index,
+                    w):
+    """The calibration's backward on the truth npz's design, through
+    ``solver`` in ``dtype``, at the probe of the shared center ``g`` (every
+    series at u = g on the shared sites, its locals at their prior mean):
+    (d |x| / d g for a one-hot cotangent at the flat ``index`` of x (the
+    largest |x| where None), that index; d max|x| / d g as the calibration
+    takes it (``torch.max``: ties share the cotangent evenly), the series
+    that tie at the peak; d sum(w x) / d theta, each series' own theta
+    [n_theta, L], a dense cotangent over every row).  Gradients float64 on
+    the CPU."""
+    import numpy as np
+    import torch
+
+    def cast(tree):
+        return {k: cast(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(dtype)
+
+    settings.params.solver = solver
+    _, _, decode = sim.make_decoder(settings, program, truth["devices"], truth["treatments"],
+                                    truth["times"], None, eval_mode=False, device=device,
+                                    params_dec=cast(params), dtype=dtype)
+    shared = torch.as_tensor(sim._shared_site_mask(program), dtype=dtype, device=device)
+    q = sim.truth_q(program, float(truth["sigma_scale"]), device)
+    g = torch.as_tensor(np.asarray(g), dtype=dtype, device=device).requires_grad_(True)
+    theta = sim._probe_theta(program, len(truth["devices"]), q, g * shared)
+    x = decode(theta)[0].abs().flatten()
+    if index is None:
+        index = int(torch.argmax(x))
+    (one_hot,) = torch.autograd.grad(x[index], g, retain_graph=True)
+    peak = torch.max(x)
+    ties = sorted({int(i) // (x.numel() // len(truth["devices"]))
+                   for i in torch.nonzero(x == peak)[:, 0]})
+    (at_max,) = torch.autograd.grad(peak, g)
+    theta = theta.detach().requires_grad_(True)
+    (per_series,) = torch.autograd.grad((decode(theta)[0] * w.to(dtype)).sum(), theta)
+    return (one_hot.double().cpu(), index, at_max.double().cpu(), ties,
+            per_series[:, 0].double().cpu().t())
+
+
+def check_calibration(sim, settings, program, truth, device, params, phase, name):
+    """The calibration's backward on its own operands, at g = 0 (its first
+    step) and at the calibrated center, through the kernels against the
+    plain midpoint route in float64, read as phase 3 reads a backward
+    (``cotangent_readings``, BWD_NORM_TOL / BWD_P99_TOL; the plain float32
+    route's readings beside):
+      * the one-hot cotangent at float64's largest |x| (d |x| / d g over
+        the shared sites; the first step's gradient up to its scalar
+        2 (log peak - log target) / peak where the peak does not tie);
+      * the calibration's own ``torch.max``, held where the kernels' tie
+        set at the peak is float64's (float32 rounding can merge values
+        1e-7 apart into one tie, as the plain float32 route does on
+        dr_constant_one's probe, and then spreads the cotangent);
+      * a dense seeded cotangent over every series (d / d theta, read site
+        by site over the series), which reaches every row of the last,
+        partial 32-row block.
+    Fails the phase on a mismatch; returns the readings."""
+    import numpy as np
+    import torch
+
+    shared = sim._shared_site_mask(program)
+    n_series = len(truth["devices"])
+    shape = (n_series, 1) + tuple(truth["x_noiseless"].shape[1:])
+    w = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 18)).to(device)
+    out = {}
+    for label, g in (("g = 0", np.zeros(program.n_theta, np.float32)),
+                     ("g = calibrated center", truth["u_center"])):
+        ref = probe_gradients(sim, settings, program, truth, device, params, g, "midpoint",
+                              torch.float64, None, w)
+        index = ref[1]
+        got = {route: probe_gradients(sim, settings, program, truth, device, params, g, solver,
+                                      torch.float32, index, w)
+               for route, solver in (("kernels", TRAIN_SOLVER), ("plain float32", "midpoint"))}
+
+        def readings(a, b, sites=None):
+            a, b = (a[None, sites], b[None, sites]) if sites is not None else (a, b)
+            norm, p99 = cotangent_readings(a, b)
+            return float(norm.max()), float(p99.max())
+
+        row = {}
+        for route, res in got.items():
+            row[route] = dict(one_hot=readings(res[0], ref[0], shared),
+                              at_max=readings(res[2], ref[2], shared), ties=res[3],
+                              per_series=readings(res[4], ref[4]))
+        k, kg = row["kernels"], got["kernels"]
+        held_max = k["ties"] == ref[3]
+        held = (k["one_hot"], k["per_series"]) + ((k["at_max"],) if held_max else ())
+        ok = (bool(torch.isfinite(kg[0]).all() and torch.isfinite(kg[4]).all())
+              and bool((kg[0][~shared] == 0).all())
+              and all(v[0] <= BWD_NORM_TOL and v[1] <= BWD_P99_TOL for v in held))
+        p = row["plain float32"]
+
+        def series(rows):
+            return "%d (%s%s)" % (len(rows), ", ".join(map(str, rows[:4])),
+                                  ", ..." if len(rows) > 4 else "")
+
+        print("  %s (%d series): normwise / p99 against the plain route in float64 (limits %g / "
+              "%g), kernels then plain float32: one-hot at flat index %d %.3e / %.3e, %.3e / "
+              "%.3e; torch.max (series tied at the peak: float64 %s, kernels %s, plain float32 "
+              "%s; %s) %.3e / %.3e, %.3e / %.3e; dense cotangent, each site over the series "
+              "%.3e / %.3e, %.3e / %.3e: %s"
+              % (label, n_series, BWD_NORM_TOL, BWD_P99_TOL, index, *k["one_hot"],
+                 *p["one_hot"],
+                 series(ref[3]), series(k["ties"]), series(p["ties"]),
+                 "held" if held_max else "another tie set: not held",
+                 *k["at_max"], *p["at_max"], *k["per_series"], *p["per_series"], ok))
+        if not ok:
+            fail("phase %s: %s's calibration gradient through the kernels disagrees"
+                 % (phase, name))
+        out[label] = {route: dict(r, ties=len(r["ties"])) for route, r in row.items()}
+    return out
+
+
+def phase_simulate(device):
+    """Phase 20c: the simulator (``simulate.main``) on ``dr_constant_precisions``
+    (the ``dr_prec`` kernels) and ``dr_constant_icml`` (the ``dr`` kernels),
+    each spec under ``solver: pallas_midpoint``, at the recovery study's
+    flags (288 series): its launches (the backward once per calibration
+    step) and walls; the kernel-route decode of the accepted theta against
+    the plain generic midpoint decode; the CSV reloaded through
+    ``build_datasets``; the global sites shared; the peaks (``SIM_RUNS``)."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from vihds_tpu_torch import simulate as sim
+    from vihds_tpu_torch.config import Config
+    from vihds_tpu_torch.convert import params_from_keystr
+    from vihds_tpu_torch.data.datasets import build_datasets
+    from vihds_tpu_torch.run_xval import create_parser
+
+    out = {}
+    for spec, kind, max_scaled in SIM_RUNS:
+        name = os.path.basename(spec)[: -len(".yaml")]
+        kernels = (kind + "_fwd", kind + "_bwd")
+        with tempfile.TemporaryDirectory() as directory:
+            src = write_spec(spec, directory, solver=TRAIN_SOLVER)
+            out_dir = os.path.join(directory, "sim")
+            for k in kernels:
+                _counter(k).launches = 0
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                res = sim.main([src, "--output_dir", out_dir, "--max_scaled", str(max_scaled)]
+                               + SIM_FLAGS, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: _counter(k).launches for k in kernels}
+            truth = dict(np.load(res.truth, allow_pickle=True))
+            params = params_from_keystr(truth, device=device)
+            settings = Config(sim.create_parser().parse_args([src, "--output_dir", out_dir]))
+            decoded = {}
+            for solver in (TRAIN_SOLVER, "midpoint"):
+                settings.params.solver = solver
+                decoded[solver] = decode_numpy(sim, settings, res.program, truth, device, params)
+            checked = check_calibration(sim, settings, res.program, truth, device, params, "20c",
+                                        name)
+            targs = create_parser(True).parse_args([res.spec])
+            targs.seed = SEED
+            tset = Config(targs)
+            ds = build_datasets(targs, tset).train.dataset
+        (kx, kp), (px, pp) = decoded[TRAIN_SOLVER], decoded["midpoint"]
+        x_ok = bool(np.isfinite(kx).all() and (np.abs(kx - px) <= KERNEL_ATOL
+                                               + KERNEL_RTOL * np.abs(px)).all())
+        p_ok = bool((np.abs(kp - pp) <= PREC_ATOL + PREC_RTOL * np.abs(pp)).all())
+        x_rel = float((np.abs(kx - px) / np.maximum(np.abs(px), 1e-30)).max())
+        same_as_written = bool(np.array_equal(kx, truth["x_noiseless"]))
+        csv_rel = float((np.abs(ds.observations - res.observations)
+                         / np.maximum(np.abs(res.observations), 1e-30)).max())
+        csv_ok = ds.observations.shape == res.observations.shape and bool(np.allclose(
+            ds.observations, res.observations, rtol=CSV_RTOL, atol=CSV_RTOL))
+        g = res.program.global_slice
+        shared = bool((truth["theta"][:, g] == truth["theta"][0:1, g]).all())
+        a, r = int(truth["truth_attempt"]), int(truth["local_rounds"])
+        want_fwd = simulator_launches(truth)
+        secs = res.seconds
+        print("phase 20c: simulate %s (%s; %d series x %d times; max_scaled %g): %.1f s wall "
+              "(calibration %.2f s, rejection and decode %.2f s, writing %.2f s); shared draw "
+              "accepted on attempt %d after calibration to probe peak %.3f (eval decode %.3f), "
+              "%d local rounds, probe peak %.3f, noiseless peak %.3f; %s launches %d (%d "
+              "expected: %d calibration steps + 2 probes + %d attempts + %d rounds + 1 decode), "
+              "%s launches %d"
+              % (name, TRAIN_SOLVER, len(res.devices), len(res.times), max_scaled, wall,
+                 secs["calibrate"],
+                 secs["reject"], secs["write"], a, float(truth["calibrated_peak"]),
+                 float(truth["calibrated_peak_eval"]), r, float(truth["probe_peak"]),
+                 float(truth["noiseless_peak"]), kernels[0], launches[kernels[0]], want_fwd,
+                 SIM_CALIBRATION_STEPS, a + 1, r + 1, kernels[1], launches[kernels[1]]))
+        print("  kernel-route decode == plain generic midpoint decode of the accepted theta: "
+              "x rtol %g atol %g %s (max rel %.3e), precisions rtol %g atol %g %s; == the "
+              "written x_noiseless bit for bit: %s; CSV reloaded through build_datasets == the "
+              "observations within rtol %g: %s (max rel %.3e); global sites shared: %s"
+              % (KERNEL_RTOL, KERNEL_ATOL, x_ok, x_rel, PREC_RTOL, PREC_ATOL, p_ok,
+                 same_as_written, CSV_RTOL, csv_ok, csv_rel, shared))
+        if launches[kernels[1]] != SIM_CALIBRATION_STEPS or launches[kernels[0]] != want_fwd:
+            fail("phase 20c: %s launched %s" % (name, launches))
+        if not (x_ok and p_ok and same_as_written and csv_ok and shared):
+            fail("phase 20c: %s's simulation failed a check" % name)
+        if not (float(truth["probe_peak"]) <= max_scaled
+                and float(truth["noiseless_peak"]) <= max_scaled
+                and 0.5 <= float(truth["calibrated_peak"]) <= max_scaled):
+            fail("phase 20c: %s's peaks out of range" % name)
+        out[kind] = dict(launches=launches, wall=wall, seconds=secs, max_scaled=max_scaled,
+                         truth_attempt=a, local_rounds=r,
+                         calibrated_peak=float(truth["calibrated_peak"]), calibration=checked)
+    return out
+
+
+def phase_recorded_truths(device):
+    """Phase 20d: the JAX package's two recorded recovery truths
+    (``reports/recovery_*/synthetic_truth.npz``: clipped theta, design,
+    ``dec[...]`` params) decoded again through ``dr_fwd`` and
+    ``dr_prec_fwd`` (``solver: pallas_midpoint``), against the recorded
+    x_noiseless and precisions; reads only those data files."""
+    import numpy as np
+
+    from vihds_tpu_torch import simulate as sim
+    from vihds_tpu_torch.config import Config
+    from vihds_tpu_torch.convert import params_from_keystr
+    from vihds_tpu_torch.prob import ParamProgram, parse_parameters
+
+    out = {}
+    for report, spec, kernel in RECORDED_TRUTHS:
+        truth = dict(np.load(os.path.join(HERE, "reports", report, "synthetic_truth.npz"),
+                             allow_pickle=True))
+        with tempfile.TemporaryDirectory() as directory:
+            src = write_spec(spec, directory, solver=TRAIN_SOLVER)
+            settings = Config(sim.create_parser().parse_args([src, "--output_dir", directory]))
+        program = ParamProgram(parse_parameters(settings.params))
+        if list(truth["theta_names"]) != program.names:
+            fail("phase 20d: %s's sites are not %s's" % (report, os.path.basename(spec)))
+        _counter(kernel).launches = 0
+        x, prec = decode_numpy(sim, settings, program, truth, device,
+                               params_from_keystr(truth, device=device))
+        launches = _counter(kernel).launches
+        x_rel = series_rel(x, truth["x_noiseless"])
+        p_rel = series_rel(prec, truth["precisions"])
+        print("phase 20d: reports/%s (%d series x %d times) through %s: %d launch; x_noiseless "
+              "max |diff| / series' largest %.3e (limit %g), precisions %.3e (limit %g)%s"
+              % (report, x.shape[0], x.shape[2], kernel, launches, x_rel, RECORDED_X_RTOL, p_rel,
+                 RECORDED_PREC_RTOL,
+                 "; exact: %s" % np.array_equal(prec, truth["precisions"]) if p_rel == 0 else ""))
+        if launches == 0 or not np.isfinite(x).all() or x_rel > RECORDED_X_RTOL \
+                or p_rel > RECORDED_PREC_RTOL:
+            fail("phase 20d: %s does not decode to its recorded truth" % report)
+        out[kernel] = dict(launches=launches, x_rel=x_rel, prec_rel=p_rel)
+    return out
+
+
+#: the recovery study at its own defaults (1000 epochs, K 200 / 1000, 48
+#: series), its HMC stages off until they are ported
+RECOVERY_FLAGS = ["--refine_chains", "0", "--pooled_chains", "0"]
+RECOVERY_HEADLINE = ("median_abs_z", "coverage95", "predictive_coverage95",
+                     "median_local_corr", "val_elbo")
+
+
+def run_study(device, directory, run, argv):
+    """``run`` (the study's ``main``, or its stages 2-3 on a recorded
+    simulation) with INFERENCE_RESULTS_DIR under ``directory``, the ``dr``
+    counts set to 0 just before: (summary, wall, launches, the captured
+    output's lines)."""
+    import io
+
+    import torch
+
+    os.environ["INFERENCE_RESULTS_DIR"] = os.path.join(directory, "results")
+    for k in ("dr_fwd", "dr_bwd"):
+        _counter(k).launches = 0
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(text):
+            summary = run(argv)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["INFERENCE_RESULTS_DIR"]
+    wall = time.perf_counter() - t0
+    launches = {k: _counter(k).launches for k in ("dr_fwd", "dr_bwd")}
+    return summary, wall, launches, text.getvalue().splitlines()
+
+
+def report_study(phase, what, args, summary, wall, launches, log, outdir, want):
+    """Print a study's wall, launches (against ``want``, the expected
+    (forward, backward)), files and headline; fail where REPORT.md or
+    recovery.npz is missing, the headline is not finite or the launches
+    differ.  Returns the headline."""
+    import numpy as np
+
+    written = sorted(os.listdir(outdir))
+    rec_keys = sorted(np.load(os.path.join(outdir, "recovery.npz"), allow_pickle=True).files) \
+        if "recovery.npz" in written else []
+    report = open(os.path.join(outdir, "REPORT.md")).read() if "REPORT.md" in written else ""
+    epochs = [line for line in log if line.startswith("epoch")]
+    headline = {k: summary[k] for k in RECOVERY_HEADLINE}
+    print("phase %s: %s (%s, %d series, %d epochs, K %d / %d, test_epoch %d): %.1f s wall; %d "
+          "evaluation lines, the last: %s; dr_fwd launches %d, dr_bwd launches %d (%d / %d "
+          "expected); wrote %s; recovery.npz keys %s"
+          % (phase, what, TRAIN_SOLVER, summary["n_series"], args.epochs, args.train_samples,
+             args.test_samples, args.test_epoch, wall, len(epochs),
+             epochs[-1] if epochs else None, launches["dr_fwd"], launches["dr_bwd"], want[0],
+             want[1], written, rec_keys))
+    print("phase %s: headline %s" % (phase, json.dumps(headline)))
+    for line in report.splitlines():
+        if line.startswith("| ") and "|---" not in line and "## " not in line and \
+                ("median abs z (truth" in line or "coverage" in line or "corr(q_mu" in line
+                 or "IWAE-ELBO" in line):
+            print("  " + line)
+    if not {"REPORT.md", "recovery.npz"} <= set(written) or not all(
+            v is not None and np.isfinite(v) for v in headline.values()):
+        fail("phase %s: the recovery study wrote %s, headline %s" % (phase, written, headline))
+    if (launches["dr_fwd"], launches["dr_bwd"]) != tuple(want):
+        fail("phase %s: the study launched %s, not %s" % (phase, launches, want))
+    return headline
+
+
+def phase_recovery(device):
+    """Phase 20e: ``recovery_study.main`` on ``dr_constant_one`` under
+    ``solver: pallas_midpoint`` at its defaults: REPORT.md and
+    recovery.npz written, a finite headline, the wall and the ``dr``
+    kernels' launches, each the count the simulator, the steps and the
+    evaluation chunks make; then the calibration's backward on this
+    design (48 series: a last 32-row block half full) against the plain
+    route (``check_calibration``)."""
+    import numpy as np
+
+    from vihds_tpu_torch import recovery_study as rs
+    from vihds_tpu_torch import simulate as sim
+    from vihds_tpu_torch.config import Config
+    from vihds_tpu_torch.convert import params_from_keystr
+    from vihds_tpu_torch.prob import ParamProgram, parse_parameters
+
+    with tempfile.TemporaryDirectory() as directory:
+        src = write_spec(SPEC_ONE, directory, solver=TRAIN_SOLVER)
+        outdir = os.path.join(directory, "study")
+        argv = ["--spec", src, "--outdir", outdir] + RECOVERY_FLAGS
+        summary, wall, launches, log = run_study(
+            device, directory, lambda a: rs.main(a, device=device), argv)
+        args = rs.parse(argv)
+        truth = dict(np.load(os.path.join(outdir, "synthetic_truth.npz"), allow_pickle=True))
+        os.environ["INFERENCE_RESULTS_DIR"] = os.path.join(directory, "results")
+        fwd, bwd = study_launches(args, os.path.join(outdir, "synthetic.yaml"))
+        del os.environ["INFERENCE_RESULTS_DIR"]
+        want = (simulator_launches(truth) + fwd, SIM_CALIBRATION_STEPS + bwd)
+        headline = report_study("20e", "recovery_study on dr_constant_one", args, summary, wall,
+                                launches, log, outdir, want)
+        settings = Config(sim.create_parser().parse_args([src, "--output_dir", directory]))
+    program = ParamProgram(parse_parameters(settings.params))
+    checked = check_calibration(sim, settings, program, truth, device,
+                                params_from_keystr(truth, device=device), "20e", "dr_constant_one")
+    return dict(wall=wall, launches=launches, headline=headline, epochs=args.epochs,
+                calibration=checked)
+
+
+def phase_recorded_study(device):
+    """Phase 20f: the study's stages 2 and 3 (``recovery_study.train_and_score``)
+    at its defaults on the JAX package's recorded simulation under
+    reports/recovery_study (its CSV and truth npz; its spec under ``solver:
+    pallas_midpoint``, ``files`` pointed at the CSV): the same data and
+    truth as the recorded report, so its headline stands beside the
+    recorded one.  Checks as 20e: the files, a finite headline, the
+    launches of the steps and evaluation chunks."""
+    import shutil
+
+    import numpy as np
+    import yaml
+
+    from vihds_tpu_torch import recovery_study as rs
+
+    recorded = os.path.join(HERE, "reports", "recovery_study")
+    with tempfile.TemporaryDirectory() as directory:
+        data_dir = os.path.join(directory, "recorded")
+        os.makedirs(data_dir)
+        for name in ("synthetic.csv", "synthetic_truth.npz"):
+            shutil.copy(os.path.join(recorded, name), data_dir)
+        with open(os.path.join(recorded, "synthetic.yaml")) as f:
+            config = yaml.safe_load(f)
+        config["data"]["files"] = [os.path.join(data_dir, "synthetic.csv")]
+        config["params"]["solver"] = TRAIN_SOLVER
+        spec = os.path.join(data_dir, "synthetic.yaml")
+        with open(spec, "w") as f:
+            yaml.safe_dump(config, f, sort_keys=False)
+        truth_path = os.path.join(data_dir, "synthetic_truth.npz")
+        outdir = os.path.join(directory, "study")
+        args = rs.parse(["--spec", SPEC_ONE, "--outdir", outdir] + RECOVERY_FLAGS)
+        summary, wall, launches, log = run_study(
+            device, directory, lambda a: rs.train_and_score(a, spec, truth_path, device), args)
+        os.environ["INFERENCE_RESULTS_DIR"] = os.path.join(directory, "results")
+        want = study_launches(args, spec)
+        del os.environ["INFERENCE_RESULTS_DIR"]
+        headline = report_study("20f", "stages 2-3 on reports/recovery_study's simulation", args,
+                                summary, wall, launches, log, outdir, want)
+    reference = np.load(os.path.join(recorded, "recovery.npz"), allow_pickle=True)
+    ref = {k: float(reference[k]) for k in RECOVERY_HEADLINE}
+    print("phase 20f: the recorded report's headline on the same data and truth (the JAX "
+          "package, its own training draws; statistics, not speeds): %s" % json.dumps(ref))
+    return dict(wall=wall, launches=launches, headline=headline, recorded_headline=ref)
+
+
 def kernel_row(kind, direction, rows, launches, **extra):
     """One entry of the ``kernels`` line: the midpoint readings of phase 3
     (the forward's at the serving chunk), the launches on the main path."""
@@ -2946,6 +3457,10 @@ def main():
     adaptive["check"] = phase_adjoint_check(device)
     graph = phase_graph(device)
     graph["jobs_wall"] = phase_graph_jobs(device)["wall"]
+    simulated = phase_simulate(device)
+    recorded = phase_recorded_truths(device)
+    recovery = phase_recovery(device)
+    recorded_study = phase_recorded_study(device)
 
     kernels = []
     for kind, (fwd_rows, bwd_rows, train_fwd_rows) in measured.items():
@@ -2963,6 +3478,11 @@ def main():
         if kind in fold_axis:
             extra["vmap_fold"] = {k: fold_axis[kind]["midpoint"][k]
                                   for k in ("fwd_ms", "fwd_separate_ms")}
+        if kind in simulated:  # phases 20c-20e: the simulator and the recovery study
+            extra["launches_simulate"] = simulated[kind]["launches"][kind + "_fwd"]
+            extra["launches_recorded_truth"] = recorded[kind + "_fwd"]["launches"]
+            extra["launches_recovery"] = recovery["launches"].get(kind + "_fwd")
+            extra["launches_recorded_study"] = recorded_study["launches"].get(kind + "_fwd")
         kernels.append(kernel_row(
             kind, "fwd", fwd_rows, launches[kind + "_fwd"],
             train_shape={k: train_fwd_rows["midpoint"][k]
@@ -2990,6 +3510,10 @@ def main():
         if kind in fold_axis:
             extra["vmap_fold"] = {k: fold_axis[kind]["midpoint"][k]
                                   for k in ("bwd_ms", "bwd_separate_ms")}
+        if kind in simulated:
+            extra["launches_simulate"] = simulated[kind]["launches"][kind + "_bwd"]
+            extra["launches_recovery"] = recovery["launches"].get(kind + "_bwd")
+            extra["launches_recorded_study"] = recorded_study["launches"].get(kind + "_bwd")
         kernels.append(kernel_row(
             kind, "bwd", bwd_rows, launches[kind + "_bwd"],
             **{key: bwd_rows["midpoint"][key] for key in ("step_ms", "step_zero_share")},
@@ -2997,7 +3521,9 @@ def main():
                 "unmerged_t100": t100["bwd"]} if um else {}), **extra))
     print("phase 21: total %.1f s" % (time.perf_counter() - t_start))
     print("phase 21: paths " + json.dumps({"adaptive": adaptive, "graph": graph,
-                                           "vmap_folds": vmap}))
+                                           "vmap_folds": vmap, "simulate": simulated,
+                                           "recorded_truths": recorded, "recovery": recovery,
+                                           "recorded_study": recorded_study}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

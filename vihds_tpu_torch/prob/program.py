@@ -59,6 +59,7 @@ class ParamProgram:
         self.is_constant = np.array([k == S.CONSTANT for k in kinds])
         self.is_truncated = np.array([k == S.TRUNCATED for k in kinds])
         self.is_kumaraswamy = np.array([k == S.KUMARASWAMY for k in kinds])
+        self.is_normal_family = ~(self.is_constant | self.is_kumaraswamy)
 
         self.prior_mu = np.array([s.init_mu for s in ordered], np.float32)
         self.prior_prec = np.array([s.init_prec for s in ordered], np.float32)

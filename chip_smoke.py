@@ -123,8 +123,9 @@ Phases, each printing lines of its own:
    set, and ``--figures`` stops before training, naming the package;
 19. path (a): ``dr_constant_icml`` under ``solver: dopri5`` (the adaptive
    forward, ``ops/dopri.py``, and the continuous adjoint's backward,
-   ``ops/adjoint.py``; no kernel) through ``run_on_split``, one epoch of 7
-   steps at B=36 x K=200 evaluated at K=200 / 1000, with its step times;
+   ``ops/adjoint.py``; no kernel) through ``run_on_split`` on its first CSV,
+   one epoch of 2 steps at B=36 x K=200 evaluated at K=200 / 1000, with its
+   step times;
    the steps one forward takes per interval on a training step's operands,
    accepted and rejected, and whether an interval hit its cap (the model's
    own right-hand side under a counting wrapper); one ``predict`` request at
@@ -161,15 +162,36 @@ Phases, each printing lines of its own:
    again through ``dr_fwd`` and ``dr_prec_fwd`` against their recorded
    x_noiseless and precisions; 20e, ``recovery_study.main`` on
    ``dr_constant_one`` under ``solver: pallas_midpoint`` at its defaults
-   (1000 epochs, K 200 / 1000, 48 series; the HMC stages off): the
-   headline, the wall and the ``dr`` kernels' launches, each equal to the
-   count of the simulator, the training steps and the evaluation chunks,
-   then ``check_calibration`` on its design (R = 48: the last 32-row block
-   half full); 20f, the study's stages 2-3 (``train_and_score``) at its
-   defaults on the JAX package's recorded simulation under
-   ``reports/recovery_study`` (its CSV and truth), its headline beside the
-   recorded report's, the same checks and launch counts as 20e;
-21. the total time, one line with the readings of phases 19-20f, and the
+   (1000 epochs, K 200 / 1000, 48 series; HMC stage 3b, ``hmc_refine`` on
+   the local sites, 64 chains x 200 steps, R = 3,072 rows a launch, and 3c,
+   ``hmc_refine_pooled``, 32 x 300, R = 1,536): the headline, the stages'
+   readings, the tool's recovery.npz keys and REPORT sections, the wall
+   and the ``dr`` kernels' launches, each equal to the count of the
+   simulator, the training steps, the evaluation chunks and the stages
+   (``sampler_launches``), then ``check_sampler`` on each stage (its
+   launches; the z-gradient of the log-joint through the kernels against
+   the plain route in float64 at the chains' first and last z; the backward
+   on the last gradient's dense operands against the float64 sweep, its
+   zero share and time beside the bound; two runs of
+   the stage's seed, steps cut to 2, bit-equal), then ``check_calibration``
+   on its design (R = 48: the last 32-row block half full); 20f and 20g, the
+   study's stages 2-3 with both HMC stages (``train_and_score``) at its
+   defaults (20g's training cut to 250 epochs, ``RECORDED_STUDIES``) on the
+   JAX package's recorded simulations under ``reports/recovery_study``
+   (``dr``) and ``reports/recovery_precisions`` (288 series, ``dr_prec`` at
+   R = 18,432 and 9,216), each headline and
+   the stages' acceptance, cover95, ESS, R-hat and displacement beside the
+   recorded report's (recorded at 1,000 / 2,000 and 200 / 300 steps), the
+   same checks as 20e; 20h, the other samplers on 20e's trained model at
+   the tools' widths, steps cut to ~100 (``OTHER_SAMPLERS``): ``smc_refine``
+   64 particles x 16 temperatures x 2 moves and ``hmc_refine`` 64 chains x
+   60 steps on 12 series, ``gibbs_refine_pooled`` 16 chains x 100 sweeps
+   and ``pm_refine_shared`` 16 chains x 64 particles x 100 steps (forward
+   only, R = 49,152) on 48, each with ``check_sampler`` (the
+   pseudo-marginal sampler's log-likelihood against float64 instead of a
+   gradient);
+21. the total time, the wall of each group of phases, one line with the
+   readings of phases 19-20h, and the
    ``kernels`` JSON line (every row with ``launches_vmap``, its launches
    on phases 5e-5f's ``--vmap_folds`` paths, null where none ran it; the
    ``dr_prec`` and ``blackbox`` rows with phase 3f's fold launch times
@@ -177,10 +199,13 @@ Phases, each printing lines of its own:
    launches of phases 14-15 and the times of 14c; the ``dr``, ``dr_prec``
    and ``blackbox`` backward rows with the DReG pulls' launches, times and
    subnormal shares of 17b-17c; the ``dr`` and ``dr_prec`` rows with
-   ``launches_simulate`` (20c), ``launches_recovery`` (20e) and
-   ``launches_recorded_study`` (20f; both null for ``dr_prec``), their
-   forward rows with ``launches_recorded_truth`` (20d)), then the last
-   line ``{"ok": true, "device": {...}}``.
+   ``launches_simulate`` (20c), ``launches_recovery`` (20e, null for
+   ``dr_prec``), ``launches_recorded_study`` (20f, 20g) and
+   ``launches_refine`` (each HMC path's launches by phase and stage or
+   sampler, 20e-20h), their forward rows with ``launches_recorded_truth``
+   (20d) and their backward rows with ``refine_operands`` (the backward on
+   each path's dense operands: zero share, readings, time, bound)), then
+   the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero; it also exits non-zero,
 printing no result, where CUDA is not available or the package is missing.
@@ -567,11 +592,18 @@ def bound(n_bytes, n_flops):
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
-def timed(kernel, plain, n_bytes, n_flops):
-    """A kernel's time (median of 20 launches), its plain version's (of 3)
-    and the bound of the work: ``n_bytes`` moved, ``n_flops`` done."""
+#: calls of a plain version that phase 3 times: one, right after the
+#: comparison that ran it on the same operands (not a median of 3 after a
+#: warm-up: cut to keep the script within its time limit)
+PHASE3_PLAIN_REPS = 1
+
+
+def timed(kernel, plain, n_bytes, n_flops, reps=3):
+    """A kernel's time (median of 20 launches), its plain version's (median
+    of ``reps``, after a warm-up call where ``reps`` > 1) and the bound of
+    the work: ``n_bytes`` moved, ``n_flops`` done."""
     ms = cuda_ms(kernel, 20)
-    plain_ms = cuda_ms(plain, 3, warmup=1)
+    plain_ms = cuda_ms(plain, reps, warmup=1 if reps > 1 else 0)
     bound_ms, bound_by = bound(n_bytes, n_flops)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bytes=n_bytes, flops=n_flops)
@@ -587,7 +619,7 @@ def fwd_row(kind, wmat, packed, y0_cols, times, method):
     return timed(lambda: fused_ode.kind_fwd(kind, wmat, packed, y0_cols, times, method),
                  lambda: fused_ode._plain_fwd(kind, wmat, packed, y0_cols, times, method),
                  4 * (n_w + packed.numel() + y0_cols.numel() + times.numel() + T * S * R),
-                 flops_per_step(kind)[0][method] * (T - 1) * R)
+                 flops_per_step(kind)[0][method] * (T - 1) * R, PHASE3_PLAIN_REPS)
 
 
 def fwd_repeats(kind, wmat, packed, y0_cols, times, method):
@@ -794,7 +826,7 @@ def phase_kind_kernels(device, kind, seed):
                         lambda: fused_ode._plain_bwd(kind, wmat, packed, times, traj, g, method),
                         4 * (2 * n_w + 2 * packed.numel() + times.numel() + 2 * T * S * R
                              + S * R),
-                        flops_per_step(kind)[1][method] * (T - 1) * R))
+                        flops_per_step(kind)[1][method] * (T - 1) * R, PHASE3_PLAIN_REPS))
             # the forward at this shape too: against its plain version, and
             # on the first R - 12 rows alone (a ragged last block), which
             # must give those rows of traj bit for bit
@@ -956,7 +988,7 @@ def bb_fwd_row(wflat, packed, y0_cols, times, shapes, method):
                                 method),
         lambda: fb._plain_fwd(wv, packed, y0_cols, times, fb.KERNEL_N_STATES, method),
         4 * (wflat.numel() + packed.numel() + y0_cols.numel() + times.numel() + T * S * R),
-        bb_step_flops(S)[0][method] * (T - 1) * R)
+        bb_step_flops(S)[0][method] * (T - 1) * R, PHASE3_PLAIN_REPS)
 
 
 def bb_cotangent_readings(dw, dc, dy0, ref, shapes, normal_only=False):
@@ -1141,7 +1173,7 @@ def phase_blackbox_kernels(device, seed):
                         lambda: fb._plain_bwd(wv, packed, times, traj, g, NS, method),
                         4 * (2 * wflat.numel() + 2 * packed.numel() + times.numel()
                              + 2 * T * S * R + S * R),
-                        bb_step_flops(S)[1][method] * (T - 1) * R))
+                        bb_step_flops(S)[1][method] * (T - 1) * R, PHASE3_PLAIN_REPS))
             print("  %-9s kernel: worst normwise %.3e (%s), worst p99 rel %.3e (%s); plain "
                   "float32: %.3e, %.3e (within the limits: %s) | repeat run dW bit-equal: %s  "
                   "kernel %.4f ms  plain %.2f ms  bound %.4f ms (%s: %d B, %d flop)  %s"
@@ -2555,6 +2587,11 @@ ADAPTIVE_SOLVER = "dopri5"
 ADAPTIVE_FLAGS = ["--experiment", "chip_smoke_dopri5", "--epochs", "1", "--test_epoch", "1",
                   "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed",
                   str(SEED)]
+#: phase 19's data: the spec's first CSV (72 training series, 2 steps an
+#: epoch at B = 36 x K = 200, 24 validation series).  Its depth was cut from
+#: all six (7 steps an epoch) to keep the script within its time limit when
+#: the recovery study's HMC stages came (each dopri5 step takes seconds)
+ADAPTIVE_FILES = 1
 
 
 class CountingRhs:
@@ -2590,9 +2627,10 @@ def adaptive_step_counts(ts, times, stages, cap):
 
 def phase_adaptive(device):
     """Phase 19: path (a), ``dr_constant_icml`` under ``solver: dopri5``
-    (the continuous adjoint's backward, no kernel): ``run_on_split`` for one
-    epoch of 7 steps at B=36 x K=200, evaluated at K=200 (train split) and
-    K=1000 (valid split), the xval artifacts; the steps one forward takes
+    (the continuous adjoint's backward, no kernel): ``run_on_split`` on the
+    spec's first CSV (``ADAPTIVE_FILES``) for one epoch of 2 steps at B=36 x
+    K=200, evaluated at K=200 (train split) and K=1000 (valid split), the
+    xval artifacts; the steps one forward takes
     per interval on a training step's operands (``dopri.integrate_adaptive``
     on the model's own right-hand side, its calls counted); one ``predict``
     request at K=1000 on the trained params; and one epoch with ``--dreg``."""
@@ -2611,6 +2649,7 @@ def phase_adaptive(device):
     for dreg in (False, True):
         args, settings = training_settings(ADAPTIVE_SOLVER, SPEC,
                                            ADAPTIVE_FLAGS + (["--dreg"] if dreg else []))
+        settings.data.files = settings.data.files[:ADAPTIVE_FILES]
         with tempfile.TemporaryDirectory() as results_dir:
             os.environ["INFERENCE_RESULTS_DIR"] = results_dir
             settings.trainer = Trainer(args, add_timestamp=True)
@@ -3195,42 +3234,352 @@ def phase_recorded_truths(device):
     return out
 
 
-#: the recovery study at its own defaults (1000 epochs, K 200 / 1000, 48
-#: series), its HMC stages off until they are ported
-RECOVERY_FLAGS = ["--refine_chains", "0", "--pooled_chains", "0"]
 RECOVERY_HEADLINE = ("median_abs_z", "coverage95", "predictive_coverage95",
                      "median_local_corr", "val_elbo")
+#: the HMC stages' readings a report holds, printed beside the recorded ones
+STAGE_READINGS = ("refine_accept", "refined_local_cover", "refine_ess_median", "refine_rhat_max",
+                  "refine_disp_median", "pooled_accept", "pooled_local_cover",
+                  "pooled_shared_cover", "pooled_ess_median", "pooled_rhat_max",
+                  "pooled_disp_median")
+STAGE_SECTIONS = ("## HMC-refined local sites (cut inference: shared sites ~ amortised q)",
+                  "## Pooled joint HMC (the true hierarchical posterior)")
+#: the steps of a sampler's repeat runs (two runs of one seed, bit for bit)
+REPEAT_STEPS = 2
+#: a pseudo-marginal log-likelihood through the kernels against the plain
+#: route in float64, relative to each value (sums of 4 x T float32 terms)
+LIK_RTOL = 1e-4
 
 
-def run_study(device, directory, run, argv):
+def sampler_launches(name, kw):
+    """The forward and backward launches of one call of the sampler ``name``
+    of ``vihds_tpu_torch.refine`` with keywords ``kw``, from its code: HMC
+    (and Gibbs, whose locals move by HMC) a target at each step's start, a
+    gradient per leapfrog point (n_leapfrog + 1), the target at the proposal
+    (Gibbs: the shared block's proposal), then one gradient before the
+    first step and one target after the last (Gibbs: its first target);
+    the pseudo-marginal sampler two targets a step, one at the start and
+    the final weights, forward only; SMC one target a temperature and n_moves
+    HMC moves after it, each n_leapfrog + 3 targets, n_leapfrog + 1 of them
+    gradients."""
+    import inspect
+
+    from vihds_tpu_torch import refine
+
+    defaults = inspect.signature(getattr(refine, name)).parameters
+
+    def get(k):
+        return kw.get(k, defaults[k].default)
+
+    if name == "pm_refine_shared":
+        return 2 * get("n_steps") + 2, 0
+    if name == "smc_refine":
+        nl, moves = get("n_leapfrog"), get("n_moves")
+        return get("n_temps") * (1 + moves * (nl + 3)), get("n_temps") * moves * (nl + 1)
+    steps = get("n_sweeps") if name == "gibbs_refine_pooled" else get("n_steps")
+    return steps * (get("n_leapfrog") + 3) + 2, steps * (get("n_leapfrog") + 1) + 1
+
+
+def stage_launches(args):
+    """(forward, backward) launches of the recovery study's HMC stages 3b and
+    3c at ``args``."""
+    out = [0, 0]
+    for name, chains, steps in (("hmc_refine", args.refine_chains, args.refine_steps),
+                                ("hmc_refine_pooled", args.pooled_chains, args.pooled_steps)):
+        if chains:
+            f, b = sampler_launches(name, dict(n_steps=steps))
+            out[0] += f
+            out[1] += b
+    return tuple(out)
+
+
+class SamplerCalls:
+    """While active, records each call of the samplers of
+    ``vihds_tpu_torch.refine``: (name, args, keywords, result, wall, the
+    launches of ``kernels`` within the call)."""
+
+    NAMES = ("hmc_refine", "hmc_refine_pooled", "gibbs_refine_pooled", "pm_refine_shared",
+             "smc_refine")
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from vihds_tpu_torch import refine
+
+        self.saved = {name: getattr(refine, name) for name in self.NAMES}
+
+        def wrap(name, fn):
+            def call(*args, **kw):
+                before = {k: _counter(k).launches for k in self.kernels}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(*args, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                self.calls.append(dict(name=name, args=args, kw=kw, res=res, wall=wall, launches={
+                    k: _counter(k).launches - before[k] for k in self.kernels}))
+                return res
+
+            return call
+
+        for name, fn in self.saved.items():
+            setattr(refine, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from vihds_tpu_torch import refine
+
+        for name, fn in self.saved.items():
+            setattr(refine, name, fn)
+        return False
+
+
+def _double(tree):
+    return {k: _double(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.double()
+
+
+def refine_grad(model, program, params, batch, z, site_mask, solver, capture=None):
+    """The z-gradients of the two terms of the samplers' log-joint at ``z``
+    under ``solver`` (float64 where ``z`` is): (the data term's, d sum log
+    p(x | T(z)) / d z, whose backward runs the kernels on a ``pallas_*``
+    solver; the prior term's over the sampled sites).  ``capture`` (a list)
+    receives the operands of the backward kernel launch
+    (``fused_ode.kind_bwd``), detached."""
+    import torch
+
+    from vihds_tpu_torch import refine
+    from vihds_tpu_torch.ops import fused_ode
+    from vihds_tpu_torch.utils.attrdict import AttrDict
+
+    if z.dtype == torch.float64:
+        params, batch = _double(params), AttrDict((k, v.double()) for k, v in batch.items())
+    mask = refine._sampled_mask(program, z) if site_mask is None else refine._host(site_mask, z)
+    launch = fused_ode.kind_bwd
+
+    def record(*args):
+        capture.append([x.detach() if isinstance(x, torch.Tensor) else x for x in args])
+        return launch(*args)
+
+    old = model.ode_model.solver
+    model.ode_model.solver = solver
+    if capture is not None:
+        fused_ode.kind_bwd = record
+    try:
+        log_lik = refine.make_log_lik(model, program, params, batch)
+        g_lik = refine._grad(lambda z_: log_lik(refine.constrain_z(program, z_)))(z)
+    finally:
+        model.ode_model.solver = old
+        fused_ode.kind_bwd = launch
+    g_prior = refine._grad(lambda z_: (refine.log_prior_z_cols(program, z_) * mask).sum(-1))(z)
+    return g_lik, g_prior
+
+
+def refine_lik(model, program, params, batch, theta, solver):
+    """The per-series log-likelihood [B, K] of ``theta`` under ``solver``
+    (float64 where theta is), without a graph."""
+    import torch
+
+    from vihds_tpu_torch import refine
+    from vihds_tpu_torch.utils.attrdict import AttrDict
+
+    if theta.dtype == torch.float64:
+        params, batch = _double(params), AttrDict((k, v.double()) for k, v in batch.items())
+    old = model.ode_model.solver
+    model.ode_model.solver = solver
+    try:
+        with torch.no_grad():
+            return refine.make_log_lik(model, program, params, batch)(theta)
+    finally:
+        model.ode_model.solver = old
+
+
+def _same(a, b):
+    """Two samplers' outputs bit for bit (nested dicts of tensors)."""
+    import torch
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    return a == b
+
+
+def check_sampler(device, call, kind, phase, label):
+    """One recorded sampler call on the card: its launches of ``kind``'s
+    kernels against ``sampler_launches``; where it takes gradients, the
+    z-gradient of the log-joint's data term (the share the kernels compute)
+    through the kernels against the plain midpoint route in float64 at the
+    chains' first and last z (each moved site over the rows:
+    ``cotangent_readings`` at phase 3's backward limits), and the whole
+    log-joint's normwise (near the posterior's mode its data and prior
+    terms nearly cancel, so the relative error of its small elements reads
+    the cancellation, not the kernels); the percentile is held where the
+    plain float32 route holds it (elsewhere, as on a Gibbs chain's last
+    shared sites, the float32 arithmetic around the kernel sets it, and the
+    plain float32 route's readings stand beside); then the backward kernel
+    on the last gradient's operands (the trajectory cotangent of R = series
+    x chains rows, dense) against the plain sweep in float64, its zero
+    share and time beside the bound.  The pseudo-marginal sampler (no
+    gradient): its log-likelihood at the returned theta against float64.
+    Last, two repeat runs of the sampler (its steps cut to REPEAT_STEPS)
+    with the call's seed, bit for bit.  Fails the phase on a mismatch;
+    returns the readings."""
+    import torch
+
+    from vihds_tpu_torch import refine
+    from vihds_tpu_torch.ops import fused_ode
+
+    name, kw, res = call["name"], call["kw"], call["res"]
+    model, program, params, batch, key = call["args"]
+    fwd, bwd = kind + "_fwd", kind + "_bwd"
+    want = sampler_launches(name, kw)
+    got = (call["launches"][fwd], call["launches"][bwd])
+    # the rows of a target: series x chains (SMC: particles; PM: x particles)
+    chains = kw["n_particles"] if name == "smc_refine" else kw["n_chains"]
+    per_chain = kw["n_particles"] if name == "pm_refine_shared" else 1
+    out = dict(sampler=name, wall=call["wall"], launches=got, expected=want,
+               rows=batch.observations.shape[0] * chains * per_chain)
+    ok = got == want
+    site_mask = kw.get("site_mask")
+    moved = (torch.as_tensor(site_mask) > 0 if site_mask is not None
+             else torch.as_tensor(~program.is_constant)).cpu()
+    if name == "pm_refine_shared":
+        theta = res.theta
+        lk = refine_lik(model, program, params, batch, theta, TRAIN_SOLVER)
+        lp = refine_lik(model, program, params, batch, theta.double(), "midpoint")
+        rel = float(((lk.double() - lp).abs() / lp.abs().clamp_min(1e-300)).max())
+        out["lik_rel"] = rel
+        ok = ok and bool(torch.isfinite(lk).all()) and rel <= LIK_RTOL
+        print("  %s %s (%s, R = %d a target): %.1f s, %s launches %d (%d expected), %s %d; the "
+              "log-likelihood at the returned theta through the kernels against the plain route "
+              "in float64: max rel %.3e (limit %g)"
+              % (phase, label, name, out["rows"], call["wall"], fwd, got[0], want[0], bwd, got[1],
+                 rel, LIK_RTOL))
+    else:
+        if name == "smc_refine":
+            first = refine.init_z_from_q(model, program, params, batch,
+                                         refine.Draws(key, device), chains)[0]
+        else:
+            first = res.z_init
+        readings, operands = {}, []
+        for where, z in (("first", first), ("last", res.z)):
+            capture = operands if where == "last" else None
+            lik32, prior32 = refine_grad(model, program, params, batch, z, site_mask,
+                                         TRAIN_SOLVER, capture)
+            lik64, prior64 = refine_grad(model, program, params, batch, z.double(), site_mask,
+                                         "midpoint")
+            n = z.shape[-1]
+
+            def rows(g):  # each moved site over the rows
+                return g.reshape(-1, n).t()[moved.to(g.device)]
+
+            b = rows(lik64)
+            keep = b.abs().amax(dim=1) > 0
+            norm, p99 = cotangent_readings(rows(lik32)[keep], b[keep])
+            joint, _ = cotangent_readings(rows(lik32 + prior32), rows(lik64 + prior64))
+            readings[where] = dict(normwise=float(norm.max()), p99=float(p99.max()),
+                                   joint_normwise=float(joint.max()), plain32=None,
+                                   p99_held=True)
+            if float(p99.max()) > BWD_P99_TOL:
+                # the percentile is held where the plain float32 route holds it: elsewhere
+                # the float32 arithmetic around the kernels (clip, observe, the
+                # log-likelihood) sets it
+                plain32, _ = refine_grad(model, program, params, batch, z, site_mask, "midpoint")
+                p_norm, p_p99 = cotangent_readings(rows(plain32)[keep], b[keep])
+                readings[where].update(plain32=(float(p_norm.max()), float(p_p99.max())),
+                                       p99_held=float(p_p99.max()) <= BWD_P99_TOL)
+            held = readings[where]["p99_held"]
+            ok = (ok and bool(torch.isfinite(lik32).all()) and float(norm.max()) <= BWD_NORM_TOL
+                  and (not held or float(p99.max()) <= BWD_P99_TOL)
+                  and float(joint.max()) <= BWD_NORM_TOL)
+        out["grad"] = readings
+        k, wmat, packed, times, traj, g, method = operands[-1]
+        T_, S, R = traj.shape
+        with torch.no_grad():
+            dw, dc, dy0 = fused_ode.kind_bwd(k, wmat, packed, times, traj, g, method)
+            rw, rc, ry0 = fused_ode._plain_bwd(k, None if wmat is None else wmat.double(),
+                                               packed.double(), times.double(), traj.double(),
+                                               g.double(), method)
+            got_b, ref_b = torch.cat([dc, dy0]), torch.cat([rc, ry0])
+            norm, p99 = cotangent_readings(got_b, ref_b, True)
+            # the weight cotangent, summed over the rows: normwise over the matrix
+            w_rel = (float((dw.double() - rw).abs().max() / rw.abs().max())
+                     if dw is not None else None)
+            n_bytes = 4 * (2 * packed.numel() + times.numel() + 2 * T_ * S * R + S * R
+                           + (wmat.numel() * (1 + -(-R // fused_ode.PREC_BWD_ROWS))
+                              if wmat is not None else 0))
+            ms = cuda_ms(lambda: fused_ode.kind_bwd(k, wmat, packed, times, traj, g, method), 20)
+            bound_ms, bound_by = bound(n_bytes, flops_per_step(k)[1][method] * (T_ - 1) * R)
+        zero = float((g == 0).double().mean())
+        bwd_ok = (bool(torch.isfinite(got_b).all()) and float(norm.max()) <= BWD_NORM_TOL
+                  and float(p99.max()) <= BWD_P99_TOL and (w_rel is None or w_rel <= BWD_NORM_TOL))
+        ok = ok and bwd_ok
+        out["bwd"] = dict(rows=R, zero_share=zero, normwise=float(norm.max()),
+                          p99=float(p99.max()), dw_rel=w_rel, ms=ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        def grad_text(r):
+            plain = "; plain float32 %.3e / %.3e" % r["plain32"] if r["plain32"] else ""
+            return "%.3e / %.3e%s (log-joint %.3e%s)" % (
+                r["normwise"], r["p99"], "" if r["p99_held"] else " not held", r["joint_normwise"],
+                plain)
+
+        print("  %s %s (%s, R = %d): %.1f s, %s launches %d (%d expected), %s %d (%d expected); "
+              "z-gradient of the data term through the kernels against the plain route in "
+              "float64, normwise / p99 (limits %g / %g) at the first step %s, at the last %s; %s "
+              "on the last gradient's operands (T=%d, R=%d; cotangent %.4f exactly zero) against "
+              "the plain sweep in float64: worst normwise %.3e, worst p99 %.3e%s; kernel %.4f ms  "
+              "bound %.4f ms (%s)"
+              % (phase, label, name, out["rows"], call["wall"], fwd, got[0], want[0], bwd, got[1],
+                 want[1], BWD_NORM_TOL, BWD_P99_TOL, grad_text(readings["first"]),
+                 grad_text(readings["last"]), bwd, T_, R, zero, float(norm.max()),
+                 float(p99.max()), ", dW %.3e" % w_rel if w_rel is not None else "", ms,
+                 bound_ms, bound_by))
+    steps = {"gibbs_refine_pooled": "n_sweeps", "smc_refine": "n_temps"}.get(name, "n_steps")
+    short = dict(kw, **{steps: min(REPEAT_STEPS, kw.get(steps, REPEAT_STEPS))})
+    fn = getattr(refine, name)
+    repeats = [fn(model, program, params, batch, key, **short) for _ in range(2)]
+    out["repeat_equal"] = _same(repeats[0], repeats[1])
+    print("    two runs of seed %s at %d %s bit-equal: %s" % (key, short[steps], steps[2:],
+                                                            out["repeat_equal"]))
+    if not (ok and out["repeat_equal"]):
+        fail("phase %s: the %s stage (%s) failed a check" % (phase, label, name))
+    return out
+
+
+def run_study(device, directory, run, argv, kind="dr"):
     """``run`` (the study's ``main``, or its stages 2-3 on a recorded
-    simulation) with INFERENCE_RESULTS_DIR under ``directory``, the ``dr``
-    counts set to 0 just before: (summary, wall, launches, the captured
-    output's lines)."""
+    simulation) with INFERENCE_RESULTS_DIR under ``directory``, the
+    ``kind``'s counts set to 0 just before, each call of the HMC samplers
+    recorded (``SamplerCalls``): (summary, wall, launches, the captured
+    output's lines, the sampler calls)."""
     import io
 
     import torch
 
+    kernels = (kind + "_fwd", kind + "_bwd")
     os.environ["INFERENCE_RESULTS_DIR"] = os.path.join(directory, "results")
-    for k in ("dr_fwd", "dr_bwd"):
+    for k in kernels:
         _counter(k).launches = 0
     text = io.StringIO()
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(text):
+        with contextlib.redirect_stdout(text), SamplerCalls(kernels) as calls:
             summary = run(argv)
         torch.cuda.synchronize()
     finally:
         del os.environ["INFERENCE_RESULTS_DIR"]
     wall = time.perf_counter() - t0
-    launches = {k: _counter(k).launches for k in ("dr_fwd", "dr_bwd")}
-    return summary, wall, launches, text.getvalue().splitlines()
+    launches = {k: _counter(k).launches for k in kernels}
+    return summary, wall, launches, text.getvalue().splitlines(), calls.calls
 
 
-def report_study(phase, what, args, summary, wall, launches, log, outdir, want):
-    """Print a study's wall, launches (against ``want``, the expected
-    (forward, backward)), files and headline; fail where REPORT.md or
-    recovery.npz is missing, the headline is not finite or the launches
+def report_study(phase, what, args, summary, wall, launches, log, outdir, want, kind="dr"):
+    """Print a study's wall, the ``kind``'s launches (against ``want``, the
+    expected (forward, backward)), files and headline; fail where REPORT.md
+    or recovery.npz is missing, the headline is not finite or the launches
     differ.  Returns the headline."""
     import numpy as np
 
@@ -3240,12 +3589,14 @@ def report_study(phase, what, args, summary, wall, launches, log, outdir, want):
     report = open(os.path.join(outdir, "REPORT.md")).read() if "REPORT.md" in written else ""
     epochs = [line for line in log if line.startswith("epoch")]
     headline = {k: summary[k] for k in RECOVERY_HEADLINE}
-    print("phase %s: %s (%s, %d series, %d epochs, K %d / %d, test_epoch %d): %.1f s wall; %d "
-          "evaluation lines, the last: %s; dr_fwd launches %d, dr_bwd launches %d (%d / %d "
-          "expected); wrote %s; recovery.npz keys %s"
+    fwd, bwd = kind + "_fwd", kind + "_bwd"
+    print("phase %s: %s (%s, %d series, %d epochs, K %d / %d, test_epoch %d; HMC stages %d x %d "
+          "and %d x %d): %.1f s wall; %d evaluation lines, the last: %s; %s launches %d, %s "
+          "launches %d (%d / %d expected); wrote %s; recovery.npz keys %s"
           % (phase, what, TRAIN_SOLVER, summary["n_series"], args.epochs, args.train_samples,
-             args.test_samples, args.test_epoch, wall, len(epochs),
-             epochs[-1] if epochs else None, launches["dr_fwd"], launches["dr_bwd"], want[0],
+             args.test_samples, args.test_epoch, args.refine_chains, args.refine_steps,
+             args.pooled_chains, args.pooled_steps, wall, len(epochs),
+             epochs[-1] if epochs else None, fwd, launches[fwd], bwd, launches[bwd], want[0],
              want[1], written, rec_keys))
     print("phase %s: headline %s" % (phase, json.dumps(headline)))
     for line in report.splitlines():
@@ -3256,19 +3607,42 @@ def report_study(phase, what, args, summary, wall, launches, log, outdir, want):
     if not {"REPORT.md", "recovery.npz"} <= set(written) or not all(
             v is not None and np.isfinite(v) for v in headline.values()):
         fail("phase %s: the recovery study wrote %s, headline %s" % (phase, written, headline))
-    if (launches["dr_fwd"], launches["dr_bwd"]) != tuple(want):
+    if (launches[fwd], launches[bwd]) != tuple(want):
         fail("phase %s: the study launched %s, not %s" % (phase, launches, want))
+    recorded_keys = np.load(os.path.join(HERE, "reports", "recovery_study", "recovery.npz"),
+                            allow_pickle=True).files
+    if set(rec_keys) != set(recorded_keys):
+        fail("phase %s: recovery.npz holds %s, the tool's recorded run %s"
+             % (phase, rec_keys, sorted(recorded_keys)))
+    for line in report.splitlines():
+        if line.startswith("| HMC-refined") or line.startswith("| pooled-joint"):
+            print("  " + line)
+    if not all(section in report for section in STAGE_SECTIONS):
+        fail("phase %s: REPORT.md lacks the HMC stages' sections" % phase)
     return headline
+
+
+def check_stages(device, calls, kind, phase):
+    """``check_sampler`` on the study's two HMC stages (3b ``hmc_refine``,
+    3c ``hmc_refine_pooled``): {stage: readings}."""
+    labels = {"hmc_refine": "3b", "hmc_refine_pooled": "3c"}
+    if sorted(c["name"] for c in calls) != sorted(labels):
+        fail("phase %s: the study called %s" % (phase, [c["name"] for c in calls]))
+    return {labels[c["name"]]: check_sampler(device, c, kind, phase, labels[c["name"]])
+            for c in calls}
 
 
 def phase_recovery(device):
     """Phase 20e: ``recovery_study.main`` on ``dr_constant_one`` under
-    ``solver: pallas_midpoint`` at its defaults: REPORT.md and
-    recovery.npz written, a finite headline, the wall and the ``dr``
-    kernels' launches, each the count the simulator, the steps and the
-    evaluation chunks make; then the calibration's backward on this
-    design (48 series: a last 32-row block half full) against the plain
-    route (``check_calibration``)."""
+    ``solver: pallas_midpoint`` at its defaults, HMC stages 3b (64 chains x
+    200 steps) and 3c (32 x 300) included: REPORT.md and recovery.npz
+    written with the tool's keys and sections, a finite headline, the wall
+    and the ``dr`` kernels' launches, each the count the simulator, the
+    steps, the evaluation chunks and the stages make; each stage's
+    ``check_sampler``; then the calibration's backward on this design (48
+    series: a last 32-row block half full) against the plain route
+    (``check_calibration``).  Returns the readings and, as ``source``, the
+    trained model, params and batch of stage 3b (phase 20h's)."""
     import numpy as np
 
     from vihds_tpu_torch import recovery_study as rs
@@ -3280,33 +3654,52 @@ def phase_recovery(device):
     with tempfile.TemporaryDirectory() as directory:
         src = write_spec(SPEC_ONE, directory, solver=TRAIN_SOLVER)
         outdir = os.path.join(directory, "study")
-        argv = ["--spec", src, "--outdir", outdir] + RECOVERY_FLAGS
-        summary, wall, launches, log = run_study(
+        argv = ["--spec", src, "--outdir", outdir]
+        summary, wall, launches, log, calls = run_study(
             device, directory, lambda a: rs.main(a, device=device), argv)
         args = rs.parse(argv)
         truth = dict(np.load(os.path.join(outdir, "synthetic_truth.npz"), allow_pickle=True))
         os.environ["INFERENCE_RESULTS_DIR"] = os.path.join(directory, "results")
         fwd, bwd = study_launches(args, os.path.join(outdir, "synthetic.yaml"))
         del os.environ["INFERENCE_RESULTS_DIR"]
-        want = (simulator_launches(truth) + fwd, SIM_CALIBRATION_STEPS + bwd)
+        s_fwd, s_bwd = stage_launches(args)
+        want = (simulator_launches(truth) + fwd + s_fwd, SIM_CALIBRATION_STEPS + bwd + s_bwd)
         headline = report_study("20e", "recovery_study on dr_constant_one", args, summary, wall,
                                 launches, log, outdir, want)
         settings = Config(sim.create_parser().parse_args([src, "--output_dir", directory]))
+    print("phase 20e: the stages' readings %s"
+          % json.dumps({k: summary[k] for k in STAGE_READINGS}))
+    stages = check_stages(device, calls, "dr", "20e")
     program = ParamProgram(parse_parameters(settings.params))
     checked = check_calibration(sim, settings, program, truth, device,
                                 params_from_keystr(truth, device=device), "20e", "dr_constant_one")
+    c3b = next(c for c in calls if c["name"] == "hmc_refine")
+    c3c = next(c for c in calls if c["name"] == "hmc_refine_pooled")
+    source = dict(args=c3b["args"][:4], devices=c3c["kw"]["devices"])
     return dict(wall=wall, launches=launches, headline=headline, epochs=args.epochs,
-                calibration=checked)
+                calibration=checked, stages=stages,
+                readings={k: summary[k] for k in STAGE_READINGS}, source=source)
 
 
-def phase_recorded_study(device):
-    """Phase 20f: the study's stages 2 and 3 (``recovery_study.train_and_score``)
-    at its defaults on the JAX package's recorded simulation under
-    reports/recovery_study (its CSV and truth npz; its spec under ``solver:
-    pallas_midpoint``, ``files`` pointed at the CSV): the same data and
-    truth as the recorded report, so its headline stands beside the
-    recorded one.  Checks as 20e: the files, a finite headline, the
-    launches of the steps and evaluation chunks."""
+#: phases 20f and 20g: (phase, reports/ folder, source spec, fused kind,
+#: training epochs).  20g trains 250 of the study's 1000 epochs (1500 of
+#: 6000 steps on 216 series): the training's depth, cut to keep the script
+#: within its time limit; its HMC stages run at the study's defaults
+RECORDED_STUDIES = (("20f", "recovery_study", SPEC_ONE, "dr", 1000),
+                    ("20g", "recovery_precisions", SPEC_PREC, "dr_prec", 250))
+
+
+def phase_recorded_study(device, phase, report, spec_src, kind, epochs):
+    """Phases 20f / 20g: the study's stages 2-3, HMC stages included
+    (``recovery_study.train_and_score``), at its defaults on the JAX
+    package's recorded simulation under ``reports/<report>`` (its CSV and
+    truth npz; its spec under ``solver: pallas_midpoint``, ``files`` pointed
+    at the CSV): the same data and truth as the recorded report, so its
+    headline and the stages' readings stand beside the recorded ones (the
+    recorded run's HMC steps read from its REPORT.md).  Checks as 20e: the
+    files, a finite headline, the ``kind``'s launches, ``check_sampler`` on
+    each stage."""
+    import re
     import shutil
 
     import numpy as np
@@ -3314,7 +3707,7 @@ def phase_recorded_study(device):
 
     from vihds_tpu_torch import recovery_study as rs
 
-    recorded = os.path.join(HERE, "reports", "recovery_study")
+    recorded = os.path.join(HERE, "reports", report)
     with tempfile.TemporaryDirectory() as directory:
         data_dir = os.path.join(directory, "recorded")
         os.makedirs(data_dir)
@@ -3329,19 +3722,122 @@ def phase_recorded_study(device):
             yaml.safe_dump(config, f, sort_keys=False)
         truth_path = os.path.join(data_dir, "synthetic_truth.npz")
         outdir = os.path.join(directory, "study")
-        args = rs.parse(["--spec", SPEC_ONE, "--outdir", outdir] + RECOVERY_FLAGS)
-        summary, wall, launches, log = run_study(
-            device, directory, lambda a: rs.train_and_score(a, spec, truth_path, device), args)
+        args = rs.parse(["--spec", spec_src, "--outdir", outdir, "--epochs", str(epochs)])
+        summary, wall, launches, log, calls = run_study(
+            device, directory, lambda a: rs.train_and_score(a, spec, truth_path, device), args,
+            kind)
         os.environ["INFERENCE_RESULTS_DIR"] = os.path.join(directory, "results")
-        want = study_launches(args, spec)
+        fwd, bwd = study_launches(args, spec)
         del os.environ["INFERENCE_RESULTS_DIR"]
-        headline = report_study("20f", "stages 2-3 on reports/recovery_study's simulation", args,
-                                summary, wall, launches, log, outdir, want)
+        s_fwd, s_bwd = stage_launches(args)
+        headline = report_study(phase, "stages 2-3 on reports/%s's simulation" % report, args,
+                                summary, wall, launches, log, outdir, (fwd + s_fwd, bwd + s_bwd),
+                                kind)
     reference = np.load(os.path.join(recorded, "recovery.npz"), allow_pickle=True)
     ref = {k: float(reference[k]) for k in RECOVERY_HEADLINE}
-    print("phase 20f: the recorded report's headline on the same data and truth (the JAX "
-          "package, its own training draws; statistics, not speeds): %s" % json.dumps(ref))
-    return dict(wall=wall, launches=launches, headline=headline, recorded_headline=ref)
+    text = open(os.path.join(recorded, "REPORT.md")).read()
+    ref_steps = tuple(int(re.search(r"--%s (\d+)" % flag, text).group(1))
+                      for flag in ("refine_steps", "pooled_steps"))
+    print("phase %s: the recorded report's headline on the same data and truth (the JAX "
+          "package, its own training draws, %d epochs; statistics, not speeds): %s"
+          % (phase, int(reference["epochs"]), json.dumps(ref)))
+    readings = {k: summary[k] for k in STAGE_READINGS}
+    ref_readings = {k: float(reference[k]) for k in STAGE_READINGS}
+    print("phase %s: the HMC stages' readings at %d / %d steps %s; the recorded report's at %d / "
+          "%d steps %s" % (phase, args.refine_steps, args.pooled_steps, json.dumps(readings),
+                           *ref_steps, json.dumps(ref_readings)))
+    stages = check_stages(device, calls, kind, phase)
+    return dict(wall=wall, launches=launches, headline=headline, recorded_headline=ref,
+                stages=stages, readings=readings, recorded_readings=ref_readings,
+                recorded_steps=ref_steps)
+
+
+#: phase 20h: the other samplers at the tools' widths on 20e's trained model
+#: (tools/refine_demo.py:61-67 on 12 series, seed 7;
+#: tools/ar_mu_ground_truth.py:210-230 on every series, seed + 101), their
+#: steps cut to ~100: (sampler, series, seed, keywords)
+OTHER_SAMPLERS = (
+    ("smc_refine", 12, 7, dict(n_particles=64, n_temps=16, n_moves=2)),
+    ("hmc_refine", 12, 7, dict(n_chains=64, n_steps=60)),
+    ("gibbs_refine_pooled", None, 101, dict(n_chains=16, n_sweeps=100, n_leapfrog=10,
+                                            return_trace=True)),
+    ("pm_refine_shared", None, 101, dict(n_chains=16, n_steps=100, n_particles=64, rho=0.98,
+                                         return_trace=True)),
+)
+
+
+def phase_other_samplers(device, source):
+    """Phase 20h: SMC, HMC, pooled Gibbs and the pseudo-marginal sampler of
+    ``vihds_tpu_torch.refine`` on phase 20e's trained ``dr_constant_one``
+    model under ``solver: pallas_midpoint`` (``OTHER_SAMPLERS``), the ``dr``
+    counts set to 0 just before: each run's outputs finite, then
+    ``check_sampler``.  Returns {sampler: readings}."""
+    import torch
+
+    from vihds_tpu_torch import refine
+    from vihds_tpu_torch.utils.attrdict import AttrDict
+
+    model, program, params, batch = source["args"]
+    kernels = ("dr_fwd", "dr_bwd")
+    for k in kernels:
+        _counter(k).launches = 0
+    with SamplerCalls(kernels) as rec:
+        for name, series, seed, kw in OTHER_SAMPLERS:
+            b = batch if series is None else AttrDict(
+                (k, v if k == "times" else v[:series]) for k, v in batch.items())
+            if name in ("gibbs_refine_pooled", "pm_refine_shared"):
+                kw = dict(kw, devices=source["devices"])
+            getattr(refine, name)(model, program, params, b, seed, **kw)
+    launches = {k: _counter(k).launches for k in kernels}
+    out = {}
+    for call in rec.calls:
+        res = call["res"]
+        finite = all(bool(torch.isfinite(v).all()) for v in res.values()
+                     if isinstance(v, torch.Tensor))
+        extra = {
+            "smc_refine": lambda: "log evidence mean %.2f, ESS at the last temperature mean %.1f"
+            % (float(res.log_evidence.mean()), float(res.ess_trace[-1].mean())),
+            "hmc_refine": lambda: "accept %.3f, median log-joint %.1f -> %.1f"
+            % (float(res.accept_rate.mean()), float(res.log_joint_trace[0]),
+               float(res.log_joint_trace[-1])),
+            "gibbs_refine_pooled": lambda: "accept shared %.3f, local %.3f"
+            % (float(res.accept_rate.mean()), float(res.accept_rate_local.mean())),
+            "pm_refine_shared": lambda: "accept shared %.3f, particle refresh %.3f"
+            % (float(res.accept_rate.mean()), float(res.accept_rate_u.mean())),
+        }[call["name"]]()
+        shown = {k: v for k, v in call["kw"].items() if k != "devices"}
+        print("phase 20h: %s on %d series (%s): %.1f s; %s; outputs finite: %s"
+              % (call["name"], call["args"][3].observations.shape[0], json.dumps(shown),
+                 call["wall"], extra, finite))
+        if not finite:
+            fail("phase 20h: %s returned non-finite outputs" % call["name"])
+        out[call["name"]] = check_sampler(device, call, "dr", "20h", call["name"])
+    print("phase 20h: dr_fwd launches %d, dr_bwd launches %d over the four samplers" % (
+        launches["dr_fwd"], launches["dr_bwd"]))
+    if launches["dr_fwd"] != sum(r["launches"][0] for r in out.values()):
+        fail("phase 20h: launches outside the samplers: %s" % launches)
+    return dict(launches=launches, samplers=out)
+
+
+class PhaseWalls:
+    """The wall of each group of phases: ``mark(label)`` closes the group
+    that began at the last mark (or at creation)."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.last = time.perf_counter()
+
+    def mark(self, label):
+        now = time.perf_counter()
+        self.seconds[label] = round(now - self.last, 1)
+        self.last = now
+
+
+def refine_launches(paths, i):
+    """{phase: {stage or sampler: launches}} of one direction (0 forward, 1
+    backward) from the HMC paths' ``check_sampler`` readings."""
+    return {phase: {stage: r["launches"][i] for stage, r in stages.items()}
+            for phase, stages in paths.items()}
 
 
 def kernel_row(kind, direction, rows, launches, **extra):
@@ -3393,12 +3889,15 @@ def main():
 
     device = resolve_device("cuda")
     t_start = time.perf_counter()
+    clock = PhaseWalls()
     phase_card()
     phase_build()
+    clock.mark("1-2")
     measured = {kind: phase_kind_kernels(device, kind, SEED + 10 * i + 1)
                 for i, kind in enumerate(fused_ode.KINDS)}
     measured["blackbox"] = phase_blackbox_kernels(device, SEED + 101)
     fold_axis = phase_fold_kernels(device)
+    clock.mark("3-3f")
 
     serving, training = {}, {}
     serving["dr"], walls, served = serve(device, SPEC, REQUESTS, "4", "dr_fwd")
@@ -3411,6 +3910,7 @@ def main():
     vmap_launches = dict(vmap["launches"])
     for launches in phase_vmap_weighted(device).values():
         vmap_launches.update(launches)
+    clock.mark("4-5f")
 
     serving["dr_prec"] = serve(device, SPEC_PREC, REQUESTS, "6", "dr_prec_fwd")[0]
     # v2's version lives in the host-side fracLuxR / fracLasR: the same kernel
@@ -3438,6 +3938,7 @@ def main():
                                       nets=("states", "precisions"))[0]
     phase_route_check_training(device, SPEC_BB, "13b")
     phase_profile_training(device, SPEC_BB, "13c")
+    clock.mark("6-13c")
 
     with tempfile.TemporaryDirectory() as results_dir:
         unmerged, um_training = phase_unmerged_training(device, results_dir)
@@ -3446,21 +3947,38 @@ def main():
         unmerged["dr_fwd_serving"] = phase_serve_checkpoint(device, um_training, results_dir)
         phase_zoo(device, results_dir)
     phase_growthrate_route(device)
+    clock.mark("14-16b")
 
     dreg = phase_dreg_training(device, step_ms_5)
     dreg["per_step"] = phase_dreg_route_check(device)
     dreg_ops = phase_dreg_operands(device)
     phase_profile_dir(device)
     phase_figures(device)
+    clock.mark("17-18b")
 
     adaptive = phase_adaptive(device)
     adaptive["check"] = phase_adjoint_check(device)
+    clock.mark("19-19b")
     graph = phase_graph(device)
     graph["jobs_wall"] = phase_graph_jobs(device)["wall"]
+    clock.mark("20-20b")
     simulated = phase_simulate(device)
     recorded = phase_recorded_truths(device)
+    clock.mark("20c-20d")
     recovery = phase_recovery(device)
-    recorded_study = phase_recorded_study(device)
+    clock.mark("20e")
+    source = recovery.pop("source")
+    recorded_studies = {phase: phase_recorded_study(device, phase, report, spec, kind, epochs)
+                        for phase, report, spec, kind, epochs in RECORDED_STUDIES}
+    recorded_study = recorded_studies["20f"]
+    clock.mark("20f-20g")
+    others = phase_other_samplers(device, source)
+    del source
+    clock.mark("20h")
+    # the HMC paths' launches and backward readings per kind (phases 20e-20h)
+    refine_paths = {"dr": {"20e": recovery["stages"], "20f": recorded_study["stages"],
+                           "20h": others["samplers"]},
+                    "dr_prec": {"20g": recorded_studies["20g"]["stages"]}}
 
     kernels = []
     for kind, (fwd_rows, bwd_rows, train_fwd_rows) in measured.items():
@@ -3478,11 +3996,15 @@ def main():
         if kind in fold_axis:
             extra["vmap_fold"] = {k: fold_axis[kind]["midpoint"][k]
                                   for k in ("fwd_ms", "fwd_separate_ms")}
-        if kind in simulated:  # phases 20c-20e: the simulator and the recovery study
+        if kind in simulated:  # phases 20c-20g: the simulator and the recovery study
             extra["launches_simulate"] = simulated[kind]["launches"][kind + "_fwd"]
             extra["launches_recorded_truth"] = recorded[kind + "_fwd"]["launches"]
             extra["launches_recovery"] = recovery["launches"].get(kind + "_fwd")
-            extra["launches_recorded_study"] = recorded_study["launches"].get(kind + "_fwd")
+            extra["launches_recorded_study"] = next(
+                r["launches"][kind + "_fwd"] for r in recorded_studies.values()
+                if kind + "_fwd" in r["launches"])
+        if kind in refine_paths:  # phases 20e-20h: each HMC path's launches
+            extra["launches_refine"] = refine_launches(refine_paths[kind], 0)
         kernels.append(kernel_row(
             kind, "fwd", fwd_rows, launches[kind + "_fwd"],
             train_shape={k: train_fwd_rows["midpoint"][k]
@@ -3513,17 +4035,26 @@ def main():
         if kind in simulated:
             extra["launches_simulate"] = simulated[kind]["launches"][kind + "_bwd"]
             extra["launches_recovery"] = recovery["launches"].get(kind + "_bwd")
-            extra["launches_recorded_study"] = recorded_study["launches"].get(kind + "_bwd")
+            extra["launches_recorded_study"] = next(
+                r["launches"][kind + "_bwd"] for r in recorded_studies.values()
+                if kind + "_bwd" in r["launches"])
+        if kind in refine_paths:  # the backward on each HMC path's dense operands
+            extra["launches_refine"] = refine_launches(refine_paths[kind], 1)
+            extra["refine_operands"] = {
+                path: {stage: r["bwd"] for stage, r in stages.items() if "bwd" in r}
+                for path, stages in refine_paths[kind].items()}
         kernels.append(kernel_row(
             kind, "bwd", bwd_rows, launches[kind + "_bwd"],
             **{key: bwd_rows["midpoint"][key] for key in ("step_ms", "step_zero_share")},
             **({"launches_unmerged": {"training": unmerged["dr_bwd"]},
                 "unmerged_t100": t100["bwd"]} if um else {}), **extra))
     print("phase 21: total %.1f s" % (time.perf_counter() - t_start))
+    print("phase 21: walls (s) " + json.dumps(clock.seconds))
     print("phase 21: paths " + json.dumps({"adaptive": adaptive, "graph": graph,
                                            "vmap_folds": vmap, "simulate": simulated,
                                            "recorded_truths": recorded, "recovery": recovery,
-                                           "recorded_study": recorded_study}))
+                                           "recorded_studies": recorded_studies,
+                                           "other_samplers": others}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

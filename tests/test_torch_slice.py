@@ -209,14 +209,15 @@ def test_unknown_model_lists_available():
 
 def test_port_imports_no_jax():
     """A fresh interpreter that imports the port's serving path, the
-    simulator and the recovery study (and chip_smoke.py) has neither jax nor
-    vihds_tpu in sys.modules."""
+    simulator, the recovery study, the samplers (and chip_smoke.py) has
+    neither jax nor vihds_tpu in sys.modules."""
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "import vihds_tpu_torch.predict, vihds_tpu_torch.convert, vihds_tpu_torch.run_xval\n"
         "import vihds_tpu_torch.checkpoint, vihds_tpu_torch.call_run_xval, chip_smoke\n"
         "import vihds_tpu_torch.models.dr_blackbox, vihds_tpu_torch.ops.fused_blackbox\n"
         "import vihds_tpu_torch.simulate, vihds_tpu_torch.recovery_study\n"
+        "import vihds_tpu_torch.refine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vihds_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n" % REPO

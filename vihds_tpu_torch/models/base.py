@@ -198,7 +198,13 @@ class OdeModel:
     def device_conditioner(self, params, param, param_name, dev_1hot):
         """param_cond = relu(W (dev_1hot * relevance)); multiplies ``param``
         ((1 + f) for default devices)."""
-        relevance = torch.as_tensor(self.relevance[param_name], device=dev_1hot.device)
+        # uploaded once per device: a copy from the host each call would wait
+        # for the device's queue
+        cache = self.__dict__.setdefault("_relevance_tensors", {})
+        key = (param_name, dev_1hot.device)
+        if key not in cache:
+            cache[key] = torch.as_tensor(self.relevance[param_name], device=dev_1hot.device)
+        relevance = cache[key]
         cond = torch.relu(layers.linear_apply(params["cond_" + param_name], dev_1hot * relevance))
         # cond: [B, 1], broadcasts over the IWAE axis
         if param_name in self.default_devices:

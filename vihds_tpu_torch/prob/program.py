@@ -303,7 +303,11 @@ class ParamProgram:
         return self._clip_cache[key]
 
     def clip(self, theta, stddevs=4):
-        lo, hi = self.clip_bounds(stddevs)
-        lo = torch.as_tensor(lo, device=theta.device)
-        hi = torch.as_tensor(hi, device=theta.device)
+        # the bounds uploaded once per device: a copy from the host each call
+        # would wait for the device's queue (a sampler clips every evaluation)
+        key = ("clip", int(stddevs), theta.device)
+        if key not in self._tensors:
+            self._tensors[key] = tuple(torch.as_tensor(b, device=theta.device)
+                                       for b in self.clip_bounds(stddevs))
+        lo, hi = self._tensors[key]
         return torch.minimum(torch.maximum(theta, lo), hi)

@@ -13,15 +13,27 @@ posterior covers the truth:
   * posterior-predictive coverage: the fraction of observed points inside
     mu +- 1.96 sigma of the importance-weighted predictive distribution.
 
+Then two refinement stages re-measure truth coverage beyond the amortised
+posterior (``vihds_tpu_torch.refine``; 0 chains skips a stage):
+
+  * 3b, ``--refine_chains`` x ``--refine_steps``: HMC on the LOCAL sites per
+    series, the shared sites held at their amortised-q draws (cut
+    inference), with ESS / split-R-hat and displacement evidence;
+  * 3c, ``--pooled_chains`` x ``--pooled_steps``: pooled joint HMC, one
+    shared-block state per chain across all series (the exact
+    hierarchical posterior).
+
+Under a spec's ``solver: pallas_<method>`` each HMC evaluation launches the
+fused forward kernel and each gradient its backward, at series x chains
+rows.
+
 Writes REPORT.md + recovery.npz into ``--outdir``, with the reference tool's
-keys and layout.  The HMC refinement stages (``--refine_chains``,
-``--pooled_chains``) wait for ``refine.py``: a non-zero value stops the
-study before it starts.
+keys and layout.
 
 Usage (on the card; ``main(argv, device="cpu")`` runs it on the CPU)::
 
-  python -m vihds_tpu_torch.recovery_study --refine_chains 0 --pooled_chains 0 \\
-      [--spec specs/dr_constant_one.yaml] [--epochs 1000] [--outdir DIR]
+  python -m vihds_tpu_torch.recovery_study [--spec specs/dr_constant_one.yaml]
+      [--epochs 1000] [--refine_chains 64] [--pooled_chains 32] [--outdir DIR]
 """
 
 import argparse
@@ -32,9 +44,6 @@ import numpy as np
 import torch
 
 from vihds_tpu_torch.config import _REPO
-
-#: the title of the ROADMAP queue 1 item that ports the HMC stages
-REFINE_ITEM = "refine.py"
 
 
 def parse(argv=None):
@@ -75,28 +84,25 @@ def parse(argv=None):
         type=int,
         default=64,
         help="After the amortised comparison, HMC-refine the LOCAL sites per "
-        "series with this many chains (not ported yet: pass 0)",
+        "series (cut inference: shared sites stay integrated over the amortised "
+        "q) with this many chains and re-measure truth coverage; 0 disables",
     )
-    p.add_argument("--refine_steps", type=int, default=200, help="HMC steps (not ported yet)")
+    p.add_argument(
+        "--refine_steps", type=int, default=200,
+        help="HMC steps (first half is warmup+adaptation); the REPORT prints ESS / "
+        "split-R-hat / displacement evidence of mixing",
+    )
     p.add_argument(
         "--pooled_chains",
         type=int,
         default=32,
-        help="Also run POOLED joint HMC with this many chains (not ported yet: pass 0)",
+        help="Also run POOLED joint HMC (one shared-block state per chain "
+        "across all series — the true hierarchical joint) and measure truth "
+        "coverage under it; 0 disables",
     )
     p.add_argument("--pooled_steps", type=int, default=300)
     p.add_argument("--outdir", default=os.path.join(_REPO, "build", "recovery_study"))
     return p.parse_args(argv)
-
-
-def check_ported(args):
-    """Stop, before any stage, where an HMC stage is asked for."""
-    for flag in ("refine_chains", "pooled_chains"):
-        if getattr(args, flag):
-            raise SystemExit(
-                '--%s is not ported to vihds_tpu_torch yet (ROADMAP queue 1, "%s"); '
-                "pass --refine_chains 0 --pooled_chains 0" % (flag, REFINE_ITEM)
-            )
 
 
 def _ess_rhat_coord(x):
@@ -215,9 +221,10 @@ def headline(program, rec):
     )
 
 
-def report_lines(args, truth, summary, rows):
-    """REPORT.md of a study without the HMC stages, as lines: the reference
-    tool's layout."""
+def report_lines(args, truth, summary, rows, refined=None, pooled=None):
+    """REPORT.md as lines, the reference tool's layout: the headline, the
+    per-site table, and the sections of the HMC stages that ran
+    (``refined`` / ``pooled``: ``refine_stage`` / ``pooled_stage``)."""
     n_series = summary["n_series"]
     lines = [
         "# Parameter-recovery study (simulate -> infer -> compare)",
@@ -257,6 +264,17 @@ def report_lines(args, truth, summary, rows):
         % ("%.3f" % summary["median_local_corr"] if summary["median_local_corr"] is not None
            else "n/a"),
         "| final val IWAE-ELBO | %.1f |" % summary["val_elbo"],
+    ] + (
+        ["| HMC-refined local-site cover95 (mean) | %.1f%% |" % summary["refined_local_cover"]]
+        if "refined_local_cover" in summary
+        else []
+    ) + (
+        ["| pooled-joint-HMC cover95 (local mean / shared mean) | %.1f%% / %.1f%% |"
+         % (summary.get("pooled_local_cover", float("nan")),
+            summary.get("pooled_shared_cover", float("nan")))]
+        if pooled and pooled["rows"]
+        else []
+    ) + [
         "",
         "z = (q_mu - truth) * sqrt(q_prec), log-space for LogNormal sites.",
         "",
@@ -278,6 +296,10 @@ def report_lines(args, truth, summary, rows):
                 "%.3f" % corr if corr is not None else "—",
             )
         )
+    if refined and refined["rows"]:
+        lines += refined_section(args, refined)
+    if pooled and pooled["rows"]:
+        lines += pooled_section(args, pooled, summary["n_series"])
     lines += [
         "",
         "## Reading the table",
@@ -312,6 +334,200 @@ def report_lines(args, truth, summary, rows):
     return lines
 
 
+def _mixing_text(what, mix, disp):
+    return (
+        "  Mixing evidence (%s, %d coords): median ESS %.0f (min %.0f), max "
+        "split-R-hat %.3f (%.0f%% of coords < 1.05); |z - z_init| in prior-sigma "
+        "units: median %.2f, RMS %.2f." % (
+            what, mix["n_coords"], mix["ess_median"], mix["ess_min"], mix["rhat_max"],
+            100 * mix["rhat_frac_ok"], disp[0], disp[1],
+        )
+    )
+
+
+def refined_section(args, refined):
+    """REPORT.md's section of stage 3b, as lines."""
+    lines = [
+        "",
+        "## HMC-refined local sites (cut inference: shared sites ~ amortised q)",
+        "",
+        "%d chains x %d steps per series from the amortised start "
+        "(vihds_tpu_torch.refine.hmc_refine with a local-sites mask); mean "
+        "acceptance %.2f.  Truth coverage before vs after refinement:"
+        % (args.refine_chains, args.refine_steps, refined["accept"]),
+        "",
+        "| site | amortised cover95 | refined cover95 | refined median abs z | refined corr |",
+        "|---|---|---|---|---|",
+    ]
+    if refined["mix"]:
+        lines[-4] += _mixing_text("kept post-warmup trace", refined["mix"], refined["disp"])
+    for name, am_cov, cov, medz, corr in refined["rows"]:
+        lines.append(
+            "| %s | %s | %.0f%% | %.2f | %s |"
+            % (name, "%.0f%%" % am_cov if am_cov is not None else "—", cov, medz,
+               "%.3f" % corr if corr is not None else "—")
+        )
+    return lines
+
+
+def pooled_section(args, pooled, n_series):
+    """REPORT.md's section of stage 3c, as lines."""
+    lines = [
+        "",
+        "## Pooled joint HMC (the true hierarchical posterior)",
+        "",
+        "%d chains x %d steps with ONE shared-block state per chain pooled "
+        "across all %d series (refine.hmc_refine_pooled); mean acceptance "
+        "%.2f.  Truth coverage under the exact joint the training objective "
+        "bounds:" % (args.pooled_chains, args.pooled_steps, n_series, pooled["accept"]),
+        "",
+        "| site | tier | pooled cover95 | pooled median abs z | corr(series) |",
+        "|---|---|---|---|---|",
+    ]
+    if pooled["mix"]:
+        lines[-4] += _mixing_text("shared+local state trace", pooled["mix"], pooled["disp"])
+    for name, tier, cov, medz, corr in pooled["rows"]:
+        lines.append("| %s | %s | %.0f%% | %.2f | %s |"
+                     % (name, tier, cov, medz, "%.3f" % corr if corr is not None else "—"))
+    return lines
+
+
+def _truth_z(program, truth_theta, i):
+    """Site ``i``'s truth in z-space (log for LogNormal sites), float64."""
+    t = truth_theta[:, i].astype(np.float64)
+    return np.log(np.maximum(t, 1e-30)) if program.is_lognormal[i] else t
+
+
+def _sample_coverage(z, t):
+    """(95 % interval coverage of the truth ``t`` [L] by the chains' draws
+    ``z`` [L, chains], in %; median abs z-score of the truth under them)."""
+    qlo = np.quantile(z, 0.025, axis=1)
+    qhi = np.quantile(z, 0.975, axis=1)
+    cover = 100 * float(np.mean((t >= qlo) & (t <= qhi)))
+    zscore = (z.mean(axis=1) - t) / np.maximum(z.std(axis=1), 1e-30)
+    return cover, float(np.median(np.abs(zscore)))
+
+
+def refine_stage(args, program, model, params, batch, truth_theta, rows):
+    """Stage 3b: HMC on the local sites per series (``refine.hmc_refine``
+    with a local-sites mask, seed + 2), the shared sites at their
+    amortised-q draws.  Returns dict(rows, accept, z [L, chains, n_theta],
+    mix, disp)."""
+    from vihds_tpu_torch import refine
+
+    print(
+        "=== 3b/3 HMC-refine local sites (%d chains x %d steps, shared "
+        "sites ~ amortised q) ===" % (args.refine_chains, args.refine_steps)
+    )
+    movable = program.is_normal_family & ~program.is_constant
+    local_mask = np.zeros(program.n_theta, np.float32)
+    sl = program.local_slice
+    local_mask[sl] = movable[sl].astype(np.float32)
+    res = refine.hmc_refine(
+        model, program, params, batch, args.seed + 2,
+        n_chains=args.refine_chains, n_steps=args.refine_steps,
+        site_mask=local_mask, return_trace=True,
+    )
+    z_refined = res.z.cpu().numpy()  # [L, chains, n_theta]
+    # mixing evidence: ESS / split-R-hat from the kept post-warmup trace,
+    # displacement from the amortised init
+    kept = res.z_trace[int(res.n_warmup):].cpu().numpy()  # [S, L, K, n]
+    mov_cols = np.flatnonzero(local_mask)
+    mix = mixing_summary(kept[:, li, :, i] for li in range(kept.shape[1]) for i in mov_cols)
+    disp = rms_displacement(z_refined, res.z_init.cpu().numpy(), program.prior_prec, mov_cols)
+    amortised_cover = {
+        name: 100 * float(np.mean(np.abs(np.atleast_1d(z)) < 1.96))
+        for name, tier, z, _ in rows
+        if tier == "local"
+    }
+    refined_rows = []
+    for i in mov_cols:
+        name = program.names[i]
+        t = _truth_z(program, truth_theta, i)
+        zi = z_refined[:, :, i].astype(np.float64)
+        cover, medz = _sample_coverage(zi, t)
+        corr = float(np.corrcoef(zi.mean(axis=1), t)[0, 1]) if np.ptp(t) > 0 else None
+        refined_rows.append((name, amortised_cover.get(name), cover, medz, corr))
+    return dict(rows=refined_rows, accept=float(res.accept_rate.mean()), z=z_refined, mix=mix,
+                disp=disp)
+
+
+def pooled_stage(args, program, model, params, batch, devices, truth_theta):
+    """Stage 3c: pooled joint HMC over the whole hierarchy
+    (``refine.hmc_refine_pooled``, seed + 3), one shared-block state per
+    chain.  Returns dict(rows, accept, z [L, chains, n_theta], mix, disp)."""
+    from vihds_tpu_torch import refine
+
+    print(
+        "=== 3c/3 pooled joint HMC (%d chains x %d steps, one shared "
+        "state per chain) ===" % (args.pooled_chains, args.pooled_steps)
+    )
+    res = refine.hmc_refine_pooled(
+        model, program, params, batch, args.seed + 3, devices=devices,
+        n_chains=args.pooled_chains, n_steps=args.pooled_steps, return_trace=True,
+    )
+    z_pooled = res.z.cpu().numpy()  # [L, chains, n_theta]
+    movable = program.is_normal_family & ~program.is_constant & ~program.is_truncated
+    nw = int(res.n_warmup)
+    trace = {k: v[nw:].cpu().numpy() for k, v in res.state_trace.items()}
+    gsl, csl, lsl = program.global_slice, program.global_cond_slice, program.local_slice
+
+    def pooled_coords():
+        tg = trace["g"]  # [S, K, nG]
+        for i in np.flatnonzero(movable[gsl]):
+            yield tg[:, :, i]
+        tc = trace["c"]  # [S, D, K, nC]
+        for d in range(tc.shape[1]):
+            for i in np.flatnonzero(movable[csl]):
+                yield tc[:, d, :, i]
+        tl = trace["l"]  # [S, L, K, nL]
+        for li in range(tl.shape[1]):
+            for i in np.flatnonzero(movable[lsl]):
+                yield tl[:, li, :, i]
+
+    mix = mixing_summary(pooled_coords())
+    disp = rms_displacement(z_pooled, res.z_init.cpu().numpy(), program.prior_prec,
+                            np.flatnonzero(movable))
+    n_loc = lsl.stop - lsl.start
+    n_gc = csl.stop - csl.start
+    pooled_rows = []
+    for i in np.flatnonzero(movable):
+        tier = "local" if i < n_loc else ("global_cond" if i < n_loc + n_gc else "global")
+        t = _truth_z(program, truth_theta, i)
+        zi = z_pooled[:, :, i].astype(np.float64)
+        cover, medz = _sample_coverage(zi, t)
+        corr = (float(np.corrcoef(zi.mean(axis=1), t)[0, 1])
+                if tier == "local" and np.ptp(t) > 0 else None)
+        pooled_rows.append((program.names[i], tier, cover, medz, corr))
+    return dict(rows=pooled_rows, accept=float(res.accept_rate.mean()), z=z_pooled, mix=mix,
+                disp=disp)
+
+
+def stage_summary(refined, pooled):
+    """The summary keys of the HMC stages that ran, in the tool's order."""
+    out = {}
+    if refined and refined["rows"]:
+        out["refined_local_cover"] = float(np.mean([r[2] for r in refined["rows"]]))
+        out["refine_accept"] = refined["accept"]
+        if refined["mix"]:
+            out.update({"refine_" + k: v for k, v in refined["mix"].items()})
+        if refined["disp"]:
+            out["refine_disp_median"], out["refine_disp_rms"] = refined["disp"]
+    if pooled and pooled["rows"]:
+        loc = [r for r in pooled["rows"] if r[1] == "local"]
+        shared = [r for r in pooled["rows"] if r[1] != "local"]
+        if loc:
+            out["pooled_local_cover"] = float(np.mean([r[2] for r in loc]))
+        if shared:
+            out["pooled_shared_cover"] = float(np.mean([r[2] for r in shared]))
+        out["pooled_accept"] = pooled["accept"]
+        if pooled["mix"]:
+            out.update({"pooled_" + k: v for k, v in pooled["mix"].items()})
+        if pooled["disp"]:
+            out["pooled_disp_median"], out["pooled_disp_rms"] = pooled["disp"]
+    return out
+
+
 def simulate_stage(args, device):
     """Stage 1/3: the simulator at the study's flags, its artifacts written
     into ``args.outdir`` as ``synthetic.*``."""
@@ -336,15 +552,16 @@ def simulate_stage(args, device):
 def train_and_score(args, spec, truth_path, device):
     """Stages 2/3 and 3/3: train on the simulated ``spec`` (a derived spec
     the simulator wrote), evaluate every series and score the recovered
-    posterior against ``truth_path`` (its truth npz); writes recovery.npz
-    and REPORT.md into ``args.outdir`` and returns the summary.  A recorded
+    posterior against ``truth_path`` (its truth npz), then the HMC stages
+    3b and 3c where they have chains; writes recovery.npz and REPORT.md
+    into ``args.outdir`` and returns the summary.  A recorded
     simulation (its spec's ``files`` pointed at its CSV) can be scored
     again this way without stage 1."""
     from vihds_tpu_torch.config import Config
     from vihds_tpu_torch.data.datasets import build_datasets
     from vihds_tpu_torch.prob import ParamProgram, parse_parameters
     from vihds_tpu_torch.run_xval import create_parser
-    from vihds_tpu_torch.training import Training
+    from vihds_tpu_torch.training import Training, batch_tensors
     from vihds_tpu_torch.vae import VAE
 
     os.makedirs(args.outdir, exist_ok=True)
@@ -410,12 +627,26 @@ def train_and_score(args, spec, truth_path, device):
         sigma_scale=args.sigma_scale,
         n_series=int(full_host.observations.shape[0]),
     )
+    refined = pooled = None
+    if args.refine_chains or args.pooled_chains:
+        batch = batch_tensors(full_host, np.arange(summary["n_series"]),
+                              torch.as_tensor(full_host.times, dtype=torch.float32,
+                                              device=device), device)
+    if args.refine_chains:
+        refined = refine_stage(args, program, model, training.final_params, batch, truth_theta,
+                               rows)
+        rec["z_refined"] = refined["z"]
+    if args.pooled_chains:
+        pooled = pooled_stage(args, program, model, training.final_params, batch,
+                              full_host.devices, truth_theta)
+        rec["z_pooled"] = pooled["z"]
+    summary.update(stage_summary(refined, pooled))
     np.savez(
         os.path.join(args.outdir, "recovery.npz"),
         **rec,
         **{k: v for k, v in summary.items() if v is not None},
     )
-    lines = report_lines(args, truth, summary, rows)
+    lines = report_lines(args, truth, summary, rows, refined, pooled)
     with open(os.path.join(args.outdir, "REPORT.md"), "w") as f:
         f.write("\n".join(lines))
     print("\n".join(lines))
@@ -424,7 +655,6 @@ def train_and_score(args, spec, truth_path, device):
 
 def main(argv=None, device="cuda"):
     args = parse(argv)
-    check_ported(args)
     from vihds_tpu_torch.utils import resolve_device
 
     device = resolve_device(device)

@@ -61,7 +61,18 @@ Phases, each printing lines of its own:
    4, the median batched step, one step's device busy time and the wall
    beside 5d's; 5f, one epoch of ``--vmap_folds`` on
    ``dr_constant_precisions`` and ``dr_blackbox_icml`` (the weighted
-   kernels' fold axis on the training path) with their launches;
+   kernels' fold axis on the training path) with their launches; 5g, the
+   ``run_xval`` CLI at phase 5's configuration (a spec copy under ``solver:
+   pallas_midpoint``) over several processes (``vihds_tpu_torch.parallel``),
+   each rank a process of its own (``rank_main``): (a) two ranks sharing the
+   card over gloo, ``--mesh_sample 2``, twice, and (b) one rank over NCCL,
+   ``--mesh auto``; each rank's first line (its backend), its ``dr``
+   launches, rows a launch, median step wall beside phase 5's and time a
+   step in collectives; rank 0 alone writing (one experiment directory with
+   ``completed.txt``, nothing beside the ranks); (a)'s artifacts against
+   phase 5's (``xval_elbo`` rtol 1e-4, ``q_values`` and ``iw_predict_mu``
+   rtol 2e-3 atol 2e-4), its two runs' ``xval_elbo`` bit-equal, (b)'s
+   against phase 5's bit for bit (any value that differs is named);
 6. serving ``dr_constant_precisions`` as phase 4 (three requests, one with a
    counterfactual), and one request of ``dr_constant_precisions_v2``;
 7. training ``dr_constant_precisions`` as phase 5 (the precision nets'
@@ -175,8 +186,9 @@ Phases, each printing lines of its own:
    zero share and time beside the bound; two runs of
    the stage's seed, steps cut to 2, bit-equal), then ``check_calibration``
    on its design (R = 48: the last 32-row block half full); 20f and 20g, the
-   study's stages 2-3 with both HMC stages (``train_and_score``) at its
-   defaults (20g's training cut to 250 epochs, ``RECORDED_STUDIES``) on the
+   study's stages 2-3 with both HMC stages (``train_and_score``), their
+   depth cut (``RECORDED_STUDIES``: 500 / 125 training epochs, 100 / 150
+   HMC steps) on the
    JAX package's recorded simulations under ``reports/recovery_study``
    (``dr``) and ``reports/recovery_precisions`` (288 series, ``dr_prec`` at
    R = 18,432 and 9,216), each headline and
@@ -198,7 +210,9 @@ Phases, each printing lines of its own:
    ``vmap_fold``; the ``dr`` rows with the
    launches of phases 14-15 and the times of 14c; the ``dr``, ``dr_prec``
    and ``blackbox`` backward rows with the DReG pulls' launches, times and
-   subnormal shares of 17b-17c; the ``dr`` and ``dr_prec`` rows with
+   subnormal shares of 17b-17c; the ``dr`` rows with
+   ``launches_distributed``, each rank's launches in 5g's layouts; the
+   ``dr`` and ``dr_prec`` rows with
    ``launches_simulate`` (20c), ``launches_recovery`` (20e, null for
    ``dr_prec``), ``launches_recorded_study`` (20f, 20g) and
    ``launches_refine`` (each HMC path's launches by phase and stage or
@@ -1646,6 +1660,8 @@ def train(device, spec, phase, fwd, bwd, flags=TRAIN_FLAGS, results_dir=None):
         n_xval = len([n for n in names if n.startswith("xval_")])
         if not os.path.isdir(cache) or n_xval != 16 or "completed.txt" not in names:
             fail("training artifacts missing: %s" % sorted(names))
+        # what phase 5g holds its runs against
+        training.xval = xval_arrays(settings.trainer.tb_log_dir)
     del os.environ["INFERENCE_RESULTS_DIR"]
 
     log = training.log_data
@@ -1672,6 +1688,244 @@ def train(device, spec, phase, fwd, bwd, flags=TRAIN_FLAGS, results_dir=None):
         fail("%s launched %d times: the evaluations did not take the kernel"
              % (fwd, launches[fwd]))
     return launches, step_ms, training
+
+
+#: the xval arrays phase 5g compares
+XVAL_COMPARED = ("elbo", "q_values", "iw_predict_mu")
+
+
+def xval_arrays(run_dir):
+    """``XVAL_COMPARED`` from a run directory's ``xval_*.npy`` (``q_values``
+    flattened across its folds and sites)."""
+    import numpy as np
+
+    out = {n: np.load(os.path.join(run_dir, "xval_%s.npy" % n), allow_pickle=True)
+           for n in XVAL_COMPARED}
+    out["q_values"] = np.concatenate([np.ravel(np.asarray(v, np.float64))
+                                      for v in out["q_values"]])
+    out["iw_predict_mu"] = np.asarray(out["iw_predict_mu"], np.float64)
+    out["elbo"] = np.asarray(out["elbo"], np.float64)
+    return out
+
+
+#: phase 5g: (label, ranks, flags) of each launch of the run_xval CLI over
+#: processes; (a) twice, for repeatability
+DIST_LAYOUTS = (("a", 2, ["--mesh_sample", "2"]), ("a2", 2, ["--mesh_sample", "2"]),
+                ("b", 1, ["--mesh", "auto"]))
+#: seconds a phase 5g launch may take before its ranks are killed
+DIST_WALL = 400
+#: the line a phase 5g rank prints its readings on
+RANK_LINE = "phase 5g rank: "
+
+
+def rank_main(argv):
+    """One rank of phase 5g, run in a process of its own: ``run_xval.main``
+    on ``argv`` (the card), the ``dr`` kernels' counts set to 0 just before
+    it, then one ``RANK_LINE`` with this rank's launches, the rows of each
+    launch, its steps' median wall after the first epoch, and each step's
+    collectives (their count, and the median host time in them after the
+    first epoch)."""
+    import collections
+    import statistics
+
+    from vihds_tpu_torch import parallel, run_xval, training
+    from vihds_tpu_torch.ops import fused_ode
+
+    kept, snaps, in_steps = [], [], []
+    rows = {"dr_fwd": collections.Counter(), "dr_bwd": collections.Counter()}
+    run_on_split, train_epochs = run_xval.run_on_split, training.Training.train_epochs
+    mark = training.Training._mark
+    kind_fwd, kind_bwd = fused_ode.kind_fwd, fused_ode.kind_bwd
+
+    def recorded_split(*a, **k):
+        out = run_on_split(*a, **k)
+        kept.append(out[2])
+        return out
+
+    def recorded_mark(cuda):
+        snaps.append(dict(parallel.STATS))  # a mark starts a chunk and ends each step
+        return mark(cuda)
+
+    def recorded_steps(self, *a, **k):
+        snaps.clear()
+        out = train_epochs(self, *a, **k)
+        in_steps.extend((b["collectives"] - a["collectives"], b["seconds"] - a["seconds"])
+                        for a, b in zip(snaps, snaps[1:]))
+        return out
+
+    def fwd(kind, wmat, packed, *a):
+        rows[kind + "_fwd"][int(packed.shape[1])] += 1
+        return kind_fwd(kind, wmat, packed, *a)
+
+    def bwd(kind, wmat, packed, *a):
+        rows[kind + "_bwd"][int(packed.shape[1])] += 1
+        return kind_bwd(kind, wmat, packed, *a)
+
+    run_xval.run_on_split = recorded_split
+    training.Training.train_epochs = recorded_steps
+    training.Training._mark = staticmethod(recorded_mark)
+    fused_ode.kind_fwd, fused_ode.kind_bwd = fwd, bwd
+    for k in rows:
+        _counter(k).launches = 0
+    run_xval.main(argv)
+    launches = {k: _counter(k).launches for k in rows}
+    (trained,) = kept
+    spe = trained.steps_per_epoch
+    steps = len(trained.step_ms)
+    print(RANK_LINE + json.dumps(dict(
+        rank=int(argv[argv.index("--distributed") + 1].rsplit(",", 1)[1]),
+        launches=launches,
+        rows={k: {str(r): n for r, n in sorted(c.items())} for k, c in rows.items()},
+        steps=steps, step_ms=statistics.median(trained.step_ms[spe:]),
+        collectives_per_step=statistics.median(n for n, _ in in_steps),
+        collective_ms_per_step=1e3 * statistics.median(t for _, t in in_steps[spe:]))),
+        flush=True)
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(spec, label, n, flags, directory):
+    """``n`` rank processes of ``rank_main`` on ``spec`` with phase 5's
+    flags and ``flags``, writing under ``directory/label`` from an empty
+    working directory; killed all past ``DIST_WALL``.  Returns (each rank's
+    stdout, the wall, the results directory, the working directory)."""
+    results, cwd = os.path.join(directory, label), os.path.join(directory, label + "_cwd")
+    os.makedirs(results)
+    os.makedirs(cwd)
+    port = _free_port()
+    env = dict(os.environ, INFERENCE_RESULTS_DIR=results, PYTHONPATH=HERE)
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.rank_main(sys.argv[1:]))"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, spec] + TRAIN_FLAGS + flags
+        + ["--distributed", "127.0.0.1:%d,%d,%d" % (port, n, r)],
+        cwd=cwd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, DIST_WALL - (time.perf_counter() - t0))))
+    except subprocess.TimeoutExpired:
+        fail("phase 5g (%s): a rank ran past %d s" % (label, DIST_WALL))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail("phase 5g (%s): rank %d exited %s:\n%s\n%s"
+                 % (label, r, p.returncode, out[-3000:], err[-3000:]))
+    return [out for out, _ in outs], wall, results, cwd
+
+
+def xval_differences(got, want):
+    """{name: (max |got - want|, max |want|)} over ``XVAL_COMPARED``."""
+    import numpy as np
+
+    return {n: (float(np.max(np.abs(got[n] - want[n]))), float(np.max(np.abs(want[n]))))
+            for n in XVAL_COMPARED}
+
+
+def phase_distributed(phase5, want_launches):
+    """Phase 5g: ``DIST_LAYOUTS`` of the ``run_xval`` CLI at phase 5's
+    configuration (every layout's ranks on 'sample'), ``phase5`` the
+    ``Training`` of phase 5 (its step walls and artifacts), ``want_launches``
+    its ``dr`` launches, which each rank must repeat.  Returns {label:
+    {wall, ranks: {rank: readings}, diffs}} under ``layouts`` and, under
+    ``b_differs``, the values where (b) is not phase 5's bit for bit."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    spe = phase5.steps_per_epoch
+    n_batch, epochs = phase5.n_batch, len(phase5.step_ms) // spe
+    n_evals = epochs // int(TRAIN_FLAGS[TRAIN_FLAGS.index("--test_epoch") + 1])
+    chunks_train = math.ceil(phase5.dataset_pair.n_train / n_batch)
+    chunks_valid = math.ceil(phase5.dataset_pair.n_test / n_batch)
+    step5 = statistics.median(phase5.step_ms[spe:])
+    print("phase 5g: run_xval over processes on %s (solver %s, B=%d, K=%d, %d epochs, eval every 2 "
+          "at K=%d / %d), phase 5's median step %.2f ms"
+          % (os.path.basename(SPEC), TRAIN_SOLVER, n_batch, K_TRAIN, epochs, K_TRAIN, K_SERVE,
+             step5))
+    out = {}
+    with tempfile.TemporaryDirectory() as directory:
+        spec = write_spec(SPEC, directory, solver=TRAIN_SOLVER)
+        for label, n, flags in DIST_LAYOUTS:
+            stdouts, wall, results, cwd = launch_ranks(spec, label, n, flags, directory)
+            backend = "gloo" if n > torch.cuda.device_count() else "nccl"
+            S = n
+            readings = {}
+            for r, text in enumerate(stdouts):
+                first = text.splitlines()[0] if text else ""
+                want_first = "torch.distributed: process %d of %d (backend %s, device cuda:0)" % (
+                    r, n, backend)
+                if first != want_first:
+                    fail("phase 5g (%s): rank %d's first line %r, not %r"
+                         % (label, r, first, want_first))
+                line = [ln for ln in text.splitlines() if ln.startswith(RANK_LINE)]
+                if len(line) != 1:
+                    fail("phase 5g (%s): rank %d printed no readings" % (label, r))
+                readings[r] = got = json.loads(line[0][len(RANK_LINE):])
+                R_train = n_batch * math.ceil(K_TRAIN / S)
+                R_serve = n_batch * math.ceil(K_SERVE / S)
+                want_rows = {"dr_fwd": {str(R_train): len(phase5.step_ms)
+                                        + n_evals * chunks_train,
+                                        str(R_serve): n_evals * chunks_valid},
+                             "dr_bwd": {str(R_train): len(phase5.step_ms)}}
+                print("  (%s) rank %d of %d, %s: dr_fwd launches %d, dr_bwd launches %d (phase 5: "
+                      "%d / %d); rows a launch %s; median step %.2f ms (phase 5 %.2f ms); "
+                      "%g collectives a step, median %.3f ms in them"
+                      % (label, r, n, backend, got["launches"]["dr_fwd"],
+                         got["launches"]["dr_bwd"], want_launches["dr_fwd"],
+                         want_launches["dr_bwd"], json.dumps(got["rows"]), got["step_ms"], step5,
+                         got["collectives_per_step"], got["collective_ms_per_step"]))
+                if got["launches"] != want_launches or got["rows"] != want_rows:
+                    fail("phase 5g (%s): rank %d launched %s at rows %s, not %s at %s"
+                         % (label, r, got["launches"], got["rows"], want_launches, want_rows))
+                if r > 0 and "Saving results" in text:
+                    fail("phase 5g (%s): rank %d wrote the artifacts" % (label, r))
+            runs = [d for d in os.listdir(results)]
+            if len(runs) != 1 or not os.path.exists(os.path.join(results, runs[0],
+                                                                  "completed.txt")):
+                fail("phase 5g (%s): experiment directories %s" % (label, runs))
+            if os.listdir(cwd):
+                fail("phase 5g (%s): a rank wrote %s beside it" % (label, os.listdir(cwd)))
+            arrays = xval_arrays(os.path.join(results, runs[0]))
+            diffs = xval_differences(arrays, phase5.xval)
+            print("  (%s) %.1f s wall; one experiment directory, completed.txt; against phase 5 "
+                  "(max |diff|, max |phase 5|): %s"
+                  % (label, wall, json.dumps({k: ["%.3e" % d, "%.3e" % m]
+                                              for k, (d, m) in diffs.items()})))
+            out[label] = dict(wall=wall, ranks=readings, arrays=arrays, diffs=diffs)
+    a, b = out["a"]["arrays"], out["b"]["arrays"]
+    try:
+        np.testing.assert_allclose(a["elbo"], phase5.xval["elbo"], rtol=1e-4)
+        for n in ("q_values", "iw_predict_mu"):
+            np.testing.assert_allclose(a[n], phase5.xval[n], rtol=2e-3, atol=2e-4)
+    except AssertionError as e:
+        fail("phase 5g: (a)'s artifacts against phase 5's: %s" % e)
+    repeat = bool(np.array_equal(a["elbo"], out["a2"]["arrays"]["elbo"]))
+    differ = [n for n in XVAL_COMPARED if not np.array_equal(b[n], phase5.xval[n])]
+    exact_a = [n for n in XVAL_COMPARED if np.array_equal(a[n], phase5.xval[n])]
+    print("phase 5g: (a) within rtol 1e-4 (xval_elbo) and rtol 2e-3 atol 2e-4 (q_values, "
+          "iw_predict_mu) of phase 5, bit-equal in %s; two runs of (a) bit-equal in xval_elbo: "
+          "%s; (b) bit-equal to phase 5: %s"
+          % (exact_a, repeat, "True" if not differ else "False, differ: %s" % differ))
+    if not repeat:
+        fail("phase 5g: two runs of (a) differ in xval_elbo")
+    for run in out.values():
+        del run["arrays"]
+    return dict(layouts=out, b_differs=differ, a_bit_equal=exact_a)
 
 
 def train_nets(device, spec, phase, kind, nets=("precisions",)):
@@ -3682,23 +3936,24 @@ def phase_recovery(device):
 
 
 #: phases 20f and 20g: (phase, reports/ folder, source spec, fused kind,
-#: training epochs).  20g trains 250 of the study's 1000 epochs (1500 of
-#: 6000 steps on 216 series): the training's depth, cut to keep the script
-#: within its time limit; its HMC stages run at the study's defaults
-RECORDED_STUDIES = (("20f", "recovery_study", SPEC_ONE, "dr", 1000),
-                    ("20g", "recovery_precisions", SPEC_PREC, "dr_prec", 250))
+#: training epochs, HMC steps of stages 3b / 3c).  The depth is cut to keep
+#: the script within its time limit (the widths, chains and series, are the
+#: study's): 20f trains 500 of the study's 1000 epochs, 20g 125 (750 of 6000
+#: steps on 216 series); both run 100 / 150 of the stages' 200 / 300 steps
+RECORDED_STUDIES = (("20f", "recovery_study", SPEC_ONE, "dr", 500, (100, 150)),
+                    ("20g", "recovery_precisions", SPEC_PREC, "dr_prec", 125, (100, 150)))
 
 
-def phase_recorded_study(device, phase, report, spec_src, kind, epochs):
+def phase_recorded_study(device, phase, report, spec_src, kind, epochs, steps=None):
     """Phases 20f / 20g: the study's stages 2-3, HMC stages included
-    (``recovery_study.train_and_score``), at its defaults on the JAX
-    package's recorded simulation under ``reports/<report>`` (its CSV and
-    truth npz; its spec under ``solver: pallas_midpoint``, ``files`` pointed
-    at the CSV): the same data and truth as the recorded report, so its
-    headline and the stages' readings stand beside the recorded ones (the
-    recorded run's HMC steps read from its REPORT.md).  Checks as 20e: the
-    files, a finite headline, the ``kind``'s launches, ``check_sampler`` on
-    each stage."""
+    (``recovery_study.train_and_score``), on the JAX package's recorded
+    simulation under ``reports/<report>`` (its CSV and truth npz; its spec
+    under ``solver: pallas_midpoint``, ``files`` pointed at the CSV), at
+    ``epochs`` and the stages' ``steps`` (3b, 3c; default the study's): the
+    same data and truth as the recorded report, so its headline and the
+    stages' readings stand beside the recorded ones (the recorded run's HMC
+    steps read from its REPORT.md).  Checks as 20e: the files, a finite
+    headline, the ``kind``'s launches, ``check_sampler`` on each stage."""
     import re
     import shutil
 
@@ -3722,7 +3977,10 @@ def phase_recorded_study(device, phase, report, spec_src, kind, epochs):
             yaml.safe_dump(config, f, sort_keys=False)
         truth_path = os.path.join(data_dir, "synthetic_truth.npz")
         outdir = os.path.join(directory, "study")
-        args = rs.parse(["--spec", spec_src, "--outdir", outdir, "--epochs", str(epochs)])
+        argv = ["--spec", spec_src, "--outdir", outdir, "--epochs", str(epochs)]
+        if steps is not None:
+            argv += ["--refine_steps", str(steps[0]), "--pooled_steps", str(steps[1])]
+        args = rs.parse(argv)
         summary, wall, launches, log, calls = run_study(
             device, directory, lambda a: rs.train_and_score(a, spec, truth_path, device), args,
             kind)
@@ -3833,6 +4091,12 @@ class PhaseWalls:
         self.last = now
 
 
+def distributed_launches(distributed, kernel):
+    """{layout: {rank: launches of ``kernel``}} of phase 5g."""
+    return {label: {str(r): got["launches"][kernel] for r, got in run["ranks"].items()}
+            for label, run in distributed["layouts"].items()}
+
+
 def refine_launches(paths, i):
     """{phase: {stage or sampler: launches}} of one direction (0 forward, 1
     backward) from the HMC paths' ``check_sampler`` readings."""
@@ -3903,14 +4167,16 @@ def main():
     serving["dr"], walls, served = serve(device, SPEC, REQUESTS, "4", "dr_fwd")
     phase_route_check(device, served)
     phase_profile(device, walls[1])
-    training["dr"], step_ms_5, _ = train(device, SPEC, "5", "dr_fwd", "dr_bwd")
+    training["dr"], step_ms_5, train5 = train(device, SPEC, "5", "dr_fwd", "dr_bwd")
     phase_route_check_training(device)
     phase_profile_training(device)
     vmap = phase_vmap_xval(device, phase_call_run_xval(device))
     vmap_launches = dict(vmap["launches"])
     for launches in phase_vmap_weighted(device).values():
         vmap_launches.update(launches)
-    clock.mark("4-5f")
+    distributed = phase_distributed(train5, training["dr"])
+    del train5
+    clock.mark("4-5g")
 
     serving["dr_prec"] = serve(device, SPEC_PREC, REQUESTS, "6", "dr_prec_fwd")[0]
     # v2's version lives in the host-side fracLuxR / fracLasR: the same kernel
@@ -3968,8 +4234,9 @@ def main():
     recovery = phase_recovery(device)
     clock.mark("20e")
     source = recovery.pop("source")
-    recorded_studies = {phase: phase_recorded_study(device, phase, report, spec, kind, epochs)
-                        for phase, report, spec, kind, epochs in RECORDED_STUDIES}
+    recorded_studies = {phase: phase_recorded_study(device, phase, report, spec, kind, epochs,
+                                                    steps)
+                        for phase, report, spec, kind, epochs, steps in RECORDED_STUDIES}
     recorded_study = recorded_studies["20f"]
     clock.mark("20f-20g")
     others = phase_other_samplers(device, source)
@@ -3996,6 +4263,8 @@ def main():
         if kind in fold_axis:
             extra["vmap_fold"] = {k: fold_axis[kind]["midpoint"][k]
                                   for k in ("fwd_ms", "fwd_separate_ms")}
+        if kind == "dr":  # phase 5g: each rank's launches in each layout
+            extra["launches_distributed"] = distributed_launches(distributed, "dr_fwd")
         if kind in simulated:  # phases 20c-20g: the simulator and the recovery study
             extra["launches_simulate"] = simulated[kind]["launches"][kind + "_fwd"]
             extra["launches_recorded_truth"] = recorded[kind + "_fwd"]["launches"]
@@ -4032,6 +4301,8 @@ def main():
         if kind in fold_axis:
             extra["vmap_fold"] = {k: fold_axis[kind]["midpoint"][k]
                                   for k in ("bwd_ms", "bwd_separate_ms")}
+        if kind == "dr":
+            extra["launches_distributed"] = distributed_launches(distributed, "dr_bwd")
         if kind in simulated:
             extra["launches_simulate"] = simulated[kind]["launches"][kind + "_bwd"]
             extra["launches_recovery"] = recovery["launches"].get(kind + "_bwd")
@@ -4050,8 +4321,13 @@ def main():
                 "unmerged_t100": t100["bwd"]} if um else {}), **extra))
     print("phase 21: total %.1f s" % (time.perf_counter() - t_start))
     print("phase 21: walls (s) " + json.dumps(clock.seconds))
+    print("phase 21: depth cut for 5g: 20f / 20g at %s training epochs (were 1000 / 250) and "
+          "%s HMC steps of stages 3b / 3c (were 200 / 300)"
+          % (" / ".join(str(r[4]) for r in RECORDED_STUDIES),
+             " and ".join("%d / %d" % r[5] for r in RECORDED_STUDIES)))
     print("phase 21: paths " + json.dumps({"adaptive": adaptive, "graph": graph,
-                                           "vmap_folds": vmap, "simulate": simulated,
+                                           "vmap_folds": vmap, "distributed": distributed,
+                                           "simulate": simulated,
                                            "recorded_truths": recorded, "recovery": recovery,
                                            "recorded_studies": recorded_studies,
                                            "other_samplers": others}))

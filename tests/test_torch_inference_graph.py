@@ -2,8 +2,8 @@
 against the JAX package's on the CPU: staging and each node's arguments
 field by field, posterior-to-prior propagation on the same upstream
 ``xval_q_*`` files (settings and printed lines equal), the warning on an edge
-whose upstream has no such posterior, a node with an unported flag stopping
-the run before any node trains, a 2-node graph end to end and resumed, and
+whose upstream has no such posterior, a node with ``mesh: auto`` training, a
+2-node graph end to end and resumed, and
 one ``--jobs 2`` stage in spawn workers."""
 
 import os
@@ -139,15 +139,15 @@ def test_pooled_prec_is_harmonic():
     assert rig.pooled_prec(xs) == j_rig.pooled_prec(xs) == 3 / (1 / 2 + 1 / 4 + 1 / 8)
 
 
-def test_unported_flag_stops_the_graph_before_any_node_trains(tmp_results):
-    """A node of the last stage with ``mesh: auto`` stops the run with its
-    one-line ROADMAP error, before the first stage trains."""
+def test_mesh_node_trains(tmp_results, monkeypatch):
+    """A node of the last stage with ``mesh: auto`` trains (one process: one
+    rank, unsharded) and completes."""
+    monkeypatch.setattr(call_run_xval, "write_figures", lambda merge: None)
     path = _write(tmp_results, {"up": _node("up"), "down": _node("down", mesh="auto")},
                   [_edge("up", "down")])
-    with pytest.raises(SystemExit, match='--mesh is not ported .*ROADMAP queue 1, '
-                                         '"parallel/ \\+ parallel/multihost.py"'):
-        rig.main([path, "--graph", "tg"], device="cpu")
-    assert not os.path.exists(tmp_results / "tg")
+    result = rig.main([path, "--graph", "tg"], device="cpu")
+    assert sorted(result) == ["down", "up"]
+    assert open(os.path.join(result["down"], "completed.txt")).read() == "tg/down"
 
 
 def test_vmap_folds_node_trains(tmp_results, monkeypatch, capsys):

@@ -3,7 +3,7 @@ on dr_constant_one, dr_constant_precisions, relay_constant_precisions and
 degrader_constant_precisions (2 epochs, K=4, the specs' own ``solver:
 midpoint``), its artifacts against the JAX package's
 ``XvalMerge`` given the same fold results, checkpoint and resume, and the
-one-line errors for flags whose feature is not ported yet."""
+mesh flags in one process."""
 
 import os
 import re
@@ -120,16 +120,47 @@ def test_resumed_run_ends_where_the_uninterrupted_run_ends(tmp_results):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _xval_files(tmp_results, experiment):
+    (run_dir,) = [d for d in os.listdir(tmp_results) if d.startswith(experiment + "_")]
+    run_dir = os.path.join(tmp_results, run_dir)
+    return {n: np.load(os.path.join(run_dir, n), allow_pickle=True)
+            for n in sorted(os.listdir(run_dir)) if n.startswith("xval_") and n.endswith(".npy")}
+
+
 @pytest.mark.parametrize(
-    "flags,item",
-    [(["--mesh", "auto"], "parallel/ + parallel/multihost.py"),
-     (["--mesh_data", "2"], "parallel/ + parallel/multihost.py"),
-     (["--distributed", "auto"], "parallel/ + parallel/multihost.py"),
-     (["--mesh_sample", "2"], "parallel/ + parallel/multihost.py")],
-    ids=lambda v: v if isinstance(v, str) else v[0],
+    "flags,stop",
+    [(["--mesh", "auto"], None),
+     (["--distributed", "127.0.0.1:{port},1,0", "--mesh", "auto"], None),
+     (["--mesh_data", "2"], (2, None)),
+     (["--mesh_sample", "2"], (None, 2))],
+    ids=["mesh_auto", "distributed_one_rank", "mesh_data", "mesh_sample"],
 )
-def test_unported_flags_stop_with_their_roadmap_item(flags, item, tmp_results):
-    with pytest.raises(SystemExit, match='%s is not ported .*ROADMAP queue 1, "%s"'
-                       % (flags[0], re.escape(item))):
-        run_xval.main([spec("dr_constant_one.yaml")] + flags, device="cpu")
-    assert os.listdir(tmp_results) == []
+def test_mesh_flags_in_one_process(flags, stop, tmp_results, capsys):
+    """In one process (one rank) ``--mesh auto`` shards nothing: the run,
+    also in a process group of one rank, equals the plain run bit for bit;
+    a factorisation over more ranks stops with the JAX package's assertion."""
+    if stop is not None:
+        import jax
+
+        from vihds_tpu import parallel as jparallel
+
+        with pytest.raises(AssertionError) as want:
+            jparallel.make_mesh(*stop, devices=jax.devices()[:1])
+        with pytest.raises(AssertionError) as got:
+            run_xval.main(ARGV + flags, device="cpu")
+        assert str(got.value) == str(want.value)
+        return
+    from tests.torch_parallel_worker import free_port
+
+    flags = [f.format(port=free_port()) for f in flags]
+    run_xval.main(ARGV + ["--experiment", "mesh"] + flags, device="cpu")
+    out = capsys.readouterr().out
+    assert "Device mesh" not in out
+    assert ("torch.distributed: process 0 of 1 (backend gloo, device cpu)" in out) == (
+        "--distributed" in flags)
+    run_xval.main(ARGV + ["--experiment", "plain"], device="cpu")
+    plain, mesh = _xval_files(tmp_results, "plain"), _xval_files(tmp_results, "mesh")
+    assert sorted(plain) == sorted(mesh) and len(plain) == 13
+    for n, a in plain.items():
+        for x, y in zip(a.ravel(), mesh[n].ravel()) if a.dtype == object else [(a, mesh[n])]:
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=n)

@@ -506,8 +506,8 @@ def test_nan_fold_is_frozen_and_the_other_fold_unchanged(runs, capsys, monkeypat
     runner = xfold.VmapXval(_cli_args(BASE + ["--vmap_folds"]), _settings(runs), device="cpu")
     orig = runner._train_data
 
-    def poisoned(device):
-        data, n_max = orig(device)
+    def poisoned(device, *folds):
+        data, n_max = orig(device, *folds)
         data["observations"][n_max:] = float("nan")
         return data, n_max
 

@@ -18,13 +18,17 @@ matplotlib, seaborn or tensorboard is not installed, the figures are left
 out (said once) and the rest is written.  It trains on the CUDA device
 unless ``main`` is given ``device="cpu"``.
 
-Not ported yet: the meshes and the multi-process launch ("parallel/ +
-parallel/multihost.py" in ROADMAP queue 1).  Their flags stop the run with a
-one-line error, as in ``run_xval``, with ``--vmap_folds`` too.
+The meshes and the multi-process launch take ``run_xval``'s flags
+(``--distributed``, ``--mesh``, ``--mesh_data``, ``--mesh_sample``): each
+fold trains over the ranks' (data, sample) mesh, rank 0 writes.  Over
+several processes ``--vmap_folds`` takes the fold loop; in one process,
+``--vmap_folds --mesh auto`` spreads the folds over the local cards
+(``xfold.make_fold_mesh``).
 """
 
 from vihds_tpu_torch.config import Config, Trainer
-from vihds_tpu_torch.run_xval import check_ported, create_parser, run_on_split, write_figures
+from vihds_tpu_torch.parallel import multihost
+from vihds_tpu_torch.run_xval import create_parser, run_on_split, write_figures
 from vihds_tpu_torch.utils import FIGURE_PACKAGES, missing_packages, note_once, resolve_device
 from vihds_tpu_torch.xval import XvalMerge
 
@@ -32,7 +36,9 @@ from vihds_tpu_torch.xval import XvalMerge
 def execute(args, settings, device="cuda"):
     """Train folds 1 .. ``args.folds`` (one after another, or with
     ``args.vmap_folds`` all in one batched step) and write the merged
-    artifacts; returns the ``XvalMerge`` (None when no fold left results)."""
+    artifacts (where ``settings.trainer`` is set: not on the other ranks of a
+    ``--distributed`` launch); returns the ``XvalMerge`` (None when no fold
+    left results)."""
     xval_merge = XvalMerge(args, settings)
     fold_results = None
     if getattr(args, "vmap_folds", False):
@@ -56,6 +62,8 @@ def execute(args, settings, device="cuda"):
     if len(xval_merge.elbo) == 0:
         print("No results in xval. Exiting...")
         return None
+    if settings.trainer is None:
+        return xval_merge
     xval_merge.finalize()
     xval_merge.save()
     missing = missing_packages(FIGURE_PACKAGES)
@@ -70,11 +78,20 @@ def execute(args, settings, device="cuda"):
 
 def main(argv=None, device="cuda"):
     args = create_parser(False).parse_args(argv)
-    check_ported(args)
     device = resolve_device(device)
-    settings = Config(args)
-    settings.trainer = Trainer(args, add_timestamp=True)
-    return execute(args, settings, device=device)
+    process_count, rank, device = multihost.initialize_from_args(args, device)
+    try:
+        if process_count > 1 and getattr(args, "vmap_folds", False):
+            # the batched folds run in one process; over several, every rank
+            # takes the fold loop on the ranks' mesh (the same decision on
+            # every rank: lockstep)
+            print("--vmap_folds is single-process; using the sequential driver")
+            args.vmap_folds = False
+        settings = Config(args)
+        settings.trainer = Trainer(args, add_timestamp=True) if rank == 0 else None
+        return execute(args, settings, device=device)
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

@@ -8,13 +8,16 @@ of (seed, epoch) alone (``training.epoch_perm``) and the latent draws
 continue from the saved generator state.  ``call_run_xval --vmap_folds``
 saves its stacked state here too, in ``checkpoints_vmap/``: params and Adam
 moments with their fold axis, the generator, the epoch and the per-fold
-``alive`` mask (``xfold.VmapXval``).
+``alive`` mask (``xfold.VmapXval``).  Over several processes rank 0 writes
+and every rank waits for it at a barrier; every rank restores the same file.
 """
 
 import os
 import re
 
 import torch
+
+from vihds_tpu_torch.parallel import multihost
 
 MAX_TO_KEEP = 3
 
@@ -28,13 +31,17 @@ def _epochs(directory):
 
 def save(directory, epoch, state):
     """Write ``state`` (a dict of tensors, state dicts and ints) as the
-    checkpoint of ``epoch``; drop all but the newest ``MAX_TO_KEEP``."""
-    os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, "%d.pt" % epoch)
-    torch.save(state, path + ".tmp")
-    os.replace(path + ".tmp", path)
-    for old in _epochs(directory)[:-MAX_TO_KEEP]:
-        os.remove(os.path.join(directory, "%d.pt" % old))
+    checkpoint of ``epoch``; drop all but the newest ``MAX_TO_KEEP``.  Over
+    several processes, rank 0's call writes and every call returns once it
+    has."""
+    if multihost.is_main():
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, "%d.pt" % epoch)
+        torch.save(state, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        for old in _epochs(directory)[:-MAX_TO_KEEP]:
+            os.remove(os.path.join(directory, "%d.pt" % old))
+    multihost.barrier()
 
 
 def latest_epoch(directory):

@@ -17,9 +17,10 @@ node whose results directory holds a ``completed.txt`` naming its experiment
 is skipped, so a second run resumes.  With ``--jobs N``, nodes of one stage
 run side by side in up to N worker processes, started by ``spawn`` (a forked
 child cannot use CUDA once its parent has).  Every node runs on the CUDA
-device unless ``main`` is given ``device="cpu"``.  A node with a flag whose
-feature the port does not have yet stops the run, before any node trains,
-with its one-line error.
+device unless ``main`` is given ``device="cpu"``.  A node's ``mesh``,
+``mesh_data`` and ``mesh_sample`` work as ``call_run_xval``'s flags in one
+process: ``mesh: auto`` trains unsharded (one rank), a factorisation of more
+ranks than one stops the node with the JAX package's assertion.
 """
 
 import argparse
@@ -32,7 +33,6 @@ from vihds_tpu_torch import config as cfg
 from vihds_tpu_torch import inference_graph as ig
 from vihds_tpu_torch.call_run_xval import execute as call_run_xval_execute
 from vihds_tpu_torch.config import Config, Trainer
-from vihds_tpu_torch.run_xval import check_ported
 from vihds_tpu_torch.utils import resolve_device
 from vihds_tpu_torch.utils.attrdict import attrdictify
 
@@ -126,9 +126,6 @@ def run_graph(graph_name, staged_nodes, jobs=1, device="cuda"):
     """Run the nodes of ``staged_nodes`` (stage -> nodes) stage by stage,
     skipping those already completed; returns {node name: its results
     directory}."""
-    for nodes in staged_nodes.values():
-        for node in nodes:
-            check_ported(node.args)
     device = str(resolve_device(device))
     rootpath = os.path.join(cfg.get_results_directory(), graph_name)
     os.makedirs(rootpath, exist_ok=True)

@@ -16,29 +16,27 @@ and the ``xval/`` event files, with ``--profile_dir DIR`` one
 It trains on the CUDA device unless ``main`` or ``run_on_split`` is given
 ``device="cpu"``.  Where tensorboard or matplotlib is not installed, the
 event files or figures are left out (said once) and the rest is written;
-``--figures`` then stops before any training, naming the package.  Flags
-whose feature the port does not have yet stop the run with a one-line error
-that names its ROADMAP item.
+``--figures`` then stops before any training, naming the package.
+
+Over several processes (``vihds_tpu_torch.parallel``): run the same command
+once per rank with ``--distributed HOST:PORT,NPROC,PID`` (PID 0 .. NPROC -
+1), or under ``torchrun --nproc_per_node N ... --distributed auto``, and
+shard each step and evaluation over a (data, sample) mesh of the ranks with
+``--mesh auto`` (every rank on 'sample') or ``--mesh_data D --mesh_sample
+S``.  Rank 0 writes every artifact; the other ranks train in lockstep and
+write nothing.
 """
 
 import argparse
 
 from vihds_tpu_torch.config import Config, Trainer
 from vihds_tpu_torch.data.datasets import build_datasets
+from vihds_tpu_torch.parallel import multihost
 from vihds_tpu_torch.prob import ParamProgram, parse_parameters
 from vihds_tpu_torch.training import Training
 from vihds_tpu_torch.utils import FIGURE_PACKAGES, missing_packages, resolve_device
 from vihds_tpu_torch.vae import VAE
 from vihds_tpu_torch.xval import XvalMerge
-
-#: flag -> (is it set?, the title of the ROADMAP item that ports it)
-NOT_PORTED = {
-    "--mesh": (lambda a: a.mesh != "off", "parallel/ + parallel/multihost.py"),
-    "--mesh_data": (lambda a: a.mesh_data is not None, "parallel/ + parallel/multihost.py"),
-    "--mesh_sample": (lambda a: a.mesh_sample is not None, "parallel/ + parallel/multihost.py"),
-    "--distributed": (lambda a: a.distributed is not None, "parallel/ + parallel/multihost.py"),
-}
-
 
 def create_parser(with_split: bool):
     """The JAX package's ``run_xval`` flags."""
@@ -94,11 +92,26 @@ def create_parser(with_split: bool):
         help="Write a torch.profiler trace of the first epoch chunk after the start epoch "
         "into this directory",
     )
-    parser.add_argument("--distributed", type=str, default=None, help="Not ported yet")
-    parser.add_argument("--mesh", type=str, default="off", choices=["off", "auto"],
-                        help="Not ported yet")
-    parser.add_argument("--mesh_data", type=int, default=None, help="Not ported yet")
-    parser.add_argument("--mesh_sample", type=int, default=None, help="Not ported yet")
+    parser.add_argument(
+        "--distributed", type=str, default=None,
+        help="Multi-process launch: 'HOST:PORT,NPROC,PID' on each of NPROC ranks, or "
+        "'auto' under torchrun (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE).  Combine "
+        "with --mesh auto (or --mesh_data/--mesh_sample over the ranks); rank 0 writes "
+        "all artifacts.  Env fallback: VIHDS_DISTRIBUTED.",
+    )
+    parser.add_argument(
+        "--mesh", type=str, default="off", choices=["off", "auto"],
+        help="'auto': shard training and evaluation over ALL ranks on a (data, sample) "
+        "mesh (IWAE samples on the larger axis)",
+    )
+    parser.add_argument(
+        "--mesh_data", type=int, default=None,
+        help="Ranks on the 'data' (batch) mesh axis; combine with --mesh_sample",
+    )
+    parser.add_argument(
+        "--mesh_sample", type=int, default=None,
+        help="Ranks on the 'sample' (IWAE) mesh axis; combine with --mesh_data",
+    )
     if with_split:
         group = parser.add_mutually_exclusive_group()
         group.add_argument("--heldout", type=str, help="name of held-out device, e.g. R33S32_Y81C76")
@@ -139,18 +152,21 @@ def create_parser(with_split: bool):
     return parser
 
 
-def not_ported(flag, item):
-    """The one-line error of a flag whose feature waits for the ROADMAP item
-    titled ``item``."""
-    return SystemExit('%s is not ported to vihds_tpu_torch yet (ROADMAP queue 1, "%s")'
-                      % (flag, item))
+def make_mesh_from_args(args, device="cpu"):
+    """The (data, sample) mesh of the ranks that the flags ask for, or None.
 
-
-def check_ported(args):
-    """Stop with a one-line error on a flag whose feature is not ported."""
-    for flag, (is_set, item) in NOT_PORTED.items():
-        if is_set(args):
-            raise not_ported(flag, item)
+    ``--mesh_data`` / ``--mesh_sample`` pick an explicit factorisation of the
+    ranks; ``--mesh auto`` puts every rank on the 'sample' axis, and no mesh
+    where there is one rank (the run is unsharded)."""
+    n_data = getattr(args, "mesh_data", None)
+    n_sample = getattr(args, "mesh_sample", None)
+    if n_data or n_sample:
+        return multihost.global_mesh(n_data=n_data, n_sample=n_sample, device=device)
+    if getattr(args, "mesh", "off") == "auto":
+        mesh = multihost.global_mesh(device=device)
+        if mesh.size > 1:
+            return mesh
+    return None
 
 
 def check_figures(packages=FIGURE_PACKAGES):
@@ -181,7 +197,10 @@ def make_training(args, settings, split=None, device="cuda"):
     data = build_datasets(args, settings)
     program = ParamProgram(parse_parameters(settings.params))
     model = VAE(settings, data, program)
-    return data, Training(settings, data, program, model, args=args, device=device)
+    mesh = make_mesh_from_args(args, device)
+    if mesh is not None:
+        print("Device mesh: data=%d x sample=%d" % (mesh.shape["data"], mesh.shape["sample"]))
+    return data, Training(settings, data, program, model, args=args, device=device, mesh=mesh)
 
 
 def run_on_split(args, settings, split=None, device="cuda"):
@@ -208,16 +227,23 @@ def save_xval(args, settings, data_pair, val_results):
 
 def main(argv=None, device="cuda"):
     args = create_parser(True).parse_args(argv)
-    check_ported(args)
     if args.figures:
         check_figures()
     device = resolve_device(device)
-    settings = Config(args)
-    settings.trainer = Trainer(args, add_timestamp=True)
-    data_pair, val_results, _ = run_on_split(args, settings, device=device)
-    xval_merge = save_xval(args, settings, data_pair, val_results)
-    if xval_merge is not None and args.figures:
-        write_figures(xval_merge)
+    # the process group first, then everything else on this rank's device
+    _, rank, device = multihost.initialize_from_args(args, device)
+    try:
+        settings = Config(args)
+        # rank 0 writes every artifact; the others train in lockstep without
+        # a trainer
+        settings.trainer = Trainer(args, add_timestamp=True) if rank == 0 else None
+        data_pair, val_results, _ = run_on_split(args, settings, device=device)
+        if settings.trainer is not None:
+            xval_merge = save_xval(args, settings, data_pair, val_results)
+            if xval_merge is not None and args.figures:
+                write_figures(xval_merge)
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

@@ -29,6 +29,16 @@ or matplotlib is not installed they are left out, said once.  With
 The loss, the DReG gradient and the optimizer also take a fold axis
 (``folds``, ``vihds_tpu_torch.xfold``): params with a leading ``[F]`` axis,
 rows of F folds fold-major, one loss and one gradient clip per fold.
+
+Over several processes (``mesh``, ``vihds_tpu_torch.parallel``) every rank
+runs the same host loop in lockstep on the same data, with the mesh ambient
+(``parallel.use_mesh``): each step's and each evaluation chunk's decoder
+block shards its rows over the mesh's 'data' axis and its draws over
+'sample' (``loss_fn``, ``sharded_eval_step``), every rank holds the
+whole batch's gradients, and every value a host decision reads (the NaN
+stop, the best validation ELBO) is the whole batch's on every rank.  Rank 0
+alone writes: the cache, the event files, the checkpoints (the other ranks
+wait at a barrier) and the trace.
 """
 
 import math
@@ -39,8 +49,9 @@ import numpy as np
 import torch
 
 from vihds_tpu_torch import checkpoint as ckpt
-from vihds_tpu_torch import plotting_hooks, profiling
+from vihds_tpu_torch import parallel, plotting_hooks, profiling
 from vihds_tpu_torch.ops.logprob import log_prob_observations
+from vihds_tpu_torch.parallel import multihost
 from vihds_tpu_torch.results import Results
 from vihds_tpu_torch.utils import resolve_device, summary_writer, variable_summaries
 from vihds_tpu_torch.utils.attrdict import AttrDict
@@ -311,9 +322,14 @@ def loss_fn(model, program, params, batch, mask, u, folds=None):
     route through the fused kernels.  log q and log p score the sampled
     theta.  With ``folds`` (params with a fold axis, the batch's rows the
     folds', fold-major) it returns each fold's loss [folds]; their sum's
-    gradient is each fold's own, since the folds share no param."""
-    if model.ode_model.supports_fold():
-        out = model.forward_logprob(params, batch, u)
+    gradient is each fold's own, since the folds share no param.  Under an
+    ambient mesh (``parallel.use_mesh``) the decoder block shards over its
+    ranks (``VAE.forward_sharded``) and every rank gets the whole batch's
+    loss and gradients."""
+    mesh = parallel.active_mesh()
+    if mesh is not None or model.ode_model.supports_fold():
+        out = (model.forward_logprob(params, batch, u) if mesh is None
+               else model.forward_sharded(params, batch, u, mesh))
         log_p_obs = out.log_p_by_species.sum(dim=2)
         log_q = program.log_prob(out.q, out.theta)
         log_p = program.log_prob(prior_as_q(program, out.theta.device), out.theta)
@@ -346,7 +362,11 @@ def dreg_value_and_grad(model, program, params, batch, mask, u, folds=None):
     gradients of -ELBO in the order of ``param_leaves`` of each part.  With
     ``folds`` (as ``loss_fn``) -ELBO is [folds] and each fold's rows weigh by
     that fold's mask."""
-    if model.ode_model.supports_fold():
+    mesh = parallel.active_mesh()
+    if mesh is not None:
+        out = model.forward_sharded(params, batch, u, mesh)
+        log_p_by_species = out.log_p_by_species
+    elif model.ode_model.supports_fold():
         out = model.forward_logprob(params, batch, u)
         log_p_by_species = out.log_p_by_species
     else:
@@ -388,6 +408,54 @@ def dreg_value_and_grad(model, program, params, batch, mask, u, folds=None):
         grads[part] = [-g if g is not None else torch.zeros_like(leaf)
                        for g, leaf in zip(got, leaves)]
     return -elbo.detach(), grads
+
+
+def sharded_eval_step(model, program, params, batch, n_samples, u, mesh, with_theta=True):
+    """``eval_step``'s outputs for one chunk, whole on every rank, its
+    decoder block sharded over ``mesh``: every rank encodes, draws
+    (``u[B, K, n_theta]``, all of it), clips and conditions the whole chunk;
+    the block (integration, observation, likelihood) runs on this rank's
+    rows and samples; the blocks' log-likelihoods are assembled whole, so the
+    IWAE terms and each row's logsumexp are the one-process ones; each row's
+    importance-weighted moments are summed over this rank's samples, added
+    over the sample ranks and joined over the data ranks."""
+    q = model.encoder(params["enc"], batch)
+    theta = model.program.sample(q, u)
+    clipped = model.program.clip(theta, stddevs=4)
+    th = model.condition(params, clipped, batch)
+    B, K = u.shape[:2]
+    block = {k: mesh.block(v.expand((B, K) + tuple(v.shape[2:])), B, K) for k, v in th.items()}
+    rows = multihost.host_local_batch_to_global(mesh, batch)
+    Ks = parallel.shard_span(K, mesh.shape["sample"], mesh.sample_index)[1]
+    x_states, x_predict, precisions = model.integrate(params["dec"], block, rows, Ks,
+                                                      eval_mode=True)
+    log_p_by_species = mesh.gather_blocks({"lp": log_prob_observations(
+        x_predict, rows.observations, precisions, model.use_laplace)}, B, K)["lp"]
+    log_p_obs = log_p_by_species.sum(dim=2)
+    log_q = program.log_prob(q, theta)
+    log_p = program.log_prob(prior_as_q(program, theta.device), theta)
+    log_w = log_p_obs + log_p - log_q
+    lse = torch.logsumexp(log_w, dim=1)
+    w = torch.exp(mesh.block(log_w, B, K, pad=0.0) - mesh.rows(lse, B)[:, None])
+    w = torch.where(mesh.real(B, K, w.device), w, torch.zeros_like(w))[:, :, None, None]
+    sums = mesh.sum_samples(dict(
+        mu=torch.sum(w * x_predict, 1),
+        second=torch.sum(w * (x_predict ** 2 + 1.0 / precisions), 1),
+        states=torch.sum(w * x_states, 1),
+        variance=torch.sum(w / precisions * torch.ones_like(x_predict), 1),
+    ))
+    iw = mesh.cat_rows(dict(
+        iw_predict_mu=sums["mu"],
+        iw_predict_std=torch.sqrt(torch.clamp(sums["second"] - sums["mu"] ** 2, min=0.0)),
+        iw_states=sums["states"],
+        iw_variance=sums["variance"],
+    ), B)
+    res = dict(per_item_elbo=lse - math.log(n_samples), log_w=log_w, log_p_obs=log_p_obs,
+               log_q=log_q, log_p=log_p, log_p_by_species=log_p_by_species, q_mu=q.mu,
+               q_prec=q.prec, **iw)
+    if with_theta:
+        res["theta_bkn"] = clipped
+    return res
 
 
 def _np_logsumexp(x, axis):
@@ -521,14 +589,16 @@ class Training:
     ``split``/``heldout``, ``folds``, ``checkpoint_epoch``, ``resume_from``,
     ``dreg``, ``profile_dir``); serving needs none.
     ``run`` trains on ``device`` ("cuda" unless the caller asks for the
-    CPU)."""
+    CPU), sharded over ``mesh`` where it spans several ranks."""
 
-    def __init__(self, settings, data, program, model, args=None, device="cuda"):
+    def __init__(self, settings, data, program, model, args=None, device="cuda", mesh=None):
         self.settings = settings
         self.program = program
         self.model = model
         self.args = args
         self.device = device
+        # a mesh of one rank shards nothing: the unsharded step runs
+        self.mesh = mesh if multihost.is_multiprocess_mesh(mesh) else None
         self.dataset_pair = data
         self.n_batch = min(settings.params.n_batch, data.n_train)
         # merge: false data: per-file work units on each file's native grid
@@ -558,10 +628,13 @@ class Training:
             self.train_path = os.path.join(trainer.tb_log_dir, "train_%s" % held_out)
             self.valid_path = os.path.join(trainer.tb_log_dir, "valid_%s" % held_out)
         else:
-            self.cache_dir = ".vihds_cache"
+            # the trainer-less ranks of a --distributed launch write nothing:
+            # they keep their best validation results in memory
+            self.cache_dir = ".vihds_cache" if multihost.is_main() else None
             self.ckpt_dir = None
             self.train_path = self.valid_path = None
         self.empty_cache = True
+        self._best = None
         #: milliseconds of each optimizer step of the last ``run``
         self.step_ms = []
         #: the figures' thread during ``run`` (``HostWorker``), else None
@@ -589,10 +662,15 @@ class Training:
         with torch.no_grad():
             for rows in idx.reshape(n_chunks, chunk):
                 batch = batch_tensors(host, rows, times, device)
-                res = eval_step(
-                    self.model, self.program, params, batch, n_samples,
-                    generator=generator, with_theta=with_theta,
-                )
+                if self.mesh is None:
+                    res = eval_step(
+                        self.model, self.program, params, batch, n_samples,
+                        generator=generator, with_theta=with_theta,
+                    )
+                else:
+                    u = self.model.sample_u(generator, chunk, n_samples, device)
+                    res = sharded_eval_step(self.model, self.program, params, batch, n_samples,
+                                            u, self.mesh, with_theta=with_theta)
                 parts.append({k: v.cpu().numpy() for k, v in res.items()})
         merged = AttrDict((k, np.concatenate([p[k] for p in parts])[:n]) for k in parts[0])
         if with_theta:
@@ -714,7 +792,11 @@ class Training:
         update_summaries(valid_writer, epoch, valid_merged, self.program, self.settings)
         if valid_merged.elbo > log_data.max_val_elbo:
             log_data.max_val_elbo = valid_merged.elbo
-            make_results(self.model, self.program, valid_merged).dump(self.cache_dir)
+            best = make_results(self.model, self.program, valid_merged)
+            if self.cache_dir is None:
+                self._best = best
+            else:
+                best.dump(self.cache_dir)
             self.empty_cache = False
         log_data.training_elbo_list.append(train_merged.elbo)
         log_data.validation_elbo_list.append(valid_merged.elbo)
@@ -766,7 +848,8 @@ class Training:
             writers = (summary_writer(self.train_path), summary_writer(self.valid_path))
         self.host_worker = HostWorker.for_run(self.settings)
         try:
-            return self._run(device, writers)
+            with parallel.use_mesh(self.mesh):
+                return self._run(device, writers)
         finally:
             if self.host_worker is not None:
                 self.host_worker.join()
@@ -784,9 +867,14 @@ class Training:
         ckpt_every = getattr(args, "checkpoint_epoch", 0) or 0
         start_epoch = 1
         resume_from = getattr(args, "resume_from", None)
+        if self.mesh is not None and (ckpt_every or resume_from):
+            # rank 0's directory on every rank (the others have no trainer):
+            # every rank calls ckpt.save, rank 0 writes
+            self.ckpt_dir = multihost.broadcast_string(self.ckpt_dir or "") or None
         if resume_from:
-            # restored on the host: Adam keeps its step counts there, and the
-            # generator state is a CPU tensor whatever the generator's device
+            # restored on the host (every rank the same file): Adam keeps its
+            # step counts there, and the generator state is a CPU tensor
+            # whatever the generator's device
             _, state = ckpt.restore(resume_from)
             if state is not None:
                 with torch.no_grad():
@@ -839,7 +927,8 @@ class Training:
             end_epoch = next_boundary(epoch)
             # one trace: the first chunk after the start epoch (the first
             # chunk carries the kernels' first launches)
-            do_trace = bool(profile_dir) and not traced and epoch > start_epoch
+            do_trace = (bool(profile_dir) and not traced and epoch > start_epoch
+                        and multihost.is_main())
             with profiling.trace(profile_dir if do_trace else None,
                                  "epochs_%d-%d" % (epoch, end_epoch)):
                 if self.multi:
@@ -883,7 +972,10 @@ class Training:
         if self.empty_cache:
             print("Exiting with no results in cache")
             return None
-        final = Results()
-        final.load(self.cache_dir)
+        if self.cache_dir is None:
+            final = self._best
+        else:
+            final = Results()
+            final.load(self.cache_dir)
         final.elbo_list = log_data.validation_elbo_list
         return final

@@ -9,8 +9,9 @@ upstream), so tests can hand both packages the same draws.
 
 import torch
 
-from vihds_tpu_torch import models
+from vihds_tpu_torch import models, parallel
 from vihds_tpu_torch.nn.encoder import Encoder
+from vihds_tpu_torch.ops.logprob import log_prob_observations
 from vihds_tpu_torch.prob import ParamProgram
 from vihds_tpu_torch.utils import resolve_device
 from vihds_tpu_torch.utils.attrdict import AttrDict
@@ -54,7 +55,9 @@ class VAE:
 
     def sample_u(self, generator, n_batch, n_samples, device):
         """Standard-normal draws u[B, K, n_theta] from ``generator`` (on its
-        own device), placed on ``device``."""
+        own device), placed on ``device``.  Over several ranks every rank
+        draws the whole u; the decoder block takes its rows and samples
+        (``forward_sharded``)."""
         u = torch.randn(
             (n_batch, n_samples, self.n_theta), generator=generator, device=generator.device
         )
@@ -80,22 +83,9 @@ class VAE:
         """Decoder-only pass for given clipped theta draws [B,K,n_theta]:
         condition -> simulate -> expand precisions -> observe.  Also the
         counterfactual serving path (``predict.counterfactual``)."""
-        th = self.program.theta_dict(theta_clipped)
-        if self.condition_on_device:
-            th = self.ode_model.condition_theta(params["dec"], th, batch.dev_1hot)
-        x_solution = self.ode_model.simulate(
-            params["dec"],
-            th,
-            batch.times,
-            batch.inputs,
-            batch.dev_1hot,
-            n_iwae=theta_clipped.shape[1],
-            eval_mode=eval_mode,
-        )
-        x_states, precisions = self.ode_model.expand_precisions(
-            params["dec"], th, batch.times.shape[0], x_solution
-        )
-        x_predict = self.ode_model.observe(x_states, th)
+        th = self.condition(params, theta_clipped, batch)
+        x_states, x_predict, precisions = self.integrate(
+            params["dec"], th, batch, theta_clipped.shape[1], eval_mode=eval_mode)
         return AttrDict(
             x_states=x_states,
             x_predict=x_predict,
@@ -103,6 +93,51 @@ class VAE:
             theta_clipped=theta_clipped,
             theta_cond=th,
         )
+
+    def condition(self, params, theta_clipped, batch):
+        """The clipped draws as named columns, device-conditioned."""
+        th = self.program.theta_dict(theta_clipped)
+        if self.condition_on_device:
+            th = self.ode_model.condition_theta(params["dec"], th, batch.dev_1hot)
+        return th
+
+    def integrate(self, dec, th, batch, n_iwae, eval_mode=False):
+        """The decoder block on conditioned draws ``th``: simulate -> expand
+        precisions -> observe; returns (x_states, x_predict, precisions)."""
+        x_solution = self.ode_model.simulate(
+            dec, th, batch.times, batch.inputs, batch.dev_1hot, n_iwae=n_iwae,
+            eval_mode=eval_mode,
+        )
+        x_states, precisions = self.ode_model.expand_precisions(
+            dec, th, batch.times.shape[0], x_solution
+        )
+        return x_states, self.ode_model.observe(x_states, th), precisions
+
+    def likelihood(self, dec, th, batch, n_iwae):
+        """log p(observations | th) by species [B, K, S] through the training
+        route: the online fold route where the solver allows it, else the
+        trajectory (the fused kernels under ``pallas_<method>``)."""
+        if self.ode_model.supports_fold():
+            return self.ode_model.simulate_logprob(
+                dec, th, batch.times, batch.inputs, batch.dev_1hot, n_iwae=n_iwae,
+                observations=batch.observations, use_laplace=self.use_laplace,
+            )
+        _, x_predict, precisions = self.integrate(dec, th, batch, n_iwae)
+        return log_prob_observations(x_predict, batch.observations, precisions, self.use_laplace)
+
+    def forward_sharded(self, params, batch, u, mesh):
+        """The training forward over the ranks of ``mesh``: encode ->
+        sample -> clip -> condition on the whole batch and all draws on every
+        rank, then the decoder block (``likelihood``) on this rank's rows and
+        samples (``parallel.shard_block``), assembled whole.  Returns
+        AttrDict with log_p_by_species [B, K, S], theta and q, as
+        ``forward_logprob``."""
+        q = self.encoder(params["enc"], batch)
+        theta = self.program.sample(q, u)
+        th = self.condition(params, self.program.clip(theta, stddevs=4), batch)
+        log_p_by_species = parallel.shard_block(mesh, self.likelihood, params["dec"], th, batch,
+                                                u.shape[1])
+        return AttrDict(log_p_by_species=log_p_by_species, theta=theta, q=q)
 
     def forward_logprob(self, params, batch, u):
         """Training-objective forward: encode -> sample -> clip -> condition

@@ -33,6 +33,14 @@ padded batch or eval-chunk counts differ.  Adaptive solvers and
 they need is a ROADMAP item.  Checkpoints of the stacked state go to
 ``checkpoints_vmap/`` (params, Adam state, the generator, the epoch and the
 per-fold ``alive`` mask); a resumed run replays ``epoch_perm(seed, e)``.
+
+With ``--mesh auto`` the folds spread over the local cards
+(``make_fold_mesh``, the JAX package's fold mesh): each card takes an equal,
+contiguous group of folds with its own stacked params, optimizer, training
+generator and data, and runs the batched step on them.  The folds never
+meet, so nothing crosses cards but the evaluations' outputs; each group's
+generator is seeded as the one generator is and draws the same u, so every
+fold sees the draws of the unsharded run.
 """
 
 import copy
@@ -71,6 +79,65 @@ from vihds_tpu_torch.vae import VAE
 
 #: the ROADMAP item that ports the per-fold adaptive step controller
 ADAPTIVE_ITEM = "per-fold adaptive step control under --vmap_folds"
+
+
+class FoldMesh:
+    """A 1-D ('fold',) mesh: the devices the folds spread over, each taking
+    an equal, contiguous group of folds."""
+
+    def __init__(self, devices):
+        self.devices = list(devices)
+        self.shape = {"fold": len(self.devices)}
+
+
+def local_devices(device):
+    """The devices of this process of ``device``'s type: every visible card,
+    or the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def make_fold_mesh(folds, devices):
+    """A ('fold',) mesh over the largest count of ``devices`` that divides
+    ``folds``: the fold axis is embarrassingly parallel (folds never
+    communicate).  None when only one device would be used."""
+    n_dev = 1
+    for d in range(min(folds, len(devices)), 1, -1):
+        if folds % d == 0:
+            n_dev = d
+            break
+    if n_dev < 2:
+        return None
+    return FoldMesh(devices[:n_dev])
+
+
+def _map_params(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map_params(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _cat_opt_states(states, device):
+    """One ``Optimizer.state_dict`` of the folds of ``states`` (the groups'
+    optimizers, in fold order): the Adam moments joined along the fold axis."""
+    adam = states[0]["adam"]
+    joined = {}
+    for i, st in adam["state"].items():
+        joined[i] = {k: (torch.cat([s["adam"]["state"][i][k].to(device) for s in states])
+                         if k != "step" else v) for k, v in st.items()}
+    return {"adam": {"state": joined, "param_groups": adam["param_groups"]},
+            "count": states[0]["count"]}
+
+
+def _slice_opt_state(state, lo, hi):
+    """Folds ``lo .. hi`` of a stacked ``Optimizer.state_dict``."""
+    adam = state["adam"]
+    return {"adam": {"state": {i: {k: v if k == "step" else v[lo:hi] for k, v in st.items()}
+                               for i, st in adam["state"].items()},
+                     "param_groups": adam["param_groups"]},
+            "count": state["count"]}
 
 
 def stack_params(params, n_folds):
@@ -170,13 +237,15 @@ def check_fixed_grid(settings):
 
 class VmapXval:
     """All k folds of a cross-validation as one batched training run on
-    ``device``."""
+    ``device``, or spread over the devices of ``fold_mesh`` (``FoldMesh``),
+    one group of folds a device."""
 
-    def __init__(self, args, settings, device="cuda"):
+    def __init__(self, args, settings, device="cuda", fold_mesh=None):
         self.args = args
         self.settings = settings
         self.device = device
         self.folds = args.folds
+        self.fold_mesh = fold_mesh
 
         self.pairs = []
         for split in range(1, self.folds + 1):
@@ -227,30 +296,30 @@ class VmapXval:
         self._eval_data = {}
 
     # ------------------------------------------------------------------ data
-    def _train_data(self, device):
-        """The F train splits on the device, [F * N_max, ...] fold-major
-        (a fold smaller than N_max padded with its row 0, never indexed),
-        and N_max."""
+    def _train_data(self, device, lo=0, hi=None):
+        """The train splits of folds ``lo .. hi`` (default all) on the
+        device, [F * N_max, ...] fold-major (a fold smaller than N_max padded
+        with its row 0, never indexed), and N_max (over every fold)."""
         n_max = max(h.observations.shape[0] for h in self.train_hosts)
 
         def pad(x):
             x = np.asarray(x, np.float32)
             return np.concatenate([x, np.broadcast_to(x[:1], (n_max - x.shape[0],) + x.shape[1:])])
 
-        data = {k: torch.as_tensor(np.concatenate([pad(h[k]) for h in self.train_hosts]),
+        data = {k: torch.as_tensor(np.concatenate([pad(h[k]) for h in self.train_hosts[lo:hi]]),
                                    device=device)
                 for k in ("observations", "inputs", "dev_1hot")}
         return data, n_max
 
-    def _eval_batches(self, which, device):
-        """The chunks of split ``which`` of every fold on the device, each
-        a batch of F * chunk rows, fold-major (a fold's last chunk padded with
-        its row 0, as ``Training.evaluate`` pads it), and the folds' row
-        counts.  Built once per run."""
-        cached = self._eval_data.get(which)
+    def _eval_batches(self, which, device, lo=0, hi=None):
+        """The chunks of split ``which`` of folds ``lo .. hi`` (default all)
+        on the device, each a batch of F * chunk rows, fold-major (a fold's
+        last chunk padded with its row 0, as ``Training.evaluate`` pads it),
+        and the folds' row counts.  Built once per run."""
+        cached = self._eval_data.get((which, lo))
         if cached is not None:
             return cached
-        hosts = self.train_hosts if which == "train" else self.valid_hosts
+        hosts = (self.train_hosts if which == "train" else self.valid_hosts)[lo:hi]
         chunk = self.n_batch
         ns = [h.observations.shape[0] for h in hosts]
         n_chunks = math.ceil(max(ns) / chunk)
@@ -266,23 +335,34 @@ class VmapXval:
                 for k in ("observations", "inputs", "dev_1hot"))
             batch["times"] = times
             batches.append(batch)
-        self._eval_data[which] = (batches, ns)
+        self._eval_data[(which, lo)] = (batches, ns)
         return batches, ns
 
-    def _evaluate(self, params_v, which, n_samples, generator, alive, with_theta):
+    def _evaluate(self, groups, generators, which, n_samples, alive, with_theta):
         """One pass over split ``which`` for every fold at K = ``n_samples``,
-        each chunk's draws shared by the folds; a ``FoldLazyEval``."""
-        batches, ns = self._eval_batches(which, self.device)
-        chunks = {}
+        each group of folds on its device drawing from its generator of
+        ``generators``, each chunk's draws shared by the folds; a
+        ``FoldLazyEval`` of the groups' outputs joined in fold order on the
+        first group's device."""
+        outs = []
         with torch.no_grad():
-            for batch in batches:
-                u = self.model.sample_u(generator, self.n_batch, n_samples, self.device)
-                u = u.repeat(self.folds, 1, 1)  # the same draws for every fold
-                res = eval_step(self.model, self.program, params_v, batch, n_samples, u=u,
-                                with_theta=with_theta)
-                for k, v in res.items():
-                    chunks.setdefault(k, []).append(v)
-        return FoldLazyEval(chunks, ns, alive)
+            for g, generator in zip(groups, generators):
+                batches, _ = self._eval_batches(which, g.device, g.lo, g.hi)
+                chunks = {}
+                for batch in batches:
+                    u = self.model.sample_u(generator, self.n_batch, n_samples, g.device)
+                    u = u.repeat(g.hi - g.lo, 1, 1)  # the same draws for every fold
+                    res = eval_step(self.model, self.program, g.params, batch, n_samples, u=u,
+                                    with_theta=with_theta)
+                    for k, v in res.items():
+                        chunks.setdefault(k, []).append(v)
+                outs.append(chunks)
+        chunks = outs[0] if len(outs) == 1 else {
+            k: [torch.cat([o[k][c].to(groups[0].device) for o in outs])
+                for c in range(len(outs[0][k]))]
+            for k in outs[0]}
+        hosts = self.train_hosts if which == "train" else self.valid_hosts
+        return FoldLazyEval(chunks, [h.observations.shape[0] for h in hosts], alive)
 
     def _fold_proxy(self, f):
         """A stand-in for fold f's ``Training``, for the plotting hooks."""
@@ -290,18 +370,29 @@ class VmapXval:
                                train_data=self.train_hosts[f], valid_data=self.valid_hosts[f])
 
     # ---------------------------------------------------------------- train
-    def init_state(self, device):
+    def init_state(self, device, folds=None):
         """The sequential driver's init (``Training.init_state``) stacked
-        over the folds, the per-fold optimizer and the one training
-        generator."""
+        over ``folds`` (default all) folds, the per-fold optimizer and the
+        training generator."""
         seed = self.settings.seed or 0
+        folds = folds or self.folds
         params1 = self.model.init_params(torch.Generator().manual_seed(seed), device=device)
-        params_v = stack_params(params1, self.folds)
+        params_v = stack_params(params1, folds)
         for leaf in param_leaves(params_v):
             leaf.requires_grad_(True)
-        opt = Optimizer(params_v, self.settings.params, self.steps_per_epoch, folds=self.folds)
+        opt = Optimizer(params_v, self.settings.params, self.steps_per_epoch, folds=folds)
         generator = torch.Generator(device=device).manual_seed(seed)
         return params_v, opt, generator
+
+    def fold_groups(self, device):
+        """The groups of folds and their devices: one group of every fold on
+        ``device``, or one a device of the fold mesh; each with its folds
+        ``lo .. hi`` and, once ``_run`` starts it, its state."""
+        devices = [device] if self.fold_mesh is None else \
+            [resolve_device(d) for d in self.fold_mesh.devices]
+        per = self.folds // len(devices)
+        return [SimpleNamespace(device=d, lo=i * per, hi=(i + 1) * per)
+                for i, d in enumerate(devices)]
 
     def train_steps(self, params_v, opt, generator, idx, mask, data, times):
         """One batched optimizer step for each row of ``idx`` / ``mask``
@@ -310,7 +401,7 @@ class VmapXval:
         time mark after each step."""
         K = self.args.train_samples
         dreg = getattr(self.args, "dreg", False)
-        F = self.folds
+        F = idx.shape[1] // self.n_batch
         cuda = times.device.type == "cuda"
         marks = [Training._mark(cuda)]
         elbos = []
@@ -333,24 +424,27 @@ class VmapXval:
             marks.append(Training._mark(cuda))
         return torch.stack(elbos), marks
 
-    def _chunk_stacks(self, seed, epoch, end_epoch, alive, n_max):
-        """The folds' batch-index grids of epochs [epoch, end_epoch] as
-        [n_steps, F * B] index (into the stacked train data) and mask
-        tensors.  A frozen fold gathers its row 0 with mask 1 (its numbers
-        are ignored)."""
+    def _chunk_stacks(self, seed, epoch, end_epoch, alive, n_max, lo=0, hi=None, device=None):
+        """The batch-index grids of folds ``lo .. hi`` (default all) for
+        epochs [epoch, end_epoch] as [n_steps, F * B] index (into their
+        stacked train data) and mask tensors on ``device`` (default the
+        run's).  A frozen fold gathers its row 0 with mask 1 (its numbers are
+        ignored)."""
         n_steps = (end_epoch - epoch + 1) * self.n_batches
+        hi = self.folds if hi is None else hi
+        device = self.device if device is None else device
         idx, mask = [], []
-        for f in range(self.folds):
+        for f in range(lo, hi):
             if alive[f]:
                 st = build_epoch_stacks(seed, epoch, end_epoch, self.n_batch, self.n_batches,
                                         self.pairs[f].n_train)
             else:
                 st = dict(idx=np.zeros((n_steps, self.n_batch), np.int32),
                           mask=np.ones((n_steps, self.n_batch), np.float32))
-            idx.append(st["idx"].astype(np.int64) + f * n_max)
+            idx.append(st["idx"].astype(np.int64) + (f - lo) * n_max)
             mask.append(st["mask"])
-        return (torch.as_tensor(np.concatenate(idx, axis=1), device=self.device),
-                torch.as_tensor(np.concatenate(mask, axis=1), device=self.device))
+        return (torch.as_tensor(np.concatenate(idx, axis=1), device=device),
+                torch.as_tensor(np.concatenate(mask, axis=1), device=device))
 
     def run(self):
         """Train every fold; returns the per-fold best-validation
@@ -373,7 +467,9 @@ class VmapXval:
         args = self.args
         F = self.folds
         seed = self.settings.seed or 0
-        params_v, opt, generator = self.init_state(device)
+        groups = self.fold_groups(device)
+        for g in groups:
+            g.params, g.opt, g.generator = self.init_state(g.device, g.hi - g.lo)
         alive = [True] * F
 
         ckpt_every = getattr(args, "checkpoint_epoch", 0) or 0
@@ -382,19 +478,22 @@ class VmapXval:
         if resume_from:
             _, state = ckpt.restore(resume_from)
             if state is not None:
-                with torch.no_grad():
-                    for leaf, saved in zip(param_leaves(params_v),
-                                           param_leaves(state["params"])):
-                        leaf.copy_(saved)
-                opt.load_state_dict(state["opt_state"])
-                generator.set_state(state["generator"])
+                for g in groups:
+                    with torch.no_grad():
+                        for leaf, saved in zip(param_leaves(g.params),
+                                               param_leaves(state["params"])):
+                            leaf.copy_(saved[g.lo:g.hi])
+                    g.opt.load_state_dict(_slice_opt_state(state["opt_state"], g.lo, g.hi))
+                    g.generator.set_state(state["generator"])
                 alive = [bool(a) for a in state["alive"]]
                 start_epoch = int(state["epoch"]) + 1
                 print("Resumed vmapped folds from %s at epoch %d"
                       % (resume_from, start_epoch - 1))
 
-        data, n_max = self._train_data(device)
-        times = torch.as_tensor(self.train_hosts[0].times, dtype=torch.float32, device=device)
+        for g in groups:
+            g.data, n_max = self._train_data(g.device, g.lo, g.hi)
+            g.times = torch.as_tensor(self.train_hosts[0].times, dtype=torch.float32,
+                                      device=g.device)
         log_datas = [TrainingLogData() for _ in range(F)]
         empty_cache = [True] * F
         self.step_ms = []
@@ -414,17 +513,20 @@ class VmapXval:
         while any(alive) and epoch < args.epochs + 1:
             start = time.time()
             end_epoch = next_boundary(epoch)
-            idx, mask = self._chunk_stacks(seed, epoch, end_epoch, alive, n_max)
             trained = list(alive)
             # one trace, of the first chunk after the start epoch: every fold
             do_trace = bool(profile_dir) and not traced and epoch > start_epoch
             with profiling.trace(profile_dir if do_trace else None,
                                  "epochs_%d-%d" % (epoch, end_epoch)):
-                elbos, marks = self.train_steps(params_v, opt, generator, idx, mask, data,
-                                                times)
-                finite = torch.isfinite(elbos).all(dim=0).tolist()  # the chunk's one read
+                for g in groups:
+                    idx, mask = self._chunk_stacks(seed, epoch, end_epoch, alive, n_max, g.lo,
+                                                   g.hi, g.device)
+                    g.elbos, g.marks = self.train_steps(g.params, g.opt, g.generator, idx, mask,
+                                                        g.data, g.times)
+                # the chunk's one read
+                finite = [ok for g in groups for ok in torch.isfinite(g.elbos).all(dim=0).tolist()]
             traced = traced or do_trace
-            self.step_ms += elapsed_ms(marks)
+            self.step_ms += elapsed_ms(groups[0].marks)
             for f in range(F):
                 if alive[f] and not finite[f]:
                     print("Fold %d: ELBO = nan, freezing this fold." % (f + 1))
@@ -437,21 +539,22 @@ class VmapXval:
                 if trained[f]:
                     log_datas[f].total_train_time += per_fold
             if epoch % args.test_epoch == 0 and any(alive):
-                self._eval_boundary(params_v, epoch, log_datas, train_writers, valid_writers,
+                self._eval_boundary(groups, epoch, log_datas, train_writers, valid_writers,
                                     empty_cache, alive)
             if ckpt_every and self.ckpt_dir and epoch % ckpt_every == 0:
                 # alive already holds this chunk's freezes: a resumed run
                 # keeps a frozen fold frozen
                 ckpt.save(self.ckpt_dir, epoch, {
-                    "params": params_v,
-                    "opt_state": opt.state_dict(),
-                    "generator": generator.get_state(),
+                    "params": self._stacked_params(groups),
+                    "opt_state": groups[0].opt.state_dict() if len(groups) == 1 else
+                    _cat_opt_states([g.opt.state_dict() for g in groups], device),
+                    "generator": groups[0].generator.get_state(),
                     "epoch": epoch,
                     "alive": torch.tensor(alive),
                 })
             epoch += 1
 
-        self.final_params = params_v
+        self.final_params = self._stacked_params(groups)
         self.log_datas = log_datas
         results = []
         for f in range(F):
@@ -465,7 +568,17 @@ class VmapXval:
             results.append(out)
         return results
 
-    def _eval_boundary(self, params_v, epoch, log_datas, train_writers, valid_writers,
+    @staticmethod
+    def _stacked_params(groups):
+        """Every fold's params, [F, ...] leaves in fold order on the first
+        group's device."""
+        if len(groups) == 1:
+            return groups[0].params
+        return _map_params(lambda *leaves: torch.cat([leaf.detach().to(groups[0].device)
+                                                      for leaf in leaves]),
+                           *(g.params for g in groups))
+
+    def _eval_boundary(self, groups, epoch, log_datas, train_writers, valid_writers,
                        empty_cache, alive):
         """The big-K evaluation of every fold at a ``test_epoch`` boundary:
         each split in one pass for all folds (the sequential driver's
@@ -479,11 +592,12 @@ class VmapXval:
         plot = plot_epoch > 0 and epoch % plot_epoch == 0
         want_theta_plot = bool(getattr(self.settings.params, "theta_columns", None)) and plot
         seed = self.settings.seed or 0
-        gen = torch.Generator(device=self.device).manual_seed(
-            (seed * 1_000_003 + epoch) % (2 ** 62))
-        train_ev = self._evaluate(params_v, "train", args.train_samples, gen, alive,
+        # the sequential driver's generator of (seed, epoch), one a group
+        gens = [torch.Generator(device=g.device).manual_seed((seed * 1_000_003 + epoch) % (2 ** 62))
+                for g in groups]
+        train_ev = self._evaluate(groups, gens, "train", args.train_samples, alive,
                                   with_theta=want_theta_plot)
-        valid_ev = self._evaluate(params_v, "valid", args.test_samples, gen, alive,
+        valid_ev = self._evaluate(groups, gens, "valid", args.test_samples, alive,
                                   with_theta=True)
         train_ev.want_scalars()
         valid_ev.want_scalars()
@@ -610,14 +724,42 @@ def _handle_outlier_folds(args, settings, runner, results, device):
 def run_all_folds(args, settings, device="cuda"):
     """``call_run_xval``'s batched branch: [(split, data pair, best-val
     Results or None)] for every fold, or None (with the printed reason) where
-    this configuration needs the sequential driver."""
+    this configuration needs the sequential driver.  With ``--mesh auto``
+    the folds spread over the local cards (``make_fold_mesh``); the JAX
+    package's decisions and lines, word for word."""
     reason = unsupported_reason(args, settings)
     if reason is not None:
         print("vmap_folds: falling back to sequential folds (%s)" % reason)
         return None
     check_fixed_grid(settings)
+    if getattr(args, "mesh_data", None) or getattr(args, "mesh_sample", None):
+        # an explicit (data, sample) factorisation is a request the fold
+        # mesh cannot honour: the sequential driver shards each fold over it
+        print(
+            "vmap_folds: falling back to sequential folds "
+            "(explicit --mesh_data/--mesh_sample: each fold shards over the "
+            "requested (data, sample) mesh)"
+        )
+        return None
+    fold_mesh = None
+    if getattr(args, "mesh", "off") != "off":
+        devices = local_devices(resolve_device(device))
+        fold_mesh = make_fold_mesh(args.folds, devices)
+        if fold_mesh is None:
+            if len(devices) > 1:
+                print(
+                    "vmap_folds: falling back to sequential folds "
+                    "(no device count > 1 divides folds=%d; sequential folds "
+                    "shard over the (data, sample) mesh)" % args.folds
+                )
+                return None
+            # one device: the batched program still saves the folds' launches
+            print("vmap_folds: single device; running the batched program unsharded")
+        else:
+            print("Fold mesh: %d folds sharded over %d devices"
+                  % (args.folds, fold_mesh.shape["fold"]))
     try:
-        runner = VmapXval(args, settings, device=device)
+        runner = VmapXval(args, settings, device=device, fold_mesh=fold_mesh)
     except UnsupportedVmapXval as e:
         print("vmap_folds: falling back to sequential folds (%s)" % e)
         return None

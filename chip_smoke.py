@@ -108,7 +108,8 @@ Phases, each printing lines of its own:
    predictions, with the kernel's launches;
 16. the models no fused kind covers (``auto_constant(_precisions)``,
    ``debug``, ``prpr_constant(_precisions)``,
-   ``inducer_constant_precisions``, ``dr_growthrate_xval``), each trained
+   ``inducer_constant_precisions``, ``dr_growthrate_xval``, on its first
+   CSV: ``ZOO_FIRST_FILE``), each trained
    for one epoch at its own solver and widths with a checkpoint and served
    one ``predict.main --checkpoint`` request at K=1000 on its own CSV, with
    the step and request walls; 16b ``dr_growthrate`` under ``solver:
@@ -144,7 +145,14 @@ Phases, each printing lines of its own:
    training step on 4 series x 50 samples: the dopri5 adjoint's gradient
    against the fold route's rk4 gradient, and ``adjoint_solver: true``
    midpoint against the fold route's midpoint, each leaf within 5e-2 of its
-   largest entry;
+   largest entry; 19c, the fold-stacked dopri5 forward (``folds=4``: a step
+   controller per fold) on 4 folds' training-step operands of phase 19's
+   model, each B=36 x K=200 (R = 28,800 rows), against each fold alone: each
+   fold's attempted and accepted steps per interval equal, its trajectory
+   within rtol 1e-4 atol 1e-6 (and whether bit-equal), the walls; 19d,
+   ``call_run_xval --vmap_folds`` on phase 19's configuration, 4 folds x 1
+   epoch at K=200 / 200, its artifacts, and the first batched step's loss
+   of each fold against that fold's own step on the same u (rtol 1e-5);
 20. path (c): ``run_inference_graph`` on the demo graph (auto -> prpr -> dr,
    the ``*_constant_precisions`` models at the graph's own samples) with
    epochs cut to 2 and 2 folds a node, its ``dr`` node under ``solver:
@@ -172,10 +180,11 @@ Phases, each printing lines of its own:
    (``reports/recovery_study`` and ``reports/recovery_precisions``) decoded
    again through ``dr_fwd`` and ``dr_prec_fwd`` against their recorded
    x_noiseless and precisions; 20e, ``recovery_study.main`` on
-   ``dr_constant_one`` under ``solver: pallas_midpoint`` at its defaults
-   (1000 epochs, K 200 / 1000, 48 series; HMC stage 3b, ``hmc_refine`` on
-   the local sites, 64 chains x 200 steps, R = 3,072 rows a launch, and 3c,
-   ``hmc_refine_pooled``, 32 x 300, R = 1,536): the headline, the stages'
+   ``dr_constant_one`` under ``solver: pallas_midpoint`` at its widths, its
+   depth cut (``STUDY_DEPTH``: 400 of its 1000 epochs, K 200 / 1000, 48
+   series; HMC stage 3b, ``hmc_refine`` on the local sites, 64 chains x 60
+   of its 200 steps, R = 3,072 rows a launch, and 3c, ``hmc_refine_pooled``,
+   32 x 90 of its 300, R = 1,536): the headline, the stages'
    readings, the tool's recovery.npz keys and REPORT sections, the wall
    and the ``dr`` kernels' launches, each equal to the count of the
    simulator, the training steps, the evaluation chunks and the stages
@@ -187,23 +196,32 @@ Phases, each printing lines of its own:
    the stage's seed, steps cut to 2, bit-equal), then ``check_calibration``
    on its design (R = 48: the last 32-row block half full); 20f and 20g, the
    study's stages 2-3 with both HMC stages (``train_and_score``), their
-   depth cut (``RECORDED_STUDIES``: 500 / 125 training epochs, 100 / 150
-   HMC steps) on the
+   depth cut (``RECORDED_STUDIES``: 300 / 125 training epochs, 40 / 60
+   and 100 / 150 HMC steps) on the
    JAX package's recorded simulations under ``reports/recovery_study``
    (``dr``) and ``reports/recovery_precisions`` (288 series, ``dr_prec`` at
    R = 18,432 and 9,216), each headline and
    the stages' acceptance, cover95, ESS, R-hat and displacement beside the
    recorded report's (recorded at 1,000 / 2,000 and 200 / 300 steps), the
    same checks as 20e; 20h, the other samplers on 20e's trained model at
-   the tools' widths, steps cut to ~100 (``OTHER_SAMPLERS``): ``smc_refine``
-   64 particles x 16 temperatures x 2 moves and ``hmc_refine`` 64 chains x
-   60 steps on 12 series, ``gibbs_refine_pooled`` 16 chains x 100 sweeps
-   and ``pm_refine_shared`` 16 chains x 64 particles x 100 steps (forward
+   the tools' widths, steps cut to ~50 (``OTHER_SAMPLERS``): ``smc_refine``
+   64 particles x 8 temperatures x 2 moves and ``hmc_refine`` 64 chains x
+   30 steps on 12 series, ``gibbs_refine_pooled`` 16 chains x 50 sweeps
+   and ``pm_refine_shared`` 16 chains x 64 particles x 50 steps (forward
    only, R = 49,152) on 48, each with ``check_sampler`` (the
    pseudo-marginal sampler's log-likelihood against float64 instead of a
-   gradient);
-21. the total time, the wall of each group of phases, one line with the
-   readings of phases 19-20h, and the
+   gradient); 20i, serving and refinement over the mesh's ranks
+   (``refine_rank_main``): 2 gloo ranks sharing the card run
+   ``predict.main --mesh_sample 2`` on phase 14's checkpoint (one request
+   at K=1000) and then ``hmc_refine`` (64 chains x 10 steps) and
+   ``smc_refine`` (64 particles x 4 temperatures x 2 moves) on 12 of its
+   series over a (1, 2) mesh, beside the one-process reference in a third
+   process: each rank's ``dr`` launches and rows a launch against the
+   prediction, rank 0 alone writing, the npz bit-equal to the reference's
+   but for the moments (summed over K in halves: rtol 1e-5 atol 1e-6), the
+   samplers' outputs of both ranks bit-equal to the reference's;
+21. the total time, the wall of each group of phases, the depth cuts, one
+   line with the readings of phases 19-20i, and the
    ``kernels`` JSON line (every row with ``launches_vmap``, its launches
    on phases 5e-5f's ``--vmap_folds`` paths, null where none ran it; the
    ``dr_prec`` and ``blackbox`` rows with phase 3f's fold launch times
@@ -211,7 +229,8 @@ Phases, each printing lines of its own:
    launches of phases 14-15 and the times of 14c; the ``dr``, ``dr_prec``
    and ``blackbox`` backward rows with the DReG pulls' launches, times and
    subnormal shares of 17b-17c; the ``dr`` rows with
-   ``launches_distributed``, each rank's launches in 5g's layouts; the
+   ``launches_distributed``, each rank's launches in 5g's layouts, and
+   ``launches_refine_mesh``, each rank's launches on 20i's paths; the
    ``dr`` and ``dr_prec`` rows with
    ``launches_simulate`` (20c), ``launches_recovery`` (20e, null for
    ``dr_prec``), ``launches_recorded_study`` (20f, 20g) and
@@ -230,6 +249,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -248,6 +268,10 @@ SPEC_UNMERGED = os.path.join(HERE, "specs", "dr_constant_icml_unmerged.yaml")
 ZOO_SPECS = ["auto_constant.yaml", "auto_constant_precisions.yaml", "debug.yaml",
              "prpr_constant.yaml", "prpr_constant_precisions.yaml",
              "inducer_constant_precisions.yaml", "dr_growthrate_xval.yaml"]
+#: phase 16: the zoo specs trained on their first CSV only (their epoch's
+#: depth cut to keep the script's time: dr_growthrate_xval's six files made
+#: 7 steps of ~1.8 s on the generic solver, the first makes 2)
+ZOO_FIRST_FILE = ("dr_growthrate_xval.yaml",)
 SPEC_GROWTH = os.path.join(HERE, "specs", "dr_growthrate_xval.yaml")
 REQUESTS = ["proc141021.csv", "proc141023.csv", "proc141028.csv"]
 COUNTERFACTUAL = "C6=25000;C12=0"
@@ -2147,13 +2171,14 @@ class _RecordedRunner:
         xfold.VmapXval = self._cls
 
 
-def vmap_xval(device, spec, flags, phase, kernels):
+def vmap_xval(device, spec, flags, phase, kernels, solver=TRAIN_SOLVER):
     """``call_run_xval.execute`` with ``--vmap_folds`` on ``spec``'s model
-    under ``solver: pallas_midpoint``: all folds in one batched step.  It
-    must train without falling back, write each fold's cache, the 16 merged
+    under ``solver`` (``pallas_midpoint`` unless named): all folds in one
+    batched step.  It must
+    train without falling back, write each fold's cache, the 16 merged
     ``xval_*`` files and the completed marker, and hold each series out
-    once.  Counts ``kernels``' launches over the path from 0.  Returns
-    (readings, the runner)."""
+    once.  Counts ``kernels``' launches over the path from 0 (each must
+    launch).  Returns (readings, the runner)."""
     import statistics
 
     import numpy as np
@@ -2163,7 +2188,7 @@ def vmap_xval(device, spec, flags, phase, kernels):
 
     args = call_run_xval.create_parser(False).parse_args([spec] + flags + ["--vmap_folds"])
     settings = Config(args)
-    settings.params.solver = TRAIN_SOLVER
+    settings.params.solver = solver
     name = os.path.basename(spec)[: -len(".yaml")]
     print("phase %s: call_run_xval --vmap_folds on %s, %d folds of %d epochs in one batched "
           "step, solver %s, K=%d / %d"
@@ -2204,7 +2229,7 @@ def vmap_xval(device, spec, flags, phase, kernels):
              [int(c) for c in merge.chunk_sizes], len(runner.step_ms), spe, step_ms,
              " after the first epoch" if runner.step_ms[spe:] else "",
              ", ".join("%s launches %d" % kv for kv in launches.items())))
-    if min(launches.values()) == 0:
+    if launches and min(launches.values()) == 0:
         fail("call_run_xval --vmap_folds did not launch %s" % launches)
     return dict(launches=launches, wall=wall, elbo=elbo.tolist(), step_ms=step_ms,
                 elbo_list=[list(map(float, e)) for e in merge.elbo_list]), runner
@@ -2368,14 +2393,17 @@ def phase_unmerged_kernels(device):
     return {"fwd": {k: f[k] for k in keys}, "bwd": {k: b[k] for k in keys}, "T": T}
 
 
-def write_spec(src, directory, **params):
+def write_spec(src, directory, files=None, **params):
     """A copy of the spec ``src`` under ``directory`` with ``params`` set in
-    its ``params:`` section (the order of its sites kept); returns its path."""
+    its ``params:`` section (the order of its sites kept) and, with
+    ``files``, only its first ``files`` CSVs; returns its path."""
     import yaml
 
     with open(src) as f:
         config = yaml.safe_load(f)
     config["params"].update(params)
+    if files is not None:
+        config["data"]["files"] = config["data"]["files"][:files]
     path = os.path.join(directory, os.path.basename(src))
     with open(path, "w") as f:
         yaml.safe_dump(config, f, sort_keys=False)
@@ -2454,6 +2482,9 @@ def phase_zoo(device, results_dir):
     for name in ZOO_SPECS:
         stem = name[: -len(".yaml")]
         spec = os.path.join(HERE, "specs", name)
+        if name in ZOO_FIRST_FILE:
+            # a spec copy, so that serving reads the grid the model trained on
+            spec = write_spec(spec, results_dir, files=1)
         args, settings = training_settings(None, spec, [
             "--experiment", "zoo_" + stem, "--epochs", "1", "--test_epoch", "1",
             "--train_samples", str(K_TRAIN), "--test_samples", str(K_SERVE), "--seed", str(SEED),
@@ -2970,6 +3001,7 @@ def phase_adaptive(device):
                  len(rhs.ts), cap, out["capped"], fwd_s))
         if out["capped"]:
             fail("phase 19: %d interval(s) hit the step cap" % out["capped"])
+        out["folds"] = phase_adaptive_folds(device, model, program, params, host)
 
         # one serving request at K=1000 on the trained params
         req = create_parser().parse_args([SPEC, "--data", REQUESTS[0], "--test_samples",
@@ -2983,6 +3015,154 @@ def phase_adaptive(device):
               "elbo %.3f" % (model.ode_model._solver_for(True), REQUESTS[0],
                              n, K_SERVE, out["request_s"], served.merged.elbo))
     return out
+
+
+#: phase 19c: the folds of the fold-stacked forward; fold f takes the f % 2
+#: batch of phase 19's 72 training series and a draw u of its own
+ADAPTIVE_FOLDS = 4
+#: phase 19c: each fold's trajectory against the fold alone
+FOLD_RTOL, FOLD_ATOL = 1e-4, 1e-6
+
+
+def phase_adaptive_folds(device, model, program, params, host):
+    """Phase 19c: ``dopri.integrate_adaptive(folds=4)`` (a step controller
+    per fold) on 4 folds' training-step operands of phase 19's trained
+    model, each B=36 x K=200 (R = 28,800 rows: fold f the f % 2 batch of
+    the training split and a draw u of its own), against each fold
+    integrated alone: each fold's attempted and accepted steps per interval
+    equal, its trajectory within ``FOLD_RTOL`` / ``FOLD_ATOL`` (and whether
+    bit-equal), the walls."""
+    import numpy as np
+    import torch
+
+    from vihds_tpu_torch.ops import dopri
+    from vihds_tpu_torch.training import batch_tensors
+
+    B, F = 36, ADAPTIVE_FOLDS
+    n_train = host.observations.shape[0]
+    times = torch.as_tensor(host.times, dtype=torch.float32, device=device)
+    ode = model.ode_model
+    folds = []
+    with torch.no_grad():
+        for f in range(F):
+            batch = batch_tensors(host, (np.arange(B) + (f % 2) * B) % n_train, times, device)
+            gen = torch.Generator(device=device).manual_seed(SEED + 11 + f)
+            q = model.encoder(params["enc"], batch)
+            u = model.sample_u(gen, B, K_TRAIN, device)
+            th = program.theta_dict(program.clip(program.sample(q, u)))
+            th = ode.condition_theta(params["dec"], th, batch.dev_1hot)
+            folds.append((th, batch, ode.initialize_state(params["dec"], th, batch.inputs, B,
+                                                          K_TRAIN)))
+        th_all = {k: torch.cat([th[k] for th, _, _ in folds]) for k in folds[0][0]}
+        rhs = ode.make_rhs(params["dec"], th_all,
+                           torch.cat([b.inputs for _, b, _ in folds]),
+                           torch.cat([b.dev_1hot for _, b, _ in folds]))
+        y0 = torch.cat([y for _, _, y in folds])
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys = dopri.integrate_adaptive(rhs, y0, times, method=ADAPTIVE_SOLVER, folds=F,
+                                      stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        alone_walls, same_steps, close, exact = [], [], [], []
+        for f, (th, batch, y0_f) in enumerate(folds):
+            alone = {}
+            t0 = time.perf_counter()
+            y = dopri.integrate_adaptive(ode.make_rhs(params["dec"], th, batch.inputs,
+                                                      batch.dev_1hot), y0_f, times,
+                                         method=ADAPTIVE_SOLVER, stats=alone)
+            torch.cuda.synchronize()
+            alone_walls.append(time.perf_counter() - t0)
+            got = ys[:, f * B:(f + 1) * B]
+            same_steps.append(bool(torch.equal(stats["attempted"][:, f], alone["attempted"])
+                                   and torch.equal(stats["accepted"][:, f], alone["accepted"])))
+            close.append(bool(torch.allclose(got, y, rtol=FOLD_RTOL, atol=FOLD_ATOL)))
+            exact.append(bool(torch.equal(got, y)))
+    attempted = stats["attempted"]
+    out = dict(wall=wall, alone_walls=alone_walls, attempted=attempted.sum(0).tolist(),
+               accepted=stats["accepted"].sum(0).tolist(),
+               per_interval_max=attempted.max(0).values.tolist(), steps_equal=same_steps,
+               close=close, bit_equal=exact)
+    print("phase 19c: the fold-stacked %s forward on %d folds' training-step operands (B=%d x "
+          "K=%d each, R = %d, T=%d): %.3f s wall; each fold alone %s s (sum %.3f); per fold "
+          "attempted steps %s (accepted %s), per interval max %s; per interval equal to the "
+          "fold alone: %s; trajectories within rtol %g atol %g: %s, bit-equal: %s"
+          % (ADAPTIVE_SOLVER, F, B, K_TRAIN, F * B * K_TRAIN, len(host.times), wall,
+             ", ".join("%.3f" % w for w in alone_walls), sum(alone_walls), out["attempted"],
+             out["accepted"], out["per_interval_max"], same_steps, FOLD_RTOL, FOLD_ATOL, close,
+             exact))
+    if not all(same_steps) or not all(close):
+        fail("phase 19c: a fold's steps or trajectory differ from the fold alone")
+    return out
+
+
+#: phase 19d: phase 19's configuration (the spec's first CSV, solver
+#: dopri5) over 4 folds in one batched step, one epoch, K = 200 in both
+#: evaluations (the valid split's 1000 cut to keep the script's time)
+VMAP_ADAPTIVE_FLAGS = ["--experiment", "chip_smoke_dopri5_vmap", "--epochs", "1",
+                       "--test_epoch", "1", "--train_samples", str(K_TRAIN), "--test_samples",
+                       str(K_TRAIN), "--seed", str(SEED), "--folds", str(ADAPTIVE_FOLDS)]
+#: phase 19d: a fold's first batched loss against the fold's own step
+VMAP_LOSS_RTOL = 1e-5
+
+
+def phase_vmap_adaptive(device):
+    """Phase 19d: ``call_run_xval --vmap_folds`` on phase 19's configuration
+    (``dr_constant_icml`` under ``solver: dopri5``, its first CSV), 4 folds
+    x 1 epoch at K=200: the artifacts as 5e checks them; the first batched
+    step's per-fold loss against a one-fold step of each fold on the same
+    params, rows, mask and u (``VMAP_LOSS_RTOL``, and whether bit-equal)."""
+    import torch
+
+    from vihds_tpu_torch import xfold
+    from vihds_tpu_torch.training import loss_fn
+    from vihds_tpu_torch.utils.attrdict import AttrDict
+
+    first = []
+    batched_loss = xfold.loss_fn
+
+    def recorded(model, program, params, batch, mask, u, folds=None):
+        loss = batched_loss(model, program, params, batch, mask, u, folds=folds)
+        if not first:
+            first.append(dict(params=_map_tree(lambda v: v.detach().clone(), params),
+                              batch=AttrDict(batch), mask=mask, u=u, loss=loss.detach().clone(),
+                              folds=folds))
+        return loss
+
+    xfold.loss_fn = recorded
+    try:
+        with tempfile.TemporaryDirectory() as spec_dir:
+            got, runner = vmap_xval(device, write_spec(SPEC, spec_dir, files=ADAPTIVE_FILES),
+                                    VMAP_ADAPTIVE_FLAGS, "19d", (), solver=ADAPTIVE_SOLVER)
+    finally:
+        xfold.loss_fn = batched_loss
+    step = first[0]
+    F, B = step["folds"], runner.n_batch
+    alone, rel, exact = [], [], []
+    with torch.no_grad():
+        for f in range(F):
+            rows = slice(f * B, (f + 1) * B)
+            batch = AttrDict((k, v if k == "times" else v[rows]) for k, v in step["batch"].items())
+            loss = loss_fn(runner.model, runner.program,
+                           _map_tree(lambda v: v[f], step["params"]), batch, step["mask"][rows],
+                           step["u"][rows])
+            alone.append(float(loss))
+            want = float(step["loss"][f])
+            rel.append(abs(alone[-1] - want) / abs(want))
+            exact.append(bool(torch.equal(loss, step["loss"][f])))
+    got.update(first_losses=step["loss"].tolist(), alone_losses=alone, rel=rel, bit_equal=exact)
+    print("phase 19d: the first batched step's fold losses %s against each fold's own step %s: "
+          "max relative difference %.3e (rtol %g), bit-equal %s"
+          % (", ".join("%.4f" % v for v in got["first_losses"]),
+             ", ".join("%.4f" % v for v in alone), max(rel), VMAP_LOSS_RTOL, exact))
+    if not max(rel) <= VMAP_LOSS_RTOL:
+        fail("phase 19d: a fold's batched loss differs from its own step's")
+    return got
+
+
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
 
 
 def phase_adjoint_check(device):
@@ -3592,7 +3772,7 @@ class SamplerCalls:
 
 
 def _double(tree):
-    return {k: _double(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.double()
+    return _map_tree(lambda v: v.double(), tree)
 
 
 def refine_grad(model, program, params, batch, z, site_mask, solver, capture=None):
@@ -3670,13 +3850,14 @@ def check_sampler(device, call, kind, phase, label):
     ``cotangent_readings`` at phase 3's backward limits), and the whole
     log-joint's normwise (near the posterior's mode its data and prior
     terms nearly cancel, so the relative error of its small elements reads
-    the cancellation, not the kernels); the percentile is held where the
-    plain float32 route holds it (elsewhere, as on a Gibbs chain's last
-    shared sites, the float32 arithmetic around the kernel sets it, and the
-    plain float32 route's readings stand beside); then the backward kernel
-    on the last gradient's operands (the trajectory cotangent of R = series
-    x chains rows, dense) against the plain sweep in float64, its zero
-    share and time beside the bound.  The pseudo-marginal sampler (no
+    the cancellation, not the kernels); each limit, normwise and percentile,
+    is held where the plain float32 route meets it (elsewhere, as on a
+    Gibbs chain's last shared sites, the float32 arithmetic around the
+    kernel sets the reading, and the plain float32 route's readings stand
+    beside); then the backward kernel on the last gradient's operands (the
+    trajectory cotangent of R = series x chains rows, dense) against the
+    plain sweep in float64, each limit held where the plain sweep in
+    float32 meets it, its zero share and time beside the bound.  The pseudo-marginal sampler (no
     gradient): its log-likelihood at the returned theta against float64.
     Last, two repeat runs of the sampler (its steps cut to REPEAT_STEPS)
     with the call's seed, bit for bit.  Fails the phase on a mismatch;
@@ -3736,19 +3917,21 @@ def check_sampler(device, call, kind, phase, label):
             joint, _ = cotangent_readings(rows(lik32 + prior32), rows(lik64 + prior64))
             readings[where] = dict(normwise=float(norm.max()), p99=float(p99.max()),
                                    joint_normwise=float(joint.max()), plain32=None,
-                                   p99_held=True)
-            if float(p99.max()) > BWD_P99_TOL:
-                # the percentile is held where the plain float32 route holds it: elsewhere
+                                   norm_held=True, p99_held=True)
+            if float(p99.max()) > BWD_P99_TOL or float(norm.max()) > BWD_NORM_TOL:
+                # each limit is held where the plain float32 route meets it: elsewhere
                 # the float32 arithmetic around the kernels (clip, observe, the
-                # log-likelihood) sets it
+                # log-likelihood) sets the reading, and the plain route's stands beside
                 plain32, _ = refine_grad(model, program, params, batch, z, site_mask, "midpoint")
                 p_norm, p_p99 = cotangent_readings(rows(plain32)[keep], b[keep])
                 readings[where].update(plain32=(float(p_norm.max()), float(p_p99.max())),
+                                       norm_held=float(p_norm.max()) <= BWD_NORM_TOL,
                                        p99_held=float(p_p99.max()) <= BWD_P99_TOL)
-            held = readings[where]["p99_held"]
-            ok = (ok and bool(torch.isfinite(lik32).all()) and float(norm.max()) <= BWD_NORM_TOL
-                  and (not held or float(p99.max()) <= BWD_P99_TOL)
-                  and float(joint.max()) <= BWD_NORM_TOL)
+            r = readings[where]
+            ok = (ok and bool(torch.isfinite(lik32).all())
+                  and (not r["norm_held"] or float(norm.max()) <= BWD_NORM_TOL)
+                  and (not r["p99_held"] or float(p99.max()) <= BWD_P99_TOL)
+                  and (not r["norm_held"] or float(joint.max()) <= BWD_NORM_TOL))
         out["grad"] = readings
         k, wmat, packed, times, traj, g, method = operands[-1]
         T_, S, R = traj.shape
@@ -3767,30 +3950,49 @@ def check_sampler(device, call, kind, phase, label):
                               if wmat is not None else 0))
             ms = cuda_ms(lambda: fused_ode.kind_bwd(k, wmat, packed, times, traj, g, method), 20)
             bound_ms, bound_by = bound(n_bytes, flops_per_step(k)[1][method] * (T_ - 1) * R)
+            b_plain32, b_norm_held, b_p99_held = None, True, True
+            if float(norm.max()) > BWD_NORM_TOL or float(p99.max()) > BWD_P99_TOL:
+                # the kernel's plain version in float32 on the same operands: each
+                # limit is held where it meets it (elsewhere float32 sets the reading)
+                _, pc, py0 = fused_ode._plain_bwd(k, wmat, packed, times, traj, g, method)
+                p_norm, p_p99 = cotangent_readings(torch.cat([pc, py0]), ref_b, True)
+                b_plain32 = (float(p_norm.max()), float(p_p99.max()))
+                b_norm_held = b_plain32[0] <= BWD_NORM_TOL
+                b_p99_held = b_plain32[1] <= BWD_P99_TOL
         zero = float((g == 0).double().mean())
-        bwd_ok = (bool(torch.isfinite(got_b).all()) and float(norm.max()) <= BWD_NORM_TOL
-                  and float(p99.max()) <= BWD_P99_TOL and (w_rel is None or w_rel <= BWD_NORM_TOL))
+        bwd_ok = (bool(torch.isfinite(got_b).all())
+                  and (not b_norm_held or float(norm.max()) <= BWD_NORM_TOL)
+                  and (not b_p99_held or float(p99.max()) <= BWD_P99_TOL)
+                  and (w_rel is None or w_rel <= BWD_NORM_TOL))
         ok = ok and bwd_ok
         out["bwd"] = dict(rows=R, zero_share=zero, normwise=float(norm.max()),
-                          p99=float(p99.max()), dw_rel=w_rel, ms=ms, bound_ms=bound_ms,
+                          p99=float(p99.max()), plain32=b_plain32, norm_held=b_norm_held,
+                          p99_held=b_p99_held, dw_rel=w_rel, ms=ms, bound_ms=bound_ms,
                           bound_by=bound_by)
         def grad_text(r):
-            plain = "; plain float32 %.3e / %.3e" % r["plain32"] if r["plain32"] else ""
-            return "%.3e / %.3e%s (log-joint %.3e%s)" % (
-                r["normwise"], r["p99"], "" if r["p99_held"] else " not held", r["joint_normwise"],
-                plain)
+            plain = ("; plain float32 normwise / p99 %.3e / %.3e" % r["plain32"]
+                     if r["plain32"] else "")
+            return "%.3e%s / %.3e%s (log-joint %.3e%s)" % (
+                r["normwise"], "" if r["norm_held"] else " not held", r["p99"],
+                "" if r["p99_held"] else " not held", r["joint_normwise"], plain)
+
+        rb = out["bwd"]
+        bwd_plain = ("; plain float32 %.3e%s / %.3e%s" % (
+            rb["plain32"][0], "" if rb["norm_held"] else " (normwise not held)",
+            rb["plain32"][1], "" if rb["p99_held"] else " (p99 not held)")
+            if rb["plain32"] else "")
 
         print("  %s %s (%s, R = %d): %.1f s, %s launches %d (%d expected), %s %d (%d expected); "
               "z-gradient of the data term through the kernels against the plain route in "
               "float64, normwise / p99 (limits %g / %g) at the first step %s, at the last %s; %s "
               "on the last gradient's operands (T=%d, R=%d; cotangent %.4f exactly zero) against "
-              "the plain sweep in float64: worst normwise %.3e, worst p99 %.3e%s; kernel %.4f ms  "
-              "bound %.4f ms (%s)"
+              "the plain sweep in float64: worst normwise %.3e, worst p99 %.3e%s%s; kernel %.4f "
+              "ms  bound %.4f ms (%s)"
               % (phase, label, name, out["rows"], call["wall"], fwd, got[0], want[0], bwd, got[1],
                  want[1], BWD_NORM_TOL, BWD_P99_TOL, grad_text(readings["first"]),
                  grad_text(readings["last"]), bwd, T_, R, zero, float(norm.max()),
-                 float(p99.max()), ", dW %.3e" % w_rel if w_rel is not None else "", ms,
-                 bound_ms, bound_by))
+                 float(p99.max()), bwd_plain, ", dW %.3e" % w_rel if w_rel is not None else "",
+                 ms, bound_ms, bound_by))
     steps = {"gibbs_refine_pooled": "n_sweeps", "smc_refine": "n_temps"}.get(name, "n_steps")
     short = dict(kw, **{steps: min(REPEAT_STEPS, kw.get(steps, REPEAT_STEPS))})
     fn = getattr(refine, name)
@@ -3888,8 +4090,8 @@ def check_stages(device, calls, kind, phase):
 
 def phase_recovery(device):
     """Phase 20e: ``recovery_study.main`` on ``dr_constant_one`` under
-    ``solver: pallas_midpoint`` at its defaults, HMC stages 3b (64 chains x
-    200 steps) and 3c (32 x 300) included: REPORT.md and recovery.npz
+    ``solver: pallas_midpoint`` at its widths and ``STUDY_DEPTH``, HMC
+    stages 3b (64 chains x 60 steps) and 3c (32 x 90) included: REPORT.md and recovery.npz
     written with the tool's keys and sections, a finite headline, the wall
     and the ``dr`` kernels' launches, each the count the simulator, the
     steps, the evaluation chunks and the stages make; each stage's
@@ -3908,7 +4110,7 @@ def phase_recovery(device):
     with tempfile.TemporaryDirectory() as directory:
         src = write_spec(SPEC_ONE, directory, solver=TRAIN_SOLVER)
         outdir = os.path.join(directory, "study")
-        argv = ["--spec", src, "--outdir", outdir]
+        argv = ["--spec", src, "--outdir", outdir] + STUDY_DEPTH
         summary, wall, launches, log, calls = run_study(
             device, directory, lambda a: rs.main(a, device=device), argv)
         args = rs.parse(argv)
@@ -3935,12 +4137,22 @@ def phase_recovery(device):
                 readings={k: summary[k] for k in STAGE_READINGS}, source=source)
 
 
+#: phase 20e: the study's depth cut to keep the script within its time
+#: limit (its widths, chains and series, are the study's defaults): 400 of
+#: its 1000 training epochs, 60 / 90 of its stages' 200 / 300 HMC steps
+STUDY_DEPTH = ["--epochs", "400", "--refine_steps", "60", "--pooled_steps", "90"]
 #: phases 20f and 20g: (phase, reports/ folder, source spec, fused kind,
 #: training epochs, HMC steps of stages 3b / 3c).  The depth is cut to keep
 #: the script within its time limit (the widths, chains and series, are the
-#: study's): 20f trains 500 of the study's 1000 epochs, 20g 125 (750 of 6000
-#: steps on 216 series); both run 100 / 150 of the stages' 200 / 300 steps
-RECORDED_STUDIES = (("20f", "recovery_study", SPEC_ONE, "dr", 500, (100, 150)),
+#: study's): 20f trains 300 of the study's 1000 epochs and runs 40 / 60 of
+#: the stages' 200 / 300 steps; 20g trains 125 (750 of 6000 steps on 216
+#: series) and runs 100 / 150 (cut further, to 75 epochs and 40 / 60
+#: steps, its last pooled chains' z-gradient and ``dr_prec_bwd`` on their
+#: operands read 1.46e-4 / 2.68e-4 normwise against float64, and the plain
+#: float32 route and sweep the same: float32's, so ``check_sampler`` holds
+#: the normwise limit where the plain route meets it;
+#: ``tools/recorded_study_check.py`` runs that depth)
+RECORDED_STUDIES = (("20f", "recovery_study", SPEC_ONE, "dr", 300, (40, 60)),
                     ("20g", "recovery_precisions", SPEC_PREC, "dr_prec", 125, (100, 150)))
 
 
@@ -4013,13 +4225,13 @@ def phase_recorded_study(device, phase, report, spec_src, kind, epochs, steps=No
 #: phase 20h: the other samplers at the tools' widths on 20e's trained model
 #: (tools/refine_demo.py:61-67 on 12 series, seed 7;
 #: tools/ar_mu_ground_truth.py:210-230 on every series, seed + 101), their
-#: steps cut to ~100: (sampler, series, seed, keywords)
+#: steps cut to ~50: (sampler, series, seed, keywords)
 OTHER_SAMPLERS = (
-    ("smc_refine", 12, 7, dict(n_particles=64, n_temps=16, n_moves=2)),
-    ("hmc_refine", 12, 7, dict(n_chains=64, n_steps=60)),
-    ("gibbs_refine_pooled", None, 101, dict(n_chains=16, n_sweeps=100, n_leapfrog=10,
+    ("smc_refine", 12, 7, dict(n_particles=64, n_temps=8, n_moves=2)),
+    ("hmc_refine", 12, 7, dict(n_chains=64, n_steps=30)),
+    ("gibbs_refine_pooled", None, 101, dict(n_chains=16, n_sweeps=50, n_leapfrog=10,
                                             return_trace=True)),
-    ("pm_refine_shared", None, 101, dict(n_chains=16, n_steps=100, n_particles=64, rho=0.98,
+    ("pm_refine_shared", None, 101, dict(n_chains=16, n_steps=50, n_particles=64, rho=0.98,
                                          return_trace=True)),
 )
 
@@ -4077,6 +4289,210 @@ def phase_other_samplers(device, source):
     return dict(launches=launches, samplers=out)
 
 
+#: phase 20i: the samplers over the mesh's ranks, at phase 20h's widths and
+#: a cut depth (HMC 10 of its 60 steps, SMC 4 of its 16 temperatures), on
+#: the first series of the request phase 20i serves: (sampler, seed, keywords)
+MESH_SAMPLERS = (("hmc_refine", 7, dict(n_chains=64, n_steps=10)),
+                 ("smc_refine", 7, dict(n_particles=64, n_temps=4, n_moves=2)))
+MESH_SERIES = 12
+#: the line a phase 20i process prints its readings on
+REFINE_RANK_LINE = "phase 20i rank: "
+#: phase 20i: the served moments (sums over K, added in halves by the two
+#: sample ranks) against the one process's
+MESH_IW_RTOL, MESH_IW_ATOL = 1e-5, 1e-6
+
+
+def refine_rank_main(argv):
+    """One process of phase 20i: ``CFG RANK WORLD PORT PORT2``.  With WORLD 2
+    it is one rank: ``predict.main`` on CFG's request with ``--mesh_sample 2
+    --distributed 127.0.0.1:PORT,2,RANK``, then, in a second process group
+    at PORT2, each of ``MESH_SAMPLERS`` under a (1, 2) mesh on the first
+    ``MESH_SERIES`` series of the request; with WORLD 1 the same without a
+    mesh, the one-process reference.  The ``dr`` counts are set to 0 just
+    before each; it writes its samplers' outputs and prints one
+    ``REFINE_RANK_LINE`` with the launches and rows a launch of each."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from vihds_tpu_torch import parallel, predict as P, refine
+    from vihds_tpu_torch.config import Config
+    from vihds_tpu_torch.data.datasets import build_datasets
+    from vihds_tpu_torch.ops import fused_ode
+    from vihds_tpu_torch.parallel import multihost
+    from vihds_tpu_torch.prob import ParamProgram, parse_parameters
+    from vihds_tpu_torch.training import batch_tensors
+    from vihds_tpu_torch.vae import VAE, params_to
+
+    cfg_path, rank, world, port, port2 = argv[0], *map(int, argv[1:5])
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    label = "rank%d" % rank if world > 1 else "one"
+    rows = {"dr_fwd": collections.Counter(), "dr_bwd": collections.Counter()}
+    kind_fwd, kind_bwd = fused_ode.kind_fwd, fused_ode.kind_bwd
+
+    def fwd(kind, wmat, packed, *a):
+        rows[kind + "_fwd"][int(packed.shape[1])] += 1
+        return kind_fwd(kind, wmat, packed, *a)
+
+    def bwd(kind, wmat, packed, *a):
+        rows[kind + "_bwd"][int(packed.shape[1])] += 1
+        return kind_bwd(kind, wmat, packed, *a)
+
+    fused_ode.kind_fwd, fused_ode.kind_bwd = fwd, bwd
+
+    def reset():
+        for k, c in rows.items():
+            _counter(k).launches = 0
+            c.clear()
+
+    device = torch.device(cfg["device"])
+
+    def reading(t0):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return dict(wall=time.perf_counter() - t0,
+                    launches={k: _counter(k).launches for k in rows},
+                    rows={k: {str(r): n for r, n in sorted(c.items())} for k, c in rows.items()})
+
+    readings = {}
+    request = cfg["predict"] + ["--output", os.path.join(cfg["dir"], label + ".npz")]
+    if world > 1:
+        request += ["--mesh_sample", str(world), "--distributed",
+                    "127.0.0.1:%d,%d,%d" % (port, world, rank)]
+    reset()
+    t0 = time.perf_counter()
+    served = P.main(request, device=cfg["device"])
+    readings["predict"] = reading(t0)
+
+    mesh = None
+    if world > 1:
+        _, _, device = multihost.initialize("tcp://127.0.0.1:%d" % port2, world, rank,
+                                            device=cfg["device"])
+        mesh = parallel.make_mesh(1, world, device=device)
+    args = P.create_parser().parse_args(cfg["predict"])
+    args.heldout = None
+    settings = Config(args)
+    model = VAE(settings, build_datasets(args, settings),
+                ParamProgram(parse_parameters(settings.params)))
+    params = params_to(P.restore_params(args.checkpoint)[1], device)
+    host = served.host
+    times = torch.as_tensor(host.times, dtype=torch.float32, device=device)
+    batch = batch_tensors(host, np.arange(MESH_SERIES), times, device)
+    outputs = {}
+    with parallel.use_mesh(mesh):
+        for name, seed, kw in MESH_SAMPLERS:
+            reset()
+            t0 = time.perf_counter()
+            res = getattr(refine, name)(model, model.program, params, batch, seed, **kw)
+            readings[name] = reading(t0)
+            outputs.update({"%s/%s" % (name, k): v.cpu().numpy() for k, v in res.items()
+                            if isinstance(v, torch.Tensor)})
+    np.savez(os.path.join(cfg["dir"], label + "_samplers.npz"), **outputs)
+    print(REFINE_RANK_LINE + json.dumps(dict(rank=rank, world=world, readings=readings)),
+          flush=True)
+    multihost.shutdown()
+    return 0
+
+
+def phase_refine_mesh(device, ckpt_dir):
+    """Phase 20i: serving and refinement over the mesh's ranks: one launch
+    of 2 gloo ranks sharing the card (``refine_rank_main``) beside the
+    one-process reference (a third process): ``predict.main --mesh_sample 2``
+    on phase 14's checkpoint (one request at K=1000 under ``pallas_midpoint``),
+    then ``MESH_SAMPLERS`` over a (1, 2) mesh.  Each rank's ``dr`` launches and
+    rows a launch against the prediction (``sampler_launches``; the request's
+    chunk at R = 36 x 1000 / 2), rank 0 alone writing the npz; the npz
+    against the reference's (bit for bit but the moments, ``MESH_IW_RTOL``),
+    the samplers' outputs of both ranks against the reference's bit for bit."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as directory:
+        spec = write_spec(SPEC_UNMERGED, directory, solver=TRAIN_SOLVER,
+                          eval_solver=TRAIN_SOLVER)
+        cfg = dict(dir=directory, device=str(device),
+                   predict=[spec, "--checkpoint", ckpt_dir, "--data", REQUESTS[0],
+                            "--test_samples", str(K_SERVE), "--seed", str(SEED)])
+        cfg_path = os.path.join(directory, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        cwd = os.path.join(directory, "cwd")
+        os.makedirs(cwd)
+        port, port2 = _free_port(), _free_port()
+        code = "import sys, chip_smoke; sys.exit(chip_smoke.refine_rank_main(sys.argv[1:]))"
+        env = dict(os.environ, PYTHONPATH=HERE)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", code, cfg_path] + list(map(str, a)),
+                                  cwd=cwd, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for a in ((0, 2, port, port2), (1, 2, port, port2), (0, 1, 0, 0))]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=max(1.0, DIST_WALL
+                                                      - (time.perf_counter() - t0))))
+        except subprocess.TimeoutExpired:
+            fail("phase 20i: a process ran past %d s" % DIST_WALL)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        readings = {}
+        for label, p, (out, err) in zip(("rank0", "rank1", "one"), procs, outs):
+            line = [ln for ln in out.splitlines() if ln.startswith(REFINE_RANK_LINE)]
+            if p.returncode != 0 or len(line) != 1:
+                fail("phase 20i: %s exited %s:\n%s\n%s" % (label, p.returncode, out[-3000:],
+                                                          err[-3000:]))
+            readings[label] = json.loads(line[0][len(REFINE_RANK_LINE):])["readings"]
+        if os.path.exists(os.path.join(directory, "rank1.npz")) or os.listdir(cwd):
+            fail("phase 20i: rank 1 wrote %s" % os.listdir(cwd))
+        npz = {label: dict(np.load(os.path.join(directory, label + ".npz"), allow_pickle=True))
+               for label in ("rank0", "one")}
+        samplers = {label: dict(np.load(os.path.join(directory, label + "_samplers.npz")))
+                    for label in ("rank0", "rank1", "one")}
+    want = {"predict": ((1, 0), {"dr_fwd": {str(36 * K_SERVE // 2): 1}, "dr_bwd": {}})}
+    for name, _, kw in MESH_SAMPLERS:
+        f, b = sampler_launches(name, kw)
+        R = MESH_SERIES * kw.get("n_chains", kw.get("n_particles")) // 2
+        want[name] = ((f, b), {"dr_fwd": {str(R): f}, "dr_bwd": {str(R): b}})
+    for label in ("rank0", "rank1"):
+        for path, ((f, b), want_rows) in want.items():
+            got = readings[label][path]
+            print("phase 20i: %s, %s: dr_fwd launches %d, dr_bwd launches %d (predicted %d / %d); "
+                  "rows a launch %s (predicted %s); %.2f s (one process %.2f s)"
+                  % (label, path, got["launches"]["dr_fwd"], got["launches"]["dr_bwd"], f, b,
+                     json.dumps(got["rows"]), json.dumps(want_rows), got["wall"],
+                     readings["one"][path]["wall"]))
+            if (got["launches"]["dr_fwd"], got["launches"]["dr_bwd"]) != (f, b) \
+                    or got["rows"] != want_rows:
+                fail("phase 20i: %s's %s launches or rows differ from the prediction"
+                     % (label, path))
+    mesh_npz, one_npz = npz["rank0"], npz["one"]
+    iw = ("iw_predict_mu", "iw_predict_std", "iw_states", "iw_variance")
+    differ = [k for k in one_npz if k not in iw and not np.array_equal(mesh_npz[k], one_npz[k])]
+    iw_diff = {k: float(np.max(np.abs(mesh_npz[k] - one_npz[k]))) for k in iw}
+    iw_close = all(np.allclose(mesh_npz[k], one_npz[k], rtol=MESH_IW_RTOL, atol=MESH_IW_ATOL)
+                   for k in iw)
+    keys = sorted(samplers["one"])
+    unequal = [k for k in keys for label in ("rank0", "rank1")
+               if not np.array_equal(samplers[label][k], samplers["one"][k])]
+    finite = all(np.isfinite(samplers["one"][k]).all() for k in keys
+                 if samplers["one"][k].dtype.kind == "f")
+    print("phase 20i: 2 gloo ranks and the one-process reference, %.1f s wall; rank 0 alone "
+          "wrote; the npz against one process: bit-equal but %s, the moments' max |diff| %s "
+          "(rtol %g atol %g: %s); the samplers' %d outputs of both ranks bit-equal to one "
+          "process: %s; finite: %s"
+          % (wall, differ or "none", json.dumps({k: "%.3e" % v for k, v in iw_diff.items()}),
+             MESH_IW_RTOL, MESH_IW_ATOL, iw_close, len(keys), not unequal, finite))
+    if differ or not iw_close or unequal or not finite:
+        fail("phase 20i: the ranks' outputs differ from one process's: %s %s" % (differ,
+                                                                                  unequal[:5]))
+    return dict(wall=wall, readings=readings, iw_diff=iw_diff)
+
+
 class PhaseWalls:
     """The wall of each group of phases: ``mark(label)`` closes the group
     that began at the last mark (or at creation)."""
@@ -4095,6 +4511,12 @@ def distributed_launches(distributed, kernel):
     """{layout: {rank: launches of ``kernel``}} of phase 5g."""
     return {label: {str(r): got["launches"][kernel] for r, got in run["ranks"].items()}
             for label, run in distributed["layouts"].items()}
+
+
+def mesh_launches(refine_mesh, kernel):
+    """{rank: {path: launches of ``kernel``}} of phase 20i's two ranks."""
+    return {label: {path: r["launches"][kernel] for path, r in got.items()}
+            for label, got in refine_mesh["readings"].items() if label != "one"}
 
 
 def refine_launches(paths, i):
@@ -4134,6 +4556,38 @@ def kernel_row(kind, direction, rows, launches, **extra):
         **({"block": row["block"]} if "block" in row else {}),
         **extra,
     )
+
+
+def depth_statement():
+    """Each phase whose depth is cut to keep the script within its time
+    limit: {phase: {setting: [this run's, the default]}}, read from
+    ``STUDY_DEPTH``, ``RECORDED_STUDIES``, ``OTHER_SAMPLERS`` and
+    ``ZOO_FIRST_FILE`` against the study's, the samplers' and the specs'
+    own defaults."""
+    import inspect
+
+    import yaml
+
+    from vihds_tpu_torch import recovery_study as rs
+    from vihds_tpu_torch import refine
+
+    study = rs.parse([])
+    keys = ("epochs", "refine_steps", "pooled_steps")
+    cut = rs.parse(STUDY_DEPTH)
+    out = {"20e": {k: [getattr(cut, k), getattr(study, k)] for k in keys}}
+    for phase, _, _, _, epochs, steps in RECORDED_STUDIES:
+        out[phase] = dict(zip(keys, ([v, getattr(study, k)]
+                                     for k, v in zip(keys, (epochs,) + tuple(steps)))))
+    out["20h"] = {}
+    for name, _, _, kw in OTHER_SAMPLERS:
+        params = inspect.signature(getattr(refine, name)).parameters
+        out["20h"][name] = {k: [v, params[k].default] for k, v in kw.items()
+                            if k.startswith("n_")}
+    out["16"] = {}
+    for name in ZOO_FIRST_FILE:
+        with open(os.path.join(HERE, "specs", name)) as f:
+            out["16"][name] = {"files": [1, len(yaml.safe_load(f)["data"]["files"])]}
+    return out
 
 
 def main():
@@ -4206,11 +4660,14 @@ def main():
     phase_profile_training(device, SPEC_BB, "13c")
     clock.mark("6-13c")
 
+    # phase 14's checkpoint, served again over the ranks in phase 20i
+    kept = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as results_dir:
         unmerged, um_training = phase_unmerged_training(device, results_dir)
         phase_route_check_training(device, SPEC_UNMERGED, "14b")
         t100 = phase_unmerged_kernels(device)
         unmerged["dr_fwd_serving"] = phase_serve_checkpoint(device, um_training, results_dir)
+        ckpt_14 = shutil.copytree(um_training.ckpt_dir, os.path.join(kept.name, "checkpoints"))
         phase_zoo(device, results_dir)
     phase_growthrate_route(device)
     clock.mark("14-16b")
@@ -4224,7 +4681,8 @@ def main():
 
     adaptive = phase_adaptive(device)
     adaptive["check"] = phase_adjoint_check(device)
-    clock.mark("19-19b")
+    adaptive["vmap"] = phase_vmap_adaptive(device)
+    clock.mark("19-19d")
     graph = phase_graph(device)
     graph["jobs_wall"] = phase_graph_jobs(device)["wall"]
     clock.mark("20-20b")
@@ -4242,6 +4700,9 @@ def main():
     others = phase_other_samplers(device, source)
     del source
     clock.mark("20h")
+    refine_mesh = phase_refine_mesh(device, ckpt_14)
+    kept.cleanup()
+    clock.mark("20i")
     # the HMC paths' launches and backward readings per kind (phases 20e-20h)
     refine_paths = {"dr": {"20e": recovery["stages"], "20f": recorded_study["stages"],
                            "20h": others["samplers"]},
@@ -4263,8 +4724,9 @@ def main():
         if kind in fold_axis:
             extra["vmap_fold"] = {k: fold_axis[kind]["midpoint"][k]
                                   for k in ("fwd_ms", "fwd_separate_ms")}
-        if kind == "dr":  # phase 5g: each rank's launches in each layout
+        if kind == "dr":  # phases 5g and 20i: each rank's launches
             extra["launches_distributed"] = distributed_launches(distributed, "dr_fwd")
+            extra["launches_refine_mesh"] = mesh_launches(refine_mesh, "dr_fwd")
         if kind in simulated:  # phases 20c-20g: the simulator and the recovery study
             extra["launches_simulate"] = simulated[kind]["launches"][kind + "_fwd"]
             extra["launches_recorded_truth"] = recorded[kind + "_fwd"]["launches"]
@@ -4303,6 +4765,7 @@ def main():
                                   for k in ("bwd_ms", "bwd_separate_ms")}
         if kind == "dr":
             extra["launches_distributed"] = distributed_launches(distributed, "dr_bwd")
+            extra["launches_refine_mesh"] = mesh_launches(refine_mesh, "dr_bwd")
         if kind in simulated:
             extra["launches_simulate"] = simulated[kind]["launches"][kind + "_bwd"]
             extra["launches_recovery"] = recovery["launches"].get(kind + "_bwd")
@@ -4321,11 +4784,9 @@ def main():
                 "unmerged_t100": t100["bwd"]} if um else {}), **extra))
     print("phase 21: total %.1f s" % (time.perf_counter() - t_start))
     print("phase 21: walls (s) " + json.dumps(clock.seconds))
-    print("phase 21: depth cut for 5g: 20f / 20g at %s training epochs (were 1000 / 250) and "
-          "%s HMC steps of stages 3b / 3c (were 200 / 300)"
-          % (" / ".join(str(r[4]) for r in RECORDED_STUDIES),
-             " and ".join("%d / %d" % r[5] for r in RECORDED_STUDIES)))
-    print("phase 21: paths " + json.dumps({"adaptive": adaptive, "graph": graph,
+    print("phase 21: depth, [this run's, the default] " + json.dumps(depth_statement()))
+    print("phase 21: paths " + json.dumps({"adaptive": adaptive, "refine_mesh": refine_mesh,
+                                           "graph": graph,
                                            "vmap_folds": vmap, "distributed": distributed,
                                            "simulate": simulated,
                                            "recorded_truths": recorded, "recovery": recovery,

@@ -15,9 +15,10 @@ On ``dr_constant_one``, the JAX package's params (carried across by
   1e-5, each gradient leaf to 1e-4 of its largest entry;
 * against the port's unsharded step on the same inputs, at a batch and
   sample count that no mesh axis divides (B = 5, K = 7, the last row
-  masked), one case with ``--dreg``: the loss to rtol 1e-6, each leaf to
-  1e-5 of its largest entry.  A gradient counted once a rank too many would
-  be 2x or 4x;
+  masked), one case with ``--dreg`` and one under ``solver: dopri5`` (the
+  step controller's norm over the whole batch on every rank): the loss to
+  rtol 1e-6, each leaf to 1e-5 of its largest entry.  A gradient counted
+  once a rank too many would be 2x or 4x;
 * every rank holds the same loss and gradients, bit for bit (the lockstep
   every host decision relies on).
 """
@@ -39,8 +40,9 @@ UNEVEN_CASES = [("uneven_trajectory_22", "trajectory", (2, 2), False),
                 ("uneven_fold_21", "fold", (2, 1), False),
                 ("uneven_fold_12", "fold", (1, 2), False),
                 ("dreg_fold_22", "fold", (2, 2), True),
-                ("dreg_trajectory_12", "trajectory", (1, 2), True)]
-SOLVER = {"trajectory": "pallas_midpoint", "fold": "midpoint"}
+                ("dreg_trajectory_12", "trajectory", (1, 2), True),
+                ("adaptive_12", "adaptive", (1, 2), False)]
+SOLVER = {"trajectory": "pallas_midpoint", "fold": "midpoint", "adaptive": "dopri5"}
 EVEN, UNEVEN = (4, 8), (5, 7)
 WALL = 180
 

@@ -74,3 +74,19 @@ def test_step_timer_reports_the_jax_packages_keys(n):
 def test_enable_compile_cache_is_none():
     assert profiling.enable_compile_cache() is None
     assert profiling.enable_compile_cache("/nonexistent", force=True) is None
+
+
+def test_profile_dir_says_when_no_chunk_is_traced(tmp_results, capsys):
+    """``--epochs 2 --test_epoch 10``: the only chunk starts at the start
+    epoch, so no trace is written (as in the JAX package) and the run says
+    so in one line; the run's artifacts are written as without the flag."""
+    profile_dir = tmp_results / "profile"
+    run_xval.main(ARGV + ["--experiment", "untraced", "--epochs", "2", "--test_epoch", "10",
+                          "--profile_dir", str(profile_dir)], device="cpu")
+    lines = [line for line in capsys.readouterr().out.splitlines() if "--profile_dir" in line]
+    assert lines == ["--profile_dir %s: no chunk traced: the trace is of the first chunk after "
+                     "the start epoch 1, and epochs 1-2 ran as one chunk (a --test_epoch or "
+                     "--checkpoint_epoch below --epochs ends a chunk)" % profile_dir]
+    assert not profile_dir.exists()
+    (run,) = [d for d in os.listdir(tmp_results) if d.startswith("untraced")]
+    assert "completed.txt" in os.listdir(tmp_results / run)

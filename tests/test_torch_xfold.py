@@ -27,8 +27,8 @@ Within the port:
   1e-4, ``xval_ids`` exactly (the JAX package's tests/test_run_xval.py
   limits); a NaN fold frozen with the other fold's numbers bit-equal to the
   run without the NaN; a resume from ``checkpoints_vmap/`` equal to the
-  uninterrupted run bit for bit; ``--rerun_outliers``; adaptive solvers'
-  stop;
+  uninterrupted run bit for bit; ``--rerun_outliers`` (adaptive solvers
+  under the batched driver: tests/test_torch_adaptive_folds.py);
 * ``HostWorker``: the figures it renders carry the tags of inline rendering,
   a raising figure does not stop the worker, ``VIHDS_SYNC_EVAL`` renders
   inline."""
@@ -398,21 +398,6 @@ def test_unequal_fold_grids_fall_back_with_the_jax_message(tmp_results, capsys):
         j_xfold.VmapXval(jargs, jset)
     assert str(got.value) == str(want.value)
     capsys.readouterr()
-
-
-def test_adaptive_solvers_stop_before_training(tmp_results):
-    argv = [spec("dr_constant_one.yaml"), "--folds", "2", "--vmap_folds"]
-    args = _cli_args(argv)
-    settings = TConfig(args)
-    settings.params.solver = "dopri5"
-    with pytest.raises(SystemExit, match='--vmap_folds with solver: dopri5 is not ported .*'
-                                         'ROADMAP queue 1, "per-fold adaptive step control'):
-        xfold.run_all_folds(args, settings, device="cpu")
-    settings.params.solver = "midpoint"
-    settings.params.adjoint_solver = True
-    with pytest.raises(SystemExit, match="adjoint_solver: true is not ported"):
-        xfold.run_all_folds(args, settings, device="cpu")
-    assert os.listdir(tmp_results) == []
 
 
 # --------------------------------------------------------------------------

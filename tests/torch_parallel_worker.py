@@ -16,6 +16,20 @@ step (``training.loss_fn`` and its backward, or ``dreg_value_and_grad``)
 under ``parallel.shard_step``: its decoder block on this rank's rows and
 samples; it writes the loss and each gradient leaf (keys
 ``<case>/g['enc']...``) to OUT_DIR/rank<RANK>.npz.
+
+As ``python tests/torch_parallel_worker.py refine IN.json OUT_DIR RANK WORLD
+PORT PORT2`` it is one rank of the samplers' and serving's check: it runs
+``predict.main`` with IN.json's argument list and ``--distributed
+127.0.0.1:PORT,WORLD,RANK``, then joins a second process group at PORT2
+and runs the five samplers (``run_samplers``), and ``ADAPTIVE_SAMPLERS``
+under ``solver: dopri5``, under each of IN.json's meshes of
+WORLD ranks, and writes their outputs (keys
+``<mesh>/<sampler>/<output>``, ``<mesh>/dopri5/<sampler>/<output>``) to
+OUT_DIR/rank<RANK>.npz.  With WORLD 1 it
+is the one-process reference: IN.json's other ``predict`` argument list,
+the samplers without a mesh (keys ``<sampler>/<output>``), OUT_DIR/one.npz;
+a process of its own, as the ranks run (a process that imports JAX, as a
+test's does, rounds some of the encoder's sums otherwise).
 """
 
 import json
@@ -176,5 +190,123 @@ def _grad_tree(params):
     return params.grad if params.grad is not None else torch.zeros_like(params)
 
 
+#: the samplers of ``run_samplers`` at a tiny depth: 4 chains, 3 steps
+SAMPLERS = {
+    "hmc_refine": dict(n_chains=4, n_steps=3, n_leapfrog=2),
+    "hmc_refine_pooled": dict(n_chains=4, n_steps=3, n_leapfrog=2),
+    "gibbs_refine_pooled": dict(n_chains=4, n_sweeps=3, n_leapfrog=2),
+    "pm_refine_shared": dict(n_chains=4, n_steps=3, n_particles=4),
+    "smc_refine": dict(n_particles=4, n_temps=3, n_moves=1, n_leapfrog=2),
+}
+#: the samplers of ``run_samplers`` under ``solver: dopri5``, (their
+#: arguments, the time points their batch keeps: None, all): the
+#: pseudo-marginal sampler, whose every decision reads the gathered
+#: likelihood of an adaptive forward, and HMC, whose gradients also take
+#: the adjoint's backward, on the series' first 20 time points (the
+#: encoder reads all of them) to keep the CPU run short.  4 rows a series
+#: (chains x particles): the CPU's elementwise kernels round a tensor's
+#: elements past its last 32-element chunk with the scalar function, so a
+#: right-hand side's [B, K] columns give one process and a rank's block the
+#: same bits only where both lie within the scalar tail (12 and 6 or 8
+#: elements here; each element's arithmetic on the card does not depend on
+#: its place)
+ADAPTIVE_SAMPLERS = {
+    "pm_refine_shared": (dict(n_chains=2, n_steps=3, n_particles=2), None),
+    "hmc_refine": (dict(n_chains=4, n_steps=2, n_leapfrog=1), 20),
+}
+
+
+def sampler_setup(spec_path, n_series, device="cpu", solver="pallas_midpoint", n_times=None):
+    """(model, program, params, batch) of the samplers' check: the spec
+    under ``solver`` (default ``pallas_midpoint``), params from seed 0, its
+    first ``n_series`` training series (with ``n_times``, their first
+    ``n_times`` time points, the encoder reading every one)."""
+    import numpy as np
+    import torch
+
+    from vihds_tpu_torch.config import Config
+    from vihds_tpu_torch.data.datasets import build_datasets
+    from vihds_tpu_torch.prob import ParamProgram, parse_parameters
+    from vihds_tpu_torch.run_xval import create_parser
+    from vihds_tpu_torch.training import batch_tensors
+    from vihds_tpu_torch.vae import VAE
+
+    args = create_parser(True).parse_args([spec_path, "--seed", "0"])
+    settings = Config(args)
+    settings.params.solver = solver
+    data = build_datasets(args, settings)
+    program = ParamProgram(parse_parameters(settings.params))
+    model = VAE(settings, data, program)
+    params = model.init_params(torch.Generator().manual_seed(0), device=device)
+    host = data.train.dataset.select(np.arange(n_series))
+    times = torch.as_tensor(host.times, dtype=torch.float32, device=device)
+    batch = batch_tensors(host, np.arange(n_series), times, device)
+    if n_times is not None:
+        batch["enc_observations"] = batch.observations
+        batch["observations"] = batch.observations[..., :n_times]
+        batch["times"] = times[:n_times]
+    return model, program, params, batch
+
+
+def run_samplers(model, program, params, batch, seed=3, samplers=SAMPLERS):
+    """Each sampler of ``samplers`` ({name: arguments}, default
+    ``SAMPLERS``) from ``seed``: {sampler: {output: numpy array}} (nested
+    outputs flattened with '.')."""
+    from vihds_tpu_torch import refine
+
+    def flat(tree, prefix, out):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                flat(v, prefix + k + ".", out)
+            elif hasattr(v, "cpu"):
+                out[prefix + k] = v.detach().cpu().numpy()
+        return out
+
+    return {name: flat(getattr(refine, name)(model, program, params, batch, seed, **kw), "", {})
+            for name, kw in samplers.items()}
+
+
+def _sampler_runs(cfg):
+    """{key: numpy array} of every sampler of ``SAMPLERS`` and of
+    ``ADAPTIVE_SAMPLERS`` (keys ``dopri5/<sampler>/<output>``), run under the
+    ambient mesh, if any."""
+    got = run_samplers(*sampler_setup(cfg["spec"], cfg["series"]))
+    for name, (kw, n_times) in ADAPTIVE_SAMPLERS.items():
+        setup = sampler_setup(cfg["spec"], cfg["series"], solver="dopri5", n_times=n_times)
+        got["dopri5/" + name] = run_samplers(*setup, samplers={name: kw})[name]
+    return {"%s/%s" % (name, key): v for name, arrays in got.items()
+            for key, v in arrays.items()}
+
+
+def _refine(path_in, out_dir, rank, world, port, port2):
+    import numpy as np
+
+    from vihds_tpu_torch import parallel, predict
+    from vihds_tpu_torch.parallel import multihost
+
+    with open(path_in) as f:
+        cfg = json.load(f)
+    if world == 1:
+        predict.main(cfg["predict_one"], device="cpu")
+        np.savez(os.path.join(out_dir, "one.npz"), **_sampler_runs(cfg))
+        return
+    predict.main(cfg["predict"] + ["--distributed", "127.0.0.1:%d,%d,%d" % (port, world, rank)],
+                 device="cpu")
+    n, r, device = multihost.initialize("tcp://127.0.0.1:%d" % port2, world, rank, device="cpu",
+                                        timeout=RANK_TIMEOUT)
+    assert (n, r) == (world, rank)
+    out = {}
+    for n_data, n_sample in cfg["meshes"]:
+        mesh = parallel.make_mesh(n_data, n_sample, device=device)
+        with parallel.use_mesh(mesh):
+            got = _sampler_runs(cfg)
+        out.update({"%d%d/%s" % (n_data, n_sample, key): v for key, v in got.items()})
+    np.savez(os.path.join(out_dir, "rank%d.npz" % rank), **out)
+    multihost.shutdown()
+
+
 if __name__ == "__main__":
-    _step(sys.argv[1], sys.argv[2], *map(int, sys.argv[3:6]))
+    if sys.argv[1] == "refine":
+        _refine(sys.argv[2], sys.argv[3], *map(int, sys.argv[4:8]))
+    else:
+        _step(sys.argv[1], sys.argv[2], *map(int, sys.argv[3:6]))

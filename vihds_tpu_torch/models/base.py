@@ -103,11 +103,12 @@ class NeuralPrecisions:
 
     def rhs(self, params, t, state, constants):
         """state[B,K,S_total] -> dprec[B,K,n_outputs]; the activation covers
-        the whole input [t, species(, constants)]."""
+        the whole input [t, species(, constants)].  ``t`` is a scalar or,
+        under per-fold adaptive control, each row's time [B, 1]."""
         s = state[..., : -self.n_outputs]
         var_state = state[..., -self.n_outputs :]
-        t_exp = torch.broadcast_to(torch.as_tensor(t, dtype=state.dtype, device=state.device),
-                                   state.shape[:-1] + (1,))
+        t = torch.as_tensor(t, dtype=state.dtype, device=state.device)
+        t_exp = torch.broadcast_to(t[..., None] if t.dim() else t, state.shape[:-1] + (1,))
         parts = [t_exp, s] if constants is None else [t_exp, s, constants]
         x = torch.cat(parts, dim=-1)
         if self.n_hidden < 1:
@@ -255,14 +256,17 @@ class OdeModel:
             and p.n_outputs == 4
         )
 
-    def simulate(self, params, theta, times, treatments, dev_1hot, n_iwae, eval_mode=False):
+    def simulate(self, params, theta, times, treatments, dev_1hot, n_iwae, eval_mode=False,
+                 folds=None):
         """Integrate and return x_states[B, K, S, T].  ``solver:
         pallas_<method>`` (or ``eval_solver`` in eval mode) routes families
         that declare ``pallas_kinds`` through the fused CUDA integrator,
         which is differentiable (its backward is a kernel too); any other
         family or configuration takes the same fixed-grid method on the
         generic solver.  Adaptive methods and ``adjoint_solver: true`` take
-        the continuous adjoint (``ops.adjoint``)."""
+        the continuous adjoint (``ops.adjoint``).  ``folds``: the fold count
+        of a fold-batched step (rows fold-major), which gives an adaptive
+        method a step controller per fold."""
         n_batch = treatments.shape[0]
         method = self._solver_for(eval_mode)
         if method.startswith("pallas_"):
@@ -288,7 +292,8 @@ class OdeModel:
         # the right-hand side's builder and arguments: the adjoint route
         # (adaptive methods, adjoint_solver) hands its gradient to each tensor
         rhs = (self.make_rhs, (params, theta, treatments, dev_1hot))
-        sol = integrate(rhs, init_state, times, method=method, adjoint=self.adjoint)  # [T,B,K,S]
+        sol = integrate(rhs, init_state, times, method=method, adjoint=self.adjoint,
+                        folds=folds)  # [T,B,K,S]
         return sol.permute(1, 2, 3, 0)
 
     def supports_fold(self):

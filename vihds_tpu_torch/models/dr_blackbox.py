@@ -78,7 +78,8 @@ class DR_Blackbox(OdeModel):
                            device=x0.device)
         return torch.cat([x0, h0, prec0], dim=-1)
 
-    def simulate(self, params, theta, times, treatments, dev_1hot, n_iwae, eval_mode=False):
+    def simulate(self, params, theta, times, treatments, dev_1hot, n_iwae, eval_mode=False,
+                 folds=None):
         """x_states [B, K, S, T].  ``pallas_<method>`` runs through the fused
         black-box kernels when ``fused_blackbox.supported`` holds; anything
         else takes ``OdeModel.simulate``'s generic solver (with the same
@@ -87,7 +88,8 @@ class DR_Blackbox(OdeModel):
 
         method = self._solver_for(eval_mode)
         if not (method.startswith("pallas_") and fused_blackbox.supported(self)):
-            return super().simulate(params, theta, times, treatments, dev_1hot, n_iwae, eval_mode)
+            return super().simulate(params, theta, times, treatments, dev_1hot, n_iwae, eval_mode,
+                                    folds)
         y0 = self.initialize_state(params, theta, treatments, treatments.shape[0], n_iwae)
         constants = self._constants(theta, treatments, dev_1hot, n_iwae)
         sol = fused_blackbox.blackbox_simulate(params, constants, y0, times, self.n_states,

@@ -85,17 +85,21 @@ def integrate_fold(rhs, y0, times, fold, xs, method="midpoint"):
     return y, acc
 
 
-def integrate(rhs, y0, times, method="midpoint", adjoint=False, **opts):
+def integrate(rhs, y0, times, method="midpoint", adjoint=False, folds=None, **opts):
     """Integrate and return [T, *y0.shape].  ``rhs`` is the right-hand side
     ``f(t, y)`` or, where the continuous adjoint may be taken, ``(make_rhs,
     args)``, which builds it (``ops.adjoint.integrate_adjoint``).
 
     An adaptive method always goes through the adjoint, with ``opts``
-    (rtol, atol, max_steps_per_interval) forwarded to its integrator;
-    ``adjoint=True`` sends a fixed-grid method through it as well."""
+    (rtol, atol, max_steps_per_interval) and ``folds`` (a step controller
+    per fold of y0's fold-major rows) forwarded to its integrator;
+    ``adjoint=True`` sends a fixed-grid method through it as well (a
+    fixed grid needs no fold count: every row steps alike)."""
     if method in ADAPTIVE_SOLVERS or (adjoint and method in FIXED_GRID_SOLVERS):
         from vihds_tpu_torch.ops.adjoint import integrate_adjoint
 
+        if method in ADAPTIVE_SOLVERS and folds is not None:
+            opts = dict(opts, folds=folds)
         return integrate_adjoint(rhs, y0, times, method=method,
                                  **(opts if method in ADAPTIVE_SOLVERS else {}))
     if method not in FIXED_GRID_SOLVERS:

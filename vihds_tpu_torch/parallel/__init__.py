@@ -36,6 +36,11 @@ gather and the backward's.  Evaluation (``training.sharded_eval_step``)
 shards the same block, and sums each row's importance-weighted moments over
 the sample ranks and gathers the rows over the data ranks.
 
+An adaptive solver's step controller reads one error norm over the whole
+batch.  Inside a block (``block_scope``) that norm gathers every rank's
+block (``block_mean``: one collective per attempted step), so every rank
+takes the steps one process takes.
+
 Gloo cannot gather CUDA tensors; under gloo (the CPU, and ranks that share
 one card) a collective goes through host memory.  ``STATS`` counts the
 collectives of this process and the host seconds spent in them.
@@ -48,6 +53,8 @@ import torch
 import torch.distributed as dist
 
 _ACTIVE_MESH = None
+#: (mesh, B, K) while a decoder block runs on this rank's rows and samples
+_BLOCK = None
 
 #: the collectives of this process: their count and the host seconds spent
 #: in them (host staging included, the wait for the device before it not)
@@ -68,6 +75,36 @@ def use_mesh(mesh):
         yield mesh
     finally:
         _ACTIVE_MESH = prev
+
+
+@contextlib.contextmanager
+def block_scope(mesh, B, K):
+    """Mark the code inside as running this rank's block ``[Bd, Ks, ...]``
+    of a ``[B, K, ...]`` batch over ``mesh`` (``block_mean`` reads it)."""
+    global _BLOCK
+    prev = _BLOCK
+    _BLOCK = (mesh, B, K)
+    try:
+        yield
+    finally:
+        _BLOCK = prev
+
+
+def block_mean(x):
+    """``torch.mean(x)``, or, inside a ``block_scope``, the mean of the whole
+    batch's ``x[B, K, ...]`` on every rank: the blocks gathered, the padding
+    dropped and the mean taken as one process takes it (one collective).
+    The adaptive integrators' error norm reads it, so that every rank steps
+    as one process does."""
+    if _BLOCK is None:
+        return torch.mean(x)
+    mesh, B, K = _BLOCK
+    block = (shard_span(B, mesh.shape["data"], mesh.data_index)[1],
+             shard_span(K, mesh.shape["sample"], mesh.sample_index)[1])
+    if tuple(x.shape[:2]) != block:
+        raise ValueError("block_mean takes a block [Bd, Ks, ...]; got %s"
+                         % (tuple(x.shape),))
+    return torch.mean(mesh.gather_blocks({"x": x}, B, K)["x"].contiguous())
 
 
 def shard_span(n, parts, index):
@@ -271,7 +308,9 @@ def shard_block(mesh, fn, params, draws, batch, K):
     block_params = _rebuild(params, iter(outs[len(names):]))
     rows = mesh.batch_rows(batch)
     Ks = shard_span(K, mesh.shape["sample"], mesh.sample_index)[1]
-    return _Gather.apply(mesh, B, K, fn(block_params, block_draws, rows, Ks))
+    with block_scope(mesh, B, K):
+        out = fn(block_params, block_draws, rows, Ks)
+    return _Gather.apply(mesh, B, K, out)
 
 
 _MESHES = {}

@@ -14,7 +14,17 @@ CLI (on the CUDA device)::
 
   python -m vihds_tpu_torch.predict <spec.yaml> --checkpoint DIR --data NEW.csv \
       [--data MORE.csv ...] [--test_samples K] [--output out.npz] [--save_theta] \
-      [--treatments "C6=25000;C12=0"] [--figures]
+      [--treatments "C6=25000;C12=0"] [--figures] [--precision_hidden_layers N] \
+      [--distributed HOST:PORT,NPROC,PID --mesh_sample S]
+
+The parser is ``run_xval``'s (without its split group) with the serving
+flags added, as the JAX package's is, so the flags that shape a model
+(``--precision_hidden_layers``, ``--q_global_init``) serve a checkpoint
+trained with them.  Over several processes (``--distributed``, one command
+per rank) the evaluation's decoder block shards over the mesh that
+``--mesh auto`` / ``--mesh_data`` / ``--mesh_sample`` ask for
+(``training.sharded_eval_step``); rank 0 alone writes the npz and the
+figures.
 
 ``--figures`` also writes the prediction-summary figure beside the npz
 (``out.png``, ``out.pdf``); it needs matplotlib and seaborn, and stops
@@ -33,7 +43,6 @@ Reading the JAX package's orbax checkpoints is not part of the port: hand
 JAX params to ``convert.params_from_jax`` and ``predict(params=...)``.
 """
 
-import argparse
 import copy
 import os
 
@@ -41,11 +50,12 @@ import numpy as np
 import torch
 
 from vihds_tpu_torch import checkpoint as ckpt
+from vihds_tpu_torch import parallel, run_xval
 from vihds_tpu_torch.config import Config
 from vihds_tpu_torch.data import procdata
 from vihds_tpu_torch.data.datasets import TimeSeriesDataset, build_datasets, find_nearest
+from vihds_tpu_torch.parallel import multihost
 from vihds_tpu_torch.prob import ParamProgram, parse_parameters
-from vihds_tpu_torch.run_xval import check_figures
 from vihds_tpu_torch.training import Training, _importance_weighted_outputs, batch_tensors
 from vihds_tpu_torch.utils import resolve_device
 from vihds_tpu_torch.utils.attrdict import AttrDict
@@ -53,22 +63,18 @@ from vihds_tpu_torch.vae import VAE, params_to
 
 
 def create_parser():
-    """The serving flags of ``vihds_tpu.predict``."""
-    parser = argparse.ArgumentParser(description="VI-HDS serving (PyTorch)")
-    parser.add_argument("yaml", type=str, help="Name of yaml spec file")
+    """The serving flags of ``vihds_tpu.predict``: ``run_xval``'s parser
+    without its split group, the training split (``--split``,
+    ``--heldout``) and the serving flags."""
+    parser = run_xval.create_parser(False)
+    parser.description = "VI-HDS serving (PyTorch)"
     parser.add_argument(
         "--checkpoint", type=str, default=None,
         help="Checkpoints directory of a trained run (run_xval --checkpoint_epoch N); "
         "required by the CLI",
     )
-    parser.add_argument("--seed", type=int, default=None, help="Random seed (default: 0)")
-    parser.add_argument("--folds", type=int, default=4, help="Cross-validation folds")
     parser.add_argument("--split", type=int, default=1, help="Split in 1:folds")
     parser.add_argument("--heldout", type=str, default=None, help="Held-out device name")
-    parser.add_argument(
-        "--test_samples", type=int, default=1000,
-        help="Number of samples from q, per datapoint",
-    )
     parser.add_argument(
         "--data", type=str, action="append", required=True,
         help="CSV of new plate-reader time series (repeatable)",
@@ -163,7 +169,9 @@ def predict(args, settings=None, params=None, device="cuda", generator=None):
     ``args.checkpoint``.
 
     ``generator`` draws the K theta samples; by default a generator on
-    ``device`` seeded from the spec seed.  Returns AttrDict(merged=<eval
+    ``device`` seeded from the spec seed.  Under an ambient mesh of several
+    ranks (``parallel.use_mesh``) the evaluation shards its decoder block
+    over them, every rank drawing the same samples.  Returns AttrDict(merged=<eval
     arrays>, results=<Results>, host=<input batch>, epoch=<the checkpoint's
     epoch, or -1 for params handed in>, scales, counterfactuals)."""
     device = resolve_device(device)
@@ -182,7 +190,7 @@ def predict(args, settings=None, params=None, device="cuda", generator=None):
     full_dataset = data.train.dataset
     program = ParamProgram(parse_parameters(settings.params))
     model = VAE(settings, data, program)
-    training = Training(settings, data, program, model)
+    training = Training(settings, data, program, model, mesh=parallel.active_mesh())
     params = params_to(params, device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(settings.seed)
@@ -305,19 +313,32 @@ def make_figure(path_base, out, settings):
 def main(argv=None, device="cuda"):
     """``python -m vihds_tpu_torch.predict``: restore ``--checkpoint``, predict
     on the ``--data`` CSVs and write ``--output`` (and, with ``--figures``,
-    its figure); returns the prediction."""
+    its figure); returns the prediction.  With ``--distributed`` every rank
+    predicts, sharded over the mesh of the ``--mesh*`` flags, and rank 0
+    writes."""
     parser = create_parser()
     args = parser.parse_args(argv)
     if args.checkpoint is None:
         parser.error("the following arguments are required: --checkpoint")
     if args.figures:
-        check_figures(packages=("matplotlib", "seaborn"))
-    settings = Config(args)
-    out = predict(args, settings, device=device)
-    save_predictions(args.output, out, args, settings)
-    if args.figures:
-        make_figure(os.path.splitext(args.output)[0], out, settings)
-    return out
+        run_xval.check_figures(packages=("matplotlib", "seaborn"))
+    device = resolve_device(device)
+    # the process group first, then everything else on this rank's device
+    _, rank, device = multihost.initialize_from_args(args, device)
+    try:
+        settings = Config(args)
+        mesh = run_xval.make_mesh_from_args(args, device)
+        if mesh is not None:
+            print("Device mesh: data=%d x sample=%d" % (mesh.shape["data"], mesh.shape["sample"]))
+        with parallel.use_mesh(mesh):
+            out = predict(args, settings, device=device)
+        if rank == 0:
+            save_predictions(args.output, out, args, settings)
+            if args.figures:
+                make_figure(os.path.splitext(args.output)[0], out, settings)
+        return out
+    finally:
+        multihost.shutdown()
 
 
 if __name__ == "__main__":

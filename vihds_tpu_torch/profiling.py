@@ -7,7 +7,10 @@ Chrome trace, ``<profile_dir>/<name>.json``, viewable in Perfetto or
 ``chrome://tracing``.  ``Training.run`` wraps the first chunk of epochs after
 the start epoch in it, as ``vihds_tpu.training`` does with its device trace;
 under ``--vmap_folds`` ``xfold.VmapXval.run`` wraps its first batched chunk
-after the start epoch, every fold in the one trace.
+after the start epoch, every fold in the one trace.  Where no chunk after
+the start epoch runs (one chunk: ``--epochs`` at or below ``--test_epoch``,
+no checkpoint inside) the run writes no trace and says so in one line
+(``untraced_line``); the JAX package writes none and says nothing.
 """
 
 import contextlib
@@ -47,6 +50,14 @@ def trace(profile_dir, name="trace"):
             # the block's kernels end inside the trace
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(profile_dir, name + ".json"))
+
+
+def untraced_line(profile_dir, start_epoch, epochs):
+    """The line a run prints where ``--profile_dir`` traced no chunk: every
+    chunk that ran started at the start epoch."""
+    return ("--profile_dir %s: no chunk traced: the trace is of the first chunk after the start "
+            "epoch %d, and epochs %d-%d ran as one chunk (a --test_epoch or --checkpoint_epoch "
+            "below --epochs ends a chunk)" % (profile_dir, start_epoch, start_epoch, epochs))
 
 
 class StepTimer:

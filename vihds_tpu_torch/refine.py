@@ -15,7 +15,12 @@ Every sampler:
     likelihood, so any registered model works.  Under a spec's ``solver:
     pallas_<method>`` each evaluation of the likelihood launches the fused
     forward kernel of the model's kind (``dr_fwd``, ``dr_prec_fwd``, ...),
-    and each gradient its backward.
+    and each gradient its backward;
+  * runs over the ranks of an ambient mesh (``parallel.use_mesh``): every
+    rank draws every chain, the likelihood's decoder block shards its rows
+    over 'data' and its chains (or a pseudo-marginal's chains x particles)
+    over 'sample' (``make_log_lik``), and every Metropolis or resampling
+    decision reads the gathered whole, so the ranks stay in lockstep.
 
 Gradients are ``torch.autograd.grad`` of the summed target in z alone: the
 model's parameters are held fixed, detached from any graph.  ``make_log_lik``
@@ -48,6 +53,7 @@ import math
 import numpy as np
 import torch
 
+from vihds_tpu_torch import parallel
 from vihds_tpu_torch.ops.logprob import log_prob_observations
 from vihds_tpu_torch.utils.attrdict import AttrDict
 
@@ -276,20 +282,37 @@ def log_prior_z_cols(program, z, idx=None):
 
 
 def make_log_lik(model, program, params, batch):
-    """log p(x_b | theta_bk) as a function of theta[B,K,n]."""
-    n_times = batch.times.shape[0]
+    """log p(x_b | theta_bk) as a function of theta[B,K,n].
 
-    def log_lik(theta):
+    Under an ambient mesh of several ranks (``parallel.use_mesh``) the
+    decoder block (clip, condition, integrate, observe, log-likelihood)
+    runs on this rank's rows (over 'data') and chains (over 'sample') and is
+    gathered whole on every rank (``parallel.shard_block``: one gather
+    forward, one backward; the backward takes this rank's block of the
+    cotangent, so no gradient is counted twice).  Every rank holds the
+    whole [B, K] result, so every decision a sampler reads from it is the
+    same on every rank."""
+    n_times = batch.times.shape[0]
+    dec = params["dec"]
+
+    def block(theta, rows):
         th = program.theta_dict(program.clip(theta, stddevs=4))
         if model.condition_on_device:
-            th = model.ode_model.condition_theta(params["dec"], th, batch.dev_1hot)
+            th = model.ode_model.condition_theta(dec, th, rows.dev_1hot)
         sol = model.ode_model.simulate(
-            params["dec"], th, batch.times, batch.inputs, batch.dev_1hot, n_iwae=theta.shape[1]
+            dec, th, rows.times, rows.inputs, rows.dev_1hot, n_iwae=theta.shape[1]
         )
-        x_states, precisions = model.ode_model.expand_precisions(params["dec"], th, n_times, sol)
+        x_states, precisions = model.ode_model.expand_precisions(dec, th, n_times, sol)
         x_predict = model.ode_model.observe(x_states, th)
-        lp = log_prob_observations(x_predict, batch.observations, precisions, model.use_laplace)
+        lp = log_prob_observations(x_predict, rows.observations, precisions, model.use_laplace)
         return lp.sum(dim=2)  # [B, K]
+
+    def log_lik(theta):
+        mesh = parallel.active_mesh()
+        if mesh is None or mesh.size == 1:
+            return block(theta, batch)
+        return parallel.shard_block(mesh, lambda _, draws, rows, Ks: block(draws["theta"], rows),
+                                    {}, {"theta": theta}, batch, theta.shape[1])
 
     return log_lik
 
@@ -344,7 +367,9 @@ def z_from_u(program, u, mu_b, prec_b):
 def init_z_from_q(model, program, params, batch, key, n_samples):
     """Draw z ~ q in unconstrained space (see ``z_from_u`` for the
     per-family reparameterisation rules); ``key`` a seed or a source of
-    draws (its ``init`` draw).  Unsharded: one device holds every chain."""
+    draws (its ``init`` draw).  Every rank of a mesh draws every chain from
+    the same source (the JAX package shards this draw over the mesh; here
+    the decoder block alone is sharded, ``make_log_lik``)."""
     draws = as_draws(key, batch.observations.device)
     q = model.encoder(params["enc"], batch)
     u = draws.normal("init", (q.mu.shape[0], n_samples, program.n_theta))

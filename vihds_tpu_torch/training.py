@@ -125,16 +125,18 @@ def _importance_weighted_outputs(terms, out):
     )
 
 
-def eval_step(model, program, params, batch, n_samples, generator=None, u=None, with_theta=True):
+def eval_step(model, program, params, batch, n_samples, generator=None, u=None, with_theta=True,
+              folds=None):
     """Evaluate one batch of tensors at K = ``n_samples`` draws, taken from
-    ``generator`` or given as ``u[B, K, n_theta]``.  Returns a dict of
+    ``generator`` or given as ``u[B, K, n_theta]``; ``folds``: the fold
+    count of a fold-batched pass (``VAE.forward``).  Returns a dict of
     tensors: per-item ELBO [B], the [B,K] IWAE terms, log_p_by_species,
     q's moments, the importance-weighted moments and (``with_theta``) the
     clipped theta draws [B,K,n_theta]."""
     B = batch.observations.shape[0]
     if u is None:
         u = model.sample_u(generator, B, n_samples, batch.observations.device)
-    out = model.forward(params, batch, u, eval_mode=True)
+    out = model.forward(params, batch, u, eval_mode=True, folds=folds)
     terms = iwae_elbo_terms(program, out, batch, model.use_laplace)
     res = dict(
         per_item_elbo=torch.logsumexp(terms.log_w, dim=1) - math.log(n_samples),
@@ -335,7 +337,7 @@ def loss_fn(model, program, params, batch, mask, u, folds=None):
         log_p = program.log_prob(prior_as_q(program, out.theta.device), out.theta)
         terms = AttrDict(log_w=log_p_obs + log_p - log_q)
     else:
-        out = model.forward(params, batch, u)
+        out = model.forward(params, batch, u, folds=folds)
         terms = iwae_elbo_terms(program, out, batch, model.use_laplace)
     return -iwae_elbo(terms, mask, folds)
 
@@ -370,7 +372,7 @@ def dreg_value_and_grad(model, program, params, batch, mask, u, folds=None):
         out = model.forward_logprob(params, batch, u)
         log_p_by_species = out.log_p_by_species
     else:
-        out = model.forward(params, batch, u)
+        out = model.forward(params, batch, u, folds=folds)
         log_p_by_species = log_prob_observations(
             out.x_predict, batch.observations, out.precisions, model.use_laplace
         )
@@ -427,8 +429,9 @@ def sharded_eval_step(model, program, params, batch, n_samples, u, mesh, with_th
     block = {k: mesh.block(v.expand((B, K) + tuple(v.shape[2:])), B, K) for k, v in th.items()}
     rows = multihost.host_local_batch_to_global(mesh, batch)
     Ks = parallel.shard_span(K, mesh.shape["sample"], mesh.sample_index)[1]
-    x_states, x_predict, precisions = model.integrate(params["dec"], block, rows, Ks,
-                                                      eval_mode=True)
+    with parallel.block_scope(mesh, B, K):
+        x_states, x_predict, precisions = model.integrate(params["dec"], block, rows, Ks,
+                                                          eval_mode=True)
     log_p_by_species = mesh.gather_blocks({"lp": log_prob_observations(
         x_predict, rows.observations, precisions, model.use_laplace)}, B, K)["lp"]
     log_p_obs = log_p_by_species.sum(dim=2)
@@ -922,6 +925,7 @@ class Training:
         profile_dir = getattr(args, "profile_dir", None)
         traced = False
         epoch = start_epoch
+        end_epoch = None
         while epoch < args.epochs + 1:
             t0 = time.time()
             end_epoch = next_boundary(epoch)
@@ -966,6 +970,8 @@ class Training:
                     "epoch": epoch,
                 })
             epoch += 1
+        if profile_dir and not traced and multihost.is_main() and end_epoch is not None:
+            print(profiling.untraced_line(profile_dir, start_epoch, end_epoch))
 
         self.final_params = params
         self.log_data = log_data

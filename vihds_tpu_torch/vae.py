@@ -63,9 +63,10 @@ class VAE:
         )
         return u.to(device)
 
-    def forward(self, params, batch, u, eval_mode=False):
+    def forward(self, params, batch, u, eval_mode=False, folds=None):
         """One forward pass.  ``batch``: AttrDict of tensors (observations
-        [B,S,T], inputs[B,C], dev_1hot[B,D], times[T]); ``u``: [B,K,n_theta].
+        [B,S,T], inputs[B,C], dev_1hot[B,D], times[T]); ``u``: [B,K,n_theta];
+        ``folds``: the fold count of a fold-batched pass (``OdeModel.simulate``).
 
         Returns AttrDict with x_states[B,K,S,T], x_predict[B,K,4,T],
         precisions (broadcastable to x_predict), theta (sampled),
@@ -74,18 +75,18 @@ class VAE:
         q = self.encoder(params["enc"], batch)
         theta = self.program.sample(q, u)
         clipped = self.program.clip(theta, stddevs=4)
-        decoded = self.decode(params, clipped, batch, eval_mode=eval_mode)
+        decoded = self.decode(params, clipped, batch, eval_mode=eval_mode, folds=folds)
         decoded["theta"] = theta
         decoded["q"] = q
         return decoded
 
-    def decode(self, params, theta_clipped, batch, eval_mode=False):
+    def decode(self, params, theta_clipped, batch, eval_mode=False, folds=None):
         """Decoder-only pass for given clipped theta draws [B,K,n_theta]:
         condition -> simulate -> expand precisions -> observe.  Also the
         counterfactual serving path (``predict.counterfactual``)."""
         th = self.condition(params, theta_clipped, batch)
         x_states, x_predict, precisions = self.integrate(
-            params["dec"], th, batch, theta_clipped.shape[1], eval_mode=eval_mode)
+            params["dec"], th, batch, theta_clipped.shape[1], eval_mode=eval_mode, folds=folds)
         return AttrDict(
             x_states=x_states,
             x_predict=x_predict,
@@ -101,12 +102,12 @@ class VAE:
             th = self.ode_model.condition_theta(params["dec"], th, batch.dev_1hot)
         return th
 
-    def integrate(self, dec, th, batch, n_iwae, eval_mode=False):
+    def integrate(self, dec, th, batch, n_iwae, eval_mode=False, folds=None):
         """The decoder block on conditioned draws ``th``: simulate -> expand
         precisions -> observe; returns (x_states, x_predict, precisions)."""
         x_solution = self.ode_model.simulate(
             dec, th, batch.times, batch.inputs, batch.dev_1hot, n_iwae=n_iwae,
-            eval_mode=eval_mode,
+            eval_mode=eval_mode, folds=folds,
         )
         x_states, precisions = self.ode_model.expand_precisions(
             dec, th, batch.times.shape[0], x_solution

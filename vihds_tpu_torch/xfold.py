@@ -28,9 +28,12 @@ draw is shared by the folds gives each fold the draws of its sequential run
 
 Falls back to the sequential driver, with the JAX package's printed reason,
 for ``merge: false`` data, ``--heldout``, fewer than 2 folds and folds whose
-padded batch or eval-chunk counts differ.  Adaptive solvers and
-``adjoint_solver: true`` stop before training: the per-fold step controller
-they need is a ROADMAP item.  Checkpoints of the stacked state go to
+padded batch or eval-chunk counts differ.  Under an adaptive solver the
+batched step and evaluation hand the fold count down to the integrator
+(``ops.dopri``), which steps each fold with a controller of its own, as
+``jax.vmap`` of the JAX package's ``lax.while_loop`` does; the continuous
+adjoint (adaptive methods, ``adjoint_solver: true``) keeps each fold's
+cotangents on that fold's leaves.  Checkpoints of the stacked state go to
 ``checkpoints_vmap/`` (params, Adam state, the generator, the epoch and the
 per-fold ``alive`` mask); a resumed run replays ``epoch_perm(seed, e)``.
 
@@ -55,7 +58,6 @@ import torch
 from vihds_tpu_torch import checkpoint as ckpt
 from vihds_tpu_torch import plotting_hooks, profiling
 from vihds_tpu_torch.data.datasets import build_datasets
-from vihds_tpu_torch.ops.solvers import ADAPTIVE_SOLVERS
 from vihds_tpu_torch.prob import ParamProgram, parse_parameters
 from vihds_tpu_torch.results import Results
 from vihds_tpu_torch.training import (
@@ -76,10 +78,6 @@ from vihds_tpu_torch.training import (
 from vihds_tpu_torch.utils import resolve_device, summary_writer
 from vihds_tpu_torch.utils.attrdict import AttrDict
 from vihds_tpu_torch.vae import VAE
-
-#: the ROADMAP item that ports the per-fold adaptive step controller
-ADAPTIVE_ITEM = "per-fold adaptive step control under --vmap_folds"
-
 
 class FoldMesh:
     """A 1-D ('fold',) mesh: the devices the folds spread over, each taking
@@ -220,21 +218,6 @@ def unsupported_reason(args, settings):
     return None
 
 
-def check_fixed_grid(settings):
-    """Stop, before any work, where the spec integrates with an adaptive
-    method or the continuous adjoint: their step controller needs a step
-    size per fold, not yet ported."""
-    p = settings.params
-    for key in ("solver", "eval_solver"):
-        method = p.get(key)
-        if method in ADAPTIVE_SOLVERS:
-            raise SystemExit('--vmap_folds with %s: %s is not ported to vihds_tpu_torch yet '
-                             '(ROADMAP queue 1, "%s")' % (key, method, ADAPTIVE_ITEM))
-    if p.get("adjoint_solver"):
-        raise SystemExit('--vmap_folds with adjoint_solver: true is not ported to '
-                         'vihds_tpu_torch yet (ROADMAP queue 1, "%s")' % ADAPTIVE_ITEM)
-
-
 class VmapXval:
     """All k folds of a cross-validation as one batched training run on
     ``device``, or spread over the devices of ``fold_mesh`` (``FoldMesh``),
@@ -353,7 +336,7 @@ class VmapXval:
                     u = self.model.sample_u(generator, self.n_batch, n_samples, g.device)
                     u = u.repeat(g.hi - g.lo, 1, 1)  # the same draws for every fold
                     res = eval_step(self.model, self.program, g.params, batch, n_samples, u=u,
-                                    with_theta=with_theta)
+                                    with_theta=with_theta, folds=g.hi - g.lo)
                     for k, v in res.items():
                         chunks.setdefault(k, []).append(v)
                 outs.append(chunks)
@@ -510,6 +493,7 @@ class VmapXval:
         profile_dir = getattr(args, "profile_dir", None)
         traced = False
         epoch = start_epoch
+        end_epoch = None
         while any(alive) and epoch < args.epochs + 1:
             start = time.time()
             end_epoch = next_boundary(epoch)
@@ -553,6 +537,8 @@ class VmapXval:
                     "alive": torch.tensor(alive),
                 })
             epoch += 1
+        if profile_dir and not traced and end_epoch is not None:
+            print(profiling.untraced_line(profile_dir, start_epoch, end_epoch))
 
         self.final_params = self._stacked_params(groups)
         self.log_datas = log_datas
@@ -731,7 +717,6 @@ def run_all_folds(args, settings, device="cuda"):
     if reason is not None:
         print("vmap_folds: falling back to sequential folds (%s)" % reason)
         return None
-    check_fixed_grid(settings)
     if getattr(args, "mesh_data", None) or getattr(args, "mesh_sample", None):
         # an explicit (data, sample) factorisation is a request the fold
         # mesh cannot honour: the sequential driver shards each fold over it

@@ -219,9 +219,24 @@ Phases, each printing lines of its own:
    process: each rank's ``dr`` launches and rows a launch against the
    prediction, rank 0 alone writing, the npz bit-equal to the reference's
    but for the moments (summed over K in halves: rtol 1e-5 atol 1e-6), the
-   samplers' outputs of both ranks bit-equal to the reference's;
+   samplers' outputs of both ranks bit-equal to the reference's; 20j-20n,
+   the research tools (``vihds_tpu_torch.tools``), each on a copy of its
+   spec under ``solver: pallas_midpoint``, each run's ``dr`` launches
+   against the count of its training steps, evaluation chunks and
+   samplers (``sampler_launches``), their depth cut (``TOOLS_DEPTH``): 20j
+   ``refine_demo`` on phase 14's checkpoint at its own depth (IWAE at K =
+   64, SMC 16 x 2 and HMC 60 steps on 12 series, R = 768), every printed
+   number finite; 20k ``ar_mu_ground_truth run`` through the per-series
+   route and the pooled Gibbs route, their npz with the recorded keys, and
+   ``report`` over them beside a copy of ``reports/ar_mu_ground_truth_r5``;
+   20l ``icml_site_mechanism`` ``ridge`` (R = 3,744) and ``drift``; 20m
+   ``posterior_parity ours`` for 2 seeds, ``compare --against`` the
+   recorded ``reports/posterior_parity_ctrl_unit`` (the q-site names and
+   shapes the recorded ones, the recorded files untouched) and
+   ``clip_activity``; 20n ``xval_plotting`` on phase 18b's artifacts
+   (without matplotlib it stops naming the package and writes nothing);
 21. the total time, the wall of each group of phases, the depth cuts, one
-   line with the readings of phases 19-20i, and the
+   line with the readings of phases 19-20n, and the
    ``kernels`` JSON line (every row with ``launches_vmap``, its launches
    on phases 5e-5f's ``--vmap_folds`` paths, null where none ran it; the
    ``dr_prec`` and ``blackbox`` rows with phase 3f's fold launch times
@@ -230,7 +245,8 @@ Phases, each printing lines of its own:
    and ``blackbox`` backward rows with the DReG pulls' launches, times and
    subnormal shares of 17b-17c; the ``dr`` rows with
    ``launches_distributed``, each rank's launches in 5g's layouts, and
-   ``launches_refine_mesh``, each rank's launches on 20i's paths; the
+   ``launches_refine_mesh``, each rank's launches on 20i's paths, and
+   ``launches_tools``, the launches of each run of 20j-20m; the
    ``dr`` and ``dr_prec`` rows with
    ``launches_simulate`` (20c), ``launches_recovery`` (20e, null for
    ``dr_prec``), ``launches_recorded_study`` (20f, 20g) and
@@ -2801,13 +2817,14 @@ FIGURE_FLAGS = ["--experiment", "chip_smoke_figures", "--epochs", "2", "--test_e
                 str(K_SERVE), "--seed", str(SEED)]
 
 
-def phase_figures(device):
+def phase_figures(device, keep=None):
     """Phase 18b: ``run_xval.main`` on ``dr_constant_icml`` (its spec with
     ``solver: pallas_midpoint``) for 2 epochs with ``--plot_epoch 2``.  Where
     matplotlib, seaborn and tensorboard import, ``--figures``: the split's
     event files with their scalars and figures, and the xval figures.  Where
     one does not, the run says once which and still writes its ``xval_*``
-    set, and ``--figures`` stops before any training, naming the package."""
+    set, and ``--figures`` stops before any training, naming the package.
+    ``keep``: where the run's directory is copied (phase 20n reads it)."""
     import contextlib as contextlib_
     import io
 
@@ -2830,6 +2847,8 @@ def phase_figures(device):
         wall = time.perf_counter() - t0
         (run_dir,) = os.listdir(os.path.join(results_dir, "results"))
         run_dir = os.path.join(results_dir, "results", run_dir)
+        if keep:
+            shutil.copytree(run_dir, keep)
         names = sorted(os.listdir(run_dir))
         xval = [n for n in names if n.startswith("xval_") and n.endswith((".npy", ".txt"))]
         figures = [n for n in names if n.endswith((".png", ".pdf"))]
@@ -4493,6 +4512,320 @@ def phase_refine_mesh(device, ckpt_dir):
     return dict(wall=wall, readings=readings, iw_diff=iw_diff)
 
 
+#: phases 20j-20n: the research tools (``vihds_tpu_torch.tools``), each on a
+#: copy of its spec under ``solver: pallas_midpoint``.  20j runs
+#: ``refine_demo`` at its own depth (64 particles, 16 temperatures x 2
+#: moves, 60 HMC steps, 12 series); the others' depth is cut to keep the
+#: script within its time limit (their widths, chains and series, are the
+#: tools'): ``ar_mu_ground_truth`` trains 40 of its 1000 epochs and samples
+#: 40 of its 3000 steps (sweeps), ``icml_site_mechanism`` ridge 20 of 1000
+#: epochs and 20 of 4000 steps and drift the grid (10, 20) of (1000, 2000,
+#: 4000), ``posterior_parity ours`` 2 seeds of 40 of its 300 epochs
+TOOLS_DEPTH = {"20k": dict(epochs=40, n_steps=40), "20l": dict(epochs=20, n_steps=20,
+                                                              grid=[10, 20]),
+               "20m": dict(epochs=40, seeds=[0, 1])}
+#: phase 20k: the routes of ``ar_mu_ground_truth run``: (route, seed); the
+#: seeds follow the recorded ``reports/ar_mu_ground_truth_r5`` seeds 0-5,
+#: which phase 20k's report reads beside them
+ARMU_ROUTES = (("perseries", 6), ("gibbs", 7))
+#: the recorded posterior-parity battery that phase 20m compares with
+PARITY_RECORDED = os.path.join(HERE, "reports", "posterior_parity_ctrl_unit")
+
+
+def run_tool(run, kinds=("dr_fwd", "dr_bwd")):
+    """``run()`` with the ``kinds``' counts set to 0 just before and its
+    standard output captured: (its result, wall, launches, output lines)."""
+    import io
+
+    import torch
+
+    for k in kinds:
+        _counter(k).launches = 0
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        result = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return result, wall, {k: _counter(k).launches for k in kinds}, text.getvalue().splitlines()
+
+
+def tool_training_launches(spec, seed, epochs, test_epoch=20):
+    """The forward and backward launches of a tool's training of ``spec``
+    (split 1 of 4) for ``epochs``: one of each a step, one forward an
+    evaluation chunk of ``n_batch`` rows (both splits every ``test_epoch``,
+    clamped to ``epochs``)."""
+    from vihds_tpu_torch.config import Config
+    from vihds_tpu_torch.data.datasets import build_datasets
+    from vihds_tpu_torch.run_xval import create_parser
+
+    args = create_parser(True).parse_args([spec])
+    args.seed = seed
+    settings = Config(args)
+    data = build_datasets(args, settings)
+    n_batch = min(settings.params.n_batch, data.n_train)
+    steps = epochs * math.ceil(data.n_train / n_batch)
+    evals = (epochs // min(test_epoch, epochs)) * (math.ceil(data.n_train / n_batch)
+                                                   + math.ceil(data.n_test / n_batch))
+    return steps + evals, steps
+
+
+def check_tool_launches(phase, what, launches, want):
+    """Print ``what``'s ``dr`` launches beside ``want`` (forward, backward);
+    fail where they differ."""
+    print("phase %s: %s: dr_fwd launches %d, dr_bwd launches %d (predicted %d / %d)"
+          % (phase, what, launches["dr_fwd"], launches["dr_bwd"], *want))
+    if (launches["dr_fwd"], launches["dr_bwd"]) != tuple(want):
+        fail("phase %s: %s launched the dr kernels %s times, not %s" % (phase, what, launches,
+                                                                         want))
+
+
+def phase_refine_demo(device, ckpt_dir):
+    """Phase 20j: ``tools.refine_demo`` on phase 14's checkpoint
+    (``dr_constant_icml_unmerged`` under ``solver: pallas_midpoint``) at the
+    tool's depth: the IWAE bound at K = 64, ``smc_refine`` and
+    ``hmc_refine`` on the first 12 test series (R = 768), the ``dr``
+    launches against ``sampler_launches`` plus the IWAE's one forward, and
+    every printed number finite."""
+    from vihds_tpu_torch.tools import refine_demo as demo
+
+    with tempfile.TemporaryDirectory() as directory:
+        spec = write_spec(SPEC_UNMERGED, directory, solver=TRAIN_SOLVER,
+                          eval_solver=TRAIN_SOLVER)
+        shown, wall, launches, lines = run_tool(lambda: demo.main([ckpt_dir, spec],
+                                                                  device=device))
+    for line in lines:
+        print("  " + line)
+    smc = sampler_launches("smc_refine", dict(n_particles=64, n_temps=demo.N_TEMPS,
+                                              n_moves=demo.N_MOVES))
+    hmc = sampler_launches("hmc_refine", dict(n_chains=64, n_steps=demo.N_STEPS))
+    want = (1 + smc[0] + hmc[0], smc[1] + hmc[1])
+    print("phase 20j: refine_demo on phase 14's checkpoint (%d series, K = 64), %.1f s"
+          % (demo.MAX_SERIES, wall))
+    check_tool_launches("20j", "refine_demo", launches, want)
+    if not all(math.isfinite(v) for v in shown.values()):
+        fail("phase 20j: refine_demo printed %s" % shown)
+    return dict(wall=wall, launches=launches, printed=shown)
+
+
+def phase_ar_mu(device):
+    """Phase 20k: ``tools.ar_mu_ground_truth run`` on ``dr_constant_one``
+    (36 training series, 16 chains: R = 576) through the per-series route
+    and the pooled Gibbs route (``ARMU_ROUTES``) at ``TOOLS_DEPTH``, each
+    run's ``dr`` launches against its training's and ``sampler_launches``;
+    then ``report`` over the two npz beside a copy of the recorded
+    ``reports/ar_mu_ground_truth_r5`` seeds: each npz has the recorded
+    keys (the pooled route's, those of the JAX tool's pooled route: all but
+    ``*_series_*``), the report a row for each seed."""
+    import glob
+
+    import numpy as np
+
+    from vihds_tpu_torch.tools import ar_mu_ground_truth as am
+
+    depth = TOOLS_DEPTH["20k"]
+    recorded = sorted(glob.glob(os.path.join(HERE, "reports", "ar_mu_ground_truth_r5",
+                                             "seed*.npz")))
+    with np.load(recorded[0]) as z:
+        keys = set(z.files)
+    out = {}
+    saved = am.SPEC
+    with tempfile.TemporaryDirectory() as directory:
+        am.SPEC = write_spec(SPEC_ONE, directory, solver=TRAIN_SOLVER)
+        outdir = os.path.join(directory, "out")
+        os.environ["VIHDS_ARMU_EPOCHS"] = str(depth["epochs"])
+        try:
+            for route, seed in ARMU_ROUTES:
+                os.environ["VIHDS_ARMU_SAMPLER"] = route
+                path, wall, launches, lines = run_tool(lambda: am.main(
+                    ["run", str(seed), outdir, str(depth["n_steps"])], device=device))
+                fwd, bwd = tool_training_launches(am.SPEC, seed, depth["epochs"])
+                name, kw = {"perseries": ("hmc_refine", dict(
+                                n_chains=16, n_steps=depth["n_steps"])),
+                            "gibbs": ("gibbs_refine_pooled", dict(
+                                n_chains=16, n_sweeps=depth["n_steps"], n_leapfrog=10))}[route]
+                s_fwd, s_bwd = sampler_launches(name, kw)
+                with np.load(path) as z:
+                    got = set(z.files)
+                    readings = {k: float(z[k]) for k in ("best_val_elbo", "accept", "aR_q_mu",
+                                                           "aR_hmc_mean", "aR_rhat")}
+                want_keys = keys if route == "perseries" else {k for k in keys
+                                                               if "_series_" not in k}
+                print("phase 20k: ar_mu_ground_truth run %d (%s), %d epochs, %d steps: %.1f s; "
+                      "%s; the recorded npz's keys present: %s"
+                      % (seed, route, depth["epochs"], depth["n_steps"], wall,
+                         json.dumps(readings), want_keys <= got))
+                check_tool_launches("20k", route, launches, (fwd + s_fwd, bwd + s_bwd))
+                if not want_keys <= got or not all(math.isfinite(v) for v in readings.values()):
+                    fail("phase 20k: %s's npz lacks %s or reads %s"
+                         % (route, sorted(want_keys - got), readings))
+                out[route] = dict(wall=wall, launches=launches, readings=readings)
+        finally:
+            am.SPEC = saved
+            for k in ("VIHDS_ARMU_EPOCHS", "VIHDS_ARMU_SAMPLER"):
+                os.environ.pop(k, None)
+        for path in recorded:
+            shutil.copy(path, outdir)
+        _, _, _, lines = run_tool(lambda: am.main(["report", outdir]))
+        with open(os.path.join(outdir, "REPORT.md")) as f:
+            report = f.read()
+    rows = [line for line in report.splitlines() if line.startswith("| ")
+            and line.split(" | ")[0][2:].isdigit()]
+    seeds = sorted({int(line.split(" | ")[0][2:]) for line in rows})
+    print("phase 20k: report over the port's seeds %s beside the recorded seeds 0-%d: %d rows "
+          "for seeds %s" % ([s for _, s in ARMU_ROUTES], len(recorded) - 1, len(rows), seeds))
+    if seeds != list(range(len(recorded))) + [s for _, s in ARMU_ROUTES]:
+        fail("phase 20k: the report's rows cover seeds %s" % seeds)
+    return out
+
+
+def phase_icml_mechanism(device):
+    """Phase 20l: ``tools.icml_site_mechanism`` on ``dr_constant_icml`` (234
+    training series): ``ridge`` (16 chains, 10 leapfrog steps, ``mass_from_q``
+    and ``adapt_mass``: R = 3,744) and ``drift`` at ``TOOLS_DEPTH``, each
+    one's ``dr`` launches against its trainings' and ``sampler_launches``;
+    the correlation matrix finite with a unit diagonal, the drift rows
+    finite."""
+    import numpy as np
+
+    from vihds_tpu_torch.tools import icml_site_mechanism as im
+
+    depth = TOOLS_DEPTH["20l"]
+    out = {}
+    saved = im.SPEC
+    with tempfile.TemporaryDirectory() as directory:
+        im.SPEC = write_spec(SPEC, directory, solver=TRAIN_SOLVER)
+        outdir = os.path.join(directory, "out")
+        try:
+            path, wall, launches, lines = run_tool(lambda: im.ridge(
+                0, outdir, device, epochs=depth["epochs"], n_steps=depth["n_steps"]))
+            fwd, bwd = tool_training_launches(im.SPEC, 0, depth["epochs"])
+            s_fwd, s_bwd = sampler_launches("hmc_refine", dict(n_chains=16,
+                                                               n_steps=depth["n_steps"],
+                                                               n_leapfrog=10))
+            with np.load(path) as z:
+                corr, accept = z["mean_corr"], float(z["accept"])
+            ok = bool(np.isfinite(corr).all() and np.allclose(np.diagonal(corr), 1.0, atol=1e-5))
+            print("phase 20l: icml_site_mechanism ridge, %d epochs, %d steps: %.1f s; accept "
+                  "%.3f; corr(aYFP, e81) %.3f, corr(aYFP, KGR_81) %.3f; finite, unit diagonal: %s"
+                  % (depth["epochs"], depth["n_steps"], wall, accept, corr[0, 1], corr[0, 2], ok))
+            check_tool_launches("20l", "ridge", launches, (fwd + s_fwd, bwd + s_bwd))
+            if not ok:
+                fail("phase 20l: ridge's correlations %s" % corr)
+            out["ridge"] = dict(wall=wall, launches=launches, accept=accept)
+            path, wall, launches, lines = run_tool(lambda: im.drift(0, outdir, depth["grid"],
+                                                                    device))
+            want = [tool_training_launches(im.SPEC, 0, e) for e in depth["grid"]]
+            with np.load(path) as z:
+                rows = {k: z[k].tolist() for k in z.files}
+            ok = all(np.isfinite(v).all() for v in rows.values())
+            print("phase 20l: icml_site_mechanism drift over epochs %s: %.1f s; %s; finite: %s"
+                  % (depth["grid"], wall, json.dumps(rows), ok))
+            check_tool_launches("20l", "drift", launches, tuple(map(sum, zip(*want))))
+            if not ok:
+                fail("phase 20l: drift's rows %s" % rows)
+            out["drift"] = dict(wall=wall, launches=launches)
+        finally:
+            im.SPEC = saved
+    return out
+
+
+def phase_posterior_parity(device):
+    """Phase 20m: ``tools.posterior_parity ours`` on ``dr_constant_one`` for
+    2 seeds at ``TOOLS_DEPTH`` (K = 200), each run's ``dr`` launches against
+    its training's; then ``compare --against`` the recorded battery
+    ``reports/posterior_parity_ctrl_unit`` (its ``ours_seed*``, the JAX
+    package's): the port's q-site names and shapes the recorded ones,
+    REPORT.md written to the port's directory and the recorded directory
+    untouched; then ``clip_activity`` on the port's directory, a finite row
+    per seed."""
+    import hashlib
+
+    import numpy as np
+
+    from vihds_tpu_torch.tools import clip_activity, posterior_parity as pp
+
+    def hashes():
+        return {n: hashlib.sha256(open(os.path.join(PARITY_RECORDED, n), "rb").read()).hexdigest()
+                for n in sorted(os.listdir(PARITY_RECORDED))}
+
+    depth = TOOLS_DEPTH["20m"]
+    before = hashes()
+    with np.load(os.path.join(PARITY_RECORDED, "ours_seed0.npz"), allow_pickle=True) as z:
+        names, shapes = list(z["q_names"]), [np.shape(v) for v in z["q_values"]]
+    runs = {}
+    with tempfile.TemporaryDirectory() as directory:
+        spec = write_spec(SPEC_ONE, directory, solver=TRAIN_SOLVER)
+        outdir = os.path.join(directory, "out")
+        for seed in depth["seeds"]:
+            path, wall, launches, lines = run_tool(lambda: pp.main(
+                ["ours", str(seed), str(depth["epochs"]), outdir, spec], device=device))
+            with np.load(path, allow_pickle=True) as z:
+                same = (list(z["q_names"]) == names
+                        and [np.shape(v) for v in z["q_values"]] == shapes)
+                elbo = float(z["elbo"])
+            print("phase 20m: posterior_parity ours %d, %d epochs: %.1f s; %s; best-val ELBO "
+                  "%.2f; q-site names and shapes the recorded ones: %s"
+                  % (seed, depth["epochs"], wall, lines[-1], elbo, same))
+            check_tool_launches("20m", "ours %d" % seed, launches,
+                                tool_training_launches(spec, seed, depth["epochs"]))
+            if not same or os.path.dirname(path) != outdir:
+                fail("phase 20m: seed %d wrote %s" % (seed, path))
+            runs[seed] = dict(wall=wall, launches=launches, elbo=elbo)
+        report, wall, _, _ = run_tool(lambda: pp.main(
+            ["compare", outdir, "--against", PARITY_RECORDED, "--against_tag", "ours"]))
+        written = os.path.exists(os.path.join(outdir, "REPORT.md"))
+        summary = [line for line in report.splitlines() if line.startswith("**")]
+        print("phase 20m: compare against the recorded JAX side (12 seeds): %s; REPORT.md "
+              "written to the port's directory: %s; the recorded directory untouched: %s"
+              % (summary, written, hashes() == before))
+        if not written or hashes() != before or len(summary) != 2:
+            fail("phase 20m: compare wrote %s" % os.listdir(outdir))
+        _, _, _, lines = run_tool(lambda: clip_activity.main([outdir]))
+    table = [line for line in lines if line.startswith("| ours_seed")]
+    print("phase 20m: clip_activity on the port's runs: %s" % table)
+    finite = all(math.isfinite(float(line.split(" | ")[1])) for line in table)
+    if len(table) != len(depth["seeds"]) or not finite:
+        fail("phase 20m: clip_activity printed %s" % lines)
+    return dict(runs=runs, compare=summary)
+
+
+def phase_xval_plotting(figures_dir):
+    """Phase 20n: ``tools.xval_plotting`` on phase 18b's artifacts.  Where
+    matplotlib, seaborn or tensorboard does not import (the card's
+    machine), it stops with ``run_xval --figures``'s line naming the
+    first, writing nothing; where they do, it writes the six figure
+    families as png and pdf."""
+    from vihds_tpu_torch import utils
+    from vihds_tpu_torch.tools import xval_plotting
+
+    missing = utils.missing_packages(utils.FIGURE_PACKAGES)
+    before = sorted(os.listdir(figures_dir))
+    stopped = None
+    t0 = time.perf_counter()
+    try:
+        run_tool(lambda: xval_plotting.main([figures_dir, SPEC]), kinds=())
+    except SystemExit as e:
+        stopped = str(e)
+    wall = time.perf_counter() - t0
+    after = sorted(os.listdir(figures_dir))
+    families = sorted({n[:-4] for n in set(after) - set(before) if n.endswith(".png")})
+    print("phase 20n: xval_plotting on phase 18b's artifacts, %.1f s: the figures' packages "
+          "missing: %s; stopped: %r; figure families written: %s"
+          % (wall, missing or "none", stopped, families))
+    if missing:
+        want = "--figures needs the %s package, which is not installed" % missing[0]
+        if stopped != want or after != before:
+            fail("phase 20n: without %s xval_plotting said %r and wrote %s"
+                 % (missing, stopped, sorted(set(after) - set(before))))
+    else:
+        prefixes = ("xval_fit", "xval_treatments", "xval_species", "xval_global_parameters",
+                    "xval_variable_parameters", "xval_summary_", "xval_individual_")
+        if stopped or not all(any(f.startswith(p) for f in families) for p in prefixes):
+            fail("phase 20n: xval_plotting wrote %s" % families)
+    return dict(wall=wall, missing=missing, families=families)
+
+
 class PhaseWalls:
     """The wall of each group of phases: ``mark(label)`` closes the group
     that began at the last mark (or at creation)."""
@@ -4517,6 +4850,16 @@ def mesh_launches(refine_mesh, kernel):
     """{rank: {path: launches of ``kernel``}} of phase 20i's two ranks."""
     return {label: {path: r["launches"][kernel] for path, r in got.items()}
             for label, got in refine_mesh["readings"].items() if label != "one"}
+
+
+def tools_launches(tools, kernel):
+    """{phase: launches of ``kernel``, or {run: launches}} of phases
+    20j-20m."""
+    return {"20j": tools["20j"]["launches"][kernel],
+            "20k": {route: r["launches"][kernel] for route, r in tools["20k"].items()},
+            "20l": {mode: r["launches"][kernel] for mode, r in tools["20l"].items()},
+            "20m": {str(seed): r["launches"][kernel]
+                    for seed, r in tools["20m"]["runs"].items()}}
 
 
 def refine_launches(paths, i):
@@ -4561,9 +4904,9 @@ def kernel_row(kind, direction, rows, launches, **extra):
 def depth_statement():
     """Each phase whose depth is cut to keep the script within its time
     limit: {phase: {setting: [this run's, the default]}}, read from
-    ``STUDY_DEPTH``, ``RECORDED_STUDIES``, ``OTHER_SAMPLERS`` and
-    ``ZOO_FIRST_FILE`` against the study's, the samplers' and the specs'
-    own defaults."""
+    ``STUDY_DEPTH``, ``RECORDED_STUDIES``, ``OTHER_SAMPLERS``,
+    ``TOOLS_DEPTH`` and ``ZOO_FIRST_FILE`` against the study's, the
+    samplers', the tools' and the specs' own defaults."""
     import inspect
 
     import yaml
@@ -4583,6 +4926,19 @@ def depth_statement():
         params = inspect.signature(getattr(refine, name)).parameters
         out["20h"][name] = {k: [v, params[k].default] for k, v in kw.items()
                             if k.startswith("n_")}
+    from vihds_tpu_torch.tools import ar_mu_ground_truth as am
+    from vihds_tpu_torch.tools import icml_site_mechanism as im
+    from vihds_tpu_torch.tools import posterior_parity as pp
+
+    armu, icml = TOOLS_DEPTH["20k"], TOOLS_DEPTH["20l"]
+    ridge = inspect.signature(im.ridge).parameters
+    out["20k"] = {"epochs": [armu["epochs"], am.EPOCHS],
+                  "n_steps": [armu["n_steps"], inspect.signature(am.run).parameters[
+                      "n_steps"].default]}
+    out["20l"] = {"ridge epochs": [icml["epochs"], ridge["epochs"].default],
+                  "ridge n_steps": [icml["n_steps"], ridge["n_steps"].default],
+                  "drift grid": [icml["grid"], list(im.DRIFT_GRID)]}
+    out["20m"] = {"epochs": [TOOLS_DEPTH["20m"]["epochs"], pp.DEFAULT_EPOCHS]}
     out["16"] = {}
     for name in ZOO_FIRST_FILE:
         with open(os.path.join(HERE, "specs", name)) as f:
@@ -4676,7 +5032,9 @@ def main():
     dreg["per_step"] = phase_dreg_route_check(device)
     dreg_ops = phase_dreg_operands(device)
     phase_profile_dir(device)
-    phase_figures(device)
+    # phase 18b's artifacts, read again by phase 20n
+    figures_dir = os.path.join(kept.name, "figures")
+    phase_figures(device, keep=figures_dir)
     clock.mark("17-18b")
 
     adaptive = phase_adaptive(device)
@@ -4701,8 +5059,12 @@ def main():
     del source
     clock.mark("20h")
     refine_mesh = phase_refine_mesh(device, ckpt_14)
-    kept.cleanup()
     clock.mark("20i")
+    tools = {"20j": phase_refine_demo(device, ckpt_14), "20k": phase_ar_mu(device),
+             "20l": phase_icml_mechanism(device), "20m": phase_posterior_parity(device),
+             "20n": phase_xval_plotting(figures_dir)}
+    kept.cleanup()
+    clock.mark("20j-20n")
     # the HMC paths' launches and backward readings per kind (phases 20e-20h)
     refine_paths = {"dr": {"20e": recovery["stages"], "20f": recorded_study["stages"],
                            "20h": others["samplers"]},
@@ -4724,9 +5086,10 @@ def main():
         if kind in fold_axis:
             extra["vmap_fold"] = {k: fold_axis[kind]["midpoint"][k]
                                   for k in ("fwd_ms", "fwd_separate_ms")}
-        if kind == "dr":  # phases 5g and 20i: each rank's launches
+        if kind == "dr":  # phases 5g and 20i: each rank's launches; 20j-20m
             extra["launches_distributed"] = distributed_launches(distributed, "dr_fwd")
             extra["launches_refine_mesh"] = mesh_launches(refine_mesh, "dr_fwd")
+            extra["launches_tools"] = tools_launches(tools, "dr_fwd")
         if kind in simulated:  # phases 20c-20g: the simulator and the recovery study
             extra["launches_simulate"] = simulated[kind]["launches"][kind + "_fwd"]
             extra["launches_recorded_truth"] = recorded[kind + "_fwd"]["launches"]
@@ -4766,6 +5129,7 @@ def main():
         if kind == "dr":
             extra["launches_distributed"] = distributed_launches(distributed, "dr_bwd")
             extra["launches_refine_mesh"] = mesh_launches(refine_mesh, "dr_bwd")
+            extra["launches_tools"] = tools_launches(tools, "dr_bwd")
         if kind in simulated:
             extra["launches_simulate"] = simulated[kind]["launches"][kind + "_bwd"]
             extra["launches_recovery"] = recovery["launches"].get(kind + "_bwd")
@@ -4791,7 +5155,7 @@ def main():
                                            "simulate": simulated,
                                            "recorded_truths": recorded, "recovery": recovery,
                                            "recorded_studies": recorded_studies,
-                                           "other_samplers": others}))
+                                           "other_samplers": others, "tools": tools}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

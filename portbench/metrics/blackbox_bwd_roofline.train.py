@@ -1,0 +1,7 @@
+"""``blackbox_bwd``'s share of its roofline in a training step (%)."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.roofline(run, "blackbox_bwd", "train")

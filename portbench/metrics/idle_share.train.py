@@ -1,0 +1,8 @@
+"""The share of the traced training segment with no kernel and no copy on
+the device (%)."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.idle_share(run, "train")
